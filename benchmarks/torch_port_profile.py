@@ -1,0 +1,96 @@
+"""Where the PyTorch port's `tts()` time goes on the GPU.
+
+Builds the NVIDIA-size Tacotron-2 and WaveGlow of `chip_smoke.py` (random
+weights, the stop gate biased off), warms up, then traces with
+`torch.profiler` the decode (`Tacotron2.compiled_infer`) and the vocode
+(`WaveGlow.compiled_infer`) of one batch.  For each it prints the wall
+time, the device's busy time (the union of its kernels' intervals) and
+busy share, the number of kernel launches, and the kernels with the most
+device time, as one JSON line, followed by the card's name and power limit.
+
+    python3 benchmarks/torch_port_profile.py [--texts 1] [--frames 256]
+
+Needs a CUDA device; imports neither JAX nor the JAX package.
+"""
+
+import argparse
+import collections
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+TEXTS = ['The quick brown fox jumps over the lazy dog.',
+         'Printing, in the only sense with which we are concerned,',
+         'differs from most if not from all the arts and crafts.',
+         'It was invented in the fifteenth century.']
+
+
+def profile(fn):
+    """(result, wall ms, device busy ms, kernel launches, top kernels)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities = [torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us, end = 0., float('-inf')
+    per_name = collections.Counter()
+    for e in sorted(kernels, key = lambda e: e.time_range.start):
+        start_us, stop_us = e.time_range.start, e.time_range.end
+        busy_us += max(0., stop_us - max(start_us, end))
+        end = max(end, stop_us)
+        per_name[e.name[:80]] += stop_us - start_us
+    top = [{'kernel': name, 'ms': us / 1e3} for name, us in per_name.most_common(8)]
+    return result, wall_ms, busy_us / 1e3, len(kernels), top
+
+
+def main():
+    parser = argparse.ArgumentParser(description = __doc__.split('\n')[0])
+    parser.add_argument('--texts', type = int, default = 1, choices = range(1, 5))
+    parser.add_argument('--frames', type = int, default = 256)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print('torch_port_profile.py needs a CUDA device', file = sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from text_to_speech_tpu_torch.init import random_tts_models
+    from text_to_speech_tpu_torch.models.tts.tacotron2 import pad_batch
+
+    model, vocoder = random_tts_models('cuda', seed = 1)
+    generator = torch.Generator(device = 'cuda').manual_seed(0)
+    tokens = pad_batch([model.encode_text(t) for t in TEXTS[:args.texts]],
+                       pad_value = model.blank_token_idx)
+
+    def decode():
+        return model.compiled_infer(tokens, max_length = args.frames, generator = generator)
+
+    out = decode()                                          # warm-up, kernel build
+    vocoder.compiled_infer(out.mel, generator = generator)
+    record = {'texts': args.texts, 'frames': args.frames}
+    out, *stats = profile(decode)
+    record['decode'] = dict(zip(('wall_ms', 'device_busy_ms', 'launches', 'top'), stats))
+    _, *stats = profile(lambda: vocoder.compiled_infer(out.mel, generator = generator))
+    record['vocode'] = dict(zip(('wall_ms', 'device_busy_ms', 'launches', 'top'), stats))
+    for phase in ('decode', 'vocode'):
+        record[phase]['device_busy_share'] = \
+            record[phase]['device_busy_ms'] / record[phase]['wall_ms']
+    record['decode']['launches_per_step'] = record['decode']['launches'] / args.frames
+    print(json.dumps(record), flush = True)
+    print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'],
+                         capture_output = True, text = True, check = True).stdout.strip())
+    return 0
+
+
+if __name__ == '__main__':
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""The PyTorch port imports without JAX, and its entry points refuse to run
+without a device when no GPU is present.
+
+Both checks run in a subprocess: this suite's conftest imports jax into the
+test process itself."""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run(code):
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES = '')
+    proc = subprocess.run([sys.executable, '-c', textwrap.dedent(code)], cwd = REPO,
+                          env = env, capture_output = True, text = True, timeout = 120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    return proc.stdout
+
+
+def test_port_imports_without_jax():
+    out = _run('''
+        import importlib, pkgutil, sys
+        import text_to_speech_tpu_torch as pkg
+        names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]
+        for name in names:
+            importlib.import_module(name)
+        assert 'jax' not in sys.modules, 'jax imported'
+        leaked = [m for m in sys.modules if m == 'text_to_speech_tpu'
+                  or m.startswith('text_to_speech_tpu.')]
+        assert not leaked, leaked
+        print(len(names))
+    ''')
+    # every module of the slice was imported
+    assert int(out.split()[-1]) >= 20
+
+
+def test_entry_points_raise_without_device():
+    _run('''
+        import numpy as np
+        import torch
+        assert not torch.cuda.is_available()
+        from text_to_speech_tpu_torch import default_device, tts
+        from text_to_speech_tpu_torch.models.tts import Tacotron2, WaveGlow
+        from text_to_speech_tpu_torch.text import default_english_tokenizer
+
+        def raises(fn):
+            try:
+                fn()
+            except RuntimeError as e:
+                assert 'device' in str(e), e
+            else:
+                raise AssertionError('no error')
+
+        raises(default_device)
+        raises(lambda: tts('hello', model = 'overfit_demo'))
+        raises(lambda: Tacotron2({}, {}, tokenizer = default_english_tokenizer()))
+        raises(lambda: WaveGlow({}))
+        assert default_device('cpu') == torch.device('cpu')
+    ''')

@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of ``text_to_speech_tpu``.
+
+The port runs the text → Tacotron-2 → WaveGlow path on one NVIDIA H100
+(sm_90a), with the WaveGlow WN coupling block as a hand-written CUDA kernel
+(`ops.wn_block`).  It imports ``torch`` and never ``jax`` or the JAX
+package, whose modules it mirrors by name: ``models/waveglow_arch.py`` here
+is the counterpart of ``text_to_speech_tpu/models/waveglow_arch.py``, and
+so on.  Public functions keep the JAX package's layouts: ``(B, T, C)``
+channels-last activations and mel ``(B, frames, n_mel)``.
+"""
+
+from .devices import default_device
+from .models.tts import tts, get_models
+
+__all__ = ['default_device', 'tts', 'get_models']

@@ -1,0 +1,50 @@
+"""Read-only access to the JAX package's saved model directories.
+
+The layout (``text_to_speech_tpu/models/saving.py``)::
+
+    <root>/<name>/config.json                 # class name + constructor kwargs
+    <root>/<name>/saving/config_models.json   # architecture hparams
+    <root>/<name>/saving/tokenizer.json
+    <root>/<name>/saving/mel_fn.json
+    <root>/<name>/saving/checkpoint/checkpoint.json   # manifest, newest last
+    <root>/<name>/saving/checkpoint/ckpt-<epoch>.<tree>.npz
+
+The port only reads these files.  The root is ``$TTS_PRETRAINED_DIR`` or
+``pretrained_models`` (relative to the working directory), like the JAX
+package's, unless a caller passes its own.
+"""
+
+import json
+import os
+
+from ..weights import load_tree
+
+
+def pretrained_root(root = None):
+    return root or os.environ.get('TTS_PRETRAINED_DIR', 'pretrained_models')
+
+
+def model_dir(name, * parts, root = None):
+    return os.path.join(pretrained_root(root), name, * parts)
+
+
+def load_json(path):
+    with open(path, encoding = 'utf-8') as file:
+        return json.load(file)
+
+
+def load_model_files(name, root = None):
+    """{'config', 'architecture', 'params', 'state', 'dir'} of saved model
+    `name`; the weights are the newest checkpoint in the manifest (the
+    one the JAX package restores), as numpy trees."""
+    directory = model_dir(name, root = root)
+    config = load_json(os.path.join(directory, 'config.json'))
+    architecture = load_json(os.path.join(directory, 'saving', 'config_models.json'))
+    ckpt_dir = os.path.join(directory, 'saving', 'checkpoint')
+    manifest = load_json(os.path.join(ckpt_dir, 'checkpoint.json'))
+    entry = manifest['checkpoints'][-1]
+    trees = {}
+    for tree in ('params', 'state'):
+        path = os.path.join(ckpt_dir, 'ckpt-{}.{}.npz'.format(entry['epoch'], tree))
+        trees[tree] = load_tree(path) if os.path.exists(path) else {}
+    return {'config': config, 'architecture': architecture, 'dir': directory, ** trees}

@@ -1,0 +1,315 @@
+"""Tacotron-2 inference over dictionaries of tensors.
+
+Counterpart of ``text_to_speech_tpu/models/tacotron2_arch.py`` (inference
+only, no speaker conditioning): `encode`, `prenet`, location-sensitive
+attention (`process_memory`, `attention_step`), `decoder_cell`,
+`init_cell_state`, `_project`, `postnet` and the autoregressive `infer`
+with the gate stop and the sliding attention window.  Parameters are the
+port's layouts (`weights.tacotron2_from_jax`).
+
+`infer` is the JAX package's XLA while-loop decoder, run as a Python loop.
+The fused decoder kernel (`decoder_steps`, used by the JAX package's
+`infer_fused`) is not ported yet; `supports_fused_decoder` is kept so that
+its envelope stays the same when it is.
+"""
+
+import collections
+
+import torch
+
+from ..hparams import HParams
+from ..nn import layers as nn
+from ..weights import cast_tree
+
+Tacotron2InferenceOutput = collections.namedtuple(
+    'Tacotron2InferenceOutput',
+    ['mel', 'lengths', 'stop_tokens', 'attention_weights', 'decoder_output'],
+)
+
+HParamsTacotron2 = HParams(
+    vocab_size = 148,
+    pad_token = 0,
+    n_mel_channels = 80,
+
+    # encoder
+    encoder_embedding_dim = 512,
+    encoder_n_conv = 3,
+    encoder_kernel_size = 5,
+    encoder_drop_rate = 0.5,
+    encoder_epsilon = 1e-5,
+    encoder_momentum = 0.1,
+
+    # speaker conditioning (SV2TTS; not ported)
+    speaker_embedding_dim = None,
+    speaker_concat_pos = 'end',
+
+    # prenet
+    prenet_sizes = (256, 256),
+    prenet_use_bias = False,
+    prenet_drop_rate = 0.5,
+    prenet_deterministic = False,
+
+    # location-sensitive attention
+    lsa_attention_dim = 128,
+    lsa_attention_filters = 32,
+    lsa_attention_kernel_size = 31,
+
+    # decoder
+    attention_rnn_dim = 1024,
+    decoder_n_lstm = 1,
+    decoder_rnn_dim = 1024,
+    scan_native_bf16 = True,
+    n_frames_per_step = 1,
+    with_logits = True,
+    pred_stop_on_mel = False,
+    max_decoder_steps = 1024,
+    gate_threshold = 0.5,
+
+    # postnet
+    postnet_n_conv = 5,
+    postnet_filters = 512,
+    postnet_kernel_size = 5,
+    postnet_drop_rate = 0.5,
+    postnet_epsilon = 1e-5,
+    postnet_momentum = 0.1,
+)
+
+
+class Tacotron2:
+    """Stateless architecture object: static hyper-parameters; all apply
+    methods are functions of (params, state, inputs)."""
+
+    def __init__(self, ** kwargs):
+        self.hp = HParamsTacotron2.extract(kwargs)
+        if self.hp.speaker_embedding_dim:
+            raise NotImplementedError('speaker conditioning (SV2TTS) is not ported yet')
+        self.encoder_output_dim = self.hp.encoder_embedding_dim
+
+    # -- encoder ---------------------------------------------------------------
+
+    def encode(self, params, state, tokens):
+        """tokens (B, S) → (encoder_output (B, S, D), mask (B, S))."""
+        hp = self.hp
+        enc, enc_state = params['encoder'], state['encoder']
+        mask = tokens != hp.pad_token
+        x = nn.embedding(enc['embedding'], tokens)
+        for i in range(hp.encoder_n_conv):
+            name = 'conv_{}'.format(i)
+            x = nn.conv1d(enc[name]['conv'], x, padding = 'SAME')
+            x = nn.batch_norm(enc[name]['bn'], enc_state[name]['bn'], x,
+                              epsilon = hp.encoder_epsilon)
+            x = torch.relu(x)
+            x = torch.where(mask[..., None], x, torch.zeros_like(x))
+        return nn.bilstm(enc['bilstm'], x, mask = mask), mask
+
+    # -- prenet ----------------------------------------------------------------
+
+    def prenet(self, params, x, *, generator = None, deterministic = None):
+        """Bottleneck with always-on dropout (intentional inference noise),
+        drawn from `generator` unless `deterministic`."""
+        hp = self.hp
+        if deterministic is None: deterministic = hp.prenet_deterministic
+        for i in range(len(hp.prenet_sizes)):
+            x = torch.relu(nn.dense(params['prenet']['layer_{}'.format(i)], x))
+            if not deterministic:
+                x = nn.dropout(x, hp.prenet_drop_rate, generator = generator)
+        return x
+
+    # -- attention -------------------------------------------------------------
+
+    def process_memory(self, params, memory, mask):
+        memory = torch.where(mask[..., None], memory, torch.zeros_like(memory))
+        return memory, nn.dense(params['attention']['memory'], memory)
+
+    def attention_step(self, params, query, memory, processed_memory,
+                       prev_attn, cum_attn, mask):
+        """Location-sensitive attention: content score + convolutional
+        features over the [previous, cumulative] alignments."""
+        att = params['attention']
+        compute_dtype = memory.dtype
+        native = compute_dtype == torch.bfloat16 and self.hp.scan_native_bf16
+        processed_query = nn.dense(att['query'], query)[:, None, :]
+        attn_cat = torch.stack([prev_attn, cum_attn], dim = -1).to(compute_dtype)
+        loc = nn.dense(att['location_dense'],
+                       nn.conv1d(att['location_conv'], attn_cat, padding = 'SAME'))
+        energies = nn.dense(
+            att['value'], torch.tanh(processed_query + processed_memory + loc))[..., 0]
+        # large-negative (not -inf): a fully masked row softmaxes to uniform
+        if not native:
+            energies = energies.float()
+        energies = torch.where(mask, energies, torch.full_like(energies, -1e9))
+        weights = torch.softmax(energies, dim = -1)
+        context = torch.einsum('bs,bsd->bd', weights.to(compute_dtype), memory)
+        return context, weights
+
+    # -- decoder cell ----------------------------------------------------------
+
+    def decoder_cell(self, params, prenet_out, memory, processed_memory,
+                     attn_mask, cell_state):
+        """One decoder step.  cell_state = (attn_rnn, dec_rnns, context,
+        (prev_attn, cum_attn))."""
+        hp = self.hp
+        attn_rnn_state, dec_rnn_states, context, (prev_attn, cum_attn) = cell_state
+
+        x = torch.cat([prenet_out, context], dim = -1)
+        attn_out, attn_rnn_state = nn.lstm_cell(params['attention_rnn'], x, attn_rnn_state)
+
+        context, attn_weights = self.attention_step(
+            params, attn_out, memory, processed_memory, prev_attn, cum_attn, attn_mask)
+        cum_attn = cum_attn + attn_weights
+
+        y = torch.cat([attn_out, context], dim = -1)
+        new_rnn_states = []
+        for i in range(hp.decoder_n_lstm):
+            y, s = nn.lstm_cell(params['decoder_rnn']['cell_{}'.format(i)], y,
+                                dec_rnn_states[i])
+            new_rnn_states.append(s)
+
+        cell_out = torch.cat([y, context], dim = -1)
+        new_state = (attn_rnn_state, tuple(new_rnn_states), context,
+                     (attn_weights, cum_attn))
+        return cell_out, attn_weights, new_state
+
+    def init_cell_state(self, batch, seq_len, dtype = torch.float32, device = None):
+        hp = self.hp
+        attn_dtype = dtype if (dtype == torch.bfloat16 and hp.scan_native_bf16) \
+            else torch.float32
+        zeros = lambda n, dt = dtype: torch.zeros((batch, n), dtype = dt, device = device)
+        return (
+            nn.lstm_init_carry(batch, hp.attention_rnn_dim, dtype, device),
+            tuple(nn.lstm_init_carry(batch, hp.decoder_rnn_dim, dtype, device)
+                  for _ in range(hp.decoder_n_lstm)),
+            zeros(self.encoder_output_dim),
+            (zeros(seq_len, attn_dtype), zeros(seq_len, attn_dtype)),
+        )
+
+    def _project(self, params, cell_out):
+        hp = self.hp
+        frame = nn.dense(params['linear_projection'], cell_out)
+        gate_in = torch.cat([cell_out, frame], dim = -1) if hp.pred_stop_on_mel else cell_out
+        gate = nn.dense(params['gate_layer'], gate_in)
+        if hp.with_logits: gate = torch.sigmoid(gate)
+        return frame, gate
+
+    # -- postnet ---------------------------------------------------------------
+
+    def postnet(self, params, state, x, *, mask = None):
+        """Inference postnet; with `mask`, padded frames are zeroed between
+        layers so that a padded batch matches unpadded runs."""
+        hp = self.hp
+        post, post_state = params['postnet'], state['postnet']
+        for i in range(hp.postnet_n_conv):
+            name = 'conv_{}'.format(i)
+            x = nn.conv1d(post[name]['conv'], x, padding = 'SAME')
+            x = nn.batch_norm(post[name]['bn'], post_state[name]['bn'], x,
+                              epsilon = hp.postnet_epsilon)
+            if i < hp.postnet_n_conv - 1:
+                x = torch.tanh(x)
+            if mask is not None:
+                x = torch.where(mask[..., None], x, torch.zeros_like(x))
+        return x
+
+    # -- autoregressive inference -----------------------------------------------
+
+    def infer(self, params, state, tokens, *,
+              generator = None,
+              max_length = None,
+              early_stopping = True,
+              attn_mask_win_len = None,
+              attn_mask_offset = 0.5,
+              deterministic = None,
+              dtype = None):
+        """Generate mel frames autoregressively into buffers of
+        ``max_length`` frames; stop when every row's gate has fired (with
+        `early_stopping`).  With ``attn_mask_win_len``, attention is
+        restricted to a window around the previous argmax alignment.
+        ``dtype`` runs the matmuls in that type; alignments and the stop
+        gate stay f32 and the outputs return f32.
+        Returns `Tacotron2InferenceOutput`."""
+        hp = self.hp
+        r = hp.n_frames_per_step
+        if max_length is None:
+            max_length = hp.max_decoder_steps * r
+        max_length = -(-int(max_length) // r)
+
+        compute_dtype = dtype or torch.float32
+        if dtype is not None:
+            params = cast_tree(params, dtype)
+            state = cast_tree(state, dtype)
+
+        device = tokens.device
+        batch, seq_len = tokens.shape
+        encoder_output, enc_mask = self.encode(params, state, tokens)
+        memory, processed_memory = self.process_memory(
+            params['decoder'], encoder_output, enc_mask)
+        encoder_lengths = enc_mask.sum(dim = 1)
+
+        use_window = attn_mask_win_len is not None
+        if use_window:
+            win_len = int(attn_mask_win_len)
+            offset = int(attn_mask_win_len * attn_mask_offset) \
+                if isinstance(attn_mask_offset, float) else int(attn_mask_offset)
+            positions = torch.arange(seq_len, device = device)[None, :]
+
+        n_mel = hp.n_mel_channels * r
+        frame = torch.zeros((batch, n_mel), dtype = compute_dtype, device = device)
+        outputs = torch.zeros((batch, max_length, n_mel), dtype = compute_dtype,
+                              device = device)
+        stop_tokens = torch.zeros((batch, max_length, r), device = device)
+        attention_weights = torch.zeros((batch, max_length, seq_len), device = device)
+        lengths = torch.zeros((batch,), dtype = torch.int32, device = device)
+        finished = torch.zeros((batch,), dtype = torch.bool, device = device)
+        main_attention = torch.zeros((batch,), dtype = torch.long, device = device)
+        cell_state = self.init_cell_state(batch, seq_len, compute_dtype, device)
+
+        for t in range(max_length):
+            if early_stopping and bool(finished.all()):
+                break
+            if use_window:
+                center = torch.clamp(main_attention, min = offset)
+                center = torch.minimum(center, encoder_lengths - win_len + offset)
+                lo = (center - offset)[:, None]
+                attn_mask = (positions >= lo) & (positions <= lo + win_len) & enc_mask
+            else:
+                attn_mask = enc_mask
+            prenet_out = self.prenet(params['decoder'], frame[:, -hp.n_mel_channels:],
+                                     generator = generator, deterministic = deterministic)
+            cell_out, attn_weights, cell_state = self.decoder_cell(
+                params['decoder'], prenet_out, memory, processed_memory,
+                attn_mask, cell_state)
+            frame, gate = self._project(params['decoder'], cell_out)
+
+            finished = finished | (gate[:, -1] > hp.gate_threshold)
+            lengths = lengths + (~finished).to(torch.int32)
+            outputs[:, t] = frame
+            stop_tokens[:, t] = gate.float()
+            attention_weights[:, t] = attn_weights.float()
+            main_attention = torch.argmax(attn_weights, dim = 1)
+
+        if r > 1:
+            outputs = outputs.reshape(batch, -1, hp.n_mel_channels)
+            stop_tokens = stop_tokens.reshape(batch, -1)
+        else:
+            stop_tokens = stop_tokens[..., 0]
+
+        postnet_out = self.postnet(params, state, outputs)
+        return Tacotron2InferenceOutput(
+            mel = (outputs + postnet_out).float(),
+            lengths = lengths * r,
+            stop_tokens = stop_tokens,
+            attention_weights = attention_weights,
+            decoder_output = outputs.float(),
+        )
+
+    def supports_fused_decoder(self, batch, seq_len):
+        """The envelope of the fused decoder-step kernel (the JAX package's
+        `decoder_steps`; its port is still to come)."""
+        hp = self.hp
+        return (batch <= 8 and seq_len % 8 == 0
+                and hp.decoder_n_lstm == 1
+                and hp.n_frames_per_step == 1
+                and not hp.pred_stop_on_mel
+                and hp.with_logits
+                and len(hp.prenet_sizes) == 2
+                and hp.attention_rnn_dim == hp.decoder_rnn_dim
+                and hp.lsa_attention_kernel_size == 31)

@@ -1,0 +1,118 @@
+"""Functional layers over dictionaries of tensors.
+
+Counterpart of ``text_to_speech_tpu/nn/layers.py``: every layer is a plain
+function of a parameter dict and its inputs.  Activations keep the JAX
+package's ``(batch, time, channels)`` layout; parameters use PyTorch's own
+layouts, which `weights.py` produces from the JAX trees:
+
+  - dense:      ``weight (out, in)``, ``bias (out,)``
+  - embedding:  ``weight (vocab, dim)``
+  - conv1d:     ``weight (out, in, width)``, ``bias (out,)``
+  - conv1d_transpose: ``weight (in, out, width)`` (``nn.ConvTranspose1d``)
+  - LSTM cell:  ``weight_ih (4U, in)``, ``weight_hh (4U, U)``, one fused
+    ``bias (4U,)``; gates ordered i, f, g, o
+  - batch norm: params ``weight``/``bias``, state ``running_mean``/``running_var``
+"""
+
+import torch
+import torch.nn.functional as F
+
+
+def dense(params, x):
+    y = x @ params['weight'].T
+    if 'bias' in params: y = y + params['bias']
+    return y
+
+
+def embedding(params, ids):
+    return params['weight'][ids]
+
+
+def _same_pads(width, dilation):
+    total = dilation * (width - 1)
+    return total // 2, total - total // 2
+
+
+def conv1d(params, x, *, padding = 'SAME', dilation = 1):
+    """x: (B, T, C_in) → (B, T', C_out), stride 1; `padding` 'SAME' or 'VALID'."""
+    weight = params['weight']
+    h = x.transpose(1, 2)
+    if padding.upper() == 'SAME':
+        h = F.pad(h, _same_pads(weight.shape[2], dilation))
+    y = F.conv1d(h, weight, params.get('bias'), dilation = dilation)
+    return y.transpose(1, 2)
+
+
+def conv1d_transpose(params, x, *, stride):
+    """VALID transposed conv: (B, T, C_in) → (B, (T-1)*stride + width, C_out)."""
+    y = F.conv_transpose1d(x.transpose(1, 2), params['weight'], params.get('bias'),
+                           stride = stride)
+    return y.transpose(1, 2)
+
+
+def batch_norm(params, state, x, *, epsilon = 1e-5):
+    """Inference batch norm over the last axis; statistics in float32 and
+    the result in the input's dtype."""
+    x32 = x.float()
+    inv = torch.rsqrt(state['running_var'].float() + epsilon) * params['weight'].float()
+    y = (x32 - state['running_mean'].float()) * inv + params['bias'].float()
+    return y.to(x.dtype)
+
+
+def lstm_cell(params, x, carry):
+    """One LSTM step.  carry = (h, c); gates ordered i, f, g, o."""
+    h, c = carry
+    units = h.shape[-1]
+    z = x @ params['weight_ih'].T + h @ params['weight_hh'].T + params['bias']
+    i = torch.sigmoid(z[..., :units])
+    f = torch.sigmoid(z[..., units: 2 * units])
+    g = torch.tanh(z[..., 2 * units: 3 * units])
+    o = torch.sigmoid(z[..., 3 * units:])
+    c_new = f * c + i * g
+    h_new = o * torch.tanh(c_new)
+    return h_new, (h_new, c_new)
+
+
+def lstm_init_carry(batch_size, units, dtype = torch.float32, device = None):
+    zeros = torch.zeros((batch_size, units), dtype = dtype, device = device)
+    return (zeros, zeros.clone())
+
+
+def lstm(params, xs, *, mask = None, reverse = False):
+    """Run an LSTM over time.
+
+    xs: (B, T, C); mask: (B, T).  Masked steps carry the state through
+    unchanged and output zeros (Keras masking semantics).  A reverse scan
+    over a padded batch therefore starts from the zero state at the padded
+    end and carries it through the padding, which is not what
+    `pack_padded_sequence` does.  Returns (outputs (B, T, units), final_carry).
+    """
+    batch, steps = xs.shape[0], xs.shape[1]
+    units = params['weight_hh'].shape[1]
+    carry = lstm_init_carry(batch, units, xs.dtype, xs.device)
+    outputs = [None] * steps
+    order = range(steps - 1, -1, -1) if reverse else range(steps)
+    for t in order:
+        h_new, new_carry = lstm_cell(params, xs[:, t], carry)
+        if mask is not None:
+            m = mask[:, t, None].to(h_new.dtype)
+            new_carry = (m * new_carry[0] + (1. - m) * carry[0],
+                         m * new_carry[1] + (1. - m) * carry[1])
+            h_new = m * h_new
+        carry = new_carry
+        outputs[t] = h_new
+    return torch.stack(outputs, dim = 1), carry
+
+
+def bilstm(params, xs, *, mask = None):
+    """Bidirectional LSTM, concatenated outputs (B, T, 2*units)."""
+    fw, _ = lstm(params['forward'], xs, mask = mask)
+    bw, _ = lstm(params['backward'], xs, mask = mask, reverse = True)
+    return torch.cat([fw, bw], dim = -1)
+
+
+def dropout(x, rate, *, generator = None):
+    """Inverted dropout drawing its mask from `generator` (on x's device)."""
+    if rate <= 0.: return x
+    keep = torch.rand(x.shape, generator = generator, device = x.device) < 1. - rate
+    return torch.where(keep, x / (1. - rate), torch.zeros_like(x))

@@ -1,0 +1,132 @@
+"""The weight bridge: the JAX package's parameter trees → the port's.
+
+The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
+flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
+them without JAX.  `tacotron2_from_jax` and `waveglow_from_jax` turn those
+trees (nested dicts of numpy arrays) into nested dicts of torch tensors in
+the layouts `nn.layers` takes:
+
+  - conv ``kernel (W, in, out)``           → ``weight (out, in, W)``
+  - conv-transpose ``kernel (W, in, out)`` → ``weight (in, out, W)``, taps
+    flipped (``lax.conv_transpose`` applies its kernel unflipped)
+  - dense ``kernel (in, out)``              → ``weight = kernel.T``; WaveGlow's
+    1×1 invertible conv ``(c, c)`` maps the same way
+  - LSTM ``kernel`` / ``recurrent_kernel`` / ``bias`` → ``weight_ih`` /
+    ``weight_hh`` / one fused ``bias``
+  - batch norm ``gamma``/``beta`` → ``weight``/``bias``; its running
+    statistics ``moving_mean``/``moving_var`` → ``running_mean``/``running_var``
+    (a separate state tree, as in the JAX package)
+  - embedding ``embeddings`` → ``weight``
+"""
+
+import numpy as np
+import torch
+
+
+def flatten_tree(tree, prefix = '', sep = '/'):
+    """Nested dicts of arrays → flat {'a/b/c': array}."""
+    flat = {}
+    for key, value in tree.items():
+        path = '{}{}{}'.format(prefix, sep if prefix else '', key)
+        if isinstance(value, dict):
+            flat.update(flatten_tree(value, path, sep))
+        else:
+            flat[path] = value
+    return flat
+
+
+def unflatten_tree(flat, sep = '/'):
+    tree = {}
+    for path, value in flat.items():
+        parts = path.split(sep)
+        node = tree
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        node[parts[-1]] = value
+    return tree
+
+
+def load_tree(filename):
+    """A JAX-package ``.npz`` tree → nested dicts of numpy arrays."""
+    with np.load(filename) as data:
+        flat = {k: data[k] for k in data.files}
+    return unflatten_tree(flat)
+
+
+def _tensor(array):
+    return torch.from_numpy(np.array(array, dtype = np.float32, order = 'C'))
+
+
+def _convert_leaf_dict(node):
+    """One layer's parameter dict, recognised by its keys."""
+    keys = set(node)
+    if 'recurrent_kernel' in keys:
+        return {'weight_ih': _tensor(np.asarray(node['kernel']).T),
+                'weight_hh': _tensor(np.asarray(node['recurrent_kernel']).T),
+                'bias': _tensor(node['bias'])}
+    if 'embeddings' in keys:
+        return {'weight': _tensor(node['embeddings'])}
+    if keys == {'gamma', 'beta'}:
+        return {'weight': _tensor(node['gamma']), 'bias': _tensor(node['beta'])}
+    if keys == {'moving_mean', 'moving_var'}:
+        return {'running_mean': _tensor(node['moving_mean']),
+                'running_var': _tensor(node['moving_var'])}
+    if 'kernel' in keys and keys <= {'kernel', 'bias'}:
+        kernel = np.asarray(node['kernel'])
+        if kernel.ndim == 2:
+            out = {'weight': _tensor(kernel.T)}
+        elif kernel.ndim == 3:
+            out = {'weight': _tensor(np.transpose(kernel, (2, 1, 0)))}
+        else:
+            raise ValueError('unexpected kernel rank {}'.format(kernel.ndim))
+        if 'bias' in node:
+            out['bias'] = _tensor(node['bias'])
+        return out
+    return None
+
+
+def convert_tree(tree):
+    """Walk a JAX parameter or state tree and convert every layer dict."""
+    if not isinstance(tree, dict):
+        return _tensor(tree)
+    converted = _convert_leaf_dict(tree) \
+        if all(not isinstance(v, dict) for v in tree.values()) else None
+    if converted is not None:
+        return converted
+    return {k: convert_tree(v) for k, v in tree.items()}
+
+
+def conv_transpose_from_jax(node):
+    """``lax.conv_transpose`` kernel (W, in, out) → ``ConvTranspose1d``
+    weight (in, out, W) with the taps flipped."""
+    kernel = np.asarray(node['kernel'])[::-1]
+    out = {'weight': _tensor(np.transpose(kernel, (1, 2, 0)))}
+    if 'bias' in node:
+        out['bias'] = _tensor(node['bias'])
+    return out
+
+
+def tacotron2_from_jax(params, state):
+    """JAX Tacotron-2 (params, state) trees → the port's (params, state)."""
+    return convert_tree(params), convert_tree(state)
+
+
+def waveglow_from_jax(params):
+    """JAX WaveGlow params tree → the port's params."""
+    out = {k: convert_tree(v) for k, v in params.items() if k != 'upsample'}
+    out['upsample'] = conv_transpose_from_jax(params['upsample'])
+    return out
+
+
+def tree_to(tree, device):
+    """Move a tensor tree to `device`."""
+    if isinstance(tree, dict):
+        return {k: tree_to(v, device) for k, v in tree.items()}
+    return tree.to(device = device)
+
+
+def cast_tree(tree, dtype, keep = ()):
+    """Cast the floating leaves of a tensor tree, except under keys in `keep`."""
+    if isinstance(tree, dict):
+        return {k: v if k in keep else cast_tree(v, dtype, keep) for k, v in tree.items()}
+    return tree.to(dtype) if tree.is_floating_point() else tree
