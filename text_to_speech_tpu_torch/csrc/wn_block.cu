@@ -23,9 +23,12 @@
 //     updates x in place (each element is read and written by the thread
 //     that owns it, after the layer's in_kernel has finished reading x) and
 //     accumulates skip in an f32 buffer; the last layer writes the output.
-// T = bf16 runs the products on the tensor cores through nvcuda::wmma
-// (bf16 operands, f32 accumulation); T = float runs FMA tiles in true f32,
-// which lets the card check the indexing tightly against the plain version.
+// Both run 128 x 128 block tiles over a 3-stage ring of shared-memory
+// stages filled with cp.async (zero-filling the out-of-range rows), so the
+// next stages' loads overlap the current stage's products.  T = bf16 runs
+// the products on the tensor cores through nvcuda::wmma (bf16 operands,
+// f32 accumulation); T = float runs FMA tiles in true f32, which lets the
+// card check the indexing tightly against the plain version.
 //
 // Bound on an H100 SXM: per grouped row a block takes
 //   2 * ((3C + S) * 2C + C * 2C) * (L - 1) + 2 * ((3C + S) * 2C + C * C)
@@ -33,11 +36,12 @@
 // 256-frame utterance (T = 8192), 0.36 ms at 989 TFLOP/s dense bf16.  The
 // bytes (about 44 MB of bf16 weights, 19 MB of x and spect) take 0.02 ms at
 // 3.35 TB/s, so the block is bound by operations: the design keeps the
-// products on the tensor cores and fuses the gate, the residual update and
-// the skip sum into the GEMM epilogues, so no f32 activation tensor is
-// written between them.  Not done yet, and left to later work: wgmma and
-// TMA with a multi-stage shared-memory ring, and keeping the activations
-// on-chip across layers as the TPU kernel keeps them in VMEM.
+// products on the tensor cores, overlaps loads with them, and fuses the
+// gate, the residual update and the skip sum into the GEMM epilogues, so
+// no f32 activation tensor is written between them.  Not done yet, and
+// left to later work: wgmma with TMA and warp specialisation, and keeping
+// the activations on-chip across layers as the TPU kernel keeps them in
+// VMEM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -48,9 +52,10 @@
 
 namespace {
 
-constexpr int BM = 64;        // rows per block
+constexpr int BM = 128;       // rows per block
 constexpr int BN = 128;       // accumulator columns per block
 constexpr int BK = 32;        // reduction depth per stage
+constexpr int STAGES = 3;     // shared-memory ring depth
 constexpr int THREADS = 256;  // 8 warps
 constexpr int C_LD = BN + 4;  // f32 accumulator tile row stride
 
@@ -64,13 +69,15 @@ template <> struct Tile<__nv_bfloat16> {
   static constexpr int B_LD = BN + 8;
 };
 
-// shared memory of a block: the A and B tiles, later reused for the f32
-// accumulator tile
+// dynamic shared memory of a block: the ring of A and B stages, later
+// reused for the f32 accumulator tile
 template <typename T>
 struct Smem {
-  static constexpr int AB = (BM * Tile<T>::A_LD + BK * Tile<T>::B_LD) * (int)sizeof(T);
+  static constexpr int A_STAGE = BM * Tile<T>::A_LD;          // elements
+  static constexpr int B_STAGE = BK * Tile<T>::B_LD;
+  static constexpr int RING = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(T);
   static constexpr int ACC = BM * C_LD * (int)sizeof(float);
-  static constexpr int BYTES = AB > ACC ? AB : ACC;
+  static constexpr int BYTES = RING > ACC ? RING : ACC;
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
@@ -82,100 +89,128 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16(v);
 }
 
+// 16-byte asynchronous copy global -> shared; with `valid` false nothing is
+// read and the 16 bytes are zero-filled (`src` must still be a valid address).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+}
+
 // The block's BM x BN product of the A and B tiles, accumulated over the
-// K loop, left as f32 in sC (which aliases the A and B tiles).
+// K loop, left as f32 in sC() (which aliases the stage ring).
 template <typename T>
 struct Product {
   static constexpr int A_LD = Tile<T>::A_LD;
   static constexpr int B_LD = Tile<T>::B_LD;
+  static constexpr int V = 16 / sizeof(T);     // elements per 16-byte copy
 
-  T* sA;
-  T* sB;
-  float* sC;
+  unsigned char* smem;
 
-  __device__ explicit Product(unsigned char* smem)
-      : sA(reinterpret_cast<T*>(smem)),
-        sB(reinterpret_cast<T*>(smem) + BM * A_LD),
-        sC(reinterpret_cast<float*>(smem)) {}
+  __device__ explicit Product(unsigned char* s) : smem(s) {}
+  __device__ T* sA(int stage) const {
+    return reinterpret_cast<T*>(smem) + stage * (Smem<T>::A_STAGE + Smem<T>::B_STAGE);
+  }
+  __device__ T* sB(int stage) const { return sA(stage) + Smem<T>::A_STAGE; }
+  __device__ float* sC() const { return reinterpret_cast<float*>(smem); }
 
-  // load_a(sA) and load_b(sB, k0) fill one stage; the loop runs K / BK stages.
-  template <typename LoadA, typename LoadB>
-  __device__ void run(int K, LoadA load_a, LoadB load_b) {
+  // load(sA, sB, k0) issues the cp.async copies of one stage; the loop
+  // keeps STAGES - 1 stages in flight ahead of the one being multiplied.
+  template <typename Load>
+  __device__ void run(int K, Load load) {
+    const int nk = K / BK;
+#pragma unroll
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < nk) load(sA(s), sB(s), s * BK);
+      cp_async_commit();
+    }
     const int tid = threadIdx.x;
     if constexpr (std::is_same<T, float>::value) {
-      const int ty = tid / 16, tx = tid % 16;     // 4 rows x 8 columns each
-      float acc[4][8];
+      const int ty = tid / 16, tx = tid % 16;     // 8 rows x 8 columns each
+      float acc[8][8];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
         for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        load_a(sA, k0);
-        load_b(sB, k0);
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<STAGES - 2>();
         __syncthreads();
-#pragma unroll 8
+        const int next = kt + STAGES - 1;
+        if (next < nk) load(sA(next % STAGES), sB(next % STAGES), next * BK);
+        cp_async_commit();
+        const float* a_s = sA(kt % STAGES);
+        const float* b_s = sB(kt % STAGES);
+#pragma unroll 4
         for (int k = 0; k < BK; ++k) {
-          float a[4], b[8];
+          float a[8];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) a[i] = sA[(ty * 4 + i) * A_LD + k];
+          for (int i = 0; i < 8; ++i) a[i] = a_s[(ty * 8 + i) * A_LD + k];
+          const float4 b0 = *reinterpret_cast<const float4*>(b_s + k * B_LD + tx * 8);
+          const float4 b1 = *reinterpret_cast<const float4*>(b_s + k * B_LD + tx * 8 + 4);
+          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
-          for (int j = 0; j < 8; ++j) b[j] = sB[k * B_LD + tx * 8 + j];
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < 8; ++i)
 #pragma unroll
             for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
         }
-        __syncthreads();
       }
+      cp_async_wait<0>();
+      __syncthreads();
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) sC[(ty * 4 + i) * C_LD + tx * 8 + j] = acc[i][j];
+        for (int j = 0; j < 8; ++j) sC()[(ty * 8 + i) * C_LD + tx * 8 + j] = acc[i][j];
     } else {
       using namespace nvcuda;
       const int warp = tid / 32;
-      const int wm = warp / 2, wn = warp % 2;    // 16 rows x 64 columns each
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
+      const int wm = warp / 2, wn = warp % 2;    // 32 rows x 64 columns each
+      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
 #pragma unroll
-      for (int f = 0; f < 4; ++f) wmma::fill_fragment(acc[f], 0.f);
-      for (int k0 = 0; k0 < K; k0 += BK) {
-        load_a(sA, k0);
-        load_b(sB, k0);
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
+      for (int kt = 0; kt < nk; ++kt) {
+        cp_async_wait<STAGES - 2>();
         __syncthreads();
+        const int next = kt + STAGES - 1;
+        if (next < nk) load(sA(next % STAGES), sB(next % STAGES), next * BK);
+        cp_async_commit();
+        const T* a_s = sA(kt % STAGES);
+        const T* b_s = sB(kt % STAGES);
 #pragma unroll
         for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-          wmma::load_matrix_sync(a, sA + wm * 16 * A_LD + kk, A_LD);
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
 #pragma unroll
-          for (int f = 0; f < 4; ++f) {
+          for (int i = 0; i < 2; ++i)
+            wmma::load_matrix_sync(a[i], a_s + (wm * 32 + i * 16) * A_LD + kk, A_LD);
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
             wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, sB + kk * B_LD + wn * 64 + f * 16, B_LD);
-            wmma::mma_sync(acc[f], a, b, acc[f]);
+            wmma::load_matrix_sync(b, b_s + kk * B_LD + wn * 64 + j * 16, B_LD);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
           }
         }
-        __syncthreads();
       }
+      cp_async_wait<0>();
+      __syncthreads();
 #pragma unroll
-      for (int f = 0; f < 4; ++f)
-        wmma::store_matrix_sync(sC + wm * 16 * C_LD + wn * 64 + f * 16, acc[f],
-                                C_LD, wmma::mem_row_major);
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          wmma::store_matrix_sync(sC() + (wm * 32 + i * 16) * C_LD + wn * 64 + j * 16,
+                                  acc[i][j], C_LD, wmma::mem_row_major);
     }
     __syncthreads();
   }
 };
-
-// 16-byte copies: VEC elements of T.
-template <typename T>
-struct Vec {
-  static constexpr int N = 16 / sizeof(T);
-};
-
-__device__ __forceinline__ void copy16(void* dst, const void* src) {
-  *reinterpret_cast<uint4*>(dst) = *reinterpret_cast<const uint4*>(src);
-}
-__device__ __forceinline__ void zero16(void* dst) {
-  *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
-}
 
 // Layer i, first GEMM: acts over K = 3C + S with the gate in the epilogue.
 // Block (bx, by) owns rows [bx*BM, +BM) and gated columns [by*64, +64),
@@ -185,15 +220,15 @@ __global__ void __launch_bounds__(THREADS)
 in_kernel(const T* __restrict__ x, const T* __restrict__ spect,
           const T* __restrict__ w, const float* __restrict__ bias,
           T* __restrict__ gated, int M, int T_len, int C, int S, int dilation) {
-  __shared__ __align__(128) unsigned char smem[Smem<T>::BYTES];
+  extern __shared__ __align__(128) unsigned char smem[];
   Product<T> prod(smem);
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Product<T>::V;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * 64;
   const int N = 2 * C;
   const int tid = threadIdx.x;
 
-  auto load_a = [&](T* sA, int k0) {
+  auto load = [&](T* sA, T* sB, int k0) {
     // every BK-wide stage lies inside one segment: tap 0, 1, 2 or spect
     const T* src;
     int width, ch0, shift;
@@ -203,11 +238,10 @@ in_kernel(const T* __restrict__ x, const T* __restrict__ spect,
     } else {
       src = spect; width = S; ch0 = k0 - 3 * C; shift = 0;
     }
-    constexpr int PER_ROW = BK / V;
-    for (int c = tid; c < BM * PER_ROW; c += THREADS) {
-      const int r = c / PER_ROW, kc = (c % PER_ROW) * V;
+    constexpr int A_ROW = BK / V;
+    for (int c = tid; c < BM * A_ROW; c += THREADS) {
+      const int r = c / A_ROW, kc = (c % A_ROW) * V;
       const int row = m0 + r;
-      T* dst = sA + r * Product<T>::A_LD + kc;
       bool ok = row < M;
       int b = 0, t = 0;
       if (ok) {
@@ -215,26 +249,25 @@ in_kernel(const T* __restrict__ x, const T* __restrict__ spect,
         t = row - b * T_len + shift;
         ok = t >= 0 && t < T_len;
       }
-      if (ok) copy16(dst, src + ((size_t)b * T_len + t) * width + ch0 + kc);
-      else zero16(dst);
+      cp_async16(sA + r * Product<T>::A_LD + kc,
+                 ok ? src + ((size_t)b * T_len + t) * width + ch0 + kc : src, ok);
     }
-  };
-  auto load_b = [&](T* sB, int k0) {
-    constexpr int PER_ROW = BN / V;
-    for (int c = tid; c < BK * PER_ROW; c += THREADS) {
-      const int kr = c / PER_ROW, jc = (c % PER_ROW) * V;
+    constexpr int B_ROW = BN / V;
+    for (int c = tid; c < BK * B_ROW; c += THREADS) {
+      const int kr = c / B_ROW, jc = (c % B_ROW) * V;
       const int col = jc < 64 ? n0 + jc : C + n0 + (jc - 64);
-      copy16(sB + kr * Product<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + col);
+      cp_async16(sB + kr * Product<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + col, true);
     }
   };
-  prod.run(3 * C + S, load_a, load_b);
+  prod.run(3 * C + S, load);
 
+  const float* sC = prod.sC();
   for (int e = tid; e < BM * 64; e += THREADS) {
     const int r = e / 64, j = e % 64;
     const int row = m0 + r;
     if (row >= M) continue;
-    const float a_t = prod.sC[r * C_LD + j] + bias[n0 + j];
-    const float a_s = prod.sC[r * C_LD + 64 + j] + bias[C + n0 + j];
+    const float a_t = sC[r * C_LD + j] + bias[n0 + j];
+    const float a_s = sC[r * C_LD + 64 + j] + bias[C + n0 + j];
     const float g = tanhf(a_t) * (1.f / (1.f + expf(-a_s)));
     gated[(size_t)row * C + n0 + j] = from_f<T>(g);
   }
@@ -247,38 +280,37 @@ rs_kernel(const T* __restrict__ gated, const T* __restrict__ w,
           const float* __restrict__ bias, T* __restrict__ x,
           float* __restrict__ skip, T* __restrict__ out,
           int M, int C, int N, int first, int last) {
-  __shared__ __align__(128) unsigned char smem[Smem<T>::BYTES];
+  extern __shared__ __align__(128) unsigned char smem[];
   Product<T> prod(smem);
-  constexpr int V = Vec<T>::N;
+  constexpr int V = Product<T>::V;
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
 
-  auto load_a = [&](T* sA, int k0) {
-    constexpr int PER_ROW = BK / V;
-    for (int c = tid; c < BM * PER_ROW; c += THREADS) {
-      const int r = c / PER_ROW, kc = (c % PER_ROW) * V;
+  auto load = [&](T* sA, T* sB, int k0) {
+    constexpr int A_ROW = BK / V;
+    for (int c = tid; c < BM * A_ROW; c += THREADS) {
+      const int r = c / A_ROW, kc = (c % A_ROW) * V;
       const int row = m0 + r;
-      T* dst = sA + r * Product<T>::A_LD + kc;
-      if (row < M) copy16(dst, gated + (size_t)row * C + k0 + kc);
-      else zero16(dst);
+      const bool ok = row < M;
+      cp_async16(sA + r * Product<T>::A_LD + kc,
+                 ok ? gated + (size_t)row * C + k0 + kc : gated, ok);
+    }
+    constexpr int B_ROW = BN / V;
+    for (int c = tid; c < BK * B_ROW; c += THREADS) {
+      const int kr = c / B_ROW, jc = (c % B_ROW) * V;
+      cp_async16(sB + kr * Product<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + n0 + jc, true);
     }
   };
-  auto load_b = [&](T* sB, int k0) {
-    constexpr int PER_ROW = BN / V;
-    for (int c = tid; c < BK * PER_ROW; c += THREADS) {
-      const int kr = c / PER_ROW, jc = (c % PER_ROW) * V;
-      copy16(sB + kr * Product<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + n0 + jc);
-    }
-  };
-  prod.run(C, load_a, load_b);
+  prod.run(C, load);
 
+  const float* sC = prod.sC();
   for (int e = tid; e < BM * BN; e += THREADS) {
     const int r = e / BN, j = e % BN;
     const int row = m0 + r;
     if (row >= M) continue;
     const int col = n0 + j;
-    const float v = prod.sC[r * C_LD + j] + bias[col];
+    const float v = sC[r * C_LD + j] + bias[col];
     if (!last && col < C) {
       const size_t at = (size_t)row * C + col;
       x[at] = from_f<T>(to_f(x[at]) + v);
@@ -293,20 +325,28 @@ rs_kernel(const T* __restrict__ gated, const T* __restrict__ w,
 
 template <typename T>
 int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
-            const void* w_rs, const float* b_rs, const void* w_rs_last,
-            const float* b_rs_last, void* x, void* gated, float* skip, void* out,
-            int B, int T_len, int C, int S, int L, cudaStream_t stream) {
+              const void* w_rs, const float* b_rs, const void* w_rs_last,
+              const float* b_rs_last, void* x, void* gated, float* skip, void* out,
+              int B, int T_len, int C, int S, int L, cudaStream_t stream) {
+  constexpr int smem = Smem<T>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      in_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(
+      rs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+
   const int M = B * T_len;
   const int K = 3 * C + S;
   const dim3 block(THREADS);
   const dim3 grid_in((M + BM - 1) / BM, C / 64);
   for (int i = 0; i < L; ++i) {
-    in_kernel<T><<<grid_in, block, 0, stream>>>(
+    in_kernel<T><<<grid_in, block, smem, stream>>>(
         static_cast<const T*>(x), static_cast<const T*>(spect),
         static_cast<const T*>(w_in_cond) + (size_t)i * K * 2 * C,
         b_in_cond + (size_t)i * 2 * C, static_cast<T*>(gated),
         M, T_len, C, S, 1 << i);
-    cudaError_t err = cudaGetLastError();
+    err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
     const bool last = i == L - 1;
@@ -315,7 +355,7 @@ int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
                       : static_cast<const T*>(w_rs) + (size_t)i * C * 2 * C;
     const float* b = last ? b_rs_last : b_rs + (size_t)i * 2 * C;
     const dim3 grid_rs((M + BM - 1) / BM, N / BN);
-    rs_kernel<T><<<grid_rs, block, 0, stream>>>(
+    rs_kernel<T><<<grid_rs, block, smem, stream>>>(
         static_cast<const T*>(gated), w, b, static_cast<T*>(x), skip,
         static_cast<T*>(out), M, C, N, i == 0, last);
     err = cudaGetLastError();
@@ -342,9 +382,9 @@ extern "C" int wn_block_forward(int is_bf16, const void* spect,
                                 void* stream) {
   if (is_bf16)
     return run_block<__nv_bfloat16>(spect, w_in_cond, b_in_cond, w_rs, b_rs,
-                                  w_rs_last, b_rs_last, x, gated, skip, out, B,
-                                  T_len, C, S, L, (cudaStream_t)stream);
+                                    w_rs_last, b_rs_last, x, gated, skip, out, B,
+                                    T_len, C, S, L, (cudaStream_t)stream);
   return run_block<float>(spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last,
-                        b_rs_last, x, gated, skip, out, B, T_len, C, S, L,
-                        (cudaStream_t)stream);
+                          b_rs_last, x, gated, skip, out, B, T_len, C, S, L,
+                          (cudaStream_t)stream);
 }
