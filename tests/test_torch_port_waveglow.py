@@ -89,20 +89,56 @@ def test_pack_block_matches_jax(models):
 
 def test_fused_branch_keeps_the_dtype_contract(models):
     """With `use_kernel`, CPU tensors take the fused branch through the
-    kernel's plain version: bf16 buffers, an f32 waveform back, close to
-    the JAX float32 chain.  Grouped length 512 is inside the envelope."""
+    kernel's plain version, on the weights packed as the task model packs
+    them (bf16 buffers, f32 biases): an f32 waveform back, close to the JAX
+    float32 chain."""
     jax_arch, port, params = models
     mel = _mel(256, batch = 1, seed = 4)
     lg = 256 * CONFIG['upsample_stride'] // CONFIG['n_group']
-    assert port.kernel_supported(lg)
     z = np.random.default_rng(5).standard_normal((1, lg, CONFIG['n_group'])).astype(np.float32)
     ref = np.asarray(jax_arch.infer(_jax(params), jnp.asarray(mel), z = jnp.asarray(z),
                                     use_pallas = False))
+    packed = port.pack_kernel_params(waveglow_from_jax(params))
+    assert packed['flow_0']['block']['packed']['w_in_cond'].dtype == torch.bfloat16
     with torch.no_grad():
-        out = port.infer(waveglow_from_jax(params), torch.from_numpy(mel),
-                         z = torch.from_numpy(z), use_kernel = True)
+        out = port.infer(packed, torch.from_numpy(mel), z = torch.from_numpy(z),
+                         use_kernel = True)
     assert out.dtype == torch.float32
     assert float(np.abs(out.numpy() - ref).max()) < 5e-2 * float(np.abs(ref).max())
+
+
+def test_use_kernel_takes_the_fused_branch_at_any_length(models, monkeypatch):
+    """`use_kernel` sends every flow to the kernel's wrapper whatever the
+    length (here 14 grouped rows, no multiple of any tile): on CUDA tensors
+    that launches the kernel, which handles ragged lengths itself."""
+    from text_to_speech_tpu_torch.models import waveglow_arch
+    jax_arch, port, params = models
+    calls = []
+    wrapped = waveglow_arch.fused_wn_block
+    monkeypatch.setattr(waveglow_arch, 'fused_wn_block',
+                        lambda * a: calls.append(a[0].shape) or wrapped(* a))
+    mel = _mel(7, batch = 1, seed = 10)
+    ref = np.asarray(jax_arch.infer(_jax(params), jnp.asarray(mel), deterministic = True,
+                                    use_pallas = False))
+    with torch.no_grad():
+        out = port.infer(waveglow_from_jax(params), torch.from_numpy(mel),
+                         deterministic = True, use_kernel = True)
+    assert calls == [(1, 14, CONFIG['wn_channels'])] * CONFIG['n_flows']
+    assert float(np.abs(out.numpy() - ref).max()) < 5e-2 * float(np.abs(ref).max())
+
+
+@pytest.mark.parametrize('change', [dict(wn_layers = 1), dict(wn_kernel_size = 5)])
+def test_kernel_packing_rejects_blocks_outside_its_envelope(change):
+    """A block the kernel cannot run raises at packing time, rather than
+    falling back to the per-layer chain."""
+    config = dict(CONFIG, ** change)
+    port = WaveGlow(** config)
+    params = waveglow_from_jax(init_waveglow(port.hp, port.flow_channels, seed = 11))
+    with pytest.raises(ValueError):
+        port.pack_kernel_params(params)
+    with pytest.raises(ValueError):
+        port.infer(params, torch.from_numpy(_mel(4, batch = 1)), deterministic = True,
+                   use_kernel = True)
 
 
 @pytest.mark.parametrize('width,stride', [(64, 16), (24, 16)])

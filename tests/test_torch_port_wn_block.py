@@ -121,3 +121,49 @@ def test_kernel_rejects_unsupported_shapes(cuda_device):
     x, spect, w = _inputs(64, 2, 64, 64, 1)
     with pytest.raises(ValueError):
         fused_wn_block(* _port(x, spect, w, device = cuda_device))
+
+
+def _waveglow(device, ** change):
+    """A tiny task WaveGlow on `device` (no JAX needed), C=128, S=160."""
+    from text_to_speech_tpu_torch.init import init_waveglow
+    from text_to_speech_tpu_torch.models.tts import WaveGlow as WaveGlowTask
+    from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow
+    config = dict(n_mel_channels = 20, n_flows = 4, n_group = 8, n_early_every = 2,
+                  n_early_size = 2, wn_layers = 3, wn_channels = 128,
+                  upsample_width = 64, upsample_stride = 16)
+    config.update(change)
+    arch = WaveGlow(** config)
+    params = init_waveglow(arch.hp, arch.flow_channels, seed = 4)
+    return WaveGlowTask.from_jax(params, device = device, ** config)
+
+
+@pytest.mark.cuda
+def test_waveglow_launches_the_kernel_at_a_ragged_length(cuda_device):
+    """A 100-frame mel with no padding: 200 grouped rows, no multiple of any
+    tile.  Every flow launches the kernel; the waveform stays within the
+    bf16 buffers' error of the float32 chain (the tolerance of the e2e
+    check in chip_smoke.py)."""
+    task = _waveglow(cuda_device)
+    mel = np.random.default_rng(5).standard_normal((1, 100, 20)).astype(np.float32)
+    before = fused_wn_block.launches
+    with torch.no_grad():
+        audio = task.compiled_infer(mel, padding_multiple = None, deterministic = True)
+        torch.cuda.synchronize()
+        assert fused_wn_block.launches == before + 4
+        plain = task.arch.infer(task.params, torch.from_numpy(mel).to(cuda_device),
+                                deterministic = True, use_kernel = False)
+    assert fused_wn_block.launches == before + 4
+    assert audio.shape == plain.shape == (1, 100 * 16)
+    err = float((audio - plain).abs().max())
+    assert err <= 1e-2 * float(plain.abs().max()), err
+
+
+@pytest.mark.cuda
+def test_waveglow_kernel_rejects_unsupported_shapes(cuda_device):
+    """C=64 is outside the kernel's envelope: a CUDA model raises rather
+    than running the per-layer chain."""
+    task = _waveglow(cuda_device, wn_channels = 64)
+    before = fused_wn_block.launches
+    with pytest.raises(ValueError):
+        task.compiled_infer(np.zeros((1, 16, 20), np.float32), deterministic = True)
+    assert fused_wn_block.launches == before

@@ -60,12 +60,11 @@ class WaveGlow:
 
     def _serving_params(self, use_kernel):
         """The params `arch.infer` wants: with the kernel-layout weights
-        added once (in bf16, the kernel's buffer dtype) when it applies."""
-        if not use_kernel or self.arch.hp.wn_layers < 2:
+        added once, in the kernel's buffer dtype, when the kernel runs."""
+        if not use_kernel:
             return self.params
         if self._packed_params is None:
-            self._packed_params = self.arch.pack_kernel_params(
-                self.params, dtype = torch.bfloat16)
+            self._packed_params = self.arch.pack_kernel_params(self.params)
         return self._packed_params
 
     def quantize_for_serving(self, * args, ** kwargs):

@@ -71,10 +71,16 @@ class WaveGlow:
         return pack_wn_weights(w_cond, b_cond, w_in, b_in, w_rs, b_rs,
                                last['weight'][..., 0].T, last['bias'], dtype = dtype)
 
-    def pack_kernel_params(self, params, dtype = torch.float32):
+    def pack_kernel_params(self, params, dtype = torch.bfloat16):
         """Add each block's kernel-layout weights under ``'packed'``, in the
-        kernel's buffer dtype (the JAX package's `pack_pallas_params`).
-        Call once at load time."""
+        kernel's buffer dtype: bf16 by default, as the JAX package's kernel
+        takes 16-bit buffers for f32 callers (its `pack_pallas_params`);
+        float32 selects the kernel's f32 instantiation.  Call once at load
+        time."""
+        if self.hp.wn_layers < 2 or self.hp.wn_kernel_size != 3:
+            raise ValueError('the WN block kernel needs wn_layers >= 2 and '
+                             'wn_kernel_size == 3, got {} and {}'.format(
+                                 self.hp.wn_layers, self.hp.wn_kernel_size))
         packed_params = {}
         for name, value in params.items():
             if not name.startswith('flow_'):
@@ -85,14 +91,6 @@ class WaveGlow:
             packed_params[name] = {'convinv': value['convinv'], 'block': block}
         return packed_params
 
-    def kernel_supported(self, grouped_len):
-        """The fused branch's envelope: the JAX package's (128-lane channels,
-        whole 512-row tiles) plus the CUDA kernel's own (S % 32 == 0)."""
-        hp = self.hp
-        return (hp.wn_channels % 128 == 0 and grouped_len % 512 == 0
-                and hp.wn_kernel_size == 3 and hp.wn_layers > 1
-                and self.cond_channels % 32 == 0)
-
     # -- WN coupling block -----------------------------------------------------
 
     def wn_block(self, block, audio_half, spect, fused = True):
@@ -101,17 +99,13 @@ class WaveGlow:
         `ops.wn_block` kernel; otherwise as the per-layer chain."""
         hp = self.hp
         n_ch = hp.wn_channels
-        T = audio_half.shape[1]
-        if fused and 'packed' in block and self.kernel_supported(T):
-            # the kernel's buffers are 16-bit for f32 callers: bf16 operands,
-            # f32 accumulation and skip sum, f32 returned
-            buf_dtype = spect.dtype
-            if buf_dtype.itemsize > 2:
-                buf_dtype = torch.bfloat16
+        if fused:
+            # buffers in the packed weights' dtype (bf16 for f32 callers):
+            # f32 accumulation and skip sum, the caller's dtype returned.
+            # CUDA tensors launch the kernel, which raises outside its
+            # envelope; CPU tensors take its plain version.
             p = block['packed']
-            if p['w_in_cond'].dtype != buf_dtype:
-                p = {k: v.to(buf_dtype) if k.startswith('w_') else v
-                     for k, v in p.items()}
+            buf_dtype = p['w_in_cond'].dtype
             x = nn.conv1d(block['start'], audio_half.to(block['start']['weight'].dtype))
             skip_sum = fused_wn_block(
                 x.to(buf_dtype).contiguous(), spect.to(buf_dtype).contiguous(),
@@ -196,7 +190,7 @@ class WaveGlow:
         if dtype is not None:
             params = cast_tree(params, dtype, keep = ('packed',))
             mel = mel.to(dtype)
-        if use_kernel and hp.wn_layers > 1 and 'packed' not in params['flow_0']['block']:
+        if use_kernel and 'packed' not in params['flow_0']['block']:
             params = self.pack_kernel_params(params)
 
         spect = self.upsample_mel(params, mel)
