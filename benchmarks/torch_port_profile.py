@@ -2,13 +2,16 @@
 
 Builds the NVIDIA-size Tacotron-2 and WaveGlow of `chip_smoke.py` (random
 weights, the stop gate biased off), warms up, then traces with
-`torch.profiler` the decode (`Tacotron2.compiled_infer`) and the vocode
+`torch.profiler` the decode (`Tacotron2.compiled_infer`, on the fused
+decoder kernel or on the plain loop) and the vocode
 (`WaveGlow.compiled_infer`) of one batch.  For each it prints the wall
-time, the device's busy time (the union of its kernels' intervals) and
-busy share, the number of kernel launches, and the kernels with the most
-device time, as one JSON line, followed by the card's name and power limit.
+time with and without the profiler, the device's busy time (the union of
+its kernels' intervals) and busy share, the number of kernel launches, and
+the kernels with the most device time, as one JSON line, followed by the
+card's name and power limit.
 
     python3 benchmarks/torch_port_profile.py [--texts 1] [--frames 256]
+                                             [--decoder fused|plain]
 
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
@@ -31,9 +34,17 @@ TEXTS = ['The quick brown fox jumps over the lazy dog.',
          'It was invented in the fifteenth century.']
 
 
+STATS = ('wall_ms', 'unprofiled_wall_ms', 'device_busy_ms', 'launches', 'top')
+
+
 def profile(fn):
-    """(result, wall ms, device busy ms, kernel launches, top kernels)."""
+    """(result, wall ms, wall ms without the profiler, device busy ms,
+    kernel launches, top kernels)."""
     torch.cuda.synchronize()
+    start = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    unprofiled_ms = 1e3 * (time.perf_counter() - start)
     with torch.profiler.profile(activities = [torch.profiler.ProfilerActivity.CPU,
                                               torch.profiler.ProfilerActivity.CUDA]) as prof:
         start = time.perf_counter()
@@ -50,13 +61,14 @@ def profile(fn):
         end = max(end, stop_us)
         per_name[e.name[:80]] += stop_us - start_us
     top = [{'kernel': name, 'ms': us / 1e3} for name, us in per_name.most_common(8)]
-    return result, wall_ms, busy_us / 1e3, len(kernels), top
+    return result, wall_ms, unprofiled_ms, busy_us / 1e3, len(kernels), top
 
 
 def main():
     parser = argparse.ArgumentParser(description = __doc__.split('\n')[0])
     parser.add_argument('--texts', type = int, default = 1, choices = range(1, 5))
     parser.add_argument('--frames', type = int, default = 256)
+    parser.add_argument('--decoder', choices = ('fused', 'plain'), default = 'fused')
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('torch_port_profile.py needs a CUDA device', file = sys.stderr)
@@ -72,18 +84,21 @@ def main():
                        pad_value = model.blank_token_idx)
 
     def decode():
-        return model.compiled_infer(tokens, max_length = args.frames, generator = generator)
+        return model.compiled_infer(tokens, max_length = args.frames, generator = generator,
+                                    use_fused_decoder = args.decoder == 'fused')
 
     out = decode()                                          # warm-up, kernel build
     vocoder.compiled_infer(out.mel, generator = generator)
-    record = {'texts': args.texts, 'frames': args.frames}
+    record = {'texts': args.texts, 'frames': args.frames, 'decoder': args.decoder}
     out, *stats = profile(decode)
-    record['decode'] = dict(zip(('wall_ms', 'device_busy_ms', 'launches', 'top'), stats))
+    record['decode'] = dict(zip(STATS, stats))
     _, *stats = profile(lambda: vocoder.compiled_infer(out.mel, generator = generator))
-    record['vocode'] = dict(zip(('wall_ms', 'device_busy_ms', 'launches', 'top'), stats))
+    record['vocode'] = dict(zip(STATS, stats))
     for phase in ('decode', 'vocode'):
         record[phase]['device_busy_share'] = \
             record[phase]['device_busy_ms'] / record[phase]['wall_ms']
+        record[phase]['device_busy_share_unprofiled'] = \
+            record[phase]['device_busy_ms'] / record[phase]['unprofiled_wall_ms']
     record['decode']['launches_per_step'] = record['decode']['launches'] / args.frames
     print(json.dumps(record), flush = True)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',

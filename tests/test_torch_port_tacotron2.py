@@ -90,15 +90,54 @@ def test_supports_fused_decoder_envelope(setup):
     assert not port.supports_fused_decoder(1, 64)      # location kernel 15
 
 
-def test_task_buckets_and_refuses_the_fused_decoder():
+def test_task_buckets_and_refuses_the_fused_decoder(monkeypatch):
     """Tokens pad to x64 and a float `max_length` scales the padded token
-    length, rounded up to x64; the fused decoder kernel is not ported."""
+    length, rounded up to x64.  The decoder route: the plain loop by default
+    on the CPU and outside the fused decoder's envelope; the fused decoder by
+    default on a card for batches up to `fused_decoder_max_batch`, and
+    wherever the caller asks for it; asking for it outside the envelope is
+    refused."""
+    from text_to_speech_tpu_torch.init import init_tacotron2
     from text_to_speech_tpu_torch.models.tts import Tacotron2 as Tacotron2Task
+    from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
     model = Tacotron2Task.from_pretrained('overfit_demo', device = 'cpu')
     tokens = model.encode_text('Hi.')
     out = model.compiled_infer(tokens, max_length = 0.6, deterministic = True,
                                early_stopping = False)
     assert out.mel.shape == (1, 64, 80)            # int(64 * 0.6) = 38 → 64
     assert out.attention_weights.shape == (1, 64, 64)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):                # location kernel 15: no envelope
         model.compiled_infer(tokens, use_fused_decoder = True)
+
+    tiny = dict(vocab_size = len(en_symbols), n_mel_channels = 8, encoder_embedding_dim = 16,
+                encoder_n_conv = 1, encoder_kernel_size = 3, prenet_sizes = (8, 8),
+                lsa_attention_dim = 8, lsa_attention_filters = 4, attention_rnn_dim = 16,
+                decoder_rnn_dim = 16, postnet_n_conv = 2, postnet_filters = 8,
+                postnet_kernel_size = 3)
+    model = Tacotron2Task.from_jax(
+        * init_tacotron2(Tacotron2(** tiny).hp, seed = 0), device = 'cpu',
+        tokenizer = default_english_tokenizer(), ** tiny)
+    routes = []
+    for name in ('infer', 'infer_fused'):
+        original = getattr(model.arch, name)
+        monkeypatch.setattr(model.arch, name, lambda * a, _name = name, _fn = original, ** kw:
+                            routes.append(_name) or _fn(* a, ** kw))
+    kw = dict(max_length = 64, deterministic = True, early_stopping = False)
+    plain = model.compiled_infer(tokens, ** kw)
+    fused = model.compiled_infer(tokens, use_fused_decoder = True, ** kw)
+    model.compiled_infer(tokens, use_fused_decoder = False, ** kw)
+    assert routes == ['infer', 'infer_fused', 'infer']
+    np.testing.assert_allclose(fused.mel.numpy(), plain.mel.numpy(), atol = ATOL, rtol = 0)
+    with pytest.raises(ValueError):                # nine rows
+        model.compiled_infer(np.tile(tokens, (9, 1)), use_fused_decoder = True, ** kw)
+
+    # the default on a card (the model's tensors stay where they are)
+    assert Tacotron2Task.fused_decoder_max_batch == 8
+    assert not model._use_fused_decoder(1, 64, None)
+    monkeypatch.setattr(model, 'device', torch.device('cuda'))
+    assert model._use_fused_decoder(1, 64, None) and model._use_fused_decoder(8, 64, None)
+    assert not model._use_fused_decoder(9, 64, None)        # outside the envelope
+    assert not model._use_fused_decoder(2, 60, None)
+    monkeypatch.setattr(model, 'fused_decoder_max_batch', 2)
+    assert model._use_fused_decoder(2, 64, None) and not model._use_fused_decoder(4, 64, None)
+    assert model._use_fused_decoder(4, 64, True)            # asked for: any batch inside

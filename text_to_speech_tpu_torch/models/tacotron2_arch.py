@@ -7,10 +7,10 @@ attention (`process_memory`, `attention_step`), `decoder_cell`,
 with the gate stop and the sliding attention window.  Parameters are the
 port's layouts (`weights.tacotron2_from_jax`).
 
-`infer` is the JAX package's XLA while-loop decoder, run as a Python loop.
-The fused decoder kernel (`decoder_steps`, used by the JAX package's
-`infer_fused`) is not ported yet; `supports_fused_decoder` is kept so that
-its envelope stays the same when it is.
+`infer` is the JAX package's XLA while-loop decoder, run as a Python loop
+of small library calls.  `infer_fused` runs the same decode on the fused
+decoder-step kernel (`ops.decoder_kernel.decoder_steps`), 64 steps a launch;
+`supports_fused_decoder` is its envelope.
 """
 
 import collections
@@ -19,6 +19,8 @@ import torch
 
 from ..hparams import HParams
 from ..nn import layers as nn
+from ..ops.decoder_kernel import (
+    MAX_ROWS, SLAB_UNITS, decoder_steps, init_decoder_state, pack_decoder_weights)
 from ..weights import cast_tree
 
 Tacotron2InferenceOutput = collections.namedtuple(
@@ -302,14 +304,127 @@ class Tacotron2:
         )
 
     def supports_fused_decoder(self, batch, seq_len):
-        """The envelope of the fused decoder-step kernel (the JAX package's
-        `decoder_steps`; its port is still to come)."""
+        """The envelope of the fused decoder-step kernel: the JAX package's
+        (the prenet → attention LSTM → LSA → decoder LSTM → projection
+        topology, the gate from the cell output, at most 8 rows), and the
+        alignment the CUDA kernel's vector loads and weight slabs need."""
         hp = self.hp
-        return (batch <= 8 and seq_len % 8 == 0
+        U, D = hp.attention_rnn_dim, self.encoder_output_dim
+        return (batch <= MAX_ROWS and seq_len % 8 == 0
                 and hp.decoder_n_lstm == 1
                 and hp.n_frames_per_step == 1
                 and not hp.pred_stop_on_mel
                 and hp.with_logits
                 and len(hp.prenet_sizes) == 2
                 and hp.attention_rnn_dim == hp.decoder_rnn_dim
-                and hp.lsa_attention_kernel_size == 31)
+                and hp.lsa_attention_kernel_size == 31
+                and U % SLAB_UNITS == 0 and (U + D) % 4 == 0
+                and all(n % 4 == 0 and n <= 2048
+                        for n in (* hp.prenet_sizes, hp.lsa_attention_dim)))
+
+    def infer_fused(self, params, state, tokens, *,
+                    generator = None,
+                    max_length = None,
+                    early_stopping = True,
+                    attn_mask_win_len = None,
+                    attn_mask_offset = 0.5,
+                    deterministic = None,
+                    dtype = None,
+                    chunk = 64,
+                    int8_lstm = False,
+                    weights = None):
+        """`infer` on the fused decoder-step kernel: a host loop of
+        ``ceil(max_length / chunk)`` launches of `chunk` steps each, the
+        decode state carried from launch to launch in device buffers.  With
+        `early_stopping` the host reads ``finished.all()`` once per launch
+        (one synchronisation per `chunk` steps instead of one per step), so
+        a decode may overshoot its stop to the launch's end; `lengths` does
+        not.  Same contract as `infer`; prenet dropout draws from the
+        kernel's own generator, keyed by one seed taken from `generator`.
+        `weights`: the decoder already packed (`pack_decoder_weights`) in
+        the compute dtype, to skip the packing."""
+        hp = self.hp
+        if int8_lstm:
+            raise NotImplementedError(
+                'the int8 LSTM mode of the fused decoder is not ported yet: see ROADMAP.md')
+        if deterministic is None: deterministic = hp.prenet_deterministic
+        if max_length is None: max_length = hp.max_decoder_steps
+        max_length = int(max_length)
+        n_chunks = -(-max_length // chunk)
+
+        batch, seq_len = tokens.shape
+        if not self.supports_fused_decoder(batch, seq_len):
+            raise ValueError('the fused decoder does not support this configuration or '
+                             'shape (batch {}, {} tokens)'.format(batch, seq_len))
+
+        compute_dtype = dtype or torch.float32
+        if dtype is not None:
+            params = cast_tree(params, dtype)
+            state = cast_tree(state, dtype)
+
+        device = tokens.device
+        encoder_output, enc_mask = self.encode(params, state, tokens)
+        memory, pm = self.process_memory(params['decoder'], encoder_output, enc_mask)
+        n_mel = hp.n_mel_channels
+        if weights is None:
+            weights = pack_decoder_weights(params['decoder'], n_mel = n_mel,
+                                           dtype = compute_dtype)
+        mask = enc_mask.float()
+        enc_len = enc_mask.sum(dim = 1).to(torch.int32)
+        extra = torch.zeros((batch, hp.prenet_sizes[0]), device = device)
+
+        use_window = attn_mask_win_len is not None
+        win_len = int(attn_mask_win_len) if use_window else 0
+        offset = 0
+        if use_window:
+            offset = int(attn_mask_win_len * attn_mask_offset) \
+                if isinstance(attn_mask_offset, float) else int(attn_mask_offset)
+
+        if deterministic:
+            seed = torch.zeros((1,), dtype = torch.int64, device = device)
+        else:
+            seed = torch.randint(
+                0, 2 ** 62, (1,), generator = generator, dtype = torch.int64,
+                device = generator.device if generator is not None else device).to(device)
+
+        st = init_decoder_state(batch, seq_len, memory.shape[-1], hp.attention_rnn_dim,
+                                n_mel, compute_dtype, device)
+        finished = torch.zeros((batch,), dtype = torch.bool, device = device)
+        lengths = torch.zeros((batch,), dtype = torch.int32, device = device)
+        all_steps, all_attn = [], []
+        for c in range(n_chunks):
+            steps, attn, st = decoder_steps(
+                weights, memory.contiguous(), pm.contiguous(), mask, enc_len, extra, st,
+                seed, n_steps = chunk, step0 = c * chunk,
+                deterministic = bool(deterministic), use_window = use_window,
+                win_len = win_len, win_offset = offset,
+                drop_rate = float(hp.prenet_drop_rate))
+            gates = steps[:, :, n_mel] > hp.gate_threshold
+            fin_k = finished[None, :] | (torch.cumsum(gates, dim = 0) > 0)
+            lengths = lengths + (~fin_k).sum(dim = 0).to(torch.int32)
+            finished = fin_k[-1]
+            all_steps.append(steps)
+            all_attn.append(attn)
+            if early_stopping and bool(finished.all()):
+                break
+
+        # launches that early stopping skipped leave their frames at zero
+        steps = torch.cat(all_steps).transpose(0, 1)
+        attention_weights = torch.cat(all_attn).transpose(0, 1)
+        missing = max_length - steps.shape[1]
+        if missing > 0:
+            steps = torch.nn.functional.pad(steps, (0, 0, 0, missing))
+            attention_weights = torch.nn.functional.pad(attention_weights, (0, 0, 0, missing))
+        steps, attention_weights = steps[:, :max_length], attention_weights[:, :max_length]
+        outputs = steps[..., :n_mel].contiguous()
+
+        postnet_out = self.postnet(params, state, outputs.to(compute_dtype))
+        return Tacotron2InferenceOutput(
+            mel = outputs + postnet_out.float(),
+            # a row that never gates counts every step of every launch: cap
+            # at max_length, as `infer` and the sliced buffers do
+            lengths = torch.clamp(lengths, max = max_length),
+            stop_tokens = steps[..., n_mel],
+            attention_weights = attention_weights.contiguous(),
+            decoder_output = outputs,
+        )

@@ -71,6 +71,26 @@ class WaveGlow:
         raise NotImplementedError(
             'int8 serving (fused_wn_block_int8) is not ported yet: see ROADMAP.md')
 
+    def device_vocoder_fn(self, *, sigma = None, deterministic = False,
+                          dtype = None, ** _):
+        """(fn, params, tag): the vocode core in the current serving mode as
+        a function of device tensors, ``fn(params, mel, generator) → f32
+        waveform (B, F * upsample_rate)`` with no host read inside, the
+        params to feed it, and a tag that names the mode.  A synthesizer
+        chains decode → vocode on the device with it
+        (`Tacotron2.compiled_tts`)."""
+        use_kernel = self._serving_mode_flags()
+
+        def fn(params, mel, generator = None):
+            with torch.no_grad():
+                return self.arch.infer(
+                    params, mel, generator = generator, sigma = sigma,
+                    deterministic = deterministic, dtype = dtype,
+                    use_kernel = use_kernel).float()
+
+        tag = (self.name, sigma, bool(deterministic), dtype, use_kernel)
+        return fn, self._serving_params(use_kernel), tag
+
     def compiled_infer(self, mel, *, padding_multiple = 256, sigma = None,
                        generator = None, deterministic = False, dtype = None, ** _):
         """mel (B, F, n_mel) or (F, n_mel), numpy or tensor → f32 waveform
@@ -81,13 +101,9 @@ class WaveGlow:
         if padding_multiple and mel.shape[1] % padding_multiple:
             pad = padding_multiple - mel.shape[1] % padding_multiple
             mel = torch.nn.functional.pad(mel, (0, 0, 0, pad), value = self.pad_mel_value)
-        use_kernel = self._serving_mode_flags()
-        with torch.no_grad():
-            audio = self.arch.infer(
-                self._serving_params(use_kernel), mel, generator = generator,
-                sigma = sigma, deterministic = deterministic, dtype = dtype,
-                use_kernel = use_kernel)
-        return audio.float()
+        fn, params, _ = self.device_vocoder_fn(
+            sigma = sigma, deterministic = deterministic, dtype = dtype)
+        return fn(params, mel, generator)
 
     def infer(self, mel, ** kwargs):
         """Vocode a mel in one call → numpy waveform (B, F * upsample_rate)."""
