@@ -7,11 +7,18 @@ decoder kernel or on the plain loop) and the vocode
 (`WaveGlow.compiled_infer`) of one batch.  For each it prints the wall
 time with and without the profiler, the device's busy time (the union of
 its kernels' intervals) and busy share, the number of kernel launches, and
-the kernels with the most device time, as one JSON line, followed by the
-card's name and power limit.
+the kernels with the most device time.  The decode is also split into its
+parts (``decode_parts_ms``): the host's time in the encoder, the processed
+memory, the fused decoder's launches and the postnet, each with the device
+drained before and after it, as medians over `--repeats` decodes; ``rest``
+is what the decode takes beyond them (packing, bookkeeping between the
+launches, or the whole plain loop), ``total`` is that split decode and
+``unsplit_total`` the median of as many decodes left alone.  One JSON line,
+followed by the card's name and power limit.
 
     python3 benchmarks/torch_port_profile.py [--texts 1] [--frames 256]
                                              [--decoder fused|plain]
+                                             [--repeats 5]
 
 Needs a CUDA device; imports neither JAX nor the JAX package.
 """
@@ -64,11 +71,63 @@ def profile(fn):
     return result, wall_ms, unprofiled_ms, busy_us / 1e3, len(kernels), top
 
 
+PARTS = ('encode', 'process_memory', 'decoder_steps', 'postnet')
+
+
+def decode_parts(arch, decode, repeats):
+    """Median host milliseconds of each of `PARTS` inside `decode()`, the
+    device drained around each, with the decode's total and the rest, and
+    the median total of the same decode without the draining."""
+    from text_to_speech_tpu_torch.models import tacotron2_arch
+    owners = {name: arch for name in PARTS}
+    owners['decoder_steps'] = tacotron2_arch
+    spent = collections.defaultdict(float)
+
+    def timed(name, fn):
+        def wrapper(* args, ** kwargs):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            result = fn(* args, ** kwargs)
+            torch.cuda.synchronize()
+            spent[name] += 1e3 * (time.perf_counter() - start)
+            return result
+        return wrapper
+
+    def wall_ms():
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        decode()
+        torch.cuda.synchronize()
+        return 1e3 * (time.perf_counter() - start)
+
+    median = lambda values: sorted(values)[len(values) // 2]
+    unsplit = median([wall_ms() for _ in range(repeats)])
+    originals = {name: getattr(owner, name) for name, owner in owners.items()}
+    for name, owner in owners.items():
+        setattr(owner, name, timed(name, originals[name]))
+    runs = []
+    try:
+        for _ in range(repeats):
+            spent.clear()
+            total = wall_ms()
+            runs.append({** {name: spent[name] for name in PARTS}, 'total': total,
+                         'rest': total - sum(spent.values())})
+    finally:
+        for name, owner in owners.items():
+            if owner is arch:
+                delattr(owner, name)            # back to the class's method
+            else:
+                setattr(owner, name, originals[name])
+    return {** {key: median([run[key] for run in runs]) for key in runs[0]},
+            'unsplit_total': unsplit}
+
+
 def main():
     parser = argparse.ArgumentParser(description = __doc__.split('\n')[0])
     parser.add_argument('--texts', type = int, default = 1, choices = range(1, 5))
     parser.add_argument('--frames', type = int, default = 256)
     parser.add_argument('--decoder', choices = ('fused', 'plain'), default = 'fused')
+    parser.add_argument('--repeats', type = int, default = 5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print('torch_port_profile.py needs a CUDA device', file = sys.stderr)
@@ -100,6 +159,7 @@ def main():
         record[phase]['device_busy_share_unprofiled'] = \
             record[phase]['device_busy_ms'] / record[phase]['unprofiled_wall_ms']
     record['decode']['launches_per_step'] = record['decode']['launches'] / args.frames
+    record['decode_parts_ms'] = decode_parts(model.arch, decode, args.repeats)
     print(json.dumps(record), flush = True)
     print(subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader'],

@@ -161,7 +161,8 @@ def decoder_steps_work(weights, B, S, K, itemsize):
 
 def decoder_steps_phase(model):
     from text_to_speech_tpu_torch.ops.decoder_kernel import (
-        PHASES, decoder_steps, decoder_steps_plain, init_decoder_state, phase_times_us)
+        PHASES, decoder_steps, decoder_steps_plain, init_decoder_state, pack_decoder_weights,
+        phase_times_us)
     from text_to_speech_tpu_torch.weights import cast_tree
 
     arch, hp, K = model.arch, model.arch.hp, 64
@@ -170,6 +171,12 @@ def decoder_steps_phase(model):
     # length; S = 72 is no multiple of 64 and takes the attention window
     rng = np.random.default_rng(2)
     sentence = lambda n: rng.integers(1, hp.vocab_size, n)
+
+    # packed here with the logical matrices, which the plain version reads
+    # (the model keeps the kernel's layouts only)
+    packed = {dtype: pack_decoder_weights(
+        cast_tree(model.params['decoder'], dtype), n_mel = n_mel, dtype = dtype)
+        for dtype in (torch.float32, torch.bfloat16)}
 
     def inputs(B, S, dtype):
         lengths = [S] if B == 1 else [S, S - 9, S - 23, S - 40][:B]
@@ -182,8 +189,7 @@ def decoder_steps_phase(model):
         with torch.no_grad():
             enc, enc_mask = arch.encode(params, state, tokens)
             mem, pm = arch.process_memory(params['decoder'], enc, enc_mask)
-        weights = model._decoder_weights(None if dtype == torch.float32 else dtype)
-        args = (weights, mem.contiguous(), pm.contiguous(), enc_mask.float(),
+        args = (packed[dtype], mem.contiguous(), pm.contiguous(), enc_mask.float(),
                 enc_mask.sum(dim = 1).to(torch.int32),
                 torch.zeros((B, hp.prenet_sizes[0]), device = 'cuda'))
         fresh = lambda: init_decoder_state(B, S, mem.shape[-1], U, n_mel, dtype, 'cuda')

@@ -320,9 +320,19 @@ def test_envelope_errors(model):
         arch.infer_fused(params, state, tokens, int8_lstm = True)
     assert not Tacotron2(** {** TINY, 'lsa_attention_kernel_size': 15}) \
         .supports_fused_decoder(2, 32)
-    assert not Tacotron2(** {** TINY, 'attention_rnn_dim': 12, 'decoder_rnn_dim': 12}) \
-        .supports_fused_decoder(2, 32)                   # no whole slabs of 8 units
     assert arch.supports_fused_decoder(8, 32)
+    # the CUDA kernel's alignment is no part of the envelope: its check raises
+    assert Tacotron2(** {** TINY, 'attention_rnn_dim': 12, 'decoder_rnn_dim': 12}) \
+        .supports_fused_decoder(2, 32)
+    args, new_state = _step_inputs(arch, params, state, _tokens(2, 32))
+    weights = dict(args[0], q_w = args[0]['q_w'][:12].contiguous())     # U = 12
+    with pytest.raises(ValueError, match = 'U % 8'):
+        dk._check(weights, * args[1:], new_state(), _seed(0), 2)
+    with pytest.raises(ValueError, match = 'U % 8'):
+        dk.kernel_weights_only({** args[0], 'att_w': args[0]['att_w'][:, :48]})
+    only = dk.kernel_weights_only(dict(args[0]))
+    assert not {'att_w', 'dec_w', 'proj_w'} & set(only)
+    assert dk._check(only, * args[1:], new_state(), _seed(0), 2)[0] == 2
     args, new_state = _step_inputs(arch, params, state, _tokens(2, 32))
     with pytest.raises(ValueError, match = 'stamps'):    # only the kernel takes stamps
         dk.decoder_steps(* args, new_state(), _seed(0), n_steps = 2,

@@ -94,9 +94,10 @@ def test_task_buckets_and_refuses_the_fused_decoder(monkeypatch):
     """Tokens pad to x64 and a float `max_length` scales the padded token
     length, rounded up to x64.  The decoder route: the plain loop by default
     on the CPU and outside the fused decoder's envelope; the fused decoder by
-    default on a card for batches up to `fused_decoder_max_batch`, and
-    wherever the caller asks for it; asking for it outside the envelope is
-    refused."""
+    default on a card at every batch inside the envelope, and wherever the
+    caller asks for it; asking for it outside the envelope is refused.  On a
+    card a model inside the envelope whose widths the CUDA kernel cannot take
+    is not sent to the plain loop: the kernel's own check raises."""
     from text_to_speech_tpu_torch.init import init_tacotron2
     from text_to_speech_tpu_torch.models.tts import Tacotron2 as Tacotron2Task
     from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
@@ -131,13 +132,35 @@ def test_task_buckets_and_refuses_the_fused_decoder(monkeypatch):
     with pytest.raises(ValueError):                # nine rows
         model.compiled_infer(np.tile(tokens, (9, 1)), use_fused_decoder = True, ** kw)
 
+    # new parameters drop the decoder packed from the old ones
+    packed = model._decoder_weights(None)
+    assert model._decoder_weights(None) is packed
+    model.params = model.params
+    assert model._decoder_weights(None) is not packed
+
     # the default on a card (the model's tensors stay where they are)
-    assert Tacotron2Task.fused_decoder_max_batch == 8
     assert not model._use_fused_decoder(1, 64, None)
     monkeypatch.setattr(model, 'device', torch.device('cuda'))
-    assert model._use_fused_decoder(1, 64, None) and model._use_fused_decoder(8, 64, None)
+    assert all(model._use_fused_decoder(batch, 64, None) for batch in (1, 2, 4, 8))
     assert not model._use_fused_decoder(9, 64, None)        # outside the envelope
     assert not model._use_fused_decoder(2, 60, None)
-    monkeypatch.setattr(model, 'fused_decoder_max_batch', 2)
-    assert model._use_fused_decoder(2, 64, None) and not model._use_fused_decoder(4, 64, None)
-    assert model._use_fused_decoder(4, 64, True)            # asked for: any batch inside
+    assert model._use_fused_decoder(4, 64, True)
+
+    # 12 units: inside the envelope, no whole slabs of 8 for the CUDA kernel
+    from text_to_speech_tpu_torch.ops import decoder_kernel as dk
+    odd = dict(tiny, attention_rnn_dim = 12, decoder_rnn_dim = 12)
+    odd_model = Tacotron2Task.from_jax(
+        * init_tacotron2(Tacotron2(** odd).hp, seed = 0), device = 'cpu',
+        tokenizer = default_english_tokenizer(), ** odd)
+    plain = odd_model.compiled_infer(tokens, ** kw)
+    fused = odd_model.compiled_infer(tokens, use_fused_decoder = True, ** kw)   # plain version
+    np.testing.assert_allclose(fused.mel.numpy(), plain.mel.numpy(), atol = ATOL, rtol = 0)
+    weights = odd_model._decoder_weights(None)
+    assert 'att_w' in weights                               # logical copies stay on the CPU
+    monkeypatch.setattr(odd_model, 'device', torch.device('cuda'))
+    assert odd_model._use_fused_decoder(1, 64, None)        # not quietly the plain loop
+    B, S, D, U = 1, 64, odd['encoder_embedding_dim'], 12
+    z = lambda * shape, dtype = torch.float32: torch.zeros(shape, dtype = dtype)
+    with pytest.raises(ValueError, match = 'U % 8'):
+        dk._check(weights, z(B, S, D), z(B, S, 8), z(B, S), z(B, dtype = torch.int32),
+                  z(B, 8), dk.init_decoder_state(B, S, D, U, 8), z(1, dtype = torch.int64), 4)

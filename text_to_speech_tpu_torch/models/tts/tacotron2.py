@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from ...devices import default_device
-from ...ops.decoder_kernel import pack_decoder_weights
+from ...ops.decoder_kernel import kernel_weights_only, pack_decoder_weights
 from ...text import Tokenizer, split_text, split_sentences
 from ...weights import cast_tree, tacotron2_from_jax, tree_to
 from ..saving import load_json, load_model_files
@@ -86,12 +86,6 @@ def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
 
 
 class Tacotron2:
-    # the fused decoder is the default on a card for batches up to this
-    # (the whole envelope of the kernel: see PERF.md for both routes' times)
-    fused_decoder_max_batch = 8
-    # `compiled_tts` chains this class's own decode with the vocoder
-    one_launch_tts = True
-
     def __init__(self, params, state, *, tokenizer, name = 'tacotron2',
                  device = None, rate = 22050, pad_mel_value = -11.,
                  max_output_length = DEFAULT_MAX_MEL_LENGTH, ** arch_config):
@@ -100,12 +94,21 @@ class Tacotron2:
         self.device = default_device(device)
         self.tokenizer = tokenizer
         self.arch = Tacotron2Arch(** arch_config)
-        self.params = tree_to(params, self.device)
+        self.params = params
         self.state = tree_to(state, self.device)
         self.rate = rate
         self.pad_mel_value = pad_mel_value
         self.max_output_length = max_output_length
         self.last_timings = {}
+
+    @property
+    def params(self):
+        return self._params
+
+    @params.setter
+    def params(self, params):
+        """New parameters drop the decoder packed from the old ones."""
+        self._params = tree_to(params, self.device)
         self._packed_decoder = {}
 
     @classmethod
@@ -160,26 +163,30 @@ class Tacotron2:
         return tokens, max_length
 
     def _use_fused_decoder(self, batch, seq_len, use_fused_decoder):
-        """The decoder route.  By default the fused kernel on a card, for
-        batches up to `fused_decoder_max_batch` inside its envelope, and the
-        plain loop otherwise and on the CPU.  Asking for the kernel outside
-        its envelope raises."""
+        """The decoder route.  By default the fused kernel on a card inside
+        its envelope (`arch.supports_fused_decoder`), and the plain loop
+        otherwise and on the CPU.  Asking for the kernel outside its
+        envelope raises; so does, on a card, a model inside the envelope
+        whose widths the CUDA kernel cannot take (`ops.decoder_kernel`)."""
         supported = self.arch.supports_fused_decoder(batch, seq_len)
         if use_fused_decoder is None:
-            return (self.device.type == 'cuda' and supported
-                    and batch <= self.fused_decoder_max_batch)
+            return self.device.type == 'cuda' and supported
         if use_fused_decoder and not supported:
             raise ValueError('use_fused_decoder=True outside the fused decoder\'s envelope '
                              '(batch {}, {} tokens, or the architecture)'.format(batch, seq_len))
         return bool(use_fused_decoder)
 
     def _decoder_weights(self, dtype):
-        """The decoder packed for the fused kernel, once per compute dtype."""
+        """The decoder packed for the fused kernel, once per compute dtype
+        and set of parameters; on a card, in the kernel's layouts only."""
         if dtype not in self._packed_decoder:
             dec = self.params['decoder']
-            self._packed_decoder[dtype] = pack_decoder_weights(
+            packed = pack_decoder_weights(
                 cast_tree(dec, dtype) if dtype is not None else dec,
                 n_mel = self.arch.hp.n_mel_channels, dtype = dtype or torch.float32)
+            if self.device.type == 'cuda':
+                packed = kernel_weights_only(packed)
+            self._packed_decoder[dtype] = packed
         return self._packed_decoder[dtype]
 
     def compiled_infer(self,
@@ -224,8 +231,7 @@ class Tacotron2:
         vocoder."""
         voc_fn, voc_params, _ = vocoder.device_vocoder_fn(
             ** {** kwargs, ** vocoder_config})
-        voc_pad = getattr(vocoder, 'serving_pad_multiple', 256)
-        pad_val = getattr(vocoder, 'pad_mel_value', -11.)
+        voc_pad = vocoder.serving_pad_multiple
         if clock is not None: clock.mark()
         out = self.compiled_infer(tokens, ** kwargs)
         if clock is not None: clock.mark()
@@ -235,7 +241,7 @@ class Tacotron2:
             # vocoder's bucket may be coarser; frames past `lengths` are
             # cut off the audio anyway
             mel = torch.nn.functional.pad(
-                mel, (0, 0, 0, voc_pad - mel.shape[1] % voc_pad), value = pad_val)
+                mel, (0, 0, 0, voc_pad - mel.shape[1] % voc_pad), value = vocoder.pad_mel_value)
         audio = voc_fn(voc_params, mel, kwargs.get('generator'))
         a16 = torch.round(torch.clamp(audio, -1., 1.) * 32767.).to(torch.int16)
         if clock is not None: clock.mark()
@@ -362,8 +368,7 @@ class Tacotron2:
         if kwargs.pop('win_len', None) or vocoder_config.get('win_len'):
             raise NotImplementedError('windowed vocoding is not ported yet: see ROADMAP.md')
 
-        if len(encoded) == 1 and self.one_launch_tts \
-                and hasattr(vocoder, 'device_vocoder_fn'):
+        if len(encoded) == 1:
             return self._tts_one_launch(
                 encoded, vocoder, max_length = max_length, min_fpt_ratio = min_fpt_ratio,
                 max_fpt_ratio = max_fpt_ratio, vocoder_config = vocoder_config,
@@ -396,7 +401,7 @@ class Tacotron2:
         mel_host = outputs.mel.cpu().numpy()
         attn_host = outputs.attention_weights.cpu().numpy() if fetch_attention else None
         audio_host = [a.cpu().numpy() for a in audio_dev]
-        rate = getattr(vocoder, 'upsample_rate', 256)
+        rate = vocoder.upsample_rate
         mels, attn, audios = [], [], []
         for i in range(len(encoded)):
             out_len = max(1, int(out_lengths[i]))
@@ -429,7 +434,7 @@ class Tacotron2:
         a16 = a16_dev.cpu().numpy()
         mel_host = mel_dev.cpu().numpy()
         attn_host = attn_dev.cpu().numpy() if fetch_attention else None
-        rate = getattr(vocoder, 'upsample_rate', 256)
+        rate = vocoder.upsample_rate
         mels, attn, audios = [], [], []
         for i in range(len(encoded)):
             out_len = max(1, int(out_lengths[i]))
@@ -495,7 +500,7 @@ class Tacotron2:
                      and min(m.shape[0] for m in mels) >= max(m.shape[0] for m in mels) // 2)
         if not use_batch:
             return [vocoder(mel, ** kwargs)[0] for mel in mels]
-        rate = getattr(vocoder, 'upsample_rate', 256)
+        rate = vocoder.upsample_rate
         audios = []
         for start in range(0, len(mels), vocoder_batch):
             group = mels[start: start + vocoder_batch]

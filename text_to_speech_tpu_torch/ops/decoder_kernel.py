@@ -256,8 +256,13 @@ def _slabs(w):
     (U / 8, K, 32): slab s holds, for every input k, column ``4 * unit +
     gate`` of its 8 units."""
     K, U = w.shape[0], w.shape[1] // 4
+    if U % SLAB_UNITS:
+        raise ValueError('decoder_steps needs U % {} == 0, got U={}'.format(SLAB_UNITS, U))
     return w.reshape(K, 4, U // SLAB_UNITS, SLAB_UNITS).permute(2, 0, 3, 1) \
         .reshape(U // SLAB_UNITS, K, 4 * SLAB_UNITS).contiguous()
+
+
+_LOGICAL_ONLY = ('att_w', 'dec_w', 'proj_w')
 
 
 def _kernel_weights(weights):
@@ -268,6 +273,14 @@ def _kernel_weights(weights):
                               'dec_k': _slabs(weights['dec_w']),
                               'proj_t': weights['proj_w'].T.contiguous()}
     return weights['_kernel']
+
+
+def kernel_weights_only(weights):
+    """`weights` with the three large matrices in the kernel's layouts alone,
+    their logical copies left out: what a model keeps on a card, where only
+    the kernel reads them.  `decoder_steps_plain` does not take the result."""
+    _kernel_weights(weights)
+    return {k: v for k, v in weights.items() if k not in _LOGICAL_ONLY}
 
 
 def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
@@ -287,17 +300,19 @@ def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
     if n_steps < 1:
         raise ValueError('n_steps must be positive, got {}'.format(n_steps))
     f32, i32 = torch.float32, torch.int32
+    kw = _kernel_weights(weights)
+    slabs, width = U // SLAB_UNITS, 4 * SLAB_UNITS
     expected = {
         'w0': (weights['w0'], (n_mel, P0), dt), 'b0': (weights['b0'], (P0,), f32),
         'w1': (weights['w1'], (P0, P1), dt), 'b1': (weights['b1'], (P1,), f32),
-        'att_w': (weights['att_w'], (P1 + D + U, 4 * U), dt),
+        'att_w slabs': (kw['att_k'], (slabs, P1 + D + U, width), dt),
         'att_b': (weights['att_b'], (4 * U,), f32),
         'q_w': (weights['q_w'], (U, A), dt),
         'loc_w': (weights['loc_w'], (2 * LOC_KERNEL, A), dt),
         'v_w': (weights['v_w'], (A,), f32),
-        'dec_w': (weights['dec_w'], (2 * U + D, 4 * U), dt),
+        'dec_w slabs': (kw['dec_k'], (slabs, 2 * U + D, width), dt),
         'dec_b': (weights['dec_b'], (4 * U,), f32),
-        'proj_w': (weights['proj_w'], (U + D, n_mel + 1), dt),
+        'proj_w transposed': (kw['proj_t'], (n_mel + 1, U + D), dt),
         'proj_b': (weights['proj_b'], (n_mel + 1,), f32),
         'pm': (pm, (B, S, A), dt), 'mask': (mask, (B, S), f32),
         'enc_len': (enc_len, (B,), i32), 'extra': (extra, (B, P0), f32),
