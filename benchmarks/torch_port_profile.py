@@ -4,7 +4,9 @@ Builds the NVIDIA-size Tacotron-2 and WaveGlow of `chip_smoke.py` (random
 weights, the stop gate biased off), warms up, then traces with
 `torch.profiler` the decode (`Tacotron2.compiled_infer`, on the fused
 decoder kernel or on the plain loop) and the vocode
-(`WaveGlow.compiled_infer`) of one batch.  For each it prints the wall
+(`WaveGlow.compiled_infer`, in its default serving mode or, with
+``--vocoder int8``, after `quantize_for_serving` passed its gate on a
+32-frame slice of the decoded mel) of one batch.  For each it prints the wall
 time with and without the profiler, the device's busy time (the union of
 its kernels' intervals) and busy share, the number of kernel launches, and
 the kernels with the most device time.  The decode is also split into its
@@ -18,6 +20,7 @@ followed by the card's name and power limit.
 
     python3 benchmarks/torch_port_profile.py [--texts 1] [--frames 256]
                                              [--decoder fused|plain]
+                                             [--vocoder default|int8]
                                              [--repeats 5]
 
 Needs a CUDA device; imports neither JAX nor the JAX package.
@@ -127,6 +130,7 @@ def main():
     parser.add_argument('--texts', type = int, default = 1, choices = range(1, 5))
     parser.add_argument('--frames', type = int, default = 256)
     parser.add_argument('--decoder', choices = ('fused', 'plain'), default = 'fused')
+    parser.add_argument('--vocoder', choices = ('default', 'int8'), default = 'default')
     parser.add_argument('--repeats', type = int, default = 5)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -147,8 +151,13 @@ def main():
                                     use_fused_decoder = args.decoder == 'fused')
 
     out = decode()                                          # warm-up, kernel build
+    if args.vocoder == 'int8':
+        vocoder.quantize_for_serving(validate = out.mel[:1, :32])
+        if vocoder.serving_mode != 'int8':
+            raise RuntimeError('the int8 gate failed: {} dB'.format(vocoder._last_serving_snr_db))
     vocoder.compiled_infer(out.mel, generator = generator)
-    record = {'texts': args.texts, 'frames': args.frames, 'decoder': args.decoder}
+    record = {'texts': args.texts, 'frames': args.frames, 'decoder': args.decoder,
+              'vocoder': vocoder.serving_mode}
     out, *stats = profile(decode)
     record['decode'] = dict(zip(STATS, stats))
     _, *stats = profile(lambda: vocoder.compiled_infer(out.mel, generator = generator))

@@ -7,18 +7,24 @@ full NVIDIA width of Tacotron-2 and WaveGlow with random weights.
 Phases, one JSON line each:
   device   the card (nvidia-smi) and the kernels' build time;
   kernels  every ported kernel at the main path's shapes (one utterance and
-           the batch of four): error against its plain version in float32
-           and bfloat16, median time of the kernel and of the plain version
-           (CUDA events), and the bound.  The WN block also at a length that
-           is no multiple of any tile; the decoder steps deterministic and
-           with dropout, with the attention window at a memory length that is
-           no multiple of 64, and as two launches of 32 steps against one of
-           64;
+           the batch of four): error against its plain version, median time
+           of the kernel and of the plain version (CUDA events), and the
+           bound.  The WN block (K1) in float32 and bfloat16 and its int8
+           variant (K2) with bf16 buffers, one float32 case and one with the
+           static gate scale, both also at a length that is no multiple of
+           any tile; the decoder steps (K3) in float32, bfloat16 and the
+           int8 LSTM mode, deterministic and with dropout, with the attention
+           window at a memory length that is no multiple of 64, and as two
+           launches of 32 steps against one of 64;
   e2e      `tts()` on one sentence (the one-launch path: fused decoder →
            vocoder → int16, no retry) and on a batch of four on both decoder
-           routes: decode and vocode seconds, real-time factor, the kernels'
-           launch counts; the fused decode against the plain decode at full
-           width; and the vocoder's kernel path against its float32 chain on
+           routes, then, after `quantize_for_serving` passes its SNR gate on
+           the card, both routes again in int8 serving, and one sentence after
+           a gate forced to fail (the float32 chain): decode and vocode
+           seconds, real-time factor, every kernel's launch count; the fused
+           decode against the plain decode at full width, and the int8 LSTM
+           decode (`infer_fused(int8_lstm=True)`) with its launches; the
+           vocoder's bf16 and int8 kernel routes against its float32 chain on
            a short mel.
 Then the kernel summary, the card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
@@ -35,6 +41,7 @@ import numpy as np
 import torch
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
+PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 
@@ -139,30 +146,165 @@ def wn_block_phase():
     return cases
 
 
-def decoder_steps_work(weights, B, S, K, itemsize):
-    """(operations, bytes, weight bytes) of one launch of K decoder steps:
-    every product of every step; each input read once and each output
-    written once (state in and out, frames and alignments out)."""
+def wn_block_int8_phase():
+    """K2 against its plain version at the main path's shapes: bf16 buffers
+    at one utterance, a ragged length and the batch of four, one float32
+    case and one with the static gate scale."""
+    from text_to_speech_tpu_torch.ops import wn_block_int8 as module
+    from text_to_speech_tpu_torch.ops.wn_block_int8 import (
+        fused_wn_block_int8, pack_wn_int8, quantize_wn_weights, wn_block_int8_plain)
+
+    C, L, S = 512, 8, 640
+    rng = np.random.default_rng(4)
+    f = lambda * shape, scale = 1.: torch.from_numpy(
+        (scale * rng.standard_normal(shape)).astype(np.float32)).cuda()
+    q = pack_wn_int8(quantize_wn_weights(dict(
+        w_cond = f(L, S, 2 * C, scale = S ** -0.5), b_cond = f(L, 2 * C, scale = 0.1),
+        w_in = f(L, 3, C, 2 * C, scale = (3 * C) ** -0.5), b_in = f(L, 2 * C, scale = 0.1),
+        w_rs = f(L - 1, C, 2 * C, scale = C ** -0.5), b_rs = f(L - 1, 2 * C, scale = 0.1),
+        w_rs_last = f(C, C, scale = C ** -0.5), b_rs_last = f(C, scale = 0.1))))
+
+    # Tolerances, relative to the output's largest magnitude.  The integer
+    # sums are exact on both sides, every scale product is rounded in the
+    # same order and the gate takes the same device functions as PyTorch's,
+    # so the two sides agree to the bit where no value sits on a rounding
+    # tie of its row's int8 grid.  A value that does moves one product by a
+    # grid step; in bf16 that can flip one rounding of the stored stream and
+    # one of the output, 2^-8 of a value each: max 2^-7 (bf16), 1e-3
+    # (float32), mean 1e-6, under the JAX package's own max 1e-2 and mean
+    # 1e-5 (tests/test_pallas.py).  The control, which must miss them: the
+    # plain version with every float32 tensor it quantizes rounded to bf16
+    # first (the next layer's x from the stored stream, not the float32
+    # sum, and the gate as bf16).
+    mean_tol = 1e-6
+    cases = {}
+    for name, B, T, dtype, static in (
+            ('bfloat16_B1_T8192', 1, 8192, torch.bfloat16, False),
+            ('bfloat16_B1_T8000', 1, 8000, torch.bfloat16, False),
+            ('bfloat16_B4_T8192', 4, 8192, torch.bfloat16, False),
+            ('float32_B1_T8192', 1, 8192, torch.float32, False),
+            ('bfloat16_B1_T8192_static_gate', 1, 8192, torch.bfloat16, True)):
+        x, spect = f(B, T, C).to(dtype), f(B, T, S).to(dtype)
+        out = fused_wn_block_int8(x, spect, q, static)
+        torch.cuda.synchronize()
+        ref = wn_block_int8_plain(x, spect, q, static)
+        check(out.shape == (B, T, C) and out.dtype == dtype, 'wn_block_int8 output shape')
+        check(bool(torch.isfinite(out.float()).all()), 'wn_block_int8 output not finite')
+        err = (out.float() - ref.float()).abs()
+        scale = float(ref.float().abs().max())
+        max_tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-3
+        case = {'dtype': str(dtype).split('.')[-1], 'B': B, 'T': T, 'static_gate_scale': static,
+                'max_abs_err': float(err.max()), 'max_rel_err': float(err.max()) / scale,
+                'mean_rel_err': float(err.mean()) / scale, 'scale': scale,
+                'tolerance_max_rel': max_tol, 'tolerance_mean_rel': mean_tol}
+        if name == 'bfloat16_B1_T8192':
+            row_quant = module._row_quant
+            module._row_quant = lambda t: row_quant(t.to(torch.bfloat16).float())
+            try:
+                ctrl = (wn_block_int8_plain(x, spect, q, static).float() - ref.float()).abs()
+            finally:
+                module._row_quant = row_quant
+            case['control'] = {'what': 'plain version quantizing bf16-rounded tensors',
+                               'max_rel_err': float(ctrl.max()) / scale,
+                               'mean_rel_err': float(ctrl.mean()) / scale}
+            check(case['control']['max_rel_err'] > max_tol
+                  or case['control']['mean_rel_err'] > mean_tol,
+                  'wn_block_int8: the control meets the limits: {}'.format(case))
+            del ctrl
+        if T == 8192 and not static and (dtype == torch.bfloat16 or B == 1):
+            ops, nbytes = wn_block_int8_work(B, T, C, S, L, x.element_size())
+            case.update(
+                kernel_ms = time_ms(lambda: fused_wn_block_int8(x, spect, q, static)),
+                plain_ms = time_ms(lambda: wn_block_int8_plain(x, spect, q, static),
+                                   reps = 3, warmup = 1),
+                ops = ops, bytes = nbytes,
+                bound_ms = 1e3 * max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES),
+                bound_by = 'operations' if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES
+                else 'bytes')
+        cases[name] = case
+        check(case['max_rel_err'] <= max_tol and case['mean_rel_err'] <= mean_tol,
+              'wn_block_int8 {}: {}'.format(name, case))
+        del x, spect, out, ref, err
+    emit({'phase': 'kernels', 'fused_wn_block_int8': cases,
+          'shape': {'C': C, 'S': S, 'L': L},
+          'library_ms': None,
+          'library_note': 'no single PyTorch call computes the int8 WN block'})
+    return cases
+
+
+def wn_block_int8_work(B, T, C, S, L, itemsize):
+    """(operations, bytes) of one int8 WN block call: the products of
+    `wn_block_work`; int8 weights with f32 scales and biases, x and spect
+    read and the output written once in the buffer dtype."""
+    ops = wn_block_work(B, T, C, S, L, 1)[0]
+    weights = L * (3 * C + S) * 2 * C + (L - 1) * C * 2 * C + C * C
+    vectors = (4 * L * 2 * C + 2 * (L - 1) * 2 * C + 2 * C) * 4
+    return ops, weights + vectors + B * T * (C + S + C) * itemsize
+
+
+def decoder_steps_work(weights, B, S, K, itemsize, peak):
+    """(least seconds for the operations, bytes, weight bytes) of one launch
+    of K decoder steps: every product of every step, the LSTM products at
+    the int8 rate when their weights are int8 and the rest at `peak`; each
+    input read once and each output written once (state in and out, frames
+    and alignments out)."""
     n_mel, P0 = weights['w0'].shape
     P1 = weights['w1'].shape[1]
     U, A = weights['q_w'].shape
     D = weights['proj_w'].shape[0] - U
-    macs = (n_mel * P0 + P0 * P1 + (P1 + D + U) * 4 * U + U * A + 62 * A * S + A * S
-            + S * D + (2 * U + D) * 4 * U + (U + D) * (n_mel + 1))
-    matrices = sum(weights[k].numel() for k in
-                   ('w0', 'w1', 'att_w', 'q_w', 'loc_w', 'dec_w', 'proj_w')) * itemsize
-    biases = sum(weights[k].numel() for k in
-                 ('b0', 'b1', 'att_b', 'v_w', 'dec_b', 'proj_b')) * 4
+    lstm = (P1 + D + U) * 4 * U + (2 * U + D) * 4 * U
+    macs = (n_mel * P0 + P0 * P1 + lstm + U * A + 62 * A * S + A * S + S * D
+            + (U + D) * (n_mel + 1))
+    lstm_peak = PEAK_INT8_OPS if weights['att_w'].dtype == torch.int8 else peak
+    ops_s = 2 * B * K * ((macs - lstm) / peak + lstm / lstm_peak)
+    matrices = sum(weights[k].numel() * weights[k].element_size() for k in
+                   ('w0', 'w1', 'att_w', 'q_w', 'loc_w', 'dec_w', 'proj_w'))
+    biases = sum(weights[k].numel() for k in ('b0', 'b1', 'att_b', 'v_w', 'dec_b', 'proj_b',
+                                              's_att_w', 's_dec_w') if k in weights) * 4
     inputs = B * S * (D + A) * itemsize + B * S * 4 + B * 4 + B * P0 * 4 + 8
     state = B * (n_mel * 4 + 2 * U * (itemsize + 4) + D * itemsize + 2 * S * 4 + 4)
     outputs = K * B * (n_mel + 1 + S) * 4
-    return 2 * macs * B * K, matrices + biases + inputs + 2 * state + outputs, matrices + biases
+    return ops_s, matrices + biases + inputs + 2 * state + outputs, matrices + biases
+
+
+def int8_lockstep(key, steps, limit):
+    """Summary and checks of one `int8_lstm_lockstep` trace (see the int8
+    tolerance in `decoder_steps_phase`)."""
+    held = [s for s in steps if s['grids_equal']]
+    moved = [s for s in steps if not s['grids_equal']]
+    control = [s['control_rel_err'] for s in held]
+    path_moved = [s for s in steps if not s['path_grids_equal']]
+    first = path_moved[0]['step'] if path_moved else None
+    before = [s['path_rel_err'] for s in steps if first is None or s['step'] < first]
+    out = {'steps': len(steps), 'grids_equal_steps': len(held),
+           'max_rel_err_grids_equal': max(s['rel_err'] for s in held) if held else None,
+           'control_rel_err_grids_equal': {'min': min(control), 'median':
+                                           statistics.median(control), 'max': max(control)}
+           if held else None,
+           'steps_grids_differ': [s['step'] for s in moved],
+           'rel_err_grids_differ': [s['rel_err'] for s in moved],
+           'first_grid_difference': moved[0] if moved else None,
+           'path_first_grid_difference': path_moved[0] if path_moved else None,
+           'path_max_rel_err_before_it': max(before) if before else None,
+           'path_max_rel_err': max(s['path_rel_err'] for s in steps)}
+    check(len(held) >= len(steps) // 2, 'int8 lockstep {}: {}'.format(key, out))
+    check(out['max_rel_err_grids_equal'] <= limit and max(control) > limit,
+          'int8 lockstep {}: {}'.format(key, out))
+    check(not before or max(before) <= limit, 'int8 lockstep {}: {}'.format(key, out))
+    for s, prefix in [(s, '') for s in moved] + [(s, 'path_') for s in path_moved[:1]]:
+        # the first LSTM whose int8 values moved: its rows differ by a
+        # rounding, far under one grid step (1/127 of the amax), and no value
+        # moves by two
+        first = s.get(prefix + 'att', s.get(prefix + 'dec'))
+        check(first['row_diff_rel_amax'] <= 1e-5 and first['max_grid_steps'] <= 1.,
+              'int8 lockstep {} step {}: {}'.format(key, s['step'], s))
+    return out
 
 
 def decoder_steps_phase(model):
     from text_to_speech_tpu_torch.ops.decoder_kernel import (
-        PHASES, decoder_steps, decoder_steps_plain, init_decoder_state, pack_decoder_weights,
-        phase_times_us)
+        PHASES, decoder_steps, decoder_steps_plain, init_decoder_state, int8_lstm_lockstep,
+        pack_decoder_weights, phase_times_us, quantize_lstm_weights)
     from text_to_speech_tpu_torch.weights import cast_tree
 
     arch, hp, K = model.arch, model.arch.hp, 64
@@ -177,8 +319,12 @@ def decoder_steps_phase(model):
     packed = {dtype: pack_decoder_weights(
         cast_tree(model.params['decoder'], dtype), n_mel = n_mel, dtype = dtype)
         for dtype in (torch.float32, torch.bfloat16)}
+    # the int8 LSTM mode of `infer_fused(int8_lstm=True)`: float32 compute
+    modes = (('float32', torch.float32, packed[torch.float32]),
+             ('bfloat16', torch.bfloat16, packed[torch.bfloat16]),
+             ('int8_lstm', torch.float32, quantize_lstm_weights(packed[torch.float32])))
 
-    def inputs(B, S, dtype):
+    def inputs(B, S, dtype, weights):
         lengths = [S] if B == 1 else [S, S - 9, S - 23, S - 40][:B]
         tokens = np.zeros((B, S), np.int64)
         for i, n in enumerate(lengths):
@@ -189,7 +335,7 @@ def decoder_steps_phase(model):
         with torch.no_grad():
             enc, enc_mask = arch.encode(params, state, tokens)
             mem, pm = arch.process_memory(params['decoder'], enc, enc_mask)
-        args = (packed[dtype], mem.contiguous(), pm.contiguous(), enc_mask.float(),
+        args = (weights, mem.contiguous(), pm.contiguous(), enc_mask.float(),
                 enc_mask.sum(dim = 1).to(torch.int32),
                 torch.zeros((B, hp.prenet_sizes[0]), device = 'cuda'))
         fresh = lambda: init_decoder_state(B, S, mem.shape[-1], U, n_mel, dtype, 'cuda')
@@ -206,18 +352,30 @@ def decoder_steps_phase(model):
     # sum flips single roundings that the next
     # steps carry on: one rounding is up to 2^-7 = 7.8e-3 of a value
     # (measured 5.7e-3 on the state, 2.9e-3 on the frames); 2e-2 is 2.5
-    # roundings.
-    tolerance = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    # roundings.  int8 LSTM mode (float32 compute): the integer sums are
+    # exact on both sides and the scales apply in the same order, so it is
+    # held as float32 is, wherever both sides' LSTM input rows quantize to
+    # the same int8 values (row scales a rounding apart are float32 noise).  A staged value that differs by a rounding (the
+    # prenet's and the attention's sums run in another order) can cross a
+    # rounding tie of its grid and move one product by a grid step, which
+    # the next steps carry on.  So with dropout each case is also held step
+    # by step (`int8_lstm_lockstep`), from the same state on both sides:
+    # every step whose int8 values agree within 1e-4, every step whose
+    # values differ (at most half) only where the staged rows differ by a
+    # rounding and by one grid step; and the float32-LSTM kernel on the same
+    # inputs (the control) must miss 1e-4.  Along the two decodes, every
+    # step before the first that moves an int8 value is held at 1e-4, and
+    # that first one as above.
+    tolerance = {'float32': 1e-4, 'bfloat16': 2e-2, 'int8_lstm': 1e-4}
 
     def rel_err(out, ref):
         out, ref = out.float(), ref.float()
         return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
     cases = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split('.')[-1]
+    for name, dtype, weights in modes:
         for B, S, window in ((1, 64, False), (4, 64, False), (2, 72, True)):
-            args, fresh = inputs(B, S, dtype)
+            args, fresh = inputs(B, S, dtype, weights)
             for deterministic in (True, False):
                 kw = dict(n_steps = K, deterministic = deterministic, use_window = window,
                           win_len = 16, win_offset = 8, drop_rate = float(hp.prenet_drop_rate))
@@ -232,19 +390,41 @@ def decoder_steps_phase(model):
                       'decoder_steps output not finite')
                 err = float((steps - ref_steps).abs().max())
                 rel = {'steps': rel_err(steps, ref_steps), 'attn': rel_err(attn, ref_attn)}
-                rel.update({k: rel_err(st[k], ref_st[k]) for k in
-                            ('h_att', 'c_att', 'h_dec', 'c_dec', 'ctx', 'prev', 'cum')})
-                check(torch.equal(st['main'], ref_st['main']), 'decoder_steps argmax differs')
+                keys = ('h_att', 'c_att', 'h_dec', 'c_dec', 'ctx', 'prev', 'cum')
+                rel.update({k: rel_err(st[k], ref_st[k]) for k in keys})
                 case = {'dtype': name, 'B': B, 'S': S, 'K': K, 'window': window,
                         'dropout': not deterministic, 'max_abs_err': err,
                         'frame_scale': float(ref_steps[..., :n_mel].abs().max()),
                         'rel_err': rel, 'max_rel_err': max(rel.values()),
-                        'tolerance_rel': tolerance[dtype]}
+                        'tolerance_rel': tolerance[name]}
                 key = '{}_B{}_S{}_{}'.format(name, B, S, 'dropout' if not deterministic else 'det')
                 cases[key] = case
-                check(case['max_rel_err'] <= tolerance[dtype],
-                      'decoder_steps {}: relative errors {} > {}'.format(
-                          key, rel, tolerance[dtype]))
+                if name == 'int8_lstm':
+                    # the control: the float32-LSTM kernel on the same inputs
+                    ctrl_st = fresh()
+                    ctrl = decoder_steps(packed[torch.float32], * args[1:], ctrl_st, seed, ** kw)
+                    case['control_max_rel_err'] = max(
+                        [rel_err(ctrl[0], ref_steps), rel_err(ctrl[1], ref_attn)]
+                        + [rel_err(ctrl_st[k], ref_st[k]) for k in keys])
+                    check(case['control_max_rel_err'] > tolerance[name],
+                          'decoder_steps {}: the control meets the limit: {}'.format(key, case))
+                    # with dropout the decode carries a moved value on (traced
+                    # below), but stays nearer the int8 plain version than the
+                    # float32 LSTM does
+                    check(case['max_rel_err'] < case['control_max_rel_err'],
+                          'decoder_steps {}: not under the control: {}'.format(key, case))
+                if name == 'int8_lstm' and not deterministic:
+                    trace, frames = int8_lstm_lockstep(
+                        * args, fresh(), seed, control = packed[torch.float32], ** kw)
+                    check(torch.equal(frames, steps),
+                          'decoder_steps {}: 64 launches of one step differ from one of 64'
+                          .format(key))
+                    case['lockstep'] = int8_lockstep(key, trace, tolerance[name])
+                else:
+                    check(torch.equal(st['main'], ref_st['main']), 'decoder_steps argmax differs')
+                    check(case['max_rel_err'] <= tolerance[name],
+                          'decoder_steps {}: relative errors {} > {}'.format(
+                              key, rel, tolerance[name]))
                 if not window and not deterministic:
                     # the main path's mode: dropout on.  Two launches of 32
                     # steps must equal one of 64 to the bit (same products,
@@ -255,9 +435,9 @@ def decoder_steps_phase(model):
                     b = decoder_steps(* args, st, seed, step0 = K // 2, ** half)[0]
                     check(torch.equal(torch.cat([a, b]), steps),
                           'decoder_steps {}: 2 x 32 steps differ from 64'.format(key))
-                    flops, nbytes, weight_bytes = decoder_steps_work(
-                        args[0], B, S, K, args[1].element_size())
                     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+                    ops_s, nbytes, weight_bytes = decoder_steps_work(
+                        args[0], B, S, K, args[1].element_size(), peak)
                     st = fresh()
                     kernel_ms = time_ms(lambda: decoder_steps(* args, st, seed, ** kw))
                     plain_ms = time_ms(lambda: decoder_steps_plain(* args, st, seed, ** kw),
@@ -273,12 +453,11 @@ def decoder_steps_phase(model):
                     case.update(
                         chunked_equal = True, kernel_ms = kernel_ms,
                         us_per_step = 1e3 * kernel_ms / K, plain_ms = plain_ms,
-                        flops = flops, bytes = nbytes,
-                        bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
-                        bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
-                        else 'bytes',
-                        # no design can keep f32 weights on the chip: the
-                        # steps are serial, and each streams every weight
+                        ops_ms = 1e3 * ops_s, bytes = nbytes,
+                        bound_ms = 1e3 * max(ops_s, nbytes / PEAK_BYTES),
+                        bound_by = 'operations' if ops_s > nbytes / PEAK_BYTES else 'bytes',
+                        # the steps are serial, and each reads every weight
+                        # (from device memory where they exceed the L2)
                         serial_floor_ms = 1e3 * K * weight_bytes / PEAK_BYTES)
             del args, fresh
     emit({'phase': 'kernels', 'decoder_steps': cases,
@@ -300,8 +479,10 @@ def e2e_phase(model, vocoder, setup_s):
     from text_to_speech_tpu_torch.models.tts.tacotron2 import pad_batch
     from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
     from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
+    from text_to_speech_tpu_torch.ops.wn_block_int8 import fused_wn_block_int8
 
     wg_arch = vocoder.arch
+    n_flows = wg_arch.hp.n_flows
     generator = torch.Generator(device = 'cuda').manual_seed(0)
     max_frames, vocoder_batch, chunk = 256, 8, 64
     # the random stop gate is biased off, so every run decodes max_frames
@@ -311,30 +492,34 @@ def e2e_phase(model, vocoder, setup_s):
     synthesize_chunks = model._synthesize_chunks
     model._synthesize_chunks = lambda * a, ** kw: \
         retries.append(1) or synthesize_chunks(* a, ** kw)
+    mel_of = lambda frames, seed: torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (1, frames, wg_arch.hp.n_mel_channels)).astype(np.float32) - 5.).to('cuda')
 
-    runs = {}
-    for name, texts, route in (
-            ('one_sentence', SENTENCES[0], {}),
-            ('batch_of_4', SENTENCES, dict(batch_size = 4, use_fused_decoder = True)),
-            ('batch_of_4_plain_decoder', SENTENCES,
-             dict(batch_size = 4, use_fused_decoder = False))):
+    def drive(name, texts, route, serving):
+        """One `tts()` run after a warm-up, the launch counts read around it."""
         kw = dict(model = model, vocoder = vocoder, vocoder_batch = vocoder_batch,
                   generator = generator, ** gates, ** route)
         tts(texts, max_length = 64, ** kw)                              # warm-up
         torch.cuda.synchronize()
-        fused_wn_block.launches = decoder_steps.launches = 0
+        fused_wn_block.launches = fused_wn_block_int8.launches = decoder_steps.launches = 0
         start = time.perf_counter()
         outputs = tts(texts, max_length = max_frames, ** kw)
         total_s = time.perf_counter() - start
-        wn_launches, dec_launches = fused_wn_block.launches, decoder_steps.launches
+        launches = {'wn_block': fused_wn_block.launches,
+                    'wn_block_int8': fused_wn_block_int8.launches,
+                    'decoder_steps': decoder_steps.launches}
         rows = sum(len(out['mel']) for out in outputs)
         vocoder_calls = -(-rows // vocoder_batch)
-        check(wn_launches == wg_arch.hp.n_flows * vocoder_calls,
-              '{}: {} wn_block launches for {} vocoder calls'.format(
-                  name, wn_launches, vocoder_calls))
+        # each vocoder call runs every flow on the mode's kernel, and no other
+        expected = {'default': (n_flows * vocoder_calls, 0), 'int8': (0, n_flows * vocoder_calls),
+                    'float32_xla': (0, 0)}[serving]
+        check(vocoder.serving_mode == serving and
+              (launches['wn_block'], launches['wn_block_int8']) == expected,
+              '{}: {} launches for {} vocoder calls in mode {}'.format(
+                  name, launches, vocoder_calls, vocoder.serving_mode))
         fused = route.get('use_fused_decoder', True)
-        check(dec_launches == (-(-max_frames // chunk) if fused else 0),
-              '{}: {} decoder_steps launches'.format(name, dec_launches))
+        check(launches['decoder_steps'] == (-(-max_frames // chunk) if fused else 0),
+              '{}: {} decoder_steps launches'.format(name, launches['decoder_steps']))
         check(not retries, '{}: the retry path was taken'.format(name))
         audio_s = 0.
         for out in outputs:
@@ -344,21 +529,41 @@ def e2e_phase(model, vocoder, setup_s):
             check(bool(np.isfinite(out['audio']).all()), 'audio not finite')
             check(bool(np.isfinite(out['mel'][0]).all()), 'mel not finite')
             audio_s += out['time']
-        if name == 'one_sentence':
+        if isinstance(texts, str):
             # the one-launch path: 16-bit PCM from the device, / 32767 on the host
             grid = outputs[0]['audio'].astype(np.float64) * 32767.
             check(float(np.abs(grid - np.round(grid)).max()) < 1e-2
                   and float(np.abs(outputs[0]['audio']).max()) <= 1.,
-                  'one_sentence audio is not on the int16 grid')
+                  '{} audio is not on the int16 grid'.format(name))
             check(outputs[0]['attention'] == [None], 'attention fetched on the one-launch path')
         timings = model.last_timings
         runs[name] = {
-            'texts': len(outputs), 'frames': max_frames, 'audio_s': audio_s,
-            'decode_ms': 1e3 * timings['decode_s'], 'vocode_ms': 1e3 * timings['vocode_s'],
-            'total_ms': 1e3 * total_s, 'rtf': audio_s / total_s,
-            'wn_block_launches': wn_launches, 'decoder_steps_launches': dec_launches,
-            'vocoder_calls': vocoder_calls,
+            'serving_mode': serving, 'texts': len(outputs), 'frames': max_frames,
+            'audio_s': audio_s, 'decode_ms': 1e3 * timings['decode_s'],
+            'vocode_ms': 1e3 * timings['vocode_s'], 'total_ms': 1e3 * total_s,
+            'rtf': audio_s / total_s, 'launches': launches, 'vocoder_calls': vocoder_calls,
         }
+
+    runs = {}
+    one, batch = dict(), dict(batch_size = 4, use_fused_decoder = True)
+    drive('one_sentence', SENTENCES[0], one, 'default')
+    drive('batch_of_4', SENTENCES, batch, 'default')
+    drive('batch_of_4_plain_decoder', SENTENCES,
+          dict(batch_size = 4, use_fused_decoder = False), 'default')
+
+    # int8 serving: the quality gate on the card, then both routes on K2
+    gate_mel = mel_of(32, 5)
+    vocoder.quantize_for_serving(validate = gate_mel)
+    gate_snr = vocoder._last_serving_snr_db
+    check(vocoder.serving_mode == 'int8' and gate_snr >= 25.,
+          'int8 gate: mode {}, SNR {} dB'.format(vocoder.serving_mode, gate_snr))
+    drive('one_sentence_int8', SENTENCES[0], one, 'int8')
+    drive('batch_of_4_int8', SENTENCES, batch, 'int8')
+    # a gate that fails: the float32 chain serves, neither WN kernel runs
+    vocoder.quantize_for_serving(validate = gate_mel, gate_db = 1e9)
+    check(vocoder._last_serving_snr_db < 1e9, 'gate failure SNR')
+    drive('one_sentence_gate_failed', SENTENCES[0], one, 'float32_xla')
+    vocoder.quantize_for_serving(False)
     model._synthesize_chunks = synthesize_chunks
 
     # the fused decode against the plain decode on the card: float32, no
@@ -374,33 +579,62 @@ def e2e_phase(model, vocoder, setup_s):
     fused = model.compiled_infer(tokens, use_fused_decoder = True, ** kw)
     plain = model.compiled_infer(tokens, use_fused_decoder = False, ** kw)
     compared = ('mel', 'decoder_output', 'stop_tokens', 'attention_weights')
-    routes = {name: float((getattr(fused, name) - getattr(plain, name)).abs().max())
-              / max(float(getattr(plain, name).abs().max()), 1e-3) for name in compared}
+    rel = lambda a, b, name: float((getattr(a, name) - getattr(b, name)).abs().max()) \
+        / max(float(getattr(b, name).abs().max()), 1e-3)
+    routes = {name: rel(fused, plain, name) for name in compared}
     worst = max(routes.values())
     routes.update(lengths_equal = bool(torch.equal(fused.lengths, plain.lengths)),
                   tolerance_rel = 1e-4)
     check(routes['lengths_equal'] and worst <= 1e-4,
           'fused decode vs plain decode: {}'.format(routes))
 
-    # the vocoder's kernel path against its float32 chain on a short mel.
-    # Tolerance 1e-2 of the waveform's largest magnitude: bf16 buffers
-    # (8-bit mantissa) through 12 flows measured 1.3e-3 with these seeds
-    # on an H100; 1e-2 leaves room for another summation order, and a
-    # wrong tap or row would miss it by orders of magnitude.
-    mel = torch.from_numpy(np.random.default_rng(3).standard_normal(
-        (1, 16, wg_arch.hp.n_mel_channels)).astype(np.float32) - 5.).to('cuda')
+    # the int8 LSTM decode, `infer_fused(int8_lstm=True)`, on the same two
+    # sentences: its launches, and how far it lands from the float32 decode
+    # (reported; the kernel is held to its plain version in the kernels phase)
+    # the tokens as `compiled_infer` padded them
+    tokens_dev = torch.as_tensor(model._bucket(tokens, max_frames, 64)[0], dtype = torch.long,
+                                 device = 'cuda')
+    with torch.no_grad():
+        decoder_steps.launches = 0
+        int8_decode = model.arch.infer_fused(model.params, model.state, tokens_dev,
+                                             int8_lstm = True, ** kw)
+        int8_launches = decoder_steps.launches
+    check(int8_launches == max_frames // chunk and
+          bool(torch.isfinite(int8_decode.mel).all()) and
+          int8_decode.mel.shape == fused.mel.shape,
+          'int8 LSTM decode: {} launches'.format(int8_launches))
+    int8_lstm = {'launches': int8_launches,
+                 'vs_float32_decode_rel': {name: rel(int8_decode, fused, name)
+                                           for name in compared}}
+
+    # the vocoder's kernel routes against its float32 chain on a short mel.
+    # bf16 route: tolerance 1e-2 of the waveform's largest magnitude: bf16
+    # buffers (8-bit mantissa) through 12 flows measured 1.3e-3 with these
+    # seeds on an H100; 1e-2 leaves room for another summation order, and a
+    # wrong tap or row would miss it by orders of magnitude.  int8 route:
+    # the serving gate, 25 dB.
+    mel = mel_of(16, 3)
     lg = 16 * wg_arch.hp.upsample_stride // wg_arch.hp.n_group
+    snr_db = lambda ref, out: 10 * float(torch.log10(
+        (ref.double() ** 2).mean() / ((out.double() - ref.double()) ** 2).mean()))
     with torch.no_grad():
         z = torch.randn((1, lg, wg_arch.hp.n_group), generator = generator, device = 'cuda')
-        fast = wg_arch.infer(vocoder._serving_params(True), mel, z = z, use_kernel = True)
+        fast = wg_arch.infer(vocoder._serving_params(True, False), mel, z = z, use_kernel = True)
+        fast8 = wg_arch.infer(vocoder._serving_params(True, True), mel, z = z, use_kernel = True)
         plain = wg_arch.infer(vocoder.params, mel, z = z, use_kernel = False)
     err = float((fast - plain).abs().max()) / float(plain.abs().max())
-    snr = 10 * float(torch.log10((plain ** 2).mean() / ((fast - plain) ** 2).mean()))
     check(err < 1e-2, 'vocoder kernel path vs f32 chain: rel err {}'.format(err))
+    int8_snr = snr_db(plain, fast8)
+    check(int8_snr >= 25., 'int8 vocoder vs f32 chain: {} dB'.format(int8_snr))
     emit({'phase': 'e2e', 'setup_s': setup_s, 'runs': runs,
-          'fused_vs_plain_decode': routes,
-          'vocoder_kernel_vs_f32': {'max_rel_err': err, 'snr_db': snr, 'tolerance_rel': 1e-2}})
-    return runs
+          'fused_vs_plain_decode': routes, 'int8_lstm_decode': int8_lstm,
+          'int8_gate': {'snr_db': gate_snr, 'gate_db': 25., 'frames': 32},
+          'vocoder_kernel_vs_f32': {'max_rel_err': err, 'snr_db': snr_db(plain, fast),
+                                    'tolerance_rel': 1e-2},
+          'vocoder_int8_vs_f32': {'snr_db': int8_snr, 'limit_db': 25.,
+                                  'max_rel_err': float((fast8 - plain).abs().max())
+                                  / float(plain.abs().max())}})
+    return runs, int8_lstm
 
 
 def main():
@@ -416,7 +650,8 @@ def main():
                           '--format=csv,noheader'],
                          capture_output = True, text = True, check = True).stdout.strip()
     start = time.perf_counter()
-    _build.build_all(['wn_block', 'decoder_steps'])
+    # one nvcc per source, all started together
+    _build.build_all(['wn_block', 'decoder_steps', 'wn_block_int8'])
     build_s = time.perf_counter() - start
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if 'registers' in line or 'spill' in line]
@@ -431,24 +666,33 @@ def main():
     setup_s = time.perf_counter() - start
 
     wn_cases = wn_block_phase()
+    wn8_cases = wn_block_int8_phase()
     dec_cases = decoder_steps_phase(model)
-    runs = e2e_phase(model, vocoder, setup_s)
+    runs, int8_lstm = e2e_phase(model, vocoder, setup_s)
 
-    wn_case = wn_cases['bfloat16_B1_T8192']
-    dec_case = dec_cases['float32_B1_S64_dropout']         # what `tts(text)` runs
+    launches = lambda kernel: sum(r['launches'][kernel] for r in runs.values())
     summary = lambda case, ** entry: dict(
         entry, max_abs_err = case['max_abs_err'], ms = case['kernel_ms'],
         plain_ms = case['plain_ms'], bound_ms = case['bound_ms'],
         bound_by = case['bound_by'], library_ms = None)
     print(json.dumps({'kernels': [
-        summary(wn_case, name = 'fused_wn_block', route = 'cuda',
+        summary(wn_cases['bfloat16_B1_T8192'], name = 'fused_wn_block', route = 'cuda',
                 source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
-                launches = sum(r['wn_block_launches'] for r in runs.values())),
-        summary(dec_case, name = 'decoder_steps', route = 'cuda',
+                launches = launches('wn_block')),
+        # `tts(text)` decodes in float32 with dropout on
+        summary(dec_cases['float32_B1_S64_dropout'], name = 'decoder_steps', route = 'cuda',
                 source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
                 replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
-                launches = sum(r['decoder_steps_launches'] for r in runs.values())),
+                launches = launches('decoder_steps')),
+        summary(dec_cases['int8_lstm_B1_S64_dropout'], name = 'decoder_steps (int8 LSTM)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = int8_lstm['launches']),
+        summary(wn8_cases['bfloat16_B1_T8192'], name = 'fused_wn_block_int8', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
+                launches = launches('wn_block_int8')),
     ]}), flush = True)
     print(smi, flush = True)
     print(json.dumps({'ok': True, 'device': {

@@ -154,6 +154,55 @@ def test_infer_fused_matches_jax(model, S, max_length, window):
     assert int(out.lengths.max()) == max_length
 
 
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_quantize_lstm_weights_is_bit_identical(model, dtype):
+    """From the packed weights in the compute dtype, as the JAX package
+    quantizes them."""
+    import jax.numpy as jnp
+    from text_to_speech_tpu.ops import decoder_kernel as jdk
+    arch, (jparams, _), (params, _) = model
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    ref = jdk.quantize_lstm_weights(
+        jdk.pack_decoder_weights(_jax(jparams)['decoder'], n_mel = 8, dtype = jdt))
+    out = dk.quantize_lstm_weights(dk.pack_decoder_weights(
+        cast_tree(params['decoder'], tdt), n_mel = 8, dtype = tdt))
+    for key in ('att_w', 'dec_w', 's_att_w', 's_dec_w'):
+        value = np.asarray(ref[key])
+        assert out[key].numpy().dtype == value.dtype, key
+        np.testing.assert_array_equal(out[key].numpy(), value, err_msg = key)
+    assert out['att_w'].dtype == torch.int8 and out['q_w'].dtype == tdt
+
+
+@pytest.mark.parametrize('window', [None, 8])
+def test_infer_fused_int8_lstm_matches_jax(model, window):
+    """`infer_fused(int8_lstm=True)` on the CPU (`decoder_steps_plain` on
+    int8 LSTM weights) against the JAX kernel in interpret mode, float32 on
+    both sides, 16 steps: within 1e-4 of each tensor's largest value
+    (measured 6.3e-7 on the mel; tanh and sigmoid differ between the
+    libraries in the last place, which could move an LSTM input row's amax
+    and so its int8 grid).  The int8 decode itself is 4e-3 to 6e-3 away
+    from the float32 one, so the bound tells the two apart."""
+    import jax.numpy as jnp
+    from text_to_speech_tpu.models.tacotron2_arch import Tacotron2 as JaxTacotron2
+    arch, (jparams, jstate), (params, state) = model
+    tokens = _tokens(2, 32)
+    kw = dict(deterministic = True, early_stopping = False, max_length = 16,
+              attn_mask_win_len = window, chunk = 8, int8_lstm = True)
+    ref = JaxTacotron2(** TINY).infer_fused(
+        _jax(jparams), _jax(jstate), jnp.asarray(tokens), interpret = True, ** kw)
+    with torch.no_grad():
+        out = arch.infer_fused(params, state, torch.from_numpy(tokens).long(), ** kw)
+        plain = arch.infer_fused(params, state, torch.from_numpy(tokens).long(),
+                                 ** dict(kw, int8_lstm = False))
+    for name in ('mel', 'stop_tokens', 'attention_weights'):
+        got, want = getattr(out, name).numpy(), np.asarray(getattr(ref, name))
+        scale = float(np.abs(want).max())
+        assert float(np.abs(got - want).max()) <= 1e-4 * scale, name
+    np.testing.assert_array_equal(out.lengths.numpy(), np.asarray(ref.lengths))
+    # the int8 products are in use: not the float32 decode
+    assert float((out.mel - plain.mel).abs().max()) > 1e-3 * float(plain.mel.abs().max())
+
+
 # -- the port against itself ---------------------------------------------------------
 
 @pytest.mark.parametrize('window', [None, 8])
@@ -260,6 +309,30 @@ def test_pack_layouts(model):
         assert slabs[slab, k, 4 * unit + gate] == w['att_w'][k, gate * U + slab * 8 + unit]
 
 
+def test_int8_slab_layout(model):
+    """int8 LSTM weights: the kernel's (U / 8, K / 4, 32, 4) slabs hold, for
+    each group of 4 inputs, column ``4 * unit + gate`` as the group's bytes;
+    `_check` takes the int8 layouts with their column scales, on the weights
+    a card keeps (`kernel_weights_only`)."""
+    arch, _, (params, state) = model
+    args, new_state = _step_inputs(arch, params, state, _tokens(2, 32))
+    w = dk.quantize_lstm_weights(args[0])
+    assert '_kernel' not in w
+    P, D, U = 8, 16, 16
+    slabs = dk._slabs_int8(w['dec_w'])
+    assert slabs.shape == (U // 8, (2 * U + D) // 4, 32, 4) and slabs.dtype == torch.int8
+    for slab, k, unit, gate in ((0, 0, 0, 0), (1, 5, 3, 2), (1, 47, 7, 3)):
+        assert slabs[slab, k // 4, 4 * unit + gate, k % 4] == \
+            w['dec_w'][k, gate * U + slab * 8 + unit]
+    only = dk.kernel_weights_only(w)
+    assert dk._check(only, * args[1:], new_state(), _seed(0), 2)[0] == 2
+    with pytest.raises(ValueError, match = 's_att_w'):
+        dk._check({k: v for k, v in only.items() if k != 's_att_w'}, * args[1:],
+                  new_state(), _seed(0), 2)
+    with pytest.raises(ValueError, match = 'K % 4'):
+        dk._slabs_int8(w['att_w'][:-1])
+
+
 # -- dropout ---------------------------------------------------------------------------
 
 def test_philox_known_answer_and_keep_rate():
@@ -316,8 +389,6 @@ def test_envelope_errors(model):
     with pytest.raises(ValueError):                      # more rows than the kernel takes
         arch.infer_fused(params, state, tokens[:1].repeat(9, 1), deterministic = True,
                          max_length = 8)
-    with pytest.raises(NotImplementedError, match = 'ROADMAP.md'):
-        arch.infer_fused(params, state, tokens, int8_lstm = True)
     assert not Tacotron2(** {** TINY, 'lsa_attention_kernel_size': 15}) \
         .supports_fused_decoder(2, 32)
     assert arch.supports_fused_decoder(8, 32)
@@ -337,9 +408,33 @@ def test_envelope_errors(model):
     with pytest.raises(ValueError, match = 'stamps'):    # only the kernel takes stamps
         dk.decoder_steps(* args, new_state(), _seed(0), n_steps = 2,
                          stamps = torch.zeros((20,), dtype = torch.int64))
+    with pytest.raises(ValueError, match = 'prenet_out'):
+        dk.decoder_steps(* args, new_state(), _seed(0), n_steps = 2,
+                         prenet_out = torch.zeros((2, args[0]['w1'].shape[1])))
+    with pytest.raises(ValueError, match = 'int8 LSTM mode'):
+        dk.int8_lstm_lockstep(* args, new_state(), _seed(0), n_steps = 2)
     args, new_state = _step_inputs(arch, params, state, _tokens(2, 32), device = 'meta')
     with pytest.raises(ValueError, match = 'cuda'):      # neither the card nor the CPU
         dk.decoder_steps(* args, new_state(), _seed(0, 'meta'), n_steps = 2)
+
+
+def test_grid_difference_finds_a_tie_flip():
+    """Two rows a float32 ulp apart at a value whose int8 grid rounding
+    changes between them: one value, one grid step, the row scale equal."""
+    row = torch.tensor([[3., -1., 0.25, 0.]])
+    scale = dk._row_quant8(row)[1][0, 0]
+    v = torch.tensor(10.5) * scale
+    up = lambda t: torch.nextafter(t, torch.tensor(1.))
+    while torch.round(v / scale) == torch.round(up(v) / scale):
+        v = up(v) if v / scale < 10.5 else torch.nextafter(v, torch.tensor(0.))
+    lo, hi = row.clone(), row.clone()
+    lo[0, 3], hi[0, 3] = v, up(v)
+    assert dk._grid_difference(lo, lo.clone(), (('x', 4),)) is None
+    moved = dk._grid_difference(hi, lo, (('x', 2), ('h', 2)))
+    assert moved['values'] == 1 and moved['max_grid_steps'] == 1. and moved['scales_equal']
+    assert moved['row_diff_rel_amax'] < 1e-7
+    first = moved['first']
+    assert (first['segment'], first['index'], first['ulps_apart']) == ('h', 1, 1.)
 
 
 def test_phase_times_from_stamps():
@@ -394,6 +489,55 @@ def test_kernel_matches_plain(cuda_device, dtype, atol, deterministic, B, S, win
     assert float((steps - ref_steps).abs().max()) <= atol
     assert float((attn - ref_attn).abs().max()) <= atol
     for key in ('c_att', 'c_dec', 'cum', 'h_att', 'h_dec', 'ctx'):
+        assert float((st[key].float() - ref_st[key].float()).abs().max()) <= atol, key
+
+
+# int8 LSTM mode: the integer sums are exact on both sides and the scales
+# apply in the same order, so float32 is held as above where both sides'
+# LSTM input rows quantize to the same int8 grid.  A staged value that
+# differs by a rounding can cross a rounding tie and move one product by a
+# grid step, which a decode carries on: with dropout, float32 is held step by
+# step from the plain version's state (`int8_lstm_lockstep`), and the
+# float32-LSTM kernel (the control) must miss the same limit.
+@pytest.mark.cuda
+@pytest.mark.parametrize('dtype,atol', [(torch.float32, 1e-4), (torch.bfloat16, 5e-2)])
+@pytest.mark.parametrize('deterministic', [True, False])
+@pytest.mark.parametrize('B,S,window', [(1, 32, False), (3, 40, True), (8, 8, False)])
+def test_kernel_int8_lstm_matches_plain(cuda_device, dtype, atol, deterministic, B, S, window):
+    arch, params, state = _tiny_model()
+    args, new_state = _step_inputs(arch, params, state, _tokens(B, S), dtype, cuda_device)
+    control = args[0]
+    args = (dk.quantize_lstm_weights(args[0]),) + args[1:]
+    kw = dict(n_steps = 7, deterministic = deterministic, use_window = window, win_len = 8,
+              win_offset = 4)
+    if dtype == torch.float32 and not deterministic:
+        steps, frames = dk.int8_lstm_lockstep(* args, new_state(), _seed(11, cuda_device),
+                                              control = control, ** kw)
+        whole = dk.decoder_steps(* args, new_state(), _seed(11, cuda_device), ** kw)[0]
+        assert torch.equal(frames, whole)
+        held = [s for s in steps if s['grids_equal']]
+        assert len(held) >= len(steps) // 2
+        assert max(s['rel_err'] for s in held) <= atol
+        assert max(s['control_rel_err'] for s in held) > atol
+        for s in steps:
+            if not s['grids_equal']:
+                moved = s.get('att', s.get('dec'))
+                assert moved['row_diff_rel_amax'] <= 1e-5 and moved['max_grid_steps'] <= 1.
+        for s in steps:
+            if not s['path_grids_equal']:
+                break
+            assert s['path_rel_err'] <= atol
+        return
+    before = dk.decoder_steps.launches
+    st = new_state()
+    steps, attn, _ = dk.decoder_steps(* args, st, _seed(11, cuda_device), ** kw)
+    torch.cuda.synchronize()
+    assert dk.decoder_steps.launches == before + 1
+    ref_st = new_state()
+    ref_steps, ref_attn, _ = dk.decoder_steps_plain(* args, ref_st, _seed(11, cuda_device), ** kw)
+    assert float((steps - ref_steps).abs().max()) <= atol
+    assert float((attn - ref_attn).abs().max()) <= atol
+    for key in ('c_att', 'c_dec', 'h_att', 'h_dec', 'ctx'):
         assert float((st[key].float() - ref_st[key].float()).abs().max()) <= atol, key
 
 

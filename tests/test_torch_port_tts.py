@@ -153,14 +153,15 @@ def test_single_sentence_quantises_on_the_device(port_models, monkeypatch):
     tts_calls = _count_calls(monkeypatch, model, 'compiled_tts')
     chunk_calls = _count_calls(monkeypatch, model, '_synthesize_chunks')
     kw = dict(deterministic = True, max_length = 2., min_fpt_ratio = -1.,
-              max_fpt_ratio = float('inf'))
+              max_fpt_ratio = float('inf'), vocoder_config = {'deterministic': True})
     out = model.infer('Hello world!', vocoder = vocoder, ** kw)
     assert len(tts_calls) == 1 and not chunk_calls
     assert set(model.last_timings) == {'decode_s', 'vocode_s'}
 
     tokens = model.encode_text(model.clean_text('Hello world!'), cleaned = True)
     a16, lengths, mel, attention = model.compiled_tts(
-        tokens, vocoder, deterministic = True, max_length = 2.)
+        tokens, vocoder, deterministic = True, max_length = 2.,
+        vocoder_config = {'deterministic': True})
     # 128 decoded frames, padded to the vocoder's multiple of 256 on the device
     assert mel.shape == (1, 128, 80)
     assert a16.dtype == torch.int16 and a16.shape == (1, 256 * 256)
@@ -171,6 +172,19 @@ def test_single_sentence_quantises_on_the_device(port_models, monkeypatch):
     np.testing.assert_array_equal(
         out['audio'], a16[0, : frames * 256].numpy().astype(np.float32) / 32767.)
     assert attention.shape == (1, mel.shape[1], 64)
+
+
+def test_one_launch_hands_the_vocoder_its_config_alone(port_models, monkeypatch):
+    """On the one-launch path the vocoder gets `vocoder_config` and none of
+    the decode's options, as in the JAX package (``deterministic`` decodes
+    without dropout and still vocodes with noise)."""
+    model, vocoder = port_models
+    calls = _count_calls(monkeypatch, vocoder, 'device_vocoder_fn')
+    kw = dict(model = model, vocoder = vocoder, max_length = 2., min_fpt_ratio = -1.,
+              max_fpt_ratio = float('inf'))
+    tts('Hello world!', deterministic = True, ** kw)
+    tts('Hello world!', deterministic = True, vocoder_config = {'sigma': 0.5}, ** kw)
+    assert calls == [{}, {'sigma': 0.5}]
 
 
 def test_gate_failure_retries_and_keeps_the_last_output(port_models, monkeypatch):

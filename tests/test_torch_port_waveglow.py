@@ -171,5 +171,7 @@ def test_task_pads_to_the_bucket_and_trims(models):
                          use_pallas = False)
     assert audio.shape == (1, 20 * CONFIG['upsample_stride'])
     np.testing.assert_allclose(audio, np.asarray(ref)[:, :audio.shape[1]], atol = ATOL, rtol = 0)
-    with pytest.raises(NotImplementedError):
-        task.quantize_for_serving()
+    # int8 serving is recorded, and off a card the float32 chain still serves
+    task.quantize_for_serving()
+    assert task.serving_mode == 'int8' and task._serving_mode_flags() == (False, False)
+    np.testing.assert_array_equal(task.infer(mel, deterministic = True), audio)

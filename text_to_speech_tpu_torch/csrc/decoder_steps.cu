@@ -49,6 +49,16 @@
 // Dropout keeps a value iff philox4x32-10(key = seed, counter = (absolute
 // step, row, unit, layer)) word 0 >= threshold: independent of the grid, of
 // the launch length and of the block that computes it.
+//
+// int8 LSTM mode (the TPU kernel's `int8_lstm`): att_w and dec_w are int8
+// with one f32 scale per output column.  Every block quantizes the staged
+// input row [x | ctx | h] itself (scale = max(amax, 1e-8) * (1/127), q =
+// rint(x / scale) clipped to 127), so no further barrier is needed; the
+// products are __dp4a on 4 int8 k values against 4 int8 weights with int32
+// sums, exact in any order, and z = float(sum) * row scale * column scale +
+// bias.  The int8 slabs are laid out (U / 8, K / 4, 32, 4): for every group
+// of 4 k rows, the 32 columns of the slab, each as its 4 k bytes.  They are
+// half the bytes of bf16 (18.2 MB at NVIDIA width), which fits the 50 MB L2.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -96,6 +106,8 @@ struct Params {
   // optional (may be null): clock stamps of the block that owns row 0, 8 a
   // step, then (globaltimer ns, clock) at the start and at the end
   long long* stamps;
+  // int8 LSTM mode: per-column scales of att_w and dec_w (null otherwise)
+  const float *s_att, *s_dec;
   int B, S, n_mel, P0, P1, D, U, A, K, step0;
   int deterministic, use_window, win_len, win_offset;
   unsigned drop_threshold;
@@ -207,7 +219,7 @@ __host__ __device__ inline int up4(int n) { return (n + 3) & ~3; }
 
 // offsets in floats; every array starts at a multiple of 4 floats
 struct Layout {
-  int in_s, red, vec, fr, x0, x1, part, pq, v, locw, prevp, cump, e, attn, scratch, total;
+  int in_s, in_q, row_s, red, vec, fr, x0, x1, part, pq, v, locw, prevp, cump, e, attn, scratch, total;
 };
 
 __host__ __device__ inline Layout make_layout(int NB, int S, int n_mel, int P0, int P1,
@@ -216,6 +228,8 @@ __host__ __device__ inline Layout make_layout(int NB, int S, int n_mel, int P0, 
   const int k_att = P1 + D + U, k_dec = 2 * U + D;
   int at = 0;
   l.in_s = at;    at += up4((k_att > k_dec ? k_att : k_dec) * NB);
+  l.in_q = at;    at += up4((k_att > k_dec ? k_att : k_dec) / 4 * NB);   // int32 words
+  l.row_s = at;   at += MAX_ROWS;
   l.red = at;     at += WARPS * SLAB_UNITS * NB * 4;
   l.vec = at;     at += up4(U + D);
   l.fr = at;      at += up4(n_mel + 1);
@@ -315,62 +329,164 @@ __device__ inline void stage(float* in_s, int off, const V* src, int len, int B)
   }
 }
 
-// z = in_s @ W + bias for this block's slabs, then the pointwise update:
-// c (B, U) f32 in place, h_out (B, U) in T
-template <typename T, int NB>
-__device__ void lstm_slabs(const T* __restrict__ wk, const float* __restrict__ bias,
-                           int Kd, int U, int B, const float* in_s, float* red,
-                           float* c_state, T* h_out) {
+// int8 LSTM mode: rows [0, NB) of in_s → in_q[k4 * NB + b], the int8 values
+// of rows 4 k4 .. 4 k4 + 3 packed in one word, and their scales row_s[b].
+// Every block computes the same values from the same staged rows.
+__device__ inline int quant8(float v) { return max(-127, min(127, __float2int_rn(v))); }
+
+template <int NB>
+__device__ void quantize_rows(const float* in_s, int Kd, int* in_q, float* row_s,
+                              float* scratch) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // THREADS and 32 are multiples of NB: a thread sees one row, b = tid % NB
+  float amax = 0.f;
+  for (int i = threadIdx.x; i < Kd * NB; i += THREADS) amax = fmaxf(amax, fabsf(in_s[i]));
+#pragma unroll
+  for (int o = 16; o >= NB; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  if (lane < NB) scratch[warp * NB + lane] = amax;
+  __syncthreads();
+  if (threadIdx.x < NB) {
+    float m = 0.f;
+    for (int w = 0; w < WARPS; ++w) m = fmaxf(m, scratch[w * NB + threadIdx.x]);
+    row_s[threadIdx.x] = __fmul_rn(fmaxf(m, 1e-8f), 1.f / 127.f);
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < Kd / 4 * NB; i += THREADS) {
+    const int k4 = i / NB, b = i - k4 * NB;
+    const float s = row_s[b];
+    unsigned word = 0;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      word |= (unsigned)(quant8(__fdiv_rn(in_s[(4 * k4 + j) * NB + b], s)) & 0xff) << (8 * j);
+    in_q[i] = (int)word;
+  }
+  __syncthreads();
+}
+
+template <int NB>
+__device__ inline void dp4a_rows(int (&acc)[NB][4], const uint4 w, const int* q) {
+#pragma unroll
+  for (int b = 0; b < NB; ++b) {
+    const int x = q[b];
+    acc[b][0] = __dp4a(x, (int)w.x, acc[b][0]);
+    acc[b][1] = __dp4a(x, (int)w.y, acc[b][1]);
+    acc[b][2] = __dp4a(x, (int)w.z, acc[b][2]);
+    acc[b][3] = __dp4a(x, (int)w.w, acc[b][3]);
+  }
+}
+
+// z = in_s @ W + bias for this block's slabs (in int8 mode: from in_q, with
+// the row and column scales), then the pointwise update: c (B, U) f32 in
+// place, h_out (B, U) in T
+template <typename T, int NB, bool Q8>
+__device__ void lstm_slabs(const void* __restrict__ wk_, const float* __restrict__ bias,
+                           const float* __restrict__ s_w, int Kd, int U, int B,
+                           const float* in_s, const int* in_q, const float* row_s,
+                           float* red, float* c_state, T* h_out) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int unit = lane & (SLAB_UNITS - 1), ksub = lane >> 3;
   const int n_slabs = U / SLAB_UNITS;
   for (int slab = blockIdx.x; slab < n_slabs; slab += gridDim.x) {
-    const T* w = wk + (size_t)slab * Kd * SLAB_COLS + unit * 4;
-    float acc[NB][4];
+    if constexpr (Q8) {
+      const int K4 = Kd / 4;
+      const unsigned char* w = static_cast<const unsigned char*>(wk_)
+          + ((size_t)slab * K4 * SLAB_COLS + unit * 4) * 4;
+      int acc[NB][4];
 #pragma unroll
-    for (int b = 0; b < NB; ++b)
-      acc[b][0] = acc[b][1] = acc[b][2] = acc[b][3] = 0.f;
-    int k = warp * 4 + ksub;
-    for (; k + 3 * K_LANES < Kd; k += 4 * K_LANES) {
-      float4 wv[4];
+      for (int b = 0; b < NB; ++b) acc[b][0] = acc[b][1] = acc[b][2] = acc[b][3] = 0;
+      int k = warp * 4 + ksub;
+      for (; k + 3 * K_LANES < K4; k += 4 * K_LANES) {
+        uint4 wv[4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) wv[j] = ldg4(w + (size_t)(k + j * K_LANES) * SLAB_COLS);
+        for (int j = 0; j < 4; ++j)
+          wv[j] = __ldg(reinterpret_cast<const uint4*>(w + (size_t)(k + j * K_LANES) * SLAB_COLS * 4));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) fma_rows<NB>(acc, wv[j], in_s + (k + j * K_LANES) * NB);
-    }
-    for (; k < Kd; k += K_LANES)
-      fma_rows<NB>(acc, ldg4(w + (size_t)k * SLAB_COLS), in_s + k * NB);
-    // the four k rows of a warp, then the warps in turn
-#pragma unroll
-    for (int b = 0; b < NB; ++b)
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float v = acc[b][g];
-        v += __shfl_xor_sync(0xffffffffu, v, 8);
-        v += __shfl_xor_sync(0xffffffffu, v, 16);
-        acc[b][g] = v;
+        for (int j = 0; j < 4; ++j) dp4a_rows<NB>(acc, wv[j], in_q + (k + j * K_LANES) * NB);
       }
-    if (ksub == 0) {
+      for (; k < K4; k += K_LANES)
+        dp4a_rows<NB>(acc, __ldg(reinterpret_cast<const uint4*>(w + (size_t)k * SLAB_COLS * 4)),
+                      in_q + k * NB);
 #pragma unroll
       for (int b = 0; b < NB; ++b)
-        reinterpret_cast<float4*>(red)[(warp * SLAB_UNITS + unit) * NB + b] =
-            make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          int v = acc[b][g];
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          acc[b][g] = v;
+        }
+      if (ksub == 0) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          reinterpret_cast<int4*>(red)[(warp * SLAB_UNITS + unit) * NB + b] =
+              make_int4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+      }
+    } else {
+      const T* w = static_cast<const T*>(wk_) + (size_t)slab * Kd * SLAB_COLS + unit * 4;
+      float acc[NB][4];
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+        acc[b][0] = acc[b][1] = acc[b][2] = acc[b][3] = 0.f;
+      int k = warp * 4 + ksub;
+      for (; k + 3 * K_LANES < Kd; k += 4 * K_LANES) {
+        float4 wv[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j) wv[j] = ldg4(w + (size_t)(k + j * K_LANES) * SLAB_COLS);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) fma_rows<NB>(acc, wv[j], in_s + (k + j * K_LANES) * NB);
+      }
+      for (; k < Kd; k += K_LANES)
+        fma_rows<NB>(acc, ldg4(w + (size_t)k * SLAB_COLS), in_s + k * NB);
+      // the four k rows of a warp, then the warps in turn
+#pragma unroll
+      for (int b = 0; b < NB; ++b)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          float v = acc[b][g];
+          v += __shfl_xor_sync(0xffffffffu, v, 8);
+          v += __shfl_xor_sync(0xffffffffu, v, 16);
+          acc[b][g] = v;
+        }
+      if (ksub == 0) {
+#pragma unroll
+        for (int b = 0; b < NB; ++b)
+          reinterpret_cast<float4*>(red)[(warp * SLAB_UNITS + unit) * NB + b] =
+              make_float4(acc[b][0], acc[b][1], acc[b][2], acc[b][3]);
+      }
     }
     __syncthreads();
     if (threadIdx.x < SLAB_UNITS * NB) {
       const int b = threadIdx.x / SLAB_UNITS, ul = threadIdx.x % SLAB_UNITS;
       if (b < B) {
         const int u = slab * SLAB_UNITS + ul;
-        float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+        float4 pre;
+        if constexpr (Q8) {
+          int4 z = make_int4(0, 0, 0, 0);
 #pragma unroll
-        for (int wi = 0; wi < WARPS; ++wi) {
-          const float4 v = reinterpret_cast<const float4*>(red)[(wi * SLAB_UNITS + ul) * NB + b];
-          z.x += v.x; z.y += v.y; z.z += v.z; z.w += v.w;
+          for (int wi = 0; wi < WARPS; ++wi) {
+            const int4 v = reinterpret_cast<const int4*>(red)[(wi * SLAB_UNITS + ul) * NB + b];
+            z.x += v.x; z.y += v.y; z.z += v.z; z.w += v.w;
+          }
+          // (float(z) * row scale) * column scale + bias, in the TPU kernel's order
+          const float rs = row_s[b];
+          auto dq = [&](int zi, int col) {
+            return __fadd_rn(__fmul_rn(__fmul_rn(__int2float_rn(zi), rs), s_w[col]), bias[col]);
+          };
+          pre = make_float4(dq(z.x, u), dq(z.y, U + u), dq(z.z, 2 * U + u), dq(z.w, 3 * U + u));
+        } else {
+          float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+          for (int wi = 0; wi < WARPS; ++wi) {
+            const float4 v = reinterpret_cast<const float4*>(red)[(wi * SLAB_UNITS + ul) * NB + b];
+            z.x += v.x; z.y += v.y; z.z += v.z; z.w += v.w;
+          }
+          pre = make_float4(z.x + bias[u], z.y + bias[U + u], z.z + bias[2 * U + u],
+                            z.w + bias[3 * U + u]);
         }
-        const float gi = sigmoidf(z.x + bias[u]);
-        const float gf = sigmoidf(z.y + bias[U + u]);
-        const float gg = tanhf(z.z + bias[2 * U + u]);
-        const float go = sigmoidf(z.w + bias[3 * U + u]);
+        const float gi = sigmoidf(pre.x);
+        const float gf = sigmoidf(pre.y);
+        const float gg = tanhf(pre.z);
+        const float go = sigmoidf(pre.w);
         const size_t at = (size_t)b * U + u;
         const float c = gf * ldcg1(c_state + at) + gi * gg;
         c_state[at] = c;
@@ -577,12 +693,14 @@ __device__ void attention_row(const Params& p, const Layout& l, float* smem, int
 
 // ---- the kernel ---------------------------------------------------------------
 
-template <typename T, int NB>
+template <typename T, int NB, bool Q8>
 __global__ void __launch_bounds__(THREADS, 1) decoder_steps_kernel(const Params p) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ __align__(16) float smem[];
   const Layout l = make_layout(NB, p.S, p.n_mel, p.P0, p.P1, p.D, p.U, p.A);
   float* in_s = smem + l.in_s;
+  int* in_q = reinterpret_cast<int*>(smem + l.in_q);
+  float* row_s = smem + l.row_s;
   float* red = smem + l.red;
 
   // batch rows are dealt to the last blocks of the grid, which own no slab
@@ -641,8 +759,9 @@ __global__ void __launch_bounds__(THREADS, 1) decoder_steps_kernel(const Params 
     stage<NB>(in_s, p.P1, ctx, p.D, p.B);
     stage<NB>(in_s, p.P1 + p.D, h_att[cur], p.U, p.B);
     __syncthreads();
-    lstm_slabs<T, NB>(static_cast<const T*>(p.att_k), p.att_b, k_att, p.U, p.B, in_s,
-                      red, p.c_att, h_att[nxt]);
+    if constexpr (Q8) quantize_rows<NB>(in_s, k_att, in_q, row_s, red);
+    lstm_slabs<T, NB, Q8>(p.att_k, p.att_b, p.s_att, k_att, p.U, p.B, in_s, in_q, row_s,
+                          red, p.c_att, h_att[nxt]);
     stamp(stamps, 8 * t + 2);
     grid.sync();
     stamp(stamps, 8 * t + 3);
@@ -657,8 +776,9 @@ __global__ void __launch_bounds__(THREADS, 1) decoder_steps_kernel(const Params 
     stage<NB>(in_s, p.U, ctx, p.D, p.B);
     stage<NB>(in_s, p.U + p.D, h_dec[cur], p.U, p.B);
     __syncthreads();
-    lstm_slabs<T, NB>(static_cast<const T*>(p.dec_k), p.dec_b, k_dec, p.U, p.B, in_s,
-                      red, p.c_dec, h_dec[nxt]);
+    if constexpr (Q8) quantize_rows<NB>(in_s, k_dec, in_q, row_s, red);
+    lstm_slabs<T, NB, Q8>(p.dec_k, p.dec_b, p.s_dec, k_dec, p.U, p.B, in_s, in_q, row_s,
+                          red, p.c_dec, h_dec[nxt]);
     stamp(stamps, 8 * t + 6);
     grid.sync();
     stamp(stamps, 8 * t + 7);
@@ -678,11 +798,11 @@ __global__ void __launch_bounds__(THREADS, 1) decoder_steps_kernel(const Params 
   }
 }
 
-template <typename T, int NB>
+template <typename T, int NB, bool Q8>
 int launch(const Params& p, cudaStream_t stream) {
   const Layout l = make_layout(NB, p.S, p.n_mel, p.P0, p.P1, p.D, p.U, p.A);
   const int smem = l.total * (int)sizeof(float);
-  auto kernel = decoder_steps_kernel<T, NB>;
+  auto kernel = decoder_steps_kernel<T, NB, Q8>;
   int device = 0, sms = 0, smem_max = 0, cooperative = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -705,12 +825,18 @@ int launch(const Params& p, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool Q8>
 int launch_rows(const Params& p, cudaStream_t stream) {
-  if (p.B <= 1) return launch<T, 1>(p, stream);
-  if (p.B <= 2) return launch<T, 2>(p, stream);
-  if (p.B <= 4) return launch<T, 4>(p, stream);
-  return launch<T, 8>(p, stream);
+  if (p.B <= 1) return launch<T, 1, Q8>(p, stream);
+  if (p.B <= 2) return launch<T, 2, Q8>(p, stream);
+  if (p.B <= 4) return launch<T, 4, Q8>(p, stream);
+  return launch<T, 8, Q8>(p, stream);
+}
+
+template <typename T>
+int launch_mode(const Params& p, bool int8, cudaStream_t stream) {
+  if (int8) return launch_rows<T, true>(p, stream);
+  return launch_rows<T, false>(p, stream);
 }
 
 }  // namespace
@@ -719,10 +845,12 @@ int launch_rows(const Params& p, cudaStream_t stream) {
 // att_b, v_w, dec_b, proj_b (f32); mem, pm (T); mask (f32), enc_len (i32),
 // extra (f32), seed (i64); frame (f32), h_att (T), c_att (f32), h_dec (T),
 // c_dec (f32), ctx (T), prev, cum (f32), main (i32); x (f32), h_att_alt,
-// h_dec_alt (T); steps, attn (f32); stamps (i64, 8 K + 4, or null).
+// h_dec_alt (T); steps, attn (f32); stamps (i64, 8 K + 4, or null);
+// s_att, s_dec (f32, 4U, in the logical column order; null unless int8).
 // ints, in order: is_bf16, B, S, n_mel, P0, P1, D, U, A, K, step0,
-// deterministic, use_window, win_len, win_offset, drop_threshold.
-// Layouts: att_k / dec_k (U / 8, K, 32) slabs with column 4 * unit + gate;
+// deterministic, use_window, win_len, win_offset, drop_threshold, int8.
+// Layouts: att_k / dec_k (U / 8, K, 32) slabs with column 4 * unit + gate,
+// in T, or with int8 (U / 8, K / 4, 32, 4);
 // proj_t (n_mel + 1, U + D); every other array as its logical shape,
 // row-major.  Requires B <= 8, U % 8 == 0, P0, P1, A, U + D multiples of 4
 // and at most 2048, and 16-byte aligned pointers.  Returns the CUDA error
@@ -745,7 +873,8 @@ extern "C" int decoder_steps_forward(const void* const* ptrs, const long long* i
   p.x = (float*)ptrs[i++]; p.h_att_alt = (void*)ptrs[i++]; p.h_dec_alt = (void*)ptrs[i++];
   p.steps = (float*)ptrs[i++]; p.attn = (float*)ptrs[i++];
   p.stamps = (long long*)ptrs[i++];
-  const bool is_bf16 = ints[0] != 0;
+  p.s_att = (const float*)ptrs[i++]; p.s_dec = (const float*)ptrs[i++];
+  const bool is_bf16 = ints[0] != 0, int8 = ints[16] != 0;
   p.B = (int)ints[1]; p.S = (int)ints[2]; p.n_mel = (int)ints[3]; p.P0 = (int)ints[4];
   p.P1 = (int)ints[5]; p.D = (int)ints[6]; p.U = (int)ints[7]; p.A = (int)ints[8];
   p.K = (int)ints[9]; p.step0 = (int)ints[10]; p.deterministic = (int)ints[11];
@@ -757,6 +886,8 @@ extern "C" int decoder_steps_forward(const void* const* ptrs, const long long* i
       p.P0 % 4 || p.P1 % 4 || p.A % 4 || (p.U + p.D) % 4 || p.P0 > limit ||
       p.P1 > limit || p.A > limit)
     return (int)cudaErrorInvalidValue;
-  if (is_bf16) return launch_rows<__nv_bfloat16>(p, (cudaStream_t)stream);
-  return launch_rows<float>(p, (cudaStream_t)stream);
+  if (int8 && (p.s_att == nullptr || p.s_dec == nullptr || p.D % 4))
+    return (int)cudaErrorInvalidValue;
+  if (is_bf16) return launch_mode<__nv_bfloat16>(p, int8, (cudaStream_t)stream);
+  return launch_mode<float>(p, int8, (cudaStream_t)stream);
 }

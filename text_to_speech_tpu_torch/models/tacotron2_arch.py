@@ -9,8 +9,8 @@ port's layouts (`weights.tacotron2_from_jax`).
 
 `infer` is the JAX package's XLA while-loop decoder, run as a Python loop
 of small library calls.  `infer_fused` runs the same decode on the fused
-decoder-step kernel (`ops.decoder_kernel.decoder_steps`), 64 steps a launch;
-`supports_fused_decoder` is its envelope.
+decoder-step kernel (`ops.decoder_kernel.decoder_steps`), 64 steps a launch,
+optionally with int8 LSTM weights; `supports_fused_decoder` is its envelope.
 """
 
 import collections
@@ -20,7 +20,7 @@ import torch
 from ..hparams import HParams
 from ..nn import layers as nn
 from ..ops.decoder_kernel import (
-    MAX_ROWS, decoder_steps, init_decoder_state, pack_decoder_weights)
+    MAX_ROWS, decoder_steps, init_decoder_state, pack_decoder_weights, quantize_lstm_weights)
 from ..weights import cast_tree
 
 Tacotron2InferenceOutput = collections.namedtuple(
@@ -339,11 +339,11 @@ class Tacotron2:
         not.  Same contract as `infer`; prenet dropout draws from the
         kernel's own generator, keyed by one seed taken from `generator`.
         `weights`: the decoder already packed (`pack_decoder_weights`) in
-        the compute dtype, to skip the packing."""
+        the compute dtype, to skip the packing.  ``int8_lstm=True`` runs the
+        two LSTM products on int8 weights with per-column scales and per-row
+        activation quantization (`ops.decoder_kernel.quantize_lstm_weights`),
+        quantizing `weights` unless they already are."""
         hp = self.hp
-        if int8_lstm:
-            raise NotImplementedError(
-                'the int8 LSTM mode of the fused decoder is not ported yet: see ROADMAP.md')
         if deterministic is None: deterministic = hp.prenet_deterministic
         if max_length is None: max_length = hp.max_decoder_steps
         max_length = int(max_length)
@@ -366,6 +366,8 @@ class Tacotron2:
         if weights is None:
             weights = pack_decoder_weights(params['decoder'], n_mel = n_mel,
                                            dtype = compute_dtype)
+        if int8_lstm and 's_att_w' not in weights:
+            weights = quantize_lstm_weights(weights)
         mask = enc_mask.float()
         enc_len = enc_mask.sum(dim = 1).to(torch.int32)
         extra = torch.zeros((batch, hp.prenet_sizes[0]), device = device)

@@ -228,9 +228,10 @@ class Tacotron2:
         Returns device tensors ``(audio_i16 (B, F * rate), lengths (B,),
         mel (B, F, n_mel), attention (B, F, S))``; nothing is fetched here.
         `clock` gets a mark before the decode, after it and after the
-        vocoder."""
-        voc_fn, voc_params, _ = vocoder.device_vocoder_fn(
-            ** {** kwargs, ** vocoder_config})
+        vocoder.  The vocoder's options are `vocoder_config` alone, as in
+        the JAX package: the decode's options (``deterministic`` among
+        them) do not reach it."""
+        voc_fn, voc_params, _ = vocoder.device_vocoder_fn(** vocoder_config)
         voc_pad = vocoder.serving_pad_multiple
         if clock is not None: clock.mark()
         out = self.compiled_infer(tokens, ** kwargs)

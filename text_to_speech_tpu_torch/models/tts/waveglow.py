@@ -1,14 +1,19 @@
 """WaveGlow task model: mel → waveform.
 
 Counterpart of ``text_to_speech_tpu/models/tts/waveglow.py``: `infer` with
-the ×256-frame padding of `compiled_infer`, and the kernel choice of
-`_serving_mode_flags` / `_serving_params` — the coupling blocks run in the
-`ops.wn_block` CUDA kernel whenever the model lives on a CUDA device (the
-JAX package's test is ``platform == 'tpu'``), with the kernel weights
-packed once, in its bf16 buffer dtype, and cached.  Windowed vocoding and
-the int8 serving mode are not ported yet (see ROADMAP.md).
+the ×256-frame padding of `compiled_infer`, and the serving modes of
+`_serving_mode_flags` / `_serving_params` / `quantize_for_serving`.  On a
+CUDA device (the JAX package's test is ``platform == 'tpu'``) the coupling
+blocks run in a kernel: `ops.wn_block` with bf16 buffers by default, or,
+after `quantize_for_serving`, `ops.wn_block_int8`, its weights quantized
+once from the float32 params.  With a `validate` mel the int8 mode is
+gated on its waveform SNR against the float32 chain; when the gate fails,
+the vocoder serves on the float32 chain, never on the bf16 kernel.  The
+kernel weights are made once and cached.  Windowed vocoding is not ported
+yet (see ROADMAP.md).
 """
 
+import logging
 import os
 
 import numpy as np
@@ -18,6 +23,8 @@ from ...devices import default_device
 from ...weights import tree_to, waveglow_from_jax
 from ..saving import load_json, load_model_files
 from ..waveglow_arch import WaveGlow as WaveGlowArch
+
+logger = logging.getLogger(__name__)
 
 
 class WaveGlow:
@@ -32,7 +39,9 @@ class WaveGlow:
         self.params = tree_to(params, self.device)
         self.pad_mel_value = pad_mel_value
         self.rate = rate
-        self._packed_params = None
+        self._packed_params = None        # (params, int8, kernel params)
+        self._serve_int8 = False
+        self._serve_force_xla = False
 
     @classmethod
     def from_jax(cls, params, ** kwargs):
@@ -55,21 +64,85 @@ class WaveGlow:
         return self.arch.hp.upsample_stride
 
     def _serving_mode_flags(self):
-        """Whether the coupling blocks run in the CUDA kernel."""
-        return self.device.type == 'cuda'
+        """(use_kernel, int8): whether the coupling blocks run in a CUDA
+        kernel, and whether in the int8 one.  After a failed quality gate
+        (`quantize_for_serving`) neither: the float32 chain serves."""
+        use_kernel = self.device.type == 'cuda' and not self._serve_force_xla
+        return use_kernel, self._serve_int8 and use_kernel
 
-    def _serving_params(self, use_kernel):
-        """The params `arch.infer` wants: with the kernel-layout weights
-        added once, in the kernel's buffer dtype, when the kernel runs."""
+    def _serving_params(self, use_kernel, int8):
+        """The params `arch.infer` wants: with the kernel weights added once
+        (int8, or bf16 buffers) when a kernel runs, cached per parameter
+        tree and mode."""
         if not use_kernel:
             return self.params
-        if self._packed_params is None:
-            self._packed_params = self.arch.pack_kernel_params(self.params)
-        return self._packed_params
+        cached = self._packed_params
+        if cached is None or cached[0] is not self.params or cached[1] != int8:
+            pack = self.arch.quantize_kernel_params if int8 else self.arch.pack_kernel_params
+            self._packed_params = cached = (self.params, int8, pack(self.params))
+        return cached[2]
 
-    def quantize_for_serving(self, * args, ** kwargs):
-        raise NotImplementedError(
-            'int8 serving (fused_wn_block_int8) is not ported yet: see ROADMAP.md')
+    def quantize_for_serving(self, enable = True, *, validate = None, gate_db = 25.):
+        """Serve through the int8 WN-block kernel (`ops.wn_block_int8`):
+        weights quantized once to int8 with per-output-channel scales,
+        activations per row inside the kernel; the params themselves are
+        untouched.  Without a card the mode is recorded and the vocoder
+        stays on the float32 chain, as the JAX package does off its TPU.
+
+        With `validate` (a mel), the int8 route is held to the float32
+        chain on that mel first (`serving_snr`): below `gate_db` the
+        vocoder serves on the float32 chain, never on the bf16 kernel.  On
+        a card any error of that run propagates.  The mode is in
+        `serving_mode`, the measured SNR in `_last_serving_snr_db`."""
+        self._serve_int8 = bool(enable)
+        self._serve_force_xla = False
+        self._packed_params = None
+        if enable and validate is not None:
+            if self.device.type != 'cuda':
+                logger.warning('int8 validation skipped: the int8 kernel runs on a '
+                               'CUDA device, this model is on %s', self.device)
+                return self
+            snr = self.serving_snr(validate)
+            self._last_serving_snr_db = snr
+            if snr < gate_db:
+                logger.warning('int8 serving SNR gate FAILED (%.1f dB < %.1f dB): '
+                               'serving falls back to the float32 chain', snr, gate_db)
+                self._serve_int8 = False
+                self._serve_force_xla = True
+            else:
+                logger.info('int8 serving SNR gate: %.1f dB', snr)
+        return self
+
+    @property
+    def serving_mode(self):
+        """'int8' | 'float32_xla' (the gate failed: float32 chain) | 'default'."""
+        if self._serve_force_xla: return 'float32_xla'
+        if self._serve_int8: return 'int8'
+        return 'default'
+
+    def serving_snr(self, mel, *, seed = 0):
+        """Waveform SNR (dB) of the int8 route against the float32 chain on
+        `mel` (F, n_mel) or (B, F, n_mel), with the same noise: the quality
+        gate of `quantize_for_serving`.  The int8 route runs as the JAX
+        package's gate runs it, bf16 operands and an f32 audio stream; the
+        float32 chain under the caller's TF32 settings.  Needs a CUDA model:
+        raises `RuntimeError` elsewhere rather than compare a route that
+        never runs there.  The kernel launches at any length, so the mel is
+        not padded."""
+        if self.device.type != 'cuda':
+            raise RuntimeError('serving_snr needs a CUDA model (the int8 WN-block '
+                               'kernel); this one is on {}'.format(self.device))
+        mel = torch.as_tensor(mel, dtype = torch.float32, device = self.device)
+        if mel.ndim == 2: mel = mel[None]
+        noise = lambda: torch.Generator(device = self.device).manual_seed(seed)
+        with torch.no_grad():
+            w_f = self.arch.infer(self.params, mel, generator = noise(), use_kernel = False)
+            w_q = self.arch.infer(self._serving_params(True, True), mel, generator = noise(),
+                                  dtype = torch.bfloat16, use_kernel = True)
+        w_f, w_q = w_f.double(), w_q.double()
+        signal = float((w_f ** 2).mean())
+        error = float(((w_f - w_q) ** 2).mean())
+        return 10. * float(np.log10(signal / max(error, 1e-20)))
 
     def device_vocoder_fn(self, *, sigma = None, deterministic = False,
                           dtype = None, ** _):
@@ -79,7 +152,7 @@ class WaveGlow:
         params to feed it, and a tag that names the mode.  A synthesizer
         chains decode → vocode on the device with it
         (`Tacotron2.compiled_tts`)."""
-        use_kernel = self._serving_mode_flags()
+        use_kernel, int8 = self._serving_mode_flags()
 
         def fn(params, mel, generator = None):
             with torch.no_grad():
@@ -88,8 +161,8 @@ class WaveGlow:
                     deterministic = deterministic, dtype = dtype,
                     use_kernel = use_kernel).float()
 
-        tag = (self.name, sigma, bool(deterministic), dtype, use_kernel)
-        return fn, self._serving_params(use_kernel), tag
+        tag = (self.name, sigma, bool(deterministic), dtype, use_kernel, int8)
+        return fn, self._serving_params(use_kernel, int8), tag
 
     def compiled_infer(self, mel, *, padding_multiple = 256, sigma = None,
                        generator = None, deterministic = False, dtype = None, ** _):

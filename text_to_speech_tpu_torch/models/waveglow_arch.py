@@ -2,7 +2,9 @@
 
 Counterpart of ``text_to_speech_tpu/models/waveglow_arch.py`` (inference
 only): `upsample_mel`, the WN coupling block `wn_block` with its fused
-branch (the `ops.wn_block` kernel) and its unfused layer chain, and `infer`.
+branches (the `ops.wn_block` kernel, and the `ops.wn_block_int8` kernel on
+the weights of `quantize_kernel_params`) and its unfused layer chain, and
+`infer` with the int8 route's mixed-precision contract.
 Parameters are the port's layouts (`weights.waveglow_from_jax`).  Each
 flow's 1×1 invertible conv is a (c, c) ``weight`` with ``y = audio @ weight.T``.
 """
@@ -12,6 +14,7 @@ import torch
 from ..hparams import HParams
 from ..nn import layers as nn
 from ..ops.wn_block import fused_wn_block, pack_wn_weights
+from ..ops.wn_block_int8 import fused_wn_block_int8, pack_wn_int8, quantize_wn_weights
 from ..weights import cast_tree
 
 HParamsWaveGlow = HParams(
@@ -46,9 +49,10 @@ class WaveGlow:
 
     # -- kernel weights --------------------------------------------------------
 
-    def _pack_block(self, block, dtype = torch.float32):
-        """One block's WN weights → the `ops.wn_block` kernel layout (the
-        JAX package's `_pack_block` stacking, then `pack_wn_weights`)."""
+    def _stack_block(self, block):
+        """One block's WN weights stacked per layer in the JAX package's
+        layout (its `_pack_block`): ``w_cond (L, S, 2C)``, ``w_in (L, 3, C,
+        2C)``, ``w_rs (L-1, C, 2C)``, ``w_rs_last (C, C)`` and the biases."""
         L = self.hp.wn_layers
         if 'cond_layer' in block:
             w = block['cond_layer']['weight'][..., 0].T            # (S, L*2C)
@@ -68,8 +72,19 @@ class WaveGlow:
         b_rs = torch.stack([block['res_skip_conv_{}'.format(i)]['bias']
                             for i in range(L - 1)])
         last = block['res_skip_conv_{}'.format(L - 1)]
-        return pack_wn_weights(w_cond, b_cond, w_in, b_in, w_rs, b_rs,
-                               last['weight'][..., 0].T, last['bias'], dtype = dtype)
+        return {'w_cond': w_cond, 'b_cond': b_cond, 'w_in': w_in, 'b_in': b_in,
+                'w_rs': w_rs, 'b_rs': b_rs, 'w_rs_last': last['weight'][..., 0].T,
+                'b_rs_last': last['bias']}
+
+    def _pack_block(self, block, dtype = torch.float32):
+        """One block's WN weights → the `ops.wn_block` kernel layout."""
+        return pack_wn_weights(** self._stack_block(block), dtype = dtype)
+
+    def _check_kernel_envelope(self):
+        if self.hp.wn_layers < 2 or self.hp.wn_kernel_size != 3:
+            raise ValueError('the WN block kernels need wn_layers >= 2 and '
+                             'wn_kernel_size == 3, got {} and {}'.format(
+                                 self.hp.wn_layers, self.hp.wn_kernel_size))
 
     def pack_kernel_params(self, params, dtype = torch.bfloat16):
         """Add each block's kernel-layout weights under ``'packed'``, in the
@@ -77,10 +92,7 @@ class WaveGlow:
         takes 16-bit buffers for f32 callers (its `pack_pallas_params`);
         float32 selects the kernel's f32 instantiation.  Call once at load
         time."""
-        if self.hp.wn_layers < 2 or self.hp.wn_kernel_size != 3:
-            raise ValueError('the WN block kernel needs wn_layers >= 2 and '
-                             'wn_kernel_size == 3, got {} and {}'.format(
-                                 self.hp.wn_layers, self.hp.wn_kernel_size))
+        self._check_kernel_envelope()
         packed_params = {}
         for name, value in params.items():
             if not name.startswith('flow_'):
@@ -91,14 +103,41 @@ class WaveGlow:
             packed_params[name] = {'convinv': value['convinv'], 'block': block}
         return packed_params
 
+    def quantize_kernel_params(self, params):
+        """Add each block's int8 weights for `ops.wn_block_int8` under
+        ``'packed_q'`` (the JAX package's `quantize_pallas_params`):
+        per-output-channel scales computed here once, from the float32
+        weights; activations quantize per row inside the kernel.  Call once
+        at load time, on float32 params."""
+        self._check_kernel_envelope()
+        out = {}
+        for name, value in params.items():
+            if not name.startswith('flow_'):
+                out[name] = value
+                continue
+            block = dict(value['block'])
+            block['packed_q'] = pack_wn_int8(quantize_wn_weights(self._stack_block(block)))
+            out[name] = {'convinv': value['convinv'], 'block': block}
+        return out
+
     # -- WN coupling block -----------------------------------------------------
 
     def wn_block(self, block, audio_half, spect, fused = True):
         """WaveNet-like stack conditioned on the mel; returns (B, T, 2*n_half)
-        [b | s].  With ``fused`` and packed weights, the layers run in the
-        `ops.wn_block` kernel; otherwise as the per-layer chain."""
+        [b | s].  With ``fused``, the layers run in the `ops.wn_block_int8`
+        kernel when the block holds int8 weights (``'packed_q'``), else in
+        the `ops.wn_block` kernel; otherwise as the per-layer chain."""
         hp = self.hp
         n_ch = hp.wn_channels
+        if fused and 'packed_q' in block:
+            # int8 mixed precision: bf16 buffers unless the caller's dtype
+            # is narrower, and f32 b / s back for the f32 audio stream
+            buf_dtype = spect.dtype if spect.dtype.itemsize <= 2 else torch.bfloat16
+            x = nn.conv1d(block['start'], audio_half.to(block['start']['weight'].dtype))
+            skip_sum = fused_wn_block_int8(
+                x.to(buf_dtype).contiguous(), spect.to(buf_dtype).contiguous(),
+                block['packed_q'])
+            return self._end_conv(block, skip_sum)
         if fused:
             # buffers in the packed weights' dtype (bf16 for f32 callers):
             # f32 accumulation and skip sum, the caller's dtype returned.
@@ -111,12 +150,7 @@ class WaveGlow:
                 x.to(buf_dtype).contiguous(), spect.to(buf_dtype).contiguous(),
                 p['w_in_cond'], p['b_in_cond'], p['w_rs'], p['b_rs'],
                 p['w_rs_last'], p['b_rs_last'])
-            # end conv: operands in the buffer dtype, f32 accumulation
-            w_end = block['end']['weight'][..., 0].to(skip_sum.dtype)
-            out = skip_sum.float() @ w_end.float().T
-            if 'bias' in block['end']:
-                out = out + block['end']['bias'].float()
-            return out.to(spect.dtype)
+            return self._end_conv(block, skip_sum).to(spect.dtype)
 
         x = nn.conv1d(block['start'], audio_half)
         cond_all = None
@@ -138,6 +172,16 @@ class WaveGlow:
                 skip = res_skip
             output = skip if output is None else output + skip
         return nn.conv1d(block['end'], output.to(block['end']['weight'].dtype))
+
+    @staticmethod
+    def _end_conv(block, skip_sum):
+        """The `end` conv of a fused block: operands in the buffer dtype,
+        f32 accumulation, f32 result."""
+        w_end = block['end']['weight'][..., 0].to(skip_sum.dtype)
+        out = skip_sum.float() @ w_end.float().T
+        if 'bias' in block['end']:
+            out = out + block['end']['bias'].float()
+        return out
 
     # -- mel conditioning ------------------------------------------------------
 
@@ -182,25 +226,34 @@ class WaveGlow:
 
         `dtype` casts the parameters and the mel (the 1×1 inverses are
         computed in f32, then cast).  `use_kernel` runs each coupling block
-        through `ops.wn_block` (the JAX package's `use_pallas`).  Noise
-        comes from `generator` unless `z` (B, Lg, n_group) or
-        `deterministic` (zeros) is given."""
+        through a kernel (the JAX package's `use_pallas`): `ops.wn_block_int8`
+        on params from `quantize_kernel_params`, else `ops.wn_block`, packing
+        first if needed.  The int8 route runs mixed precision: under a
+        `dtype` its int8 weights and the 1×1 convs keep their types, and the
+        audio stream, the noise and the inverses stay f32, as a bf16 stream
+        through the inverse flows loses the waveform.  Noise comes from
+        `generator` unless `z` (B, Lg, n_group) or `deterministic` (zeros)
+        is given."""
         hp = self.hp
         if sigma is None: sigma = hp.sigma
+        block0 = params['flow_0']['block']
+        int8 = use_kernel and 'packed_q' in block0
         if dtype is not None:
-            params = cast_tree(params, dtype, keep = ('packed',))
+            keep = ('packed', 'packed_q') + (('convinv',) if int8 else ())
+            params = cast_tree(params, dtype, keep = keep)
             mel = mel.to(dtype)
-        if use_kernel and 'packed' not in params['flow_0']['block']:
+        if use_kernel and 'packed' not in block0 and 'packed_q' not in block0:
             params = self.pack_kernel_params(params)
 
         spect = self.upsample_mel(params, mel)
         batch, lg = spect.shape[0], spect.shape[1]
+        audio_dtype = torch.float32 if int8 else spect.dtype
 
         def noise(channels):
             shape = (batch, lg, channels)
             if deterministic:
-                return torch.zeros(shape, dtype = spect.dtype, device = spect.device)
-            return torch.randn(shape, generator = generator, dtype = spect.dtype,
+                return torch.zeros(shape, dtype = audio_dtype, device = spect.device)
+            return torch.randn(shape, generator = generator, dtype = audio_dtype,
                                device = spect.device)
 
         if z is not None:

@@ -23,6 +23,14 @@ compute dtype (float32 or bfloat16); ``c``, ``frame`` and the alignments stay
 float32; the location conv reads the alignments in the compute dtype; the
 context multiplies in the compute dtype and sums in float32.
 
+int8 LSTM mode (`quantize_lstm_weights`, the TPU kernel's ``int8_lstm``):
+``att_w`` and ``dec_w`` are int8 with per-output-column float32 scales
+``s_att_w`` / ``s_dec_w``, quantized from the packed weights in the compute
+dtype; every step quantizes each LSTM input row ``[x | ctx | h]`` on its own
+(``scale = max(amax, 1e-8) * (1 / 127.)``, ties to even), and ``z =
+float(int32 product) * row scale * column scale + bias``.  `decoder_steps`
+takes that mode when ``att_w`` is int8, as the JAX wrapper does.
+
 Prenet dropout is a counter-based generator: a value is kept iff word 0 of
 ``philox4x32-10(key = seed, counter = (absolute step, row, unit, layer))``
 is ``>= round(rate * 2**32)``, and survivors scale by ``1 / (1 - rate)``.
@@ -88,6 +96,28 @@ def pack_decoder_weights(dec, *, n_mel = 80, dtype = torch.float32):
         'dec_w': as_dt(stack(d_rnn)), 'dec_b': f32(d_rnn['bias']).contiguous(),
         'proj_w': as_dt(proj_w), 'proj_b': proj_b.contiguous(),
     }
+
+
+def quantize_lstm_weights(weights):
+    """int8 copies of the two LSTM weights of a packed decoder (a copy of
+    the JAX package's `quantize_lstm_weights`): symmetric, one float32 scale
+    per output column, under ``s_att_w`` / ``s_dec_w``; the other weights
+    stay as they are.  Kernel layouts made from `weights` are not carried
+    over."""
+    out = {k: v for k, v in weights.items() if k != '_kernel'}
+    for key in ('att_w', 'dec_w'):
+        w = weights[key].float()
+        # a true division on every device (a card multiplies by 1 / 127 for `/ 127.`)
+        scale = torch.clamp(w.abs().amax(dim = 0), min = 1e-8) / w.new_tensor(127.)
+        out[key] = torch.clamp(torch.round(w / scale), -127., 127.).to(torch.int8)
+        out['s_' + key] = scale
+    return out
+
+
+def _row_quant8(x):
+    """Per-row symmetric int8 (as float values) and the row scales (B, 1)."""
+    scale = torch.clamp(x.abs().amax(dim = -1, keepdim = True), min = 1e-8) * (1. / 127.)
+    return torch.clamp(torch.round(x / scale), -127., 127.), scale
 
 
 def init_decoder_state(B, S, D, U, n_mel = 80, dtype = torch.float32, device = None):
@@ -163,6 +193,17 @@ def _lstm(z, c, U):
     return o * torch.tanh(c), c
 
 
+def _prenet(w, frame, extra, seed, step, deterministic, drop_rate, rnd):
+    """The prenet of one step, with its dropout: float32 weights `w`."""
+    x = torch.relu(rnd(frame) @ w['w0'] + w['b0'] + extra)
+    if not deterministic:
+        x = _dropout(x, seed, step, 0, drop_rate)
+    x = torch.relu(rnd(x) @ w['w1'] + w['b1'])
+    if not deterministic:
+        x = _dropout(x, seed, step, 1, drop_rate)
+    return x
+
+
 def decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed, *,
                         n_steps, step0 = 0, deterministic = False, use_window = False,
                         win_len = 0, win_offset = 0, drop_rate = 0.5):
@@ -171,7 +212,17 @@ def decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed, *,
     rounds.  Same arguments, same in-place update of `state`, same result."""
     dt = mem.dtype
     rnd = lambda t: t.to(dt).float()
+    int8 = weights['att_w'].dtype == torch.int8
     w = {k: v.float() for k, v in weights.items() if torch.is_tensor(v)}
+
+    def lstm_matmul(xin, key, bias):
+        if int8:
+            # exact int32 sums in float64, then the TPU kernel's scale order
+            q, sx = _row_quant8(xin)
+            z = (q.double() @ w[key].double()).float()
+            return z * sx * w['s_' + key] + bias
+        return xin @ w[key] + bias
+
     B, S, D = mem.shape
     U = w['att_w'].shape[1] // 4
     n_mel = w['w0'].shape[0]
@@ -189,14 +240,8 @@ def decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed, *,
 
     steps_out, attn_out = [], []
     for t in range(n_steps):
-        x = torch.relu(rnd(frame) @ w['w0'] + w['b0'] + extra)
-        if not deterministic:
-            x = _dropout(x, seed, step0 + t, 0, drop_rate)
-        x = torch.relu(rnd(x) @ w['w1'] + w['b1'])
-        if not deterministic:
-            x = _dropout(x, seed, step0 + t, 1, drop_rate)
-
-        z = torch.cat([rnd(x), ctx, h_att], dim = -1) @ w['att_w'] + w['att_b']
+        x = _prenet(w, frame, extra, seed, step0 + t, deterministic, drop_rate, rnd)
+        z = lstm_matmul(torch.cat([rnd(x), ctx, h_att], dim = -1), 'att_w', w['att_b'])
         h, c_att = _lstm(z, c_att, U)
         h_att = rnd(h)
 
@@ -221,7 +266,7 @@ def decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed, *,
         main = torch.argmax(attn, dim = 1)
         ctx = rnd((attn.to(dt)[:, :, None] * mem).float().sum(dim = 1))
 
-        z = torch.cat([h_att, ctx, h_dec], dim = -1) @ w['dec_w'] + w['dec_b']
+        z = lstm_matmul(torch.cat([h_att, ctx, h_dec], dim = -1), 'dec_w', w['dec_b'])
         h, c_dec = _lstm(z, c_dec, U)
         h_dec = rnd(h)
 
@@ -262,6 +307,19 @@ def _slabs(w):
         .reshape(U // SLAB_UNITS, K, 4 * SLAB_UNITS).contiguous()
 
 
+def _slabs_int8(w):
+    """int8 LSTM weight (K, 4U) → the kernel's slabs (U / 8, K / 4, 32, 4):
+    slab s holds, for every group of 4 inputs, column ``4 * unit + gate`` of
+    its 8 units as the group's 4 bytes (one `__dp4a` operand).  The column
+    scales stay in the logical order, as the biases do."""
+    K, U = w.shape[0], w.shape[1] // 4
+    if U % SLAB_UNITS or K % 4:
+        raise ValueError('decoder_steps in int8 needs U % {} == 0 and K % 4 == 0, got '
+                         'U={}, K={}'.format(SLAB_UNITS, U, K))
+    return w.reshape(K // 4, 4, 4, U // SLAB_UNITS, SLAB_UNITS).permute(3, 0, 4, 2, 1) \
+        .reshape(U // SLAB_UNITS, K // 4, 4 * SLAB_UNITS, 4).contiguous()
+
+
 _LOGICAL_ONLY = ('att_w', 'dec_w', 'proj_w')
 
 
@@ -269,8 +327,9 @@ def _kernel_weights(weights):
     """The kernel's layouts of the three large matrices, made once per packed
     dictionary and kept in it."""
     if '_kernel' not in weights:
-        weights['_kernel'] = {'att_k': _slabs(weights['att_w']),
-                              'dec_k': _slabs(weights['dec_w']),
+        slabs = _slabs_int8 if weights['att_w'].dtype == torch.int8 else _slabs
+        weights['_kernel'] = {'att_k': slabs(weights['att_w']),
+                              'dec_k': slabs(weights['dec_w']),
                               'proj_t': weights['proj_w'].T.contiguous()}
     return weights['_kernel']
 
@@ -302,15 +361,22 @@ def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
     f32, i32 = torch.float32, torch.int32
     kw = _kernel_weights(weights)
     slabs, width = U // SLAB_UNITS, 4 * SLAB_UNITS
+    k_att, k_dec = P1 + D + U, 2 * U + D
+    if kw['att_k'].dtype == torch.int8:
+        lstm = {'att_w slabs': (kw['att_k'], (slabs, k_att // 4, width, 4), torch.int8),
+                'dec_w slabs': (kw['dec_k'], (slabs, k_dec // 4, width, 4), torch.int8),
+                's_att_w': (weights.get('s_att_w'), (4 * U,), f32),
+                's_dec_w': (weights.get('s_dec_w'), (4 * U,), f32)}
+    else:
+        lstm = {'att_w slabs': (kw['att_k'], (slabs, k_att, width), dt),
+                'dec_w slabs': (kw['dec_k'], (slabs, k_dec, width), dt)}
     expected = {
         'w0': (weights['w0'], (n_mel, P0), dt), 'b0': (weights['b0'], (P0,), f32),
         'w1': (weights['w1'], (P0, P1), dt), 'b1': (weights['b1'], (P1,), f32),
-        'att_w slabs': (kw['att_k'], (slabs, P1 + D + U, width), dt),
         'att_b': (weights['att_b'], (4 * U,), f32),
         'q_w': (weights['q_w'], (U, A), dt),
         'loc_w': (weights['loc_w'], (2 * LOC_KERNEL, A), dt),
         'v_w': (weights['v_w'], (A,), f32),
-        'dec_w slabs': (kw['dec_k'], (slabs, 2 * U + D, width), dt),
         'dec_b': (weights['dec_b'], (4 * U,), f32),
         'proj_w transposed': (kw['proj_t'], (n_mel + 1, U + D), dt),
         'proj_b': (weights['proj_b'], (n_mel + 1,), f32),
@@ -323,8 +389,11 @@ def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
         'ctx': (state['ctx'], (B, D), dt),
         'prev': (state['prev'], (B, S), f32), 'cum': (state['cum'], (B, S), f32),
         'main': (state['main'], (B,), i32),
+        ** lstm,
     }
     for name, (t, shape, dtype) in expected.items():
+        if t is None:
+            raise ValueError('{} is missing'.format(name))
         if tuple(t.shape) != shape or t.dtype != dtype:
             raise ValueError('{}: expected {} {}, got {} {}'.format(
                 name, shape, dtype, tuple(t.shape), t.dtype))
@@ -359,10 +428,12 @@ def phase_times_us(stamps):
 
 def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
                   n_steps, step0 = 0, deterministic = False, use_window = False,
-                  win_len = 0, win_offset = 0, drop_rate = 0.5, stamps = None):
+                  win_len = 0, win_offset = 0, drop_rate = 0.5, stamps = None,
+                  prenet_out = None):
     """Run `n_steps` fused decoder steps in one kernel launch.
 
-    - weights: dict from `pack_decoder_weights`, in the compute dtype;
+    - weights: dict from `pack_decoder_weights`, in the compute dtype, or
+      from `quantize_lstm_weights` (the int8 LSTM mode);
     - mem (B, S, D): encoder memory, zero where masked; pm (B, S, A):
       processed memory; both in the compute dtype;
     - mask (B, S) float32 1/0; enc_len (B,) int32 (for the window);
@@ -374,7 +445,10 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
       absolute index of this launch's first step, so that the mask does
       not depend on how the steps are split into launches;
     - stamps: optional int64 CUDA tensor of ``8 * n_steps + 4`` elements
-      that receives the kernel's clock stamps (see `phase_times_us`).
+      that receives the kernel's clock stamps (see `phase_times_us`);
+    - prenet_out: optional float32 CUDA tensor (B, P1) that receives the
+      prenet output of the launch's last step, the first segment of the
+      attention LSTM's input row (see `int8_lstm_lockstep`).
 
     Returns (steps (n_steps, B, n_mel + 1) float32 — ``[..., :n_mel]`` the
     frame, ``[..., n_mel]`` the gate after its sigmoid —, attn
@@ -384,8 +458,8 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
                    use_window = use_window, win_len = win_len, win_offset = win_offset,
                    drop_rate = drop_rate)
     if mem.device.type == 'cpu':
-        if stamps is not None:
-            raise ValueError('stamps are taken by the CUDA kernel only')
+        if stamps is not None or prenet_out is not None:
+            raise ValueError('stamps and prenet_out are taken by the CUDA kernel only')
         return decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed,
                                    ** options)
     if mem.device.type != 'cuda':
@@ -395,7 +469,13 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
         weights, mem, pm, mask, enc_len, extra, state, seed, n_steps)
     kw = _kernel_weights(weights)
     f32 = dict(dtype = torch.float32, device = mem.device)
-    x = torch.empty((B, P1), ** f32)
+    if prenet_out is not None and (prenet_out.dtype != torch.float32
+                                   or prenet_out.device != mem.device
+                                   or tuple(prenet_out.shape) != (B, P1)
+                                   or not prenet_out.is_contiguous()):
+        raise ValueError('prenet_out: expected contiguous float32 ({}, {}) on {}'.format(
+            B, P1, mem.device))
+    x = prenet_out if prenet_out is not None else torch.empty((B, P1), ** f32)
     h_att_alt, h_dec_alt = torch.empty_like(state['h_att']), torch.empty_like(state['h_dec'])
     steps = torch.empty((n_steps, B, n_mel + 1), ** f32)
     attn = torch.empty((n_steps, B, S), ** f32)
@@ -407,12 +487,15 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != mem.device
                                or tuple(stamps.shape) != (8 * n_steps + 4,)):
         raise ValueError('stamps: expected int64 ({},) on {}'.format(8 * n_steps + 4, mem.device))
-    ptrs = (ctypes.c_void_p * (len(tensors) + 1))(
-        * (t.data_ptr() for t in tensors), stamps.data_ptr() if stamps is not None else None)
-    ints = (ctypes.c_longlong * 16)(
+    int8 = kw['att_k'].dtype == torch.int8
+    optional = [stamps] + ([weights['s_att_w'], weights['s_dec_w']] if int8 else [None, None])
+    ptrs = (ctypes.c_void_p * (len(tensors) + len(optional)))(
+        * (t.data_ptr() for t in tensors),
+        * (t.data_ptr() if t is not None else None for t in optional))
+    ints = (ctypes.c_longlong * 17)(
         int(mem.dtype == torch.bfloat16), B, S, n_mel, P0, P1, D, U, A, n_steps, step0,
         int(bool(deterministic)), int(bool(use_window)), int(win_len), int(win_offset),
-        drop_threshold(drop_rate))
+        drop_threshold(drop_rate), int(int8))
     kernel = _kernel()
     with torch.cuda.device(mem.device):
         stream = torch.cuda.current_stream(mem.device).cuda_stream
@@ -424,3 +507,118 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
 
 
 decoder_steps.launches = 0
+
+
+# -- holding the int8 LSTM mode step by step ------------------------------------
+
+def _rel_err(out, ref):
+    out, ref = out.float(), ref.float()
+    return float((out - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def _grid_difference(row_k, row_p, segments):
+    """Where the int8 values of two staged LSTM input rows (B, K) differ,
+    or None (row scales that differ by a rounding move no value and are
+    float32 noise): how many values, by how many grid steps, whether the
+    row scales agree, how far apart the rows are (relative to their amax),
+    and the first differing value on both sides, in units of the row scale
+    and in float32 ulps of each other."""
+    q_k, s_k = _row_quant8(row_k)
+    q_p, s_p = _row_quant8(row_p)
+    if torch.equal(q_k, q_p):
+        return None
+    out = {'values': int((q_k != q_p).sum()), 'max_grid_steps': float((q_k - q_p).abs().max()),
+           'scales_equal': bool(torch.equal(s_k, s_p)),
+           'row_diff_rel_amax': float(((row_k - row_p).abs() / s_p / 127.).max())}
+    where = (q_k != q_p).nonzero()
+    if len(where):
+        b, k = (int(i) for i in where[0])
+        start = 0
+        for name, width in segments:
+            if k < start + width:
+                break
+            start += width
+        vk, vp = row_k[b, k], row_p[b, k]
+        ulp = torch.nextafter(vp.abs(), vp.new_tensor(float('inf'))) - vp.abs()
+        out['first'] = {'row': b, 'segment': name, 'index': k - start,
+                        'kernel': float(vk), 'plain': float(vp),
+                        'ulps_apart': float((vk - vp).abs() / ulp),
+                        'kernel_over_scale': float(vk / s_k[b, 0]),
+                        'plain_over_scale': float(vp / s_p[b, 0])}
+    return out
+
+
+def int8_lstm_lockstep(weights, mem, pm, mask, enc_len, extra, state, seed, *, n_steps,
+                       control = None, step0 = 0, deterministic = False, use_window = False,
+                       win_len = 0, win_offset = 0, drop_rate = 0.5):
+    """Trace the int8 LSTM mode of the CUDA kernel against its plain
+    version one step at a time.
+
+    The two LSTM input rows carry an int8 grid set by their amax, so a
+    rounding-level difference in a staged value (the prenet's or the
+    attention's sums, taken in another order) can move a value across a
+    rounding tie; a decode carries such a step on.  The kernel runs its
+    decode as one-step launches (the same steps as one launch of
+    `n_steps`); each step, the plain version runs once from the kernel's
+    state (the same state on both sides) and once along its own decode.
+    The rows each side staged are rebuilt (the kernel's prenet output read
+    back through ``prenet_out``) and quantized as the kernel quantizes them.
+    With `control` (other packed weights for the same inputs, e.g. the
+    float32 ones) the kernel on `control` also runs from the kernel's state.
+
+    Returns (a list of per-step dicts, the kernel's steps (n_steps, B,
+    n_mel + 1)).  Per step, from the same state: ``grids_equal``,
+    ``rel_err`` (largest over the frame and gate, the alignment and every
+    state tensor, relative to each one's largest magnitude),
+    ``control_rel_err`` and, where the int8 values differ, ``att`` / ``dec``:
+    `_grid_difference` of that LSTM's row; along the two decodes:
+    ``path_grids_equal``, ``path_rel_err``, ``path_att`` / ``path_dec``.
+    """
+    if weights['att_w'].dtype != torch.int8 or mem.dtype != torch.float32:
+        raise ValueError('int8_lstm_lockstep holds the int8 LSTM mode in float32 compute')
+    w = {k: v.float() for k, v in weights.items() if torch.is_tensor(v)}
+    B, D, U = mem.shape[0], mem.shape[2], state['h_att'].shape[1]
+    P1 = w['w1'].shape[1]
+    options = dict(n_steps = 1, deterministic = deterministic, use_window = use_window,
+                   win_len = win_len, win_offset = win_offset, drop_rate = drop_rate)
+    inputs = (mem, pm, mask, enc_len, extra)
+    keys = ('h_att', 'c_att', 'h_dec', 'c_dec', 'ctx', 'prev', 'cum')
+    err = lambda a, b: max([_rel_err(a[0], b[0]), _rel_err(a[1], b[1])]
+                           + [_rel_err(a[2][k], b[2][k]) for k in keys])
+    copy = lambda st: {k: v.clone() for k, v in st.items()}
+    prenet = lambda st, t: _prenet(w, st['frame'], extra, seed, t, deterministic, drop_rate,
+                                   lambda v: v)
+
+    def rows(x, before, after):
+        """The attention and decoder LSTMs' input rows of one step."""
+        return (torch.cat([x, before['ctx'], before['h_att']], dim = -1),
+                torch.cat([after['h_att'], after['ctx'], before['h_dec']], dim = -1))
+
+    def differences(rows_k, rows_p):
+        att = _grid_difference(rows_k[0], rows_p[0], (('x', P1), ('ctx', D), ('h_att', U)))
+        dec = _grid_difference(rows_k[1], rows_p[1], (('h_att', U), ('ctx', D), ('h_dec', U)))
+        return {k: v for k, v in (('att', att), ('dec', dec)) if v is not None}
+
+    kernel_state, plain_state, steps, frames = state, copy(state), [], []
+    for t in range(step0, step0 + n_steps):
+        x_k = torch.empty((B, P1), dtype = torch.float32, device = mem.device)
+        kern = decoder_steps(weights, * inputs, copy(kernel_state), seed, step0 = t,
+                             prenet_out = x_k, ** options)
+        same = decoder_steps_plain(weights, * inputs, copy(kernel_state), seed, step0 = t,
+                                   ** options)
+        path = decoder_steps_plain(weights, * inputs, copy(plain_state), seed, step0 = t,
+                                   ** options)
+        rows_k = rows(x_k, kernel_state, kern[2])
+        moved = differences(rows_k, rows(prenet(kernel_state, t), kernel_state, same[2]))
+        moved_path = differences(rows_k, rows(prenet(plain_state, t), plain_state, path[2]))
+        step = {'step': t, 'grids_equal': not moved, 'rel_err': err(kern, same),
+                'path_grids_equal': not moved_path, 'path_rel_err': err(kern, path), ** moved}
+        step.update({'path_' + k: v for k, v in moved_path.items()})
+        if control is not None:
+            step['control_rel_err'] = err(
+                decoder_steps(control, * inputs, copy(kernel_state), seed, step0 = t,
+                              ** options), same)
+        steps.append(step)
+        frames.append(kern[0])
+        kernel_state, plain_state = kern[2], path[2]
+    return steps, torch.cat(frames)
