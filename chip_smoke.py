@@ -1,6 +1,7 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its CUDA kernels, hold
-each against its plain PyTorch version, and run `tts()` end to end at the
-full NVIDIA width of Tacotron-2 and WaveGlow with random weights.
+each against its plain PyTorch version, run `tts()` end to end at the full
+NVIDIA width of Tacotron-2 and WaveGlow with random weights, and train
+WaveGlow at that width.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,10 @@ Phases, one JSON line each:
            any tile; the decoder steps (K3) in float32, bfloat16 and the
            int8 LSTM mode, deterministic and with dropout, with the attention
            window at a memory length that is no multiple of 64, and as two
-           launches of 32 steps against one of 64;
+           launches of 32 steps against one of 64; one WN layer (K4) in
+           float32 and bfloat16 at the training batch and at one utterance,
+           dilations 1, 16 and 128, residual and last layer, also at a length
+           that is no multiple of any tile;
   e2e      `tts()` on one sentence (the one-launch path: fused decoder →
            vocoder → int16, no retry) and on a batch of four on both decoder
            routes, then, after `quantize_for_serving` passes its SNR gate on
@@ -25,13 +29,24 @@ Phases, one JSON line each:
            decode against the plain decode at full width, and the int8 LSTM
            decode (`infer_fused(int8_lstm=True)`) with its launches; the
            vocoder's bf16 and int8 kernel routes against its float32 chain on
-           a short mel.
+           a short mel;
+  train    WaveGlow training at NVIDIA width (12 flows, 8 WN layers, C=512),
+           random seeded weights: the train step (B=8 x 256 frames, per-flow
+           remat, Adam at 1e-4) on the default route in float32 and under
+           mixed_bfloat16 and on `wn_train_fused` (K1 forward) under
+           mixed_bfloat16: ms per step, audio seconds per second, peak
+           memory, K1 launches per step; `fit` on the four in-repo WAVs for 3
+           epochs on K1 (the loss falls, a checkpoint is written) and one
+           more that resumes the optimizer state; the eval step of a
+           `use_pallas` model (K4 in every layer) against the plain chain in
+           float32 and mixed_bfloat16, and its train step refused.
 Then the kernel summary, the card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
 It needs a CUDA device and imports neither JAX nor the JAX package.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -108,12 +123,13 @@ def wn_block_phase():
     # FMA tiles against f32 cuBLAS differ in summation order only; bf16
     # rounds gated activations and the residual stream every layer, where
     # another f32 summation order can flip a bf16 rounding.  Shapes: one
-    # 256-frame utterance (B=1, T=8192), a ragged length, and the batch of
-    # four (B=4: rows of one utterance must not tap the next).
+    # 256-frame utterance (B=1, T=8192), a ragged length, the batch of four
+    # (B=4: rows of one utterance must not tap the next) and the training
+    # batch (B=8), where `wn_train_fused` launches it.
     cases = {}
     for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         name = str(dtype).split('.')[-1]
-        for B, T in ((1, 8192), (1, 8000), (4, 8192)):
+        for B, T in ((1, 8192), (1, 8000), (4, 8192), (8, 8192)):
             args = inputs(B, T, dtype)
             out = fused_wn_block(* args)
             torch.cuda.synchronize()
@@ -143,6 +159,84 @@ def wn_block_phase():
           'shape': {'C': C, 'S': S, 'L': L},
           'library_ms': None,
           'library_note': 'no single PyTorch call computes the WN block'})
+    return cases
+
+
+def wn_layer_work(B, T, C, residual, itemsize):
+    """(operations, bytes) of one WN layer call: both products, each input
+    (x, cond, weights, biases) read once and each output written once."""
+    N = 2 * C if residual else C
+    flops = 2 * B * T * (3 * C * 2 * C + C * N)
+    weights = (3 * C * 2 * C + C * N + 2 * C + N) * itemsize
+    activations = B * T * (C + 2 * C + (2 * C if residual else C)) * itemsize
+    return flops, weights + activations
+
+
+def wn_layer_phase():
+    """K4 against its plain version: float32 and bfloat16, the training
+    batch (B=8) and one utterance (B=1) at T=8192 and a ragged T=8000,
+    dilations 1, 16 and 128, residual and last layer."""
+    from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer, wn_layer_plain
+
+    C = 512
+    rng = np.random.default_rng(6)
+    f = lambda * shape, scale = 1.: torch.from_numpy(
+        (scale * rng.standard_normal(shape)).astype(np.float32)).cuda()
+    # Tolerances, relative to the output's largest magnitude: float32 FMA
+    # tiles against float32 cuBLAS differ in summation order only (1e-5);
+    # bf16 against a plain version with the same dtype contract (bf16
+    # operands and gate, float32 sums, bf16 outputs): a sum in another order
+    # can flip one bf16 rounding of the gate, which moves an output by far
+    # less than it, or of an output, 2^-8 of a value: 2^-7.
+    tolerance = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
+    cases = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).split('.')[-1]
+        for B, T in ((8, 8192), (1, 8192), (1, 8000)):
+            x, cond = f(B, T, C).to(dtype), f(B, T, 2 * C, scale = 0.5).to(dtype)
+            w_in = f(3, C, 2 * C, scale = (3 * C) ** -0.5).to(dtype)
+            b_in = f(2 * C, scale = 0.1).to(dtype)
+            for residual in (True, False):
+                N = 2 * C if residual else C
+                w_rs = f(1, C, N, scale = C ** -0.5).to(dtype)
+                b_rs = f(N, scale = 0.1).to(dtype)
+                args = (x, cond, w_in, b_in, w_rs, b_rs)
+                for dilation in (1, 16, 128):
+                    kw = dict(dilation = dilation, residual = residual)
+                    out = fused_wn_layer(* args, ** kw)
+                    torch.cuda.synchronize()
+                    ref = wn_layer_plain(* args, ** kw)
+                    errs = []
+                    for o, r in zip(out, ref):
+                        check(o.shape == (B, T, C) and o.dtype == dtype, 'wn_layer output shape')
+                        check(bool(torch.isfinite(o.float()).all()), 'wn_layer output not finite')
+                        errs.append((float((o.float() - r.float()).abs().max()),
+                                     float(r.float().abs().max())))
+                    case = {'dtype': name, 'B': B, 'T': T, 'dilation': dilation,
+                            'residual': residual,
+                            'max_abs_err': max(e for e, _ in errs),
+                            'max_rel_err': max(e / m for e, m in errs),
+                            'tolerance_rel': tolerance[dtype]}
+                    if T == 8192 and dilation == 1 and residual:
+                        flops, nbytes = wn_layer_work(B, T, C, residual, x.element_size())
+                        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
+                        case.update(
+                            kernel_ms = time_ms(lambda: fused_wn_layer(* args, ** kw)),
+                            plain_ms = time_ms(lambda: wn_layer_plain(* args, ** kw)),
+                            flops = flops, bytes = nbytes,
+                            bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
+                            bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
+                            else 'bytes')
+                    key = '{}_B{}_T{}_d{}_{}'.format(name, B, T, dilation,
+                                                    'residual' if residual else 'last')
+                    cases[key] = case
+                    check(case['max_rel_err'] <= tolerance[dtype],
+                          'wn_layer {}: {}'.format(key, case))
+                    del out, ref
+            del x, cond, args
+    emit({'phase': 'kernels', 'fused_wn_layer': cases, 'shape': {'C': C},
+          'library_ms': None,
+          'library_note': 'no single PyTorch call computes the WN layer'})
     return cases
 
 
@@ -468,6 +562,210 @@ def decoder_steps_phase(model):
     return cases
 
 
+WAVS = 'pretrained_models/overfit_demo*/predictions/overfit/*.wav'
+
+
+def train_phase():
+    """WaveGlow training at NVIDIA width (the `HParamsWaveGlow` defaults),
+    random weights from a seed with the `end` convs at scale 1e-2."""
+    import glob
+    import shutil
+    import tempfile
+    from text_to_speech_tpu_torch.init import init_waveglow
+    from text_to_speech_tpu_torch.models.tts import WaveGlow
+    from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow as WaveGlowArch
+    from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
+    from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer
+    from text_to_speech_tpu_torch.train.losses import WaveGlowLoss
+    from text_to_speech_tpu_torch.train.optimizers import get_optimizer
+    from text_to_speech_tpu_torch.train.trainer import (
+        _to_device, _trainable, bucket_pad, make_eval_step, make_train_step)
+
+    arch = WaveGlowArch()
+    hp = arch.hp
+    start = time.perf_counter()
+    params = init_waveglow(hp, arch.flow_channels, seed = 3)
+    init_s = time.perf_counter() - start
+    directory = tempfile.mkdtemp(prefix = 'chip_smoke_train_')
+    new_model = lambda name, params = params, ** change: WaveGlow.from_jax(
+        params, device = 'cuda', name = name, root = directory, ** change)
+    try:
+        # 1. the timed train step, the JAX benchmark's shape: B=8 x 256 frames
+        B, frames = 8, 256
+        rng = np.random.default_rng(7)
+        mel = torch.from_numpy(rng.standard_normal((B, frames, hp.n_mel_channels))
+                               .astype(np.float32)).cuda()
+        audio = torch.from_numpy((0.1 * rng.standard_normal((B, frames * hp.upsample_stride)))
+                                 .astype(np.float32)).cuda()
+        audio_s = B * frames * hp.upsample_stride / 22050.
+        steps = {}
+        for route, precision in (('default', 'float32'), ('default', 'mixed_bfloat16'),
+                                 ('wn_train_fused', 'mixed_bfloat16')):
+            task = new_model('step', wn_train_fused = route == 'wn_train_fused')
+            tx = get_optimizer('adam', lr = 1e-4)
+            p = _trainable(task.params)
+            opt = tx.init(p)
+            step = make_train_step(task, WaveGlowLoss(), tx, precision = precision)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            times, losses = [], []
+            for i in range(7):
+                if i == 2:        # the launches of the 5 timed steps
+                    fused_wn_block.launches = fused_wn_layer.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                _, _, _, metrics = step(p, {}, opt, None, (mel, audio), audio)
+                losses.append(float(metrics['loss']))       # waits for the step
+                times.append(1e3 * (time.perf_counter() - t0))
+            ms = statistics.median(times[2:])
+            key = '{}_{}'.format(route, precision)
+            steps[key] = {
+                'route': route, 'precision': precision, 'B': B, 'frames': frames,
+                'ms_per_step': ms, 'step_ms': times, 'steps_per_s': 1e3 / ms,
+                'audio_s_per_s': audio_s / (ms / 1e3),
+                # the peak, and its rise over what the earlier phases hold
+                'peak_memory_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
+                'peak_rise_gb': (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
+                'wn_block_launches_per_step': fused_wn_block.launches / 5,
+                'wn_layer_launches_per_step': fused_wn_layer.launches / 5,
+                'first_loss': losses[0], 'losses': losses,
+                'grad_norm': float(metrics['grad_norm'])}
+            check(all(np.isfinite(losses)), '{}: loss not finite: {}'.format(key, losses))
+            # on the one repeated batch the loss falls for 6 steps; Adam's 7th
+            # step overshoots the noise's optimum (as in the JAX package:
+            # tests/test_torch_port_train.py::test_repeated_batch_spike_matches_jax)
+            check(all(b < a for a, b in zip(losses[:5], losses[1:6])),
+                  '{}: the loss did not fall over the first 6 steps: {}'.format(key, losses))
+            expected = 2 * hp.n_flows if route == 'wn_train_fused' else 0
+            check(steps[key]['wn_block_launches_per_step'] == expected
+                  and fused_wn_layer.launches == 0,
+                  '{}: {} K1 launches a step, expected {}'.format(
+                      key, steps[key]['wn_block_launches_per_step'], expected))
+            del task, p, opt, step, metrics
+            torch.cuda.empty_cache()
+        fused, default = steps['wn_train_fused_mixed_bfloat16'], steps['default_mixed_bfloat16']
+        gap = abs(fused['first_loss'] - default['first_loss']) / abs(default['first_loss'])
+        check(gap <= 1e-2, 'fused vs default first loss: {} vs {}'.format(
+            fused['first_loss'], default['first_loss']))
+        emit({'phase': 'train', 'train_step': steps, 'init_s': init_s,
+              'fused_vs_default_first_loss_rel': gap, 'tolerance_rel': 1e-2})
+
+        # 2. fit on the four in-repo WAVs on K1 (wn_train_fused), 3 epochs,
+        #    validation on two of them; then one more epoch, resumed
+        wavs = sorted(glob.glob(WAVS))
+        check(len(wavs) == 4, 'in-repo WAVs: {}'.format(wavs))
+        rows = [{'filename': w} for w in wavs]
+        task = new_model('fit', wn_train_fused = True)
+        fit_kw = dict(valid_data = rows[:2], batch_size = 4, lr = 1e-4, device = 'cuda')
+        fused_wn_block.launches = fused_wn_layer.launches = 0
+        t0 = time.perf_counter()
+        history = task.fit(rows, epochs = 3, ** fit_kw)
+        fit_s = time.perf_counter() - t0
+        launches = {'wn_block': fused_wn_block.launches, 'wn_layer': fused_wn_layer.launches}
+        losses, val_losses = history.get_metric('loss'), history.get_metric('val_loss')
+        manifest = os.path.join(task.folder, 'saving', 'checkpoint', 'checkpoint.json')
+        with open(manifest) as file:
+            saved = [c['epoch'] for c in json.load(file)['checkpoints']]
+        # a step a epoch (4 rows, batch 4): 2 x 12 K1 launches with remat,
+        # and 12 for the validation batch
+        per_epoch = 3 * hp.n_flows
+        check(launches == {'wn_block': 3 * per_epoch, 'wn_layer': 0},
+              'fit launches: {}'.format(launches))
+        check(all(np.isfinite(losses)) and losses[2] < losses[0],
+              'fit: the training loss did not fall: {}'.format(losses))
+        check(saved == [1, 2, 3] and os.path.exists(os.path.join(
+            task.folder, 'saving', 'checkpoint', 'ckpt-3.params.npz')),
+            'fit: checkpoints {}'.format(saved))
+        history = task.fit(rows, epochs = 1, ** fit_kw)
+        resumed = history.trainings[-1]['config']['resumed_optimizer_from_epoch']
+        check(resumed == 3 and task.epochs == 4,
+              'resume: optimizer state from epoch {}, {} epochs'.format(resumed, task.epochs))
+        fit = {'rows': len(rows), 'valid_rows': 2, 'epochs': 3, 'fit_s': fit_s,
+               'loss': losses, 'val_loss': val_losses, 'launches': launches,
+               'checkpoints': saved, 'resumed_optimizer_from_epoch': resumed,
+               'resume_loss': history.get_metric('loss')[-1],
+               'grouped_length': None}
+
+        # 3. the eval step of a use_pallas model on the fitted params: K4 in
+        #    every layer, against the plain chain on the validation batch
+        fitted = task.params
+        batch = task.collate([task.prepare_data(r) for r in rows[:2]])
+        inputs, targets = bucket_pad(batch, task)
+        inputs, targets = _to_device(inputs, 'cuda'), _to_device(targets, 'cuda')
+        fit['grouped_length'] = inputs[1].shape[1] // hp.n_group
+        pallas = WaveGlow(fitted, device = 'cuda', name = 'eval', root = directory,
+                          use_pallas = True)
+        plain = WaveGlow(fitted, device = 'cuda', name = 'eval', root = directory)
+        # Limits, relative to the reference loss.  float32: K4 is equal to
+        # its plain version to the bit (kernels phase) and the cuDNN chain
+        # sums in another order: 1e-5.  mixed_bfloat16: the cuDNN bf16 chain
+        # rounds the acts, the gate and every residual and skip sum to bf16,
+        # where K4 rounds the gate and its outputs only, and the loss of the
+        # fitted model is a difference of terms several times its size, so
+        # the two bf16 routes land 1.7e-2 apart and 2.5e-2 (K4) and 4.1e-2
+        # (the chain) from the float32 chain (measured on an H100).  K4's
+        # route is held to the chain with K4's plain version in every layer
+        # (the same dtype contract) at 1e-3, and to the float32 chain at
+        # 5e-2, the bf16 chain's own distance with room; its distance to the
+        # bf16 chain is reported.
+        from text_to_speech_tpu_torch.models import waveglow_arch
+        from text_to_speech_tpu_torch.ops.wn_layer import wn_layer_plain
+        evals = {}
+        rel = lambda a, b: abs(a - b) / abs(b)
+        for precision in ('float32', 'mixed_bfloat16'):
+            run = lambda model: float(make_eval_step(model, WaveGlowLoss(), precision = precision)(
+                model.params, {}, None, inputs, targets)['loss'])
+            run(pallas)
+            torch.cuda.synchronize()
+            fused_wn_layer.launches = fused_wn_block.launches = 0
+            t0 = time.perf_counter()
+            loss = run(pallas)
+            pallas_ms = 1e3 * (time.perf_counter() - t0)
+            k4, k1 = fused_wn_layer.launches, fused_wn_block.launches
+            t0 = time.perf_counter()
+            ref = run(plain)
+            plain_ms = 1e3 * (time.perf_counter() - t0)
+            layer, waveglow_arch.fused_wn_layer = waveglow_arch.fused_wn_layer, wn_layer_plain
+            try:
+                contract = run(pallas)
+            finally:
+                waveglow_arch.fused_wn_layer = layer
+            evals[precision] = {'loss': loss, 'plain_chain_loss': ref,
+                                'plain_version_chain_loss': contract,
+                                'rel_err_plain_chain': rel(loss, ref),
+                                'rel_err_plain_version_chain': rel(loss, contract),
+                                'wn_layer_launches': k4, 'wn_block_launches': k1,
+                                'ms': pallas_ms, 'plain_chain_ms': plain_ms}
+            check(k4 == hp.n_flows * hp.wn_layers and k1 == 0,
+                  'use_pallas eval: {} K4 and {} K1 launches'.format(k4, k1))
+        f32, bf16 = evals['float32'], evals['mixed_bfloat16']
+        bf16['rel_err_float32_chain'] = rel(bf16['loss'], f32['plain_chain_loss'])
+        bf16['plain_chain_rel_err_float32_chain'] = rel(bf16['plain_chain_loss'],
+                                                        f32['plain_chain_loss'])
+        f32['tolerance_rel'] = 1e-5
+        bf16['tolerance_rel'] = {'plain_version_chain': 1e-3, 'float32_chain': 5e-2}
+        check(f32['rel_err_plain_chain'] <= 1e-5 and f32['rel_err_plain_version_chain'] <= 1e-5,
+              'use_pallas eval, float32: {}'.format(f32))
+        check(bf16['rel_err_plain_version_chain'] <= 1e-3
+              and bf16['rel_err_float32_chain'] <= 5e-2,
+              'use_pallas eval, mixed_bfloat16: {}'.format(bf16))
+        tx = get_optimizer('adam', lr = 1e-4)
+        p = _trainable(pallas.params)
+        try:
+            make_train_step(pallas, WaveGlowLoss(), tx)(p, {}, tx.init(p), None, inputs, targets)
+        except RuntimeError as err:
+            refused = 'wn_train_fused' in str(err)
+        else:
+            refused = False
+        check(refused, 'the train step of a use_pallas model was not refused')
+        emit({'phase': 'train', 'fit': fit, 'use_pallas_eval': evals,
+              'use_pallas_train_step_refused': refused})
+    finally:
+        shutil.rmtree(directory, ignore_errors = True)
+    return steps, fit, evals
+
+
 SENTENCES = ['The quick brown fox jumps over the lazy dog.',
              'Printing, in the only sense with which we are concerned,',
              'differs from most if not from all the arts and crafts.',
@@ -480,6 +778,7 @@ def e2e_phase(model, vocoder, setup_s):
     from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
     from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
     from text_to_speech_tpu_torch.ops.wn_block_int8 import fused_wn_block_int8
+    from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer
 
     wg_arch = vocoder.arch
     n_flows = wg_arch.hp.n_flows
@@ -502,18 +801,20 @@ def e2e_phase(model, vocoder, setup_s):
         tts(texts, max_length = 64, ** kw)                              # warm-up
         torch.cuda.synchronize()
         fused_wn_block.launches = fused_wn_block_int8.launches = decoder_steps.launches = 0
+        fused_wn_layer.launches = 0
         start = time.perf_counter()
         outputs = tts(texts, max_length = max_frames, ** kw)
         total_s = time.perf_counter() - start
         launches = {'wn_block': fused_wn_block.launches,
                     'wn_block_int8': fused_wn_block_int8.launches,
-                    'decoder_steps': decoder_steps.launches}
+                    'decoder_steps': decoder_steps.launches,
+                    'wn_layer': fused_wn_layer.launches}
         rows = sum(len(out['mel']) for out in outputs)
         vocoder_calls = -(-rows // vocoder_batch)
         # each vocoder call runs every flow on the mode's kernel, and no other
         expected = {'default': (n_flows * vocoder_calls, 0), 'int8': (0, n_flows * vocoder_calls),
                     'float32_xla': (0, 0)}[serving]
-        check(vocoder.serving_mode == serving and
+        check(vocoder.serving_mode == serving and launches['wn_layer'] == 0 and
               (launches['wn_block'], launches['wn_block_int8']) == expected,
               '{}: {} launches for {} vocoder calls in mode {}'.format(
                   name, launches, vocoder_calls, vocoder.serving_mode))
@@ -651,7 +952,7 @@ def main():
                          capture_output = True, text = True, check = True).stdout.strip()
     start = time.perf_counter()
     # one nvcc per source, all started together
-    _build.build_all(['wn_block', 'decoder_steps', 'wn_block_int8'])
+    _build.build_all(['wn_block', 'decoder_steps', 'wn_block_int8', 'wn_layer'])
     build_s = time.perf_counter() - start
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if 'registers' in line or 'spill' in line]
@@ -667,8 +968,10 @@ def main():
 
     wn_cases = wn_block_phase()
     wn8_cases = wn_block_int8_phase()
+    layer_cases = wn_layer_phase()
     dec_cases = decoder_steps_phase(model)
     runs, int8_lstm = e2e_phase(model, vocoder, setup_s)
+    steps, fit, evals = train_phase()
 
     launches = lambda kernel: sum(r['launches'][kernel] for r in runs.values())
     summary = lambda case, ** entry: dict(
@@ -693,6 +996,16 @@ def main():
                 source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
                 launches = launches('wn_block_int8')),
+        # the use_pallas eval step under mixed_bfloat16, at the training batch
+        summary(layer_cases['bfloat16_B8_T8192_d1_residual'], name = 'fused_wn_layer',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_layer.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:91',
+                launches = evals['mixed_bfloat16']['wn_layer_launches']),
+        # wn_train_fused: launches per train step (forward and remat recompute)
+        summary(wn_cases['bfloat16_B8_T8192'], name = 'fused_wn_block (wn_train_fused training)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = int(steps['wn_train_fused_mixed_bfloat16']['wn_block_launches_per_step'])),
     ]}), flush = True)
     print(smi, flush = True)
     print(json.dumps({'ok': True, 'device': {

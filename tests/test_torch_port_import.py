@@ -32,9 +32,15 @@ def test_port_imports_without_jax():
                   or m.startswith('text_to_speech_tpu.')]
         assert not leaked, leaked
         print(len(names))
+        print(' '.join(names))
     ''')
-    # every module of the slice was imported
-    assert int(out.split()[-1]) >= 20
+    # every module of the slices was imported, the training slice's too
+    count, names = out.split('\n')[-3:-1]
+    assert int(count) >= 30
+    for name in ('ops.wn_layer', 'ops.stft', 'ops.audio_io', 'train.trainer',
+                 'train.optimizers', 'train.losses', 'train.precision', 'train.datasets',
+                 'train.history', 'train.checkpoint'):
+        assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
 def test_entry_points_raise_without_device():
@@ -58,5 +64,9 @@ def test_entry_points_raise_without_device():
         raises(lambda: tts('hello', model = 'overfit_demo'))
         raises(lambda: Tacotron2({}, {}, tokenizer = default_english_tokenizer()))
         raises(lambda: WaveGlow({}))
+        from text_to_speech_tpu_torch.train.trainer import fit
+        vocoder = WaveGlow({}, device = 'cpu')
+        raises(lambda: fit(vocoder, []))
+        raises(lambda: vocoder.fit([]))
         assert default_device('cpu') == torch.device('cpu')
     ''')

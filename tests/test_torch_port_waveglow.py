@@ -129,16 +129,63 @@ def test_use_kernel_takes_the_fused_branch_at_any_length(models, monkeypatch):
 
 @pytest.mark.parametrize('change', [dict(wn_layers = 1), dict(wn_kernel_size = 5)])
 def test_kernel_packing_rejects_blocks_outside_its_envelope(change):
-    """A block the kernel cannot run raises at packing time, rather than
-    falling back to the per-layer chain."""
+    """A block the whole-block kernel cannot run raises at packing time,
+    rather than falling back to the per-layer chain.  `infer(use_kernel)`
+    raises with it for 5 taps; a block of one layer runs the layer kernel
+    instead, as the JAX package does (`test_one_layer_blocks_run_the_layer_kernel`)."""
     config = dict(CONFIG, ** change)
     port = WaveGlow(** config)
     params = waveglow_from_jax(init_waveglow(port.hp, port.flow_channels, seed = 11))
     with pytest.raises(ValueError):
         port.pack_kernel_params(params)
-    with pytest.raises(ValueError):
-        port.infer(params, torch.from_numpy(_mel(4, batch = 1)), deterministic = True,
-                   use_kernel = True)
+    mel = torch.from_numpy(_mel(4, batch = 1))
+    if config['wn_layers'] == 1:
+        with torch.no_grad():
+            out = port.infer(params, mel, deterministic = True, use_kernel = True)
+        assert bool(torch.isfinite(out).all())
+    else:
+        with pytest.raises(ValueError):
+            port.infer(params, mel, deterministic = True, use_kernel = True)
+
+
+def test_one_layer_blocks_run_the_layer_kernel(monkeypatch):
+    """With one WN layer a block, `infer(use_kernel=True)` runs each block
+    as the per-layer chain on `ops.wn_layer` (its plain version on the CPU),
+    as the JAX package's `infer(use_pallas=True)` does, and matches the JAX
+    float32 chain (`use_pallas=False`) within the float32 tolerance."""
+    from text_to_speech_tpu_torch.models import waveglow_arch
+    config = dict(CONFIG, wn_layers = 1)
+    port, jax_arch = WaveGlow(** config), JaxWaveGlow(** config)
+    params = init_waveglow(port.hp, port.flow_channels, seed = 12)
+    calls = []
+    layer = waveglow_arch.fused_wn_layer
+    monkeypatch.setattr(waveglow_arch, 'fused_wn_layer',
+                        lambda * a, ** kw: calls.append(kw) or layer(* a, ** kw))
+    mel = _mel(9, batch = 2, seed = 13)
+    ref = np.asarray(jax_arch.infer(_jax(params), jnp.asarray(mel), deterministic = True,
+                                    use_pallas = False))
+    with torch.no_grad():
+        out = port.infer(waveglow_from_jax(params), torch.from_numpy(mel),
+                         deterministic = True, use_kernel = True)
+    assert calls == [{'dilation': 1, 'residual': False}] * CONFIG['n_flows']
+    np.testing.assert_allclose(out.numpy(), ref, atol = ATOL, rtol = 0)
+    assert float(np.abs(ref).max()) > 1e-3
+
+
+def test_waveglow_to_jax_round_trip(models):
+    """`weights.waveglow_to_jax` inverts `waveglow_from_jax` exactly, and
+    gives back the JAX tree it came from."""
+    from text_to_speech_tpu_torch.weights import flatten_tree, waveglow_to_jax
+    _, _, params = models
+    port_params = waveglow_from_jax(params)
+    back = waveglow_to_jax(port_params)
+    flat, ref = flatten_tree(back), flatten_tree(params)
+    assert sorted(flat) == sorted(ref)
+    for name, value in ref.items():
+        np.testing.assert_array_equal(flat[name], value, err_msg = name)
+    again = flatten_tree(waveglow_from_jax(back))
+    for name, value in flatten_tree(port_params).items():
+        assert torch.equal(again[name], value), name
 
 
 @pytest.mark.parametrize('width,stride', [(64, 16), (24, 16)])

@@ -24,8 +24,9 @@
 //     that owns it, after the layer's in_kernel has finished reading x) and
 //     accumulates skip in an f32 buffer; the last layer writes the output.
 // Both run 128 x 128 block tiles over a 3-stage ring of shared-memory
-// stages filled with cp.async (zero-filling the out-of-range rows), so the
-// next stages' loads overlap the current stage's products.  T = bf16 runs
+// stages (`tile::product` of wn_tile.cuh) filled with cp.async
+// (zero-filling the out-of-range rows), so the next stages' loads overlap
+// the current stage's products.  T = bf16 runs
 // the products on the tensor cores through nvcuda::wmma (bf16 operands,
 // f32 accumulation); T = float runs FMA tiles in true f32, which lets the
 // card check the indexing tightly against the plain version.
@@ -43,174 +44,15 @@
 // the activations on-chip across layers as the TPU kernel keeps them in
 // VMEM.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <mma.h>
+#include "wn_tile.cuh"
 
 #include <stdint.h>
-#include <type_traits>
 
 namespace {
 
+using namespace tile;
+
 constexpr int BM = 128;       // rows per block
-constexpr int BN = 128;       // accumulator columns per block
-constexpr int BK = 32;        // reduction depth per stage
-constexpr int STAGES = 3;     // shared-memory ring depth
-constexpr int THREADS = 256;  // 8 warps
-constexpr int C_LD = BN + 4;  // f32 accumulator tile row stride
-
-template <typename T> struct Tile;
-template <> struct Tile<float> {
-  static constexpr int A_LD = BK + 4;
-  static constexpr int B_LD = BN + 4;
-};
-template <> struct Tile<__nv_bfloat16> {
-  static constexpr int A_LD = BK + 8;
-  static constexpr int B_LD = BN + 8;
-};
-
-// dynamic shared memory of a block: the ring of A and B stages, later
-// reused for the f32 accumulator tile
-template <typename T>
-struct Smem {
-  static constexpr int A_STAGE = BM * Tile<T>::A_LD;          // elements
-  static constexpr int B_STAGE = BK * Tile<T>::B_LD;
-  static constexpr int RING = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(T);
-  static constexpr int ACC = BM * C_LD * (int)sizeof(float);
-  static constexpr int BYTES = RING > ACC ? RING : ACC;
-};
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
-// 16-byte asynchronous copy global -> shared; with `valid` false nothing is
-// read and the 16 bytes are zero-filled (`src` must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
-}
-
-// The block's BM x BN product of the A and B tiles, accumulated over the
-// K loop, left as f32 in sC() (which aliases the stage ring).
-template <typename T>
-struct Product {
-  static constexpr int A_LD = Tile<T>::A_LD;
-  static constexpr int B_LD = Tile<T>::B_LD;
-  static constexpr int V = 16 / sizeof(T);     // elements per 16-byte copy
-
-  unsigned char* smem;
-
-  __device__ explicit Product(unsigned char* s) : smem(s) {}
-  __device__ T* sA(int stage) const {
-    return reinterpret_cast<T*>(smem) + stage * (Smem<T>::A_STAGE + Smem<T>::B_STAGE);
-  }
-  __device__ T* sB(int stage) const { return sA(stage) + Smem<T>::A_STAGE; }
-  __device__ float* sC() const { return reinterpret_cast<float*>(smem); }
-
-  // load(sA, sB, k0) issues the cp.async copies of one stage; the loop
-  // keeps STAGES - 1 stages in flight ahead of the one being multiplied.
-  template <typename Load>
-  __device__ void run(int K, Load load) {
-    const int nk = K / BK;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nk) load(sA(s), sB(s), s * BK);
-      cp_async_commit();
-    }
-    const int tid = threadIdx.x;
-    if constexpr (std::is_same<T, float>::value) {
-      const int ty = tid / 16, tx = tid % 16;     // 8 rows x 8 columns each
-      float acc[8][8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-      for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();
-        const int next = kt + STAGES - 1;
-        if (next < nk) load(sA(next % STAGES), sB(next % STAGES), next * BK);
-        cp_async_commit();
-        const float* a_s = sA(kt % STAGES);
-        const float* b_s = sB(kt % STAGES);
-#pragma unroll 4
-        for (int k = 0; k < BK; ++k) {
-          float a[8];
-#pragma unroll
-          for (int i = 0; i < 8; ++i) a[i] = a_s[(ty * 8 + i) * A_LD + k];
-          const float4 b0 = *reinterpret_cast<const float4*>(b_s + k * B_LD + tx * 8);
-          const float4 b1 = *reinterpret_cast<const float4*>(b_s + k * B_LD + tx * 8 + 4);
-          const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-          for (int i = 0; i < 8; ++i)
-#pragma unroll
-            for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) sC()[(ty * 8 + i) * C_LD + tx * 8 + j] = acc[i][j];
-    } else {
-      using namespace nvcuda;
-      const int warp = tid / 32;
-      const int wm = warp / 2, wn = warp % 2;    // 32 rows x 64 columns each
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-      for (int kt = 0; kt < nk; ++kt) {
-        cp_async_wait<STAGES - 2>();
-        __syncthreads();
-        const int next = kt + STAGES - 1;
-        if (next < nk) load(sA(next % STAGES), sB(next % STAGES), next * BK);
-        cp_async_commit();
-        const T* a_s = sA(kt % STAGES);
-        const T* b_s = sB(kt % STAGES);
-#pragma unroll
-        for (int kk = 0; kk < BK; kk += 16) {
-          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a[2];
-#pragma unroll
-          for (int i = 0; i < 2; ++i)
-            wmma::load_matrix_sync(a[i], a_s + (wm * 32 + i * 16) * A_LD + kk, A_LD);
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, b_s + kk * B_LD + wn * 64 + j * 16, B_LD);
-#pragma unroll
-            for (int i = 0; i < 2; ++i) wmma::mma_sync(acc[i][j], a[i], b, acc[i][j]);
-          }
-        }
-      }
-      cp_async_wait<0>();
-      __syncthreads();
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::store_matrix_sync(sC() + (wm * 32 + i * 16) * C_LD + wn * 64 + j * 16,
-                                  acc[i][j], C_LD, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-};
 
 // Layer i, first GEMM: acts over K = 3C + S with the gate in the epilogue.
 // Block (bx, by) owns rows [bx*BM, +BM) and gated columns [by*64, +64),
@@ -221,8 +63,7 @@ in_kernel(const T* __restrict__ x, const T* __restrict__ spect,
           const T* __restrict__ w, const float* __restrict__ bias,
           T* __restrict__ gated, int M, int T_len, int C, int S, int dilation) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Product<T> prod(smem);
-  constexpr int V = Product<T>::V;
+  constexpr int V = 16 / sizeof(T);              // elements per 16-byte copy
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * 64;
   const int N = 2 * C;
@@ -249,19 +90,19 @@ in_kernel(const T* __restrict__ x, const T* __restrict__ spect,
         t = row - b * T_len + shift;
         ok = t >= 0 && t < T_len;
       }
-      cp_async16(sA + r * Product<T>::A_LD + kc,
+      cp_async16(sA + r * Tile<T>::A_LD + kc,
                  ok ? src + ((size_t)b * T_len + t) * width + ch0 + kc : src, ok);
     }
     constexpr int B_ROW = BN / V;
     for (int c = tid; c < BK * B_ROW; c += THREADS) {
       const int kr = c / B_ROW, jc = (c % B_ROW) * V;
       const int col = jc < 64 ? n0 + jc : C + n0 + (jc - 64);
-      cp_async16(sB + kr * Product<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + col, true);
+      cp_async16(sB + kr * Tile<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + col, true);
     }
   };
-  prod.run(3 * C + S, load);
+  product<T, BM, false>(smem, 3 * C + S, nullptr, 0, load);
 
-  const float* sC = prod.sC();
+  const float* sC = reinterpret_cast<const float*>(smem);
   for (int e = tid; e < BM * 64; e += THREADS) {
     const int r = e / 64, j = e % 64;
     const int row = m0 + r;
@@ -281,8 +122,7 @@ rs_kernel(const T* __restrict__ gated, const T* __restrict__ w,
           float* __restrict__ skip, T* __restrict__ out,
           int M, int C, int N, int first, int last) {
   extern __shared__ __align__(128) unsigned char smem[];
-  Product<T> prod(smem);
-  constexpr int V = Product<T>::V;
+  constexpr int V = 16 / sizeof(T);              // elements per 16-byte copy
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
@@ -293,18 +133,18 @@ rs_kernel(const T* __restrict__ gated, const T* __restrict__ w,
       const int r = c / A_ROW, kc = (c % A_ROW) * V;
       const int row = m0 + r;
       const bool ok = row < M;
-      cp_async16(sA + r * Product<T>::A_LD + kc,
+      cp_async16(sA + r * Tile<T>::A_LD + kc,
                  ok ? gated + (size_t)row * C + k0 + kc : gated, ok);
     }
     constexpr int B_ROW = BN / V;
     for (int c = tid; c < BK * B_ROW; c += THREADS) {
       const int kr = c / B_ROW, jc = (c % B_ROW) * V;
-      cp_async16(sB + kr * Product<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + n0 + jc, true);
+      cp_async16(sB + kr * Tile<T>::B_LD + jc, w + (size_t)(k0 + kr) * N + n0 + jc, true);
     }
   };
-  prod.run(C, load);
+  product<T, BM, false>(smem, C, nullptr, 0, load);
 
-  const float* sC = prod.sC();
+  const float* sC = reinterpret_cast<const float*>(smem);
   for (int e = tid; e < BM * BN; e += THREADS) {
     const int r = e / BN, j = e % BN;
     const int row = m0 + r;
@@ -328,7 +168,7 @@ int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
               const void* w_rs, const float* b_rs, const void* w_rs_last,
               const float* b_rs_last, void* x, void* gated, float* skip, void* out,
               int B, int T_len, int C, int S, int L, cudaStream_t stream) {
-  constexpr int smem = Smem<T>::BYTES;
+  constexpr int smem = Smem<T, BM>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       in_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;

@@ -53,8 +53,7 @@
 // on-chip across layers as the TPU kernel keeps them in VMEM (the row
 // passes here move about 6 x M x C bytes a layer through L2 and memory).
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "wn_tile.cuh"
 
 #include <stdint.h>
 
@@ -70,15 +69,6 @@ constexpr int STAGE_BYTES = (BM + BN) * LD;
 constexpr int SMEM_BYTES = STAGES * STAGE_BYTES;
 constexpr float EPS = 1e-8f;
 
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -91,21 +81,6 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
 // round half to even, clip to [-127, 127]
 __device__ __forceinline__ int quant(float v) {
   return max(-127, min(127, __float2int_rn(v)));
-}
-
-// 16-byte asynchronous copy global -> shared; with `valid` false nothing is
-// read and the 16 bytes are zero-filled (`src` must still be a valid address).
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
 }
 
 __device__ __forceinline__ unsigned lds32(const unsigned char* p) {

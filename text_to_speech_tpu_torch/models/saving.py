@@ -1,4 +1,4 @@
-"""Read-only access to the JAX package's saved model directories.
+"""The JAX package's saved model directories, read by the port.
 
 The layout (``text_to_speech_tpu/models/saving.py``)::
 
@@ -9,9 +9,10 @@ The layout (``text_to_speech_tpu/models/saving.py``)::
     <root>/<name>/saving/checkpoint/checkpoint.json   # manifest, newest last
     <root>/<name>/saving/checkpoint/ckpt-<epoch>.<tree>.npz
 
-The port only reads these files.  The root is ``$TTS_PRETRAINED_DIR`` or
-``pretrained_models`` (relative to the working directory), like the JAX
-package's, unless a caller passes its own.
+The port reads these files; the WaveGlow task model also writes them
+when it trains (`models.tts.waveglow.WaveGlow.save`).  The root is
+``$TTS_PRETRAINED_DIR`` or ``pretrained_models`` (relative to the working
+directory), like the JAX package's, unless a caller passes its own.
 """
 
 import json

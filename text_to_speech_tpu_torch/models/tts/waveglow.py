@@ -11,6 +11,15 @@ gated on its waveform SNR against the float32 chain; when the gate fails,
 the vocoder serves on the float32 chain, never on the bf16 kernel.  The
 kernel weights are made once and cached.  Windowed vocoding is not ported
 yet (see ROADMAP.md).
+
+Training (the JAX package's `BaseModel.fit` and the task's data hooks):
+the model owns its mel front end (`mel_fn`, saved as ``saving/mel_fn.json``),
+prepares (mel, audio) pairs from WAV files or arrays (`prepare_data`,
+`collate`), and `fit` trains it with `train.trainer.fit`.  `save` writes the
+JAX package's directory layout under ``<root>/<name>/`` (``config.json``,
+``saving/config_models.json``, ``saving/mel_fn.json``,
+``saving/history.json`` and ``saving/checkpoint/``), the params in the JAX
+package's tree layout (`weights.waveglow_to_jax`).
 """
 
 import logging
@@ -20,8 +29,12 @@ import numpy as np
 import torch
 
 from ...devices import default_device
-from ...weights import tree_to, waveglow_from_jax
-from ..saving import load_json, load_model_files
+from ...ops.audio_io import load_audio
+from ...ops.stft import MelSTFT
+from ...train.checkpoint import CheckpointManager
+from ...train.history import History, dump_json
+from ...weights import tree_to, waveglow_from_jax, waveglow_to_jax
+from ..saving import load_json, load_model_files, model_dir
 from ..waveglow_arch import WaveGlow as WaveGlowArch
 
 logger = logging.getLogger(__name__)
@@ -29,16 +42,32 @@ logger = logging.getLogger(__name__)
 
 class WaveGlow:
     serving_pad_multiple = 256   # compiled_infer's mel shape bucket
+    _default_loss = 'WaveGlowLoss'
+    train_remat = True           # per-flow remat in the train step
 
     def __init__(self, params, *, name = 'waveglow', device = None,
-                 pad_mel_value = -11., rate = 22050, ** arch_config):
-        """`params`: the port's parameter tree (`weights.waveglow_from_jax`)."""
+                 pad_mel_value = -11., rate = 22050, mel_fn = 'TacotronSTFT',
+                 root = None, max_to_keep = 3, ** arch_config):
+        """`params`: the port's parameter tree (`weights.waveglow_from_jax`).
+        `mel_fn`: a `MelSTFT`, its config or class name (made at `rate` with
+        the model's mel channels).  `root`: the directory that `save` and
+        the checkpoints write under (``<root>/<name>/``), by default the
+        pretrained-models root."""
         self.name = name
         self.device = default_device(device)
         self.arch = WaveGlowArch(** arch_config)
         self.params = tree_to(params, self.device)
+        self.state = {}
         self.pad_mel_value = pad_mel_value
-        self.rate = rate
+        if isinstance(mel_fn, str) and not os.path.isfile(mel_fn):
+            mel_fn = MelSTFT.create(mel_fn, sampling_rate = rate,
+                                    n_mel_channels = self.arch.hp.n_mel_channels)
+        self.mel_fn = MelSTFT.create(mel_fn)
+        self.rate = self.mel_fn.rate
+        self.folder = model_dir(name, root = root)
+        self.max_to_keep = max_to_keep
+        self._history = None
+        self._ckpt_manager = None
         self._packed_params = None        # (params, int8, kernel params)
         self._serve_int8 = False
         self._serve_force_xla = False
@@ -55,9 +84,87 @@ class WaveGlow:
         arch = {k: v for k, v in files['architecture'].items() if k != 'architecture'}
         config = files['config'].get('config', {})
         mel_fn = load_json(os.path.join(files['dir'], 'saving', 'mel_fn.json'))
-        return cls.from_jax(files['params'], name = name, device = device,
-                            rate = mel_fn.get('sampling_rate', 22050),
-                            pad_mel_value = config.get('pad_mel_value', -11.), ** arch)
+        return cls.from_jax(files['params'], name = name, device = device, root = root,
+                            mel_fn = mel_fn, pad_mel_value = config.get('pad_mel_value', -11.),
+                            ** arch)
+
+    # -- training ----------------------------------------------------------------
+
+    @property
+    def history(self):
+        if self._history is None:
+            self._history = History.load(os.path.join(self.folder, 'saving', 'history.json'))
+        return self._history
+
+    @property
+    def epochs(self):
+        return self.history.epochs
+
+    @property
+    def ckpt_manager(self):
+        """The `CheckpointManager` of ``saving/checkpoint/``, made (with its
+        directory) at first use."""
+        if self._ckpt_manager is None:
+            self._ckpt_manager = CheckpointManager(
+                os.path.join(self.folder, 'saving', 'checkpoint'),
+                max_to_keep = self.max_to_keep)
+        return self._ckpt_manager
+
+    def to(self, device):
+        """Move the params to `device` (a no-op where they are)."""
+        device = torch.device(device)
+        if device != self.device:
+            self.params = tree_to(self.params, device)
+            self.device = device
+            self._packed_params = None
+        return self
+
+    def set_weights(self, params, state = None):
+        self.params = tree_to(_detach(params), self.device)
+        if state is not None: self.state = state
+        self._packed_params = None
+
+    def prepare_data(self, data):
+        """A row (WAV filename, array or dict) → (mel (F, n_mel), audio (T,)),
+        numpy; the mel computed on the model's device."""
+        audio = load_audio(data, self.rate)
+        with torch.no_grad():
+            mel = self.mel_fn(torch.as_tensor(audio, device = self.device))[0]
+        return mel.cpu().numpy(), audio
+
+    def collate(self, batch):
+        """(mel, audio) pairs → ((mels, audios), audios), padded with
+        `pad_mel_value` and zeros."""
+        mels = _pad_batch([b[0] for b in batch], self.pad_mel_value)
+        audios = _pad_batch([b[1] for b in batch], 0.)
+        return (mels, audios), audios
+
+    def get_padding_values(self):
+        return (self.pad_mel_value, 0.)
+
+    def get_config(self):
+        return {'pad_mel_value': self.pad_mel_value}
+
+    def save(self, *, epoch = None, metric = None, extra_trees = None):
+        """Write the model's directory in the JAX package's layout, with a
+        checkpoint of the params (JAX tree layout) and of `extra_trees` for
+        `epoch` (default: ``epochs``)."""
+        saving = os.path.join(self.folder, 'saving')
+        dump_json(os.path.join(self.folder, 'config.json'), {
+            'class_name': 'WaveGlow', 'config': {** self.get_config(), 'name': self.name}})
+        dump_json(os.path.join(saving, 'config_models.json'),
+                  {'architecture': 'waveglow', ** self.arch.get_config()})
+        self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
+        self.history.save(os.path.join(saving, 'history.json'))
+        trees = {'params': waveglow_to_jax(self.params), ** (extra_trees or {})}
+        self.ckpt_manager.save(trees, epoch if epoch is not None else self.epochs,
+                               metric = metric)
+        return self.folder
+
+    def fit(self, dataset, ** kwargs):
+        """Train on `dataset` with `train.trainer.fit`."""
+        from ...train.trainer import fit
+        return fit(self, dataset, ** kwargs)
 
     @property
     def upsample_rate(self):
@@ -186,3 +293,19 @@ class WaveGlow:
         return audio[:, :seq_len * self.upsample_rate].cpu().numpy()
 
     __call__ = infer
+
+
+def _detach(tree):
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    return tree.detach()
+
+
+def _pad_batch(arrays, pad_value):
+    """Arrays of equal trailing shape → one array padded along axis 1."""
+    arrays = [np.asarray(a) for a in arrays]
+    out = np.full((len(arrays), max(len(a) for a in arrays)) + arrays[0].shape[1:],
+                  pad_value, dtype = arrays[0].dtype)
+    for i, a in enumerate(arrays):
+        out[i, :len(a)] = a
+    return out

@@ -1,21 +1,29 @@
-"""WaveGlow inverse-flow vocoder over dictionaries of tensors.
+"""WaveGlow flow vocoder over dictionaries of tensors.
 
-Counterpart of ``text_to_speech_tpu/models/waveglow_arch.py`` (inference
-only): `upsample_mel`, the WN coupling block `wn_block` with its fused
-branches (the `ops.wn_block` kernel, and the `ops.wn_block_int8` kernel on
-the weights of `quantize_kernel_params`) and its unfused layer chain, and
-`infer` with the int8 route's mixed-precision contract.
+Counterpart of ``text_to_speech_tpu/models/waveglow_arch.py``:
+`upsample_mel`; the WN coupling block `wn_block` with its fused branches
+(the `ops.wn_block` kernel, and the `ops.wn_block_int8` kernel on the
+weights of `quantize_kernel_params`) and its per-layer chain, which runs
+each layer in the `ops.wn_layer` kernel under ``use_pallas``; `infer` with
+the int8 route's mixed-precision contract; and the training direction:
+`forward` (with per-flow remat and the mixed-precision cast), `loss`, and
+`wn_block_train`, the whole-block kernel forward with a recomputed backward
+that ``wn_train_fused`` selects.
 Parameters are the port's layouts (`weights.waveglow_from_jax`).  Each
 flow's 1×1 invertible conv is a (c, c) ``weight`` with ``y = audio @ weight.T``.
 """
 
+import functools
+
 import torch
+import torch.utils.checkpoint
 
 from ..hparams import HParams
 from ..nn import layers as nn
 from ..ops.wn_block import fused_wn_block, pack_wn_weights
 from ..ops.wn_block_int8 import fused_wn_block_int8, pack_wn_int8, quantize_wn_weights
-from ..weights import cast_tree
+from ..ops.wn_layer import fused_wn_layer
+from ..weights import cast_tree, flatten_tree, unflatten_tree
 
 HParamsWaveGlow = HParams(
     n_mel_channels = 80,
@@ -26,6 +34,9 @@ HParamsWaveGlow = HParams(
     wn_layers = 8,
     wn_channels = 512,
     wn_kernel_size = 3,
+    use_pallas = False,        # the chain runs each layer in `ops.wn_layer`
+    wn_train_conv = 'dilated', # read so a JAX config loads; the port runs nn.conv1d
+    wn_train_fused = False,    # training forward on `ops.wn_block` (wn_block_train)
     upsample_width = 1024,
     upsample_stride = 256,
     sigma = 1.0,
@@ -86,6 +97,12 @@ class WaveGlow:
                              'wn_kernel_size == 3, got {} and {}'.format(
                                  self.hp.wn_layers, self.hp.wn_kernel_size))
 
+    def _check_layer_kernel_envelope(self):
+        if self.hp.wn_channels % 128 or self.hp.wn_kernel_size != 3:
+            raise ValueError('the WN layer kernel needs wn_channels % 128 == 0 and '
+                             'wn_kernel_size == 3, got {} and {}'.format(
+                                 self.hp.wn_channels, self.hp.wn_kernel_size))
+
     def pack_kernel_params(self, params, dtype = torch.bfloat16):
         """Add each block's kernel-layout weights under ``'packed'``, in the
         kernel's buffer dtype: bf16 by default, as the JAX package's kernel
@@ -126,7 +143,11 @@ class WaveGlow:
         """WaveNet-like stack conditioned on the mel; returns (B, T, 2*n_half)
         [b | s].  With ``fused``, the layers run in the `ops.wn_block_int8`
         kernel when the block holds int8 weights (``'packed_q'``), else in
-        the `ops.wn_block` kernel; otherwise as the per-layer chain."""
+        the `ops.wn_block` kernel when it holds packed ones (``'packed'``);
+        otherwise as the per-layer chain, whose layers run in the
+        `ops.wn_layer` kernel under ``fused`` or ``hp.use_pallas`` wherever
+        C % 128 == 0 and the convs have 3 taps (the JAX package's condition
+        without its T % 512: the CUDA kernel takes any length)."""
         hp = self.hp
         n_ch = hp.wn_channels
         if fused and 'packed_q' in block:
@@ -138,20 +159,11 @@ class WaveGlow:
                 x.to(buf_dtype).contiguous(), spect.to(buf_dtype).contiguous(),
                 block['packed_q'])
             return self._end_conv(block, skip_sum)
-        if fused:
-            # buffers in the packed weights' dtype (bf16 for f32 callers):
-            # f32 accumulation and skip sum, the caller's dtype returned.
-            # CUDA tensors launch the kernel, which raises outside its
-            # envelope; CPU tensors take its plain version.
-            p = block['packed']
-            buf_dtype = p['w_in_cond'].dtype
-            x = nn.conv1d(block['start'], audio_half.to(block['start']['weight'].dtype))
-            skip_sum = fused_wn_block(
-                x.to(buf_dtype).contiguous(), spect.to(buf_dtype).contiguous(),
-                p['w_in_cond'], p['b_in_cond'], p['w_rs'], p['b_rs'],
-                p['w_rs_last'], p['b_rs_last'])
-            return self._end_conv(block, skip_sum).to(spect.dtype)
+        if fused and 'packed' in block:
+            return self._fused_block(block, block['packed'], audio_half, spect)
 
+        layer_kernel = (fused or hp.use_pallas) and n_ch % 128 == 0 \
+            and hp.wn_kernel_size == 3
         x = nn.conv1d(block['start'], audio_half)
         cond_all = None
         if 'cond_layer' in block:
@@ -162,16 +174,57 @@ class WaveGlow:
                 cond = cond_all[..., i * 2 * n_ch: (i + 1) * 2 * n_ch]
             else:
                 cond = nn.conv1d(block['cond_conv_{}'.format(i)], spect)
-            acts = nn.conv1d(block['in_conv_{}'.format(i)], x, dilation = 2 ** i) + cond
-            gated = torch.tanh(acts[..., :n_ch]) * torch.sigmoid(acts[..., n_ch:])
-            res_skip = nn.conv1d(block['res_skip_conv_{}'.format(i)], gated)
-            if i < hp.wn_layers - 1:
-                x = x + res_skip[..., :n_ch]
-                skip = res_skip[..., n_ch:]
+            in_conv = block['in_conv_{}'.format(i)]
+            rs_conv = block['res_skip_conv_{}'.format(i)]
+            last = i == hp.wn_layers - 1
+            if layer_kernel:
+                # the in-conv bias folded into the conditioning, as the JAX
+                # package does; conv weights (out, in, W) → taps (W, in, out)
+                if 'bias' in in_conv: cond = cond + in_conv['bias']
+                w_rs = rs_conv['weight'].permute(2, 1, 0).contiguous()
+                b_rs = rs_conv['bias'] if 'bias' in rs_conv else \
+                    torch.zeros(w_rs.shape[-1], dtype = x.dtype, device = x.device)
+                x, skip = fused_wn_layer(
+                    x.contiguous(), cond.contiguous(),
+                    in_conv['weight'].permute(2, 1, 0).contiguous(),
+                    torch.zeros(2 * n_ch, dtype = x.dtype, device = x.device),
+                    w_rs, b_rs.contiguous(), dilation = 2 ** i, residual = not last)
             else:
-                skip = res_skip
+                acts = nn.conv1d(in_conv, x, dilation = 2 ** i) + cond
+                gated = torch.tanh(acts[..., :n_ch]) * torch.sigmoid(acts[..., n_ch:])
+                res_skip = nn.conv1d(rs_conv, gated)
+                if not last:
+                    x = x + res_skip[..., :n_ch]
+                    skip = res_skip[..., n_ch:]
+                else:
+                    skip = res_skip
             output = skip if output is None else output + skip
         return nn.conv1d(block['end'], output.to(block['end']['weight'].dtype))
+
+    def _fused_block(self, block, packed, audio_half, spect):
+        """A block on the `ops.wn_block` kernel: buffers in the packed
+        weights' dtype (bf16 for f32 callers), f32 accumulation and skip
+        sum, the caller's dtype returned.  CUDA tensors launch the kernel,
+        which raises outside its envelope; CPU tensors take its plain
+        version."""
+        buf_dtype = packed['w_in_cond'].dtype
+        x = nn.conv1d(block['start'], audio_half.to(block['start']['weight'].dtype))
+        skip_sum = fused_wn_block(
+            x.to(buf_dtype).contiguous(), spect.to(buf_dtype).contiguous(),
+            packed['w_in_cond'], packed['b_in_cond'], packed['w_rs'], packed['b_rs'],
+            packed['w_rs_last'], packed['b_rs_last'])
+        return self._end_conv(block, skip_sum).to(spect.dtype)
+
+    def wn_block_train(self, block, audio_half, spect):
+        """The WN block with the `ops.wn_block` kernel forward and a backward
+        recomputed through the per-layer chain (`wn_block(fused=False)`), as
+        the JAX package's `wn_block_train` (a `jax.custom_vjp`): neither has
+        a backward kernel.  The block is packed each call, in bf16 buffers
+        unless the caller's dtype is narrower, as the weights change every
+        step."""
+        names = sorted(flatten_tree(block))
+        leaves = [flatten_tree(block)[name] for name in names]
+        return _WNBlockTrain.apply(self, tuple(names), audio_half, spect, * leaves)
 
     @staticmethod
     def _end_conv(block, skip_sum):
@@ -228,7 +281,8 @@ class WaveGlow:
         computed in f32, then cast).  `use_kernel` runs each coupling block
         through a kernel (the JAX package's `use_pallas`): `ops.wn_block_int8`
         on params from `quantize_kernel_params`, else `ops.wn_block`, packing
-        first if needed.  The int8 route runs mixed precision: under a
+        first if needed; a model of one layer a block runs its layers in
+        `ops.wn_layer`.  The int8 route runs mixed precision: under a
         `dtype` its int8 weights and the 1×1 convs keep their types, and the
         audio stream, the noise and the inverses stay f32, as a bf16 stream
         through the inverse flows loses the waveform.  Noise comes from
@@ -243,7 +297,13 @@ class WaveGlow:
             params = cast_tree(params, dtype, keep = keep)
             mel = mel.to(dtype)
         if use_kernel and 'packed' not in block0 and 'packed_q' not in block0:
-            params = self.pack_kernel_params(params)
+            if hp.wn_layers > 1:
+                params = self.pack_kernel_params(params)
+            else:
+                # one layer a block: the per-layer chain on `ops.wn_layer`,
+                # as the JAX package packs for its block kernel only when
+                # wn_layers > 1
+                self._check_layer_kernel_envelope()
 
         spect = self.upsample_mel(params, mel)
         batch, lg = spect.shape[0], spect.shape[1]
@@ -282,3 +342,100 @@ class WaveGlow:
                     z_i = sigma * noise(hp.n_early_size)
                 audio = torch.cat([z_i, audio], dim = -1)
         return audio.reshape(batch, -1)
+
+    # -- forward (training direction) ------------------------------------------
+
+    def forward(self, params, mel, audio, *, remat = False, compute_dtype = None):
+        """audio (B, T) + mel (B, F, n_mel) → (z, log_s_total, log_det_w_total)
+        for the flow negative log-likelihood, z in the JAX package's order
+        ([early outputs, first to last | the final audio]).
+
+        ``remat=True`` checkpoints each flow (its activations are recomputed
+        in the backward).  ``compute_dtype`` (e.g. bfloat16) is the
+        mixed-precision path: params (except the 1×1 convs, whose slogdet
+        stays float32) and the mel are cast, the WN blocks and the upsample
+        run in that dtype, and the audio stream, the log-determinants and
+        every log-likelihood sum stay float32.  Under ``hp.wn_train_fused``
+        (with C % 128 == 0 and 3 taps) the blocks run `wn_block_train`."""
+        hp = self.hp
+        if remat == 'acts':
+            raise NotImplementedError("remat='acts' (a JAX remat policy) is not ported; "
+                                      'use remat=True')
+        if compute_dtype is not None and compute_dtype != torch.float32:
+            from ..train.precision import cast_floating
+            params = cast_floating(params, compute_dtype, exempt = ('convinv',))
+            mel = mel.to(compute_dtype)
+        spect = self.upsample_mel(params, mel)
+        batch, lg = spect.shape[0], spect.shape[1]
+        audio = audio[:, : lg * hp.n_group].reshape(batch, lg, hp.n_group)
+
+        fused_train = hp.wn_train_fused and hp.wn_channels % 128 == 0 \
+            and hp.wn_kernel_size == 3
+        wn_block = self.wn_block_train if fused_train \
+            else functools.partial(self.wn_block, fused = False)
+
+        def flow_step(audio, flow, spect):
+            w = flow['convinv']['weight']
+            audio = audio @ w.T
+            logdet = torch.linalg.slogdet(w)[1]
+            n_half = audio.shape[-1] // 2
+            audio_0, audio_1 = audio[..., :n_half], audio[..., n_half:]
+            # the block's operands in the compute dtype, b / s back in f32
+            wn_out = wn_block(flow['block'], audio_0.to(spect.dtype), spect)
+            b, s = wn_out[..., :n_half], wn_out[..., n_half:].float()
+            audio_1 = torch.exp(s) * audio_1 + b.float()
+            return torch.cat([audio_0, audio_1], dim = -1), s.sum(), logdet
+
+        z_out = []
+        log_s_total = log_det_total = 0.
+        for k in range(hp.n_flows):
+            if k % hp.n_early_every == 0 and k > 0:
+                z_out.append(audio[..., :hp.n_early_size])
+                audio = audio[..., hp.n_early_size:]
+            flow = params['flow_{}'.format(k)]
+            if remat:
+                audio, log_s, logdet = torch.utils.checkpoint.checkpoint(
+                    flow_step, audio, flow, spect, use_reentrant = False)
+            else:
+                audio, log_s, logdet = flow_step(audio, flow, spect)
+            log_s_total = log_s_total + log_s
+            log_det_total = log_det_total + batch * lg * logdet
+        z_out.append(audio)
+        return torch.cat(z_out, dim = -1), log_s_total, log_det_total
+
+    def loss(self, params, mel, audio, sigma = None, *, remat = False,
+             compute_dtype = None):
+        """WaveGlow negative log-likelihood (per element)."""
+        if sigma is None: sigma = self.hp.sigma
+        z, log_s, log_det = self.forward(params, mel, audio, remat = remat,
+                                         compute_dtype = compute_dtype)
+        return (torch.sum(z * z) / (2 * sigma * sigma) - log_s - log_det) / z.numel()
+
+    def get_config(self):
+        return self.hp.get_config()
+
+
+class _WNBlockTrain(torch.autograd.Function):
+    """`WaveGlow.wn_block_train`: the block's leaves are flattened into the
+    arguments (sorted `weights.flatten_tree` paths) so that autograd hands
+    each its gradient."""
+
+    @staticmethod
+    def forward(ctx, arch, names, audio_half, spect, * leaves):
+        ctx.arch, ctx.names = arch, names
+        ctx.save_for_backward(audio_half, spect, * leaves)
+        block = unflatten_tree(dict(zip(names, leaves)))
+        buf_dtype = spect.dtype if spect.dtype.itemsize <= 2 else torch.bfloat16
+        return arch._fused_block(block, arch._pack_block(block, buf_dtype),
+                                 audio_half, spect)
+
+    @staticmethod
+    def backward(ctx, grad):
+        wanted = ctx.needs_input_grad[2:]
+        inputs = [t.detach().requires_grad_(w) for t, w in zip(ctx.saved_tensors, wanted)]
+        with torch.enable_grad():
+            block = unflatten_tree(dict(zip(ctx.names, inputs[2:])))
+            out = ctx.arch.wn_block(block, inputs[0], inputs[1], fused = False)
+            need = [t for t, w in zip(inputs, wanted) if w]
+            grads = iter(torch.autograd.grad(out, need, grad, allow_unused = True))
+        return (None, None) + tuple(next(grads) if w else None for w in wanted)

@@ -1,10 +1,11 @@
 """Build and load the port's CUDA kernels.
 
-Each source ``csrc/<name>.cu`` has a plain C interface.  At first use it is
-compiled with ``nvcc`` for sm_90a into ``build/torch_kernels/lib<name>.so``
-at the root of the checkout and loaded with `ctypes`.  Nothing is built when
-a module is imported: the CPU tests import every module on machines without
-``nvcc``.  `build_all` starts one ``nvcc`` per source, all at once.
+Each source ``csrc/<name>.cu`` has a plain C interface and may include the
+shared headers ``csrc/*.cuh``.  At first use it is compiled with ``nvcc``
+for sm_90a into ``build/torch_kernels/lib<name>.so`` at the root of the
+checkout and loaded with `ctypes`.  Nothing is built when a module is
+imported: the CPU tests import every module on machines without ``nvcc``.
+`build_all` starts one ``nvcc`` per source, all at once.
 """
 
 import ctypes
@@ -42,7 +43,11 @@ def _paths(name):
 
 
 def _is_fresh(source, target):
-    return os.path.exists(target) and os.path.getmtime(target) >= os.path.getmtime(source)
+    """The library is newer than its source and every shared header."""
+    if not os.path.exists(target): return False
+    headers = [os.path.join(SOURCE_DIR, f) for f in os.listdir(SOURCE_DIR)
+               if f.endswith('.cuh')]
+    return os.path.getmtime(target) >= max(map(os.path.getmtime, [source, * headers]))
 
 
 def build_all(names):

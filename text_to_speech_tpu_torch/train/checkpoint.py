@@ -1,0 +1,103 @@
+"""Rotating tree checkpoints with a JSON manifest.
+
+Counterpart of ``text_to_speech_tpu/train/checkpoint.py``, in its layout::
+
+    <directory>/checkpoint.json              # manifest, oldest first
+    <directory>/ckpt-<epoch>.<tree>.npz      # one file per named tree
+
+A tree is nested dicts of arrays or tensors, flattened to ``/``-joined
+paths (`weights.flatten_tree`).  `max_to_keep` checkpoints are kept, and
+the best one (lowest metric) is never deleted.  Saves are synchronous (the
+JAX package's `AsyncCheckpointSaver` is not ported).
+"""
+
+import os
+
+import numpy as np
+import torch
+
+from ..weights import flatten_tree, unflatten_tree
+from .history import dump_json, load_json
+
+
+def save_tree(filename, tree):
+    flat = {k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+            for k, v in flatten_tree(tree).items()}
+    directory = os.path.dirname(filename)
+    if directory: os.makedirs(directory, exist_ok = True)
+    np.savez(filename, ** flat)
+    return filename
+
+
+def load_tree(filename):
+    with np.load(filename) as data:
+        return unflatten_tree({k: data[k] for k in data.files})
+
+
+class CheckpointManager:
+    MANIFEST = 'checkpoint.json'
+
+    def __init__(self, directory, max_to_keep = 3):
+        self.directory = directory
+        self.max_to_keep = max_to_keep
+        os.makedirs(directory, exist_ok = True)
+        self._manifest = load_json(os.path.join(directory, self.MANIFEST),
+                                   default = {'checkpoints': [], 'best': None})
+
+    @property
+    def latest_epoch(self):
+        cks = self._manifest['checkpoints']
+        return cks[-1]['epoch'] if cks else None
+
+    def _path(self, epoch, tree_name):
+        return os.path.join(self.directory, 'ckpt-{}.{}.npz'.format(epoch, tree_name))
+
+    def save(self, trees, epoch, *, metric = None):
+        """`trees` = {'params': tree, 'opt': tree, ...} for `epoch`; the best
+        is the lowest `metric`; rotates the checkpoints beyond `max_to_keep`,
+        never the best one."""
+        entry = {'epoch': epoch, 'trees': sorted(trees), 'metric': metric}
+        for name, tree in trees.items():
+            save_tree(self._path(epoch, name), tree)
+        self._manifest['checkpoints'] = [
+            c for c in self._manifest['checkpoints'] if c['epoch'] != epoch] + [entry]
+        best = self._manifest.get('best')
+        if metric is not None and (best is None or best.get('metric') is None
+                                   or metric < best['metric']):
+            self._manifest['best'] = dict(entry)
+        keep = {c['epoch'] for c in self._manifest['checkpoints'][-self.max_to_keep:]}
+        if self._manifest.get('best'):
+            keep.add(self._manifest['best']['epoch'])
+        for ck in list(self._manifest['checkpoints']):
+            if ck['epoch'] not in keep:
+                self.delete(ck['epoch'])
+        self._save_manifest()
+        return entry
+
+    def load(self, epoch = None, *, trees = None):
+        """{'params': tree, ...} of numpy arrays for `epoch` (default: the
+        latest); `trees` restricts which named trees are read."""
+        if epoch is None:
+            epoch = self.latest_epoch
+        if epoch is None:
+            return None
+        entry = next((c for c in self._manifest['checkpoints'] if c['epoch'] == epoch), None)
+        if entry is None:
+            raise ValueError('No checkpoint for epoch {} (have: {})'.format(
+                epoch, [c['epoch'] for c in self._manifest['checkpoints']]))
+        return {name: load_tree(self._path(epoch, name)) for name in entry['trees']
+                if trees is None or name in trees}
+
+    def delete(self, epoch):
+        entry = next((c for c in self._manifest['checkpoints'] if c['epoch'] == epoch), None)
+        if entry is None: return
+        for name in entry['trees']:
+            path = self._path(epoch, name)
+            if os.path.exists(path): os.remove(path)
+        self._manifest['checkpoints'] = [
+            c for c in self._manifest['checkpoints'] if c['epoch'] != epoch]
+        self._save_manifest()
+
+    def _save_manifest(self):
+        self._manifest['checkpoints'].sort(key = lambda c: c['epoch'])
+        dump_json(os.path.join(self.directory, self.MANIFEST), self._manifest, indent = 2)

@@ -1,0 +1,106 @@
+"""Training historian.
+
+Counterpart of ``text_to_speech_tpu/train/history.py``: per-epoch and
+per-batch metric logs, one config record per training run, and the same
+``history.json`` layout (``{'epoch_logs': [...], 'trainings':
+[...]}``), so either package reads the other's.  Plotting is not ported.
+"""
+
+import json
+import os
+import time
+
+import numpy as np
+import torch
+
+
+def to_json_serializable(value):
+    """Numpy and torch scalars and arrays, tuples and dicts → JSON values."""
+    if isinstance(value, dict):
+        return {str(k): to_json_serializable(v) for k, v in value.items()}
+    if isinstance(value, (list, tuple)):
+        return [to_json_serializable(v) for v in value]
+    if torch.is_tensor(value):
+        value = value.detach().cpu().numpy()
+    if isinstance(value, np.ndarray):
+        return value.tolist()
+    if isinstance(value, np.generic):
+        return value.item()
+    return value
+
+
+def dump_json(filename, data, indent = 2):
+    directory = os.path.dirname(filename)
+    if directory: os.makedirs(directory, exist_ok = True)
+    with open(filename, 'w', encoding = 'utf-8') as file:
+        json.dump(to_json_serializable(data), file, indent = indent)
+    return filename
+
+
+def load_json(filename, default = None):
+    if not os.path.exists(filename):
+        return default
+    with open(filename, encoding = 'utf-8') as file:
+        return json.load(file)
+
+
+class History:
+    def __init__(self, filename = None):
+        self.filename = filename
+        self.epoch_logs = []          # [{'epoch': int, 'metrics': {...}, 'time': float}]
+        self.batch_logs = []          # the current epoch's batch metrics
+        self.trainings = []           # [{'config': {...}, 'start_epoch': int, ...}]
+        self._epoch_start = None
+        self._current_training = None
+
+    @property
+    def epochs(self):
+        return len(self.epoch_logs)
+
+    def set_config(self, config):
+        """Start a new training run with the given config."""
+        self._current_training = {
+            'config': to_json_serializable(config),
+            'start_epoch': self.epochs,
+            'start_time': time.time(),
+            'steps': 0,
+        }
+        self.trainings.append(self._current_training)
+
+    def on_epoch_begin(self, epoch = None):
+        self._epoch_start = time.time()
+        self.batch_logs = []
+
+    def on_batch_end(self, metrics):
+        self.batch_logs.append(to_json_serializable(metrics))
+        if self._current_training is not None:
+            self._current_training['steps'] = self._current_training.get('steps', 0) + 1
+
+    def on_epoch_end(self, metrics, epoch = None):
+        entry = {
+            'epoch': epoch if epoch is not None else self.epochs,
+            'metrics': to_json_serializable(metrics),
+            'time': time.time() - self._epoch_start if self._epoch_start else None,
+        }
+        self.epoch_logs.append(entry)
+        if self.filename:
+            self.save(self.filename)
+        return entry
+
+    def get_metric(self, name):
+        return [e['metrics'].get(name) for e in self.epoch_logs]
+
+    def get_config(self):
+        return {'epoch_logs': self.epoch_logs, 'trainings': self.trainings}
+
+    def save(self, filename = None):
+        return dump_json(filename or self.filename, self.get_config(), indent = 2)
+
+    @classmethod
+    def load(cls, filename):
+        hist = cls(filename = filename)
+        config = load_json(filename)
+        if config:
+            hist.epoch_logs = config.get('epoch_logs', [])
+            hist.trainings = config.get('trainings', [])
+        return hist

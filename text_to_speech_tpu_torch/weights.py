@@ -118,6 +118,51 @@ def waveglow_from_jax(params):
     return out
 
 
+def _array(tensor):
+    return tensor.detach().cpu().float().numpy()
+
+
+def _conv_to_jax(node):
+    """One converted layer dict back to the JAX layout (the inverse of
+    `_convert_leaf_dict` for dense, conv and 1×1 invertible conv weights)."""
+    weight = _array(node['weight'])
+    if weight.ndim == 2:
+        out = {'kernel': np.ascontiguousarray(weight.T)}
+    elif weight.ndim == 3:
+        out = {'kernel': np.ascontiguousarray(np.transpose(weight, (2, 1, 0)))}
+    else:
+        raise ValueError('unexpected weight rank {}'.format(weight.ndim))
+    if 'bias' in node:
+        out['bias'] = _array(node['bias'])
+    return out
+
+
+def _to_jax_tree(tree):
+    if 'weight' in tree and not isinstance(tree['weight'], dict):
+        return _conv_to_jax(tree)
+    return {k: _to_jax_tree(v) for k, v in tree.items()}
+
+
+def waveglow_to_jax(params):
+    """The port's WaveGlow params → the JAX package's tree (numpy float32),
+    the inverse of `waveglow_from_jax`: ``waveglow_from_jax(waveglow_to_jax(p))``
+    equals ``p``.  Kernel layouts a model may carry (``'packed'``,
+    ``'packed_q'``) are not parameters and are left out."""
+    out = {}
+    for name, value in params.items():
+        if name == 'upsample':
+            weight = _array(value['weight'])                   # (in, out, W)
+            node = {'kernel': np.ascontiguousarray(np.transpose(weight, (2, 0, 1))[::-1])}
+            if 'bias' in value: node['bias'] = _array(value['bias'])
+            out[name] = node
+        else:
+            block = {k: v for k, v in value['block'].items()
+                     if k not in ('packed', 'packed_q')}
+            out[name] = {'convinv': {'kernel': _conv_to_jax(value['convinv'])['kernel']},
+                         'block': _to_jax_tree(block)}
+    return out
+
+
 def tree_to(tree, device):
     """Move a tensor tree to `device`."""
     if isinstance(tree, dict):
