@@ -20,16 +20,29 @@ Phases, one JSON line each:
            float32 and bfloat16 at the training batch and at one utterance,
            dilations 1, 16 and 128, residual and last layer, also at a length
            that is no multiple of any tile;
+           the rate probe (K5) in int8 (to the bit) and bfloat16 at the
+           probe's shapes and a small one, one bfloat16 product, and four
+           beside a control that must miss their limit, the kernel's L2 bytes and
+           rate, the library yardstick (stacked rows, `torch._int_mm` / bf16
+           `matmul`, one CUDA graph); then the probe (`main`) as
+           `python -m text_to_speech_tpu_torch.ops.matmul_rate` runs it.
+           Around one timed case of each kernel (K1 and K2 bfloat16 at one
+           utterance, K3 float32 with dropout at B=1, K4 bfloat16 at B=8, K5
+           both types), nvidia-smi's SM clock and power draw: just after the
+           timed runs, 1 s into 2 s of calls back to back, and after them;
   e2e      `tts()` on one sentence (the one-launch path: fused decoder →
            vocoder → int16, no retry) and on a batch of four on both decoder
            routes, then, after `quantize_for_serving` passes its SNR gate on
            the card, both routes again in int8 serving, and one sentence after
            a gate forced to fail (the float32 chain): decode and vocode
-           seconds, real-time factor, every kernel's launch count; the fused
+           seconds, real-time factor, every kernel's launch count, the span
+           tree of each run (`loggers.timer_report`); the fused
            decode against the plain decode at full width, and the int8 LSTM
            decode (`infer_fused(int8_lstm=True)`) with its launches; the
            vocoder's bf16 and int8 kernel routes against its float32 chain on
-           a short mel;
+           a short mel; a `torch.profiler` trace of one sentence through
+           `loggers.start_profiler_trace` (its CUDA kernel events, K3's and
+           K1's among them); the card's memory (`devices.get_memory_stats`);
   train    WaveGlow training at NVIDIA width (12 flows, 8 WN layers, C=512),
            random seeded weights: the train step (B=8 x 256 frames, per-flow
            remat, Adam at 1e-4) on the default route in float32 and under
@@ -47,9 +60,11 @@ It needs a CUDA device and imports neither JAX nor the JAX package.
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -87,6 +102,31 @@ def time_ms(fn, *, reps = 7, warmup = 2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def smi_sample():
+    """The SM clock (MHz), power draw (W) and temperature, from nvidia-smi."""
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.sm,power.draw,temperature.gpu',
+                          '--format=csv,noheader,nounits'],
+                         capture_output = True, text = True, check = True).stdout
+    sm, power, temp = (float(v) for v in out.strip().splitlines()[0].split(','))
+    return {'sm_clock_mhz': sm, 'power_w': power, 'temperature_c': temp}
+
+
+def clocks_under(fn):
+    """nvidia-smi's readings just after a kernel's timed runs, 1 s into 2 s
+    of its calls back to back (taken from a second thread: the host blocks
+    once the launch queue is full, so the card stays busy), and after."""
+    clocks = {'before': smi_sample()}
+    sampler = threading.Timer(1., lambda: clocks.update(during = smi_sample()))
+    sampler.start()
+    start = time.perf_counter()
+    while time.perf_counter() - start < 2.:
+        fn()
+    sampler.join()
+    torch.cuda.synchronize()
+    clocks['after'] = smi_sample()
+    return clocks
 
 
 def wn_block_work(B, T, C, S, L, itemsize):
@@ -150,6 +190,8 @@ def wn_block_phase():
                     bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                     bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
                     else 'bytes')
+            if dtype == torch.bfloat16 and (B, T) == (1, 8192):
+                case['clocks'] = clocks_under(lambda: fused_wn_block(* args))
             cases['{}_B{}_T{}'.format(name, B, T)] = case
             check(err <= rel_tol * scale,
                   'wn_block {} B={} T={}: max abs err {} > {} x {}'.format(
@@ -227,6 +269,8 @@ def wn_layer_phase():
                             bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                             bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
                             else 'bytes')
+                    if 'kernel_ms' in case and dtype == torch.bfloat16 and B == 8:
+                        case['clocks'] = clocks_under(lambda: fused_wn_layer(* args, ** kw))
                     key = '{}_B{}_T{}_d{}_{}'.format(name, B, T, dilation,
                                                     'residual' if residual else 'last')
                     cases[key] = case
@@ -315,6 +359,8 @@ def wn_block_int8_phase():
                 bound_ms = 1e3 * max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES),
                 bound_by = 'operations' if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES
                 else 'bytes')
+        if name == 'bfloat16_B1_T8192':
+            case['clocks'] = clocks_under(lambda: fused_wn_block_int8(x, spect, q, static))
         cases[name] = case
         check(case['max_rel_err'] <= max_tol and case['mean_rel_err'] <= mean_tol,
               'wn_block_int8 {}: {}'.format(name, case))
@@ -553,6 +599,9 @@ def decoder_steps_phase(model):
                         # the steps are serial, and each reads every weight
                         # (from device memory where they exceed the L2)
                         serial_floor_ms = 1e3 * K * weight_bytes / PEAK_BYTES)
+                    if key == 'float32_B1_S64_dropout':
+                        case['clocks'] = clocks_under(
+                            lambda: decoder_steps(* args, st, seed, ** kw))
             del args, fresh
     emit({'phase': 'kernels', 'decoder_steps': cases,
           'shape': {'P': list(hp.prenet_sizes), 'U': U, 'D': hp.encoder_embedding_dim,
@@ -563,6 +612,167 @@ def decoder_steps_phase(model):
 
 
 WAVS = 'pretrained_models/overfit_demo*/predictions/overfit/*.wav'
+
+
+def matmul_rate_library(x, w, reps, grid):
+    """The yardstick: the grid's repeats stacked as rows (32,768 at the
+    probe's shapes), REPS PyTorch products (`torch._int_mm` int8 → int32,
+    `matmul` bf16 → bf16, which rounds its output) with the same feedback,
+    captured in one CUDA graph so that launches do not set the pace.
+    Returns (replay, output of the capture)."""
+    int8 = x.dtype == torch.int8
+    K = x.shape[1]
+    x_all = x.repeat(grid, 1)
+
+    def run():
+        acc = torch.zeros((x_all.shape[0], w.shape[-1]), device = 'cuda',
+                          dtype = torch.int32 if int8 else torch.float32)
+        xs = x_all
+        for r in range(reps):
+            acc += torch._int_mm(xs, w[r % 8]) if int8 else torch.matmul(xs, w[r % 8])
+            xs = (acc[:, :K] & 127).to(torch.int8) if int8 else acc[:, :K].to(torch.bfloat16)
+        return acc
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    return graph.replay, out
+
+
+def matmul_rate_phase():
+    """K5 against its plain version at the probe's shapes (M = K = 512,
+    N = 1024, REPS = GRID = 64) and a small one, with its time, rate, L2
+    bytes and the library yardstick; then the probe's main path."""
+    from text_to_speech_tpu_torch.ops import matmul_rate as module
+    from text_to_speech_tpu_torch.ops.matmul_rate import l2_bytes, matmul_rate, matmul_rate_plain
+
+    M, K, N, reps, grid = 512, 512, 1024, 64, 64
+    rng = np.random.default_rng(8)
+
+    def inputs(dtype, M, K, N):
+        # int8 over its whole range (exact in int32: K * 128 * 128 * 64 < 2^31);
+        # bf16 x ~ N(0, 1), w ~ N(0, 0.25 / K): the chain grows by about
+        # sqrt(1.25) a product and stays finite over 64 (the probe's own
+        # ones and 0.01 overflow to inf at the 49th)
+        if dtype == torch.int8:
+            return (torch.from_numpy(rng.integers(-128, 128, (M, K)).astype(np.int8)).cuda(),
+                    torch.from_numpy(rng.integers(-128, 128, (8, K, N)).astype(np.int8)).cuda())
+        return (torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).cuda()
+                .to(dtype),
+                torch.from_numpy((0.5 / np.sqrt(K) * rng.standard_normal((8, K, N)))
+                                 .astype(np.float32)).cuda().to(dtype))
+
+    def errs(out, ref):
+        diff = (out.double() - ref.double()).abs()
+        scale = float(ref.double().abs().max())
+        return float(diff.max()), float(diff.max()) / scale, float(diff.mean()) / scale
+
+    # Tolerances, relative to the output's largest magnitude (max, mean).
+    # int8: exact in int32 on both sides, so equal to the bit.  bf16: both
+    # sum exact products of bf16 values in float32, in another order (the
+    # tensor cores add into acc as they go), and round acc to bf16 at every
+    # feedback; the chain carries every flipped rounding on.  One product,
+    # no rounding to bf16 yet: the float32 sums alone, 1e-5 and 1e-6.  Over
+    # 64 products: 1e-2 and 1e-3 (two other float32 orders of the plain
+    # version, on the CPU at these shapes: 3.2e-3 and 3.6e-3, 3.5e-4 and
+    # 3.8e-4 on average, benchmarks/torch_port_bf16_chain.py; the kernel on
+    # an H100: 3.3e-3, 4.3e-4).  Over 4
+    # products: 2e-3 and 5e-5 (other orders on the CPU 3.9e-4, 1.3e-6; the
+    # kernel on an H100 5.9e-4, 8.5e-6), which the control, the feedback
+    # left in float32, must miss (1.2e-3, 2.1e-4).
+    one, long, short = (1e-5, 1e-6), (1e-2, 1e-3), (2e-3, 5e-5)
+    cases = {}
+    for name, dtype in (('int8', torch.int8), ('bfloat16', torch.bfloat16)):
+        for shape in ((M, K, N, reps, grid), (64, 64, 128, 10, 2)):
+            m, k, n, r, g = shape
+            x, w = inputs(dtype, m, k, n)
+            out = matmul_rate(x, w, r, g)
+            torch.cuda.synchronize()
+            ref = matmul_rate_plain(x, w, r, g)
+            check(out.shape == (m, n) and out.dtype == ref.dtype, 'matmul_rate output')
+            check(bool(torch.isfinite(out.float()).all()), 'matmul_rate output not finite')
+            err, max_rel, mean_rel = errs(out, ref)
+            case = {'dtype': name, 'M': m, 'K': k, 'N': n, 'reps': r, 'grid': g,
+                    'max_abs_err': err, 'max_rel_err': max_rel, 'mean_rel_err': mean_rel,
+                    'tolerance_rel': 0. if dtype == torch.int8 else long}
+            key = '{}_M{}_reps{}'.format(name, m, r)
+            cases[key] = case
+            if dtype == torch.int8:
+                check(torch.equal(out, ref), 'matmul_rate {}: {}'.format(key, case))
+            else:
+                check(max_rel <= long[0] and mean_rel <= long[1],
+                      'matmul_rate {}: {}'.format(key, case))
+            if m != M:
+                continue
+            itemsize = x.element_size()
+            ops = 2 * M * K * N * reps * grid
+            nbytes = M * K * itemsize + 8 * K * N * itemsize + M * N * 4
+            peak = PEAK_INT8_OPS if dtype == torch.int8 else PEAK_BF16_FLOPS
+            case['kernel_ms'] = time_ms(lambda: matmul_rate(x, w, reps, grid))
+            clocks = clocks_under(lambda: matmul_rate(x, w, reps, grid))
+            case['plain_ms'] = time_ms(lambda: matmul_rate_plain(x, w, reps, grid),
+                                       reps = 3, warmup = 1)
+            replay, lib = matmul_rate_library(x, w, reps, grid)
+            case['library_ms'] = time_ms(replay)
+            lib_err = errs(lib[:M].float(), ref.float())
+            case['library'] = {
+                'what': '{} REPS products on 32,768 stacked rows, one CUDA graph'.format(
+                    'torch._int_mm' if dtype == torch.int8 else 'torch.matmul (bf16 output)'),
+                'max_rel_err_vs_plain': lib_err[1], 'mean_rel_err_vs_plain': lib_err[2]}
+            del lib, replay
+            l2 = l2_bytes(M, K, N, reps, grid, itemsize)
+            case.update(
+                ops = ops, bytes = nbytes, l2_bytes = l2,
+                bound_ms = 1e3 * max(ops / peak, nbytes / PEAK_BYTES),
+                bound_by = 'operations' if ops / peak > nbytes / PEAK_BYTES else 'bytes',
+                rate = ops / (case['kernel_ms'] * 1e-3),
+                l2_bytes_per_s = l2 / (case['kernel_ms'] * 1e-3), clocks = clocks)
+            case['share_of_bound'] = case['bound_ms'] / case['kernel_ms']
+            del x, w, out, ref
+
+    # one bf16 product (float32 sums only), and the 4-product chain and its
+    # control
+    x, w = inputs(torch.bfloat16, M, K, N)
+    one_case = {'reps': 1, 'tolerance_rel': one,
+                'kernel': errs(matmul_rate(x, w, 1, grid), matmul_rate_plain(x, w, 1, grid))[1:]}
+    cases['bfloat16_M512_reps1'] = one_case
+    check(one_case['kernel'][0] <= one[0] and one_case['kernel'][1] <= one[1],
+          'matmul_rate, one bf16 product: {}'.format(one_case))
+    out, ref = matmul_rate(x, w, 4, grid), matmul_rate_plain(x, w, 4, grid)
+    xs, acc = x.float(), torch.zeros_like(ref)
+    for r in range(4):
+        acc += xs @ w[r].float()
+        xs = acc[:, :K]
+    short_case = {'reps': 4, 'tolerance_rel': short,
+                  'kernel': errs(out, ref)[1:], 'control_unrounded_feedback': errs(acc, ref)[1:]}
+    cases['bfloat16_M512_reps4'] = short_case
+    check(short_case['kernel'][0] <= short[0] and short_case['kernel'][1] <= short[1],
+          'matmul_rate, 4 bf16 products: {}'.format(short_case))
+    check(short_case['control_unrounded_feedback'][0] > short[0]
+          or short_case['control_unrounded_feedback'][1] > short[1],
+          'matmul_rate: the control meets the 4-product limits: {}'.format(short_case))
+    del x, w, out, ref, acc, xs
+
+    # the probe's main path: `main` is its two probes; each is driven with
+    # the count set to 0 just before it and read just after, then `main`
+    launches = {}
+    for name in ('int8', 'bf16'):
+        matmul_rate.launches = 0
+        module.probe(name, M, K, N, reps, grid, torch.device('cuda'))
+        launches[name] = matmul_rate.launches
+    matmul_rate.launches = 0
+    probe = module.main()
+    check(matmul_rate.launches == sum(launches.values()) == 2 * (2 + module.ITERS),
+          'matmul_rate probe launches: {} then {}'.format(launches, matmul_rate.launches))
+    emit({'phase': 'kernels', 'matmul_rate': cases,
+          'probe': {'launches': launches, 'main': probe},
+          'shape': {'M': M, 'K': K, 'N': N, 'reps': reps, 'grid': grid}})
+    return cases, launches
 
 
 def train_phase():
@@ -774,6 +984,9 @@ SENTENCES = ['The quick brown fox jumps over the lazy dog.',
 
 def e2e_phase(model, vocoder, setup_s):
     from text_to_speech_tpu_torch import tts
+    from text_to_speech_tpu_torch.devices import get_memory_stats
+    from text_to_speech_tpu_torch.loggers import (
+        reset_timers, start_profiler_trace, stop_profiler_trace, timer_report)
     from text_to_speech_tpu_torch.models.tts.tacotron2 import pad_batch
     from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
     from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
@@ -802,9 +1015,11 @@ def e2e_phase(model, vocoder, setup_s):
         torch.cuda.synchronize()
         fused_wn_block.launches = fused_wn_block_int8.launches = decoder_steps.launches = 0
         fused_wn_layer.launches = 0
+        reset_timers()
         start = time.perf_counter()
         outputs = tts(texts, max_length = max_frames, ** kw)
         total_s = time.perf_counter() - start
+        spans = timer_report()
         launches = {'wn_block': fused_wn_block.launches,
                     'wn_block_int8': fused_wn_block_int8.launches,
                     'decoder_steps': decoder_steps.launches,
@@ -843,11 +1058,18 @@ def e2e_phase(model, vocoder, setup_s):
             'audio_s': audio_s, 'decode_ms': 1e3 * timings['decode_s'],
             'vocode_ms': 1e3 * timings['vocode_s'], 'total_ms': 1e3 * total_s,
             'rtf': audio_s / total_s, 'launches': launches, 'vocoder_calls': vocoder_calls,
+            'spans': spans.splitlines(),
         }
+        # the task model's spans: host time around dispatch, the device not waited for
+        for span in (('predict', 'inference', 'processing', 'compiled_tts')
+                     if isinstance(texts, str) else ('predict', 'compiled_infer')):
+            check('- {} : '.format(span) in spans, '{}: no span {!r} in\n{}'.format(
+                name, span, spans))
 
     runs = {}
     one, batch = dict(), dict(batch_size = 4, use_fused_decoder = True)
     drive('one_sentence', SENTENCES[0], one, 'default')
+    print('\n'.join(runs['one_sentence']['spans']), flush = True)
     drive('batch_of_4', SENTENCES, batch, 'default')
     drive('batch_of_4_plain_decoder', SENTENCES,
           dict(batch_size = 4, use_fused_decoder = False), 'default')
@@ -866,6 +1088,21 @@ def e2e_phase(model, vocoder, setup_s):
     drive('one_sentence_gate_failed', SENTENCES[0], one, 'float32_xla')
     vocoder.quantize_for_serving(False)
     model._synthesize_chunks = synthesize_chunks
+
+    # the loggers' device trace (torch.profiler) of one sentence: it must
+    # hold the card's kernels, K3's and K1's among them
+    start_profiler_trace()
+    tts(SENTENCES[0], model = model, vocoder = vocoder, vocoder_batch = vocoder_batch,
+        generator = generator, max_length = max_frames, ** gates)
+    with open(stop_profiler_trace()) as f:
+        kernels = [e for e in json.load(f)['traceEvents'] if e.get('cat') == 'kernel']
+    count = lambda pattern: sum(bool(re.search(pattern, e['name'])) for e in kernels)
+    trace = {'kernel_events': len(kernels),
+             'kernel_ms': 1e-3 * sum(e.get('dur', 0) for e in kernels),
+             'decoder_steps_events': count('decoder_steps_kernel'),
+             'wn_block_in_kernel_events': count('(?<![a-z])in_kernel')}
+    check(trace['decoder_steps_events'] > 0 and trace['wn_block_in_kernel_events'] > 0,
+          'profiler trace of one sentence: {}'.format(trace))
 
     # the fused decode against the plain decode on the card: float32, no
     # dropout, full width, two sentences, 256 steps.  Tolerance 1e-4 of each
@@ -927,7 +1164,11 @@ def e2e_phase(model, vocoder, setup_s):
     check(err < 1e-2, 'vocoder kernel path vs f32 chain: rel err {}'.format(err))
     int8_snr = snr_db(plain, fast8)
     check(int8_snr >= 25., 'int8 vocoder vs f32 chain: {} dB'.format(int8_snr))
-    emit({'phase': 'e2e', 'setup_s': setup_s, 'runs': runs,
+    memory = get_memory_stats()
+    check(0 < memory['bytes_in_use'] <= memory['peak_bytes_in_use'] <= memory['bytes_limit'],
+          'memory stats: {}'.format(memory))
+    emit({'phase': 'e2e', 'setup_s': setup_s, 'runs': runs, 'memory_stats': memory,
+          'profiler_trace': trace,
           'fused_vs_plain_decode': routes, 'int8_lstm_decode': int8_lstm,
           'int8_gate': {'snr_db': gate_snr, 'gate_db': 25., 'frames': 32},
           'vocoder_kernel_vs_f32': {'max_rel_err': err, 'snr_db': snr_db(plain, fast),
@@ -952,7 +1193,8 @@ def main():
                          capture_output = True, text = True, check = True).stdout.strip()
     start = time.perf_counter()
     # one nvcc per source, all started together
-    _build.build_all(['wn_block', 'decoder_steps', 'wn_block_int8', 'wn_layer'])
+    _build.build_all(['wn_block', 'decoder_steps', 'wn_block_int8', 'wn_layer',
+                      'matmul_rate'])
     build_s = time.perf_counter() - start
     ptxas = {name: [line.strip() for line in log.splitlines()
                     if 'registers' in line or 'spill' in line]
@@ -969,6 +1211,7 @@ def main():
     wn_cases = wn_block_phase()
     wn8_cases = wn_block_int8_phase()
     layer_cases = wn_layer_phase()
+    rate_cases, probe_launches = matmul_rate_phase()
     dec_cases = decoder_steps_phase(model)
     runs, int8_lstm = e2e_phase(model, vocoder, setup_s)
     steps, fit, evals = train_phase()
@@ -1006,6 +1249,17 @@ def main():
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
                 launches = int(steps['wn_train_fused_mixed_bfloat16']['wn_block_launches_per_step'])),
+        # the rate probe: launches in its int8 and its bf16 line
+        dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
+                     source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',
+                     replaces = 'benchmarks/matmul_rate.py:42',
+                     launches = probe_launches['int8']),
+             library_ms = rate_cases['int8_M512_reps64']['library_ms']),
+        dict(summary(rate_cases['bfloat16_M512_reps64'], name = 'matmul_rate (bf16)',
+                     route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',
+                     replaces = 'benchmarks/matmul_rate.py:42',
+                     launches = probe_launches['bf16']),
+             library_ms = rate_cases['bfloat16_M512_reps64']['library_ms']),
     ]}), flush = True)
     print(smi, flush = True)
     print(json.dumps({'ok': True, 'device': {

@@ -39,7 +39,8 @@ def test_port_imports_without_jax():
     assert int(count) >= 30
     for name in ('ops.wn_layer', 'ops.stft', 'ops.audio_io', 'train.trainer',
                  'train.optimizers', 'train.losses', 'train.precision', 'train.datasets',
-                 'train.history', 'train.checkpoint'):
+                 'train.history', 'train.checkpoint', 'ops.matmul_rate', 'loggers',
+                 'loggers.time_logging', 'loggers.handlers'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
@@ -68,5 +69,9 @@ def test_entry_points_raise_without_device():
         vocoder = WaveGlow({}, device = 'cpu')
         raises(lambda: fit(vocoder, []))
         raises(lambda: vocoder.fit([]))
+        from text_to_speech_tpu_torch.devices import get_memory_stats
+        from text_to_speech_tpu_torch.ops.matmul_rate import main
+        raises(get_memory_stats)
+        raises(main)
         assert default_device('cpu') == torch.device('cpu')
     ''')

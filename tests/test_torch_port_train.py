@@ -355,6 +355,50 @@ def test_schedulers_match_jax(name, config):
         assert abs(port(step) - expected) <= 2e-5 * abs(expected), step
 
 
+@pytest.mark.parametrize('name', ['rmsprop', 'adagrad'])
+def test_optimizer_steps_match_jax(name):
+    """Three steps at lr 1e-2 from weights of 1.0, at gradients 1e-5, 1e-4,
+    1e-3 and 1e-1, against the JAX package's `get_optimizer` (optax's
+    `rmsprop` and `adagrad`): within 2.4e-7 absolute, four float32 units
+    near 1.  The control, torch's own RMSprop (eps outside the square
+    root), moves the 1e-5 weight by -0.0736 where optax moves it by -0.0030.
+    Two steps, the state through `state_arrays` into a new optimizer, and
+    the third step give the three steps' weights to the bit."""
+    import optax
+    from text_to_speech_tpu.train.optimizers import get_optimizer as jax_get_optimizer
+    grads = np.asarray([1e-5, 1e-4, 1e-3, 1e-1], np.float32)
+    tx = jax_get_optimizer(name, lr = 1e-2)
+    w = {'w': jnp.ones(4)}
+    state = tx.init(w)
+    for _ in range(3):
+        updates, state = tx.update({'w': jnp.asarray(grads)}, state, w)
+        w = optax.apply_updates(w, updates)
+
+    def port(resume_after = None):
+        t = torch.ones(4, requires_grad = True)
+        opt = get_optimizer(name, lr = 1e-2).init({'w': t})
+        for step in range(3):
+            if step == resume_after:
+                arrays = opt.state_arrays()
+                opt = get_optimizer(name, lr = 1e-2).init({'w': t})
+                opt.load_state_arrays(arrays)
+            t.grad = torch.from_numpy(grads)
+            opt.step()
+        return t.detach().numpy().copy()
+
+    out = port()
+    np.testing.assert_allclose(out, np.asarray(w['w']), atol = 2.4e-7, rtol = 0)
+    np.testing.assert_array_equal(port(resume_after = 2), out)
+    if name == 'rmsprop':
+        # the control: torch's RMSprop with optax's constants misses by 0.07
+        t = torch.ones(4, requires_grad = True)
+        control = torch.optim.RMSprop([t], lr = 1e-2, alpha = 0.9, eps = 1e-8)
+        for _ in range(3):
+            t.grad = torch.from_numpy(grads)
+            control.step()
+        assert abs(float(t.detach()[0]) - float(w['w'][0])) > 0.05
+
+
 def test_repeated_batch_spike_matches_jax():
     """Adam on one repeated batch of white noise (0.1 std) overshoots.  The
     loss falls toward the noise's Gaussian optimum (the flows' log-s summing

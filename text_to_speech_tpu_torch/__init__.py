@@ -2,7 +2,9 @@
 
 The port runs the text → Tacotron-2 → WaveGlow path on one NVIDIA H100
 (sm_90a), with the WaveGlow WN coupling block as a hand-written CUDA kernel
-(`ops.wn_block`), and trains WaveGlow (`train.trainer.fit`).  It imports ``torch`` and never ``jax`` or the JAX
+(`ops.wn_block`), and trains WaveGlow (`train.trainer.fit`).  Its
+measurement layer is `loggers` (span tree, `torch.profiler` trace),
+`devices` (memory stats) and the rate probe `ops.matmul_rate`.  It imports ``torch`` and never ``jax`` or the JAX
 package, whose modules it mirrors by name: ``models/waveglow_arch.py`` here
 is the counterpart of ``text_to_speech_tpu/models/waveglow_arch.py``, and
 so on.  Public functions keep the JAX package's layouts: ``(B, T, C)``

@@ -25,7 +25,11 @@ def get_models(model, vocoder = None, *, device = None, root = None):
 
 def tts(text, *, model, vocoder = None, device = None, root = None, ** kwargs):
     """Main entry point: text (str or list) → one output dict per text (see
-    `Tacotron2.predict_batched`), always a list."""
+    `Tacotron2.predict_batched`), always a list.  Audio playback is not
+    ported: ``play`` raises `TypeError`."""
+    if 'play' in kwargs:
+        raise TypeError('tts() does not take `play` yet: audio playback is not ported '
+                        '(see ROADMAP.md)')
     model, vocoder = get_models(model, vocoder, device = device, root = root)
     return model.predict(text, vocoder = vocoder, ** kwargs)
 

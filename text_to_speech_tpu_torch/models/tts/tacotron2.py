@@ -16,6 +16,11 @@ token padding and max-length bucketing, and the two synthesis flows:
 The decoder is the fused kernel (`arch.infer_fused`) or the plain loop
 (`arch.infer`), chosen in `_use_fused_decoder`.
 
+The JAX package's spans (`loggers`) time the flows on the host, around
+dispatch: `predict`, `inference` (`infer`) with `processing` (cleaning and
+tokenizing), `compiled_tts` (the one-launch path) and `compiled_infer`
+(each other decode).
+
 Not ported yet (see ROADMAP.md): windowed vocoding, the artifact callbacks
 and the ``map.json`` cache, speaker embeddings, streaming.
 """
@@ -28,6 +33,7 @@ import numpy as np
 import torch
 
 from ...devices import default_device
+from ...loggers import Timer, timer
 from ...ops.decoder_kernel import kernel_weights_only, pack_decoder_weights
 from ...text import Tokenizer, split_text, split_sentences
 from ...weights import cast_tree, tacotron2_from_jax, tree_to
@@ -261,6 +267,7 @@ class Tacotron2:
         keep = [i for i, e in enumerate(encoded) if len(e)]
         return [splitted[i] for i in keep], [encoded[i] for i in keep]
 
+    @timer(name = 'inference')
     def infer(self,
               text,
               *,
@@ -293,9 +300,10 @@ class Tacotron2:
                 raise TypeError('infer() does not take `{}` yet: see ROADMAP.md'.format(name))
         if isinstance(text, dict):
             text = text.get('text', text.get('content'))
-        splitted, encoded = self._split_and_encode(text, max_text_length)
-        cleaned = '\n\n'.join(splitted) if len(splitted) > 1 else (
-            splitted[0] if splitted else '')
+        with Timer('processing'):
+            splitted, encoded = self._split_and_encode(text, max_text_length)
+            cleaned = '\n\n'.join(splitted) if len(splitted) > 1 else (
+                splitted[0] if splitted else '')
 
         fa_sequential = True if fetch_attention is None else fetch_attention
         fa_pipelined = False if fetch_attention is None else fetch_attention
@@ -378,7 +386,8 @@ class Tacotron2:
         tokens = pad_batch(encoded, pad_value = self.blank_token_idx)
         clock = _Clock(self.device)
         clock.mark()
-        outputs = self.compiled_infer(tokens, max_length = max_length, ** kwargs)
+        with Timer('compiled_infer'):
+            outputs = self.compiled_infer(tokens, max_length = max_length, ** kwargs)
         clock.mark()
 
         vkwargs = {** kwargs, ** vocoder_config}
@@ -421,9 +430,10 @@ class Tacotron2:
         gate failure."""
         tokens = pad_batch(encoded, pad_value = self.blank_token_idx)
         clock = _Clock(self.device)
-        a16_dev, lengths_dev, mel_dev, attn_dev = self.compiled_tts(
-            tokens, vocoder, max_length = max_length, vocoder_config = vocoder_config,
-            clock = clock, ** kwargs)
+        with Timer('compiled_tts'):
+            a16_dev, lengths_dev, mel_dev, attn_dev = self.compiled_tts(
+                tokens, vocoder, max_length = max_length, vocoder_config = vocoder_config,
+                clock = clock, ** kwargs)
 
         out_lengths = lengths_dev.cpu().numpy()
         decode_s, vocode_s = clock.seconds()
@@ -465,7 +475,8 @@ class Tacotron2:
             for group in groups:
                 tokens = pad_batch([encoded[i] for i in group],
                                    pad_value = self.blank_token_idx)
-                outputs = self.compiled_infer(tokens, max_length = max_length, ** kwargs)
+                with Timer('compiled_infer'):
+                    outputs = self.compiled_infer(tokens, max_length = max_length, ** kwargs)
                 out_lengths = outputs.lengths.cpu().numpy()
                 mel_host = outputs.mel.cpu().numpy()
                 attn_host = outputs.attention_weights.cpu().numpy() \
@@ -568,6 +579,7 @@ class Tacotron2:
                 results.append(output)
         return results
 
+    @timer(name = 'predict')
     def predict(self, inputs, *, batch_size = None, ** kwargs):
         """One output dict per text.  A list with ``batch_size > 1`` is
         synthesized in cross-text batches (`predict_batched`); otherwise

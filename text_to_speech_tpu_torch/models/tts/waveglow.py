@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ...devices import default_device
+from ...loggers import timer
 from ...ops.audio_io import load_audio
 from ...ops.stft import MelSTFT
 from ...train.checkpoint import CheckpointManager
@@ -285,6 +286,7 @@ class WaveGlow:
             sigma = sigma, deterministic = deterministic, dtype = dtype)
         return fn(params, mel, generator)
 
+    @timer(name = 'inference WaveGlow')
     def infer(self, mel, ** kwargs):
         """Vocode a mel in one call → numpy waveform (B, F * upsample_rate)."""
         mel = np.asarray(mel) if not torch.is_tensor(mel) else mel

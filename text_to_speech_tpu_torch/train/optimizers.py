@@ -11,9 +11,14 @@ of parameter tensors and returns the stateful `Optimizer`.  Names with a
   - ``adamw``: the same, weight decay 1e-4 (optax's default), decoupled and
     applied to the parameter before the step in both;
   - ``sgd``: no momentum;
-  - ``rmsprop``: decay 0.9, eps 1e-8; ``adagrad``: initial accumulator
-    0.1, eps 1e-7.  optax adds these eps inside the square root, torch
-    outside it: the updates differ where the second moment is near eps.
+  - ``rmsprop``: optax's `scale_by_rms` in the port's own `RMSprop`
+    (decay 0.9, eps 1e-8 inside the square root, initial second moment 0);
+    `torch.optim.RMSprop` adds eps outside the square root, where it damps
+    nothing: a gradient far under sqrt(eps) moves its weight as far as a
+    large one;
+  - ``adagrad``: initial accumulator 0.1, eps 1e-7, which torch adds
+    outside the square root and optax's `scale_by_rss` inside: with the
+    accumulator at 0.1 or more the updates differ in float32 noise only.
 
 ``adafactor`` and ``lion`` have no `torch.optim` counterpart and raise.  A
 schedule is evaluated at optax's step count (0 for the first update), and
@@ -81,13 +86,38 @@ def get_scheduler(scheduler, ** kwargs):
     return _SCHEDULERS[key](** kwargs)
 
 
-# name → (torch.optim class, optax's default constants in torch's names)
+class RMSprop(torch.optim.Optimizer):
+    """optax's ``rmsprop``: ``nu = decay * nu + (1 - decay) * g**2``, then
+    ``p -= lr * g * rsqrt(nu + eps)`` (`scale_by_rms`, eps inside the
+    square root, then the learning rate), in optax's order of operations."""
+
+    def __init__(self, params, lr = 1e-3, decay = 0.9, eps = 1e-8, initial_scale = 0.):
+        super().__init__(params, dict(lr = lr, decay = decay, eps = eps,
+                                      initial_scale = initial_scale))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            decay, eps, lr = group['decay'], group['eps'], group['lr']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if 'nu' not in state:
+                    state['nu'] = torch.full_like(p, group['initial_scale'])
+                g = p.grad
+                nu = (1 - decay) * g ** 2 + decay * state['nu']
+                state['nu'] = nu
+                p.add_(torch.rsqrt(nu + eps) * g * -lr)
+
+
+# name → (optimizer class, optax's default constants in its names)
 _OPTIMIZERS = {
     'adam': (torch.optim.Adam, dict(betas = (0.9, 0.999), eps = 1e-8)),
     'adamw': (torch.optim.AdamW, dict(betas = (0.9, 0.999), eps = 1e-8,
                                       weight_decay = 1e-4)),
     'sgd': (torch.optim.SGD, dict(momentum = 0.)),
-    'rmsprop': (torch.optim.RMSprop, dict(alpha = 0.9, eps = 1e-8)),
+    'rmsprop': (RMSprop, dict(decay = 0.9, eps = 1e-8)),
     'adagrad': (torch.optim.Adagrad, dict(initial_accumulator_value = 0.1, eps = 1e-7)),
 }
 _NOT_PORTED = ('adafactor', 'lion')
@@ -192,7 +222,7 @@ def get_optimizer(optimizer = 'adam', *, lr = 1e-3, lr_scheduler = None, clip_no
 
     `lr_scheduler` is a schedule name, config or callable of the step;
     `clip_norm` adds global-norm clipping; `weight_decay` is decoupled decay,
-    for ``adamw`` only; other keywords go to the `torch.optim` class."""
+    for ``adamw`` only; other keywords go to the optimizer class."""
     if isinstance(optimizer, OptimizerConfig):
         return optimizer
     schedule = get_scheduler(lr_scheduler) if lr_scheduler is not None else None
