@@ -6,14 +6,21 @@ WaveGlow at that width.
     python3 chip_smoke.py
 
 Phases, one JSON line each:
-  device   the card (nvidia-smi) and the kernels' build time;
+  device   the card (nvidia-smi), the kernels' build time and ptxas report,
+           and the SASS check: K1's bf16 kernels must hold HGMMA (wgmma)
+           and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG (cuobjdump
+           of build/torch_kernels/lib<name>.so);
   kernels  every ported kernel at the main path's shapes (one utterance and
            the batch of four): error against its plain version, median time
            of the kernel and of the plain version (CUDA events), and the
            bound.  The WN block (K1) in float32 and bfloat16 and its int8
-           variant (K2) with bf16 buffers, one float32 case and one with the
-           static gate scale, both also at a length that is no multiple of
-           any tile; the decoder steps (K3) in float32, bfloat16 and the
+           variant (K2, equal to its plain version to the bit) with bf16
+           buffers, one float32 case and one with the static gate scale,
+           both also at a length that is no multiple of any tile; for each
+           timed bf16 / int8 case the L2 bytes by the kernels' tiling, the
+           waves of each GEMM on the SMs and the clocks under it, with the
+           registers and spills of every kernel; then K1's and K2's rates as
+           shares of K5's of the same type, measured in the same run; the decoder steps (K3) in float32, bfloat16 and the
            int8 LSTM mode, deterministic and with dropout, with the attention
            window at a memory length that is no multiple of 64, and as two
            launches of 32 steps against one of 64; one WN layer (K4) in
@@ -40,9 +47,11 @@ Phases, one JSON line each:
            decode against the plain decode at full width, and the int8 LSTM
            decode (`infer_fused(int8_lstm=True)`) with its launches; the
            vocoder's bf16 and int8 kernel routes against its float32 chain on
-           a short mel; a `torch.profiler` trace of one sentence through
+           a short mel; `torch.profiler` traces of one sentence through
            `loggers.start_profiler_trace` (its CUDA kernel events, K3's and
-           K1's among them); the card's memory (`devices.get_memory_stats`);
+           K1's among them: 2L a block), and of one in int8 serving (K2's
+           device kernels a block, at most 2L + 2); the card's memory
+           (`devices.get_memory_stats`);
   train    WaveGlow training at NVIDIA width (12 flows, 8 WN layers, C=512),
            random seeded weights: the train step (B=8 x 256 frames, per-flow
            remat, Adam at 1e-4) on the default route in float32 and under
@@ -139,9 +148,75 @@ def wn_block_work(B, T, C, S, L, itemsize):
     return flops, weights + biases + activations
 
 
+def waves(tiles):
+    """Tiles over the card's SMs: {name: tiles / SMs} of one layer."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return {name: n / sms for name, n in tiles.items()}
+
+
+def ptxas_report(name):
+    """{kernel: {'registers', 'spill_bytes', 'serialized'}} of library
+    `name` from its nvcc -Xptxas -v output (empty when it was not built in
+    this run)."""
+    from text_to_speech_tpu_torch.ops import _build
+    out, kernel = {}, None
+    for line in _build.build_logs.get(name, '').splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            kernel = found.group(1)
+            out[kernel] = {'registers': None, 'spill_bytes': 0, 'serialized': False}
+        elif kernel is not None:
+            used = re.search(r'Used (\d+) registers', line)
+            spill = re.search(r'(\d+) bytes spill stores', line)
+            if used: out[kernel]['registers'] = int(used.group(1))
+            if spill: out[kernel]['spill_bytes'] = int(spill.group(1))
+        if 'wgmma.mma_async instructions are serialized' in line:
+            found = re.search(r"function '(\w+)'", line)
+            if found and found.group(1) in out: out[found.group(1)]['serialized'] = True
+    return out
+
+
+def cuobjdump():
+    """The toolkit's cuobjdump, or the copy bundled with Triton."""
+    import shutil
+    for path in (shutil.which('cuobjdump'),
+                 os.path.join(os.environ.get('CUDA_HOME', '/usr/local/cuda'), 'bin', 'cuobjdump')):
+        if path and os.path.exists(path):
+            return path
+    try:
+        import triton
+        path = os.path.join(os.path.dirname(triton.__file__), 'backends', 'nvidia', 'bin',
+                            'cuobjdump')
+        if os.path.exists(path):
+            return path
+    except ImportError:
+        pass
+    raise RuntimeError('cuobjdump not found (CUDA toolkit or Triton)')
+
+
+def sass_check():
+    """The SASS of the built WN libraries: K1's bf16 kernels must hold
+    HGMMA (wgmma) and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG."""
+    from text_to_speech_tpu_torch.ops import _build
+    wanted = {'wn_block': (('wn_in_wgmma', 'wn_rs_wgmma'), ('HGMMA', 'UTMALDG')),
+              'wn_block_int8': (('in_wgmma', 'rs_wgmma'), ('IGMMA', 'UTMALDG'))}
+    report = {}
+    for lib, (kernels, opcodes) in wanted.items():
+        sass = subprocess.run([cuobjdump(), '--dump-sass', _build._paths(lib)[1]],
+                              capture_output = True, text = True, check = True).stdout
+        functions = re.split(r'\n\s*Function : ', sass)[1:]
+        for kernel in kernels:
+            bodies = [f for f in functions if kernel in f.split('\n', 1)[0]]
+            counts = {op: sum(f.count(op) for f in bodies) for op in opcodes}
+            report['{}:{}'.format(lib, kernel)] = dict(counts, functions = len(bodies))
+            check(bodies and all(all(op in f for op in opcodes) for f in bodies),
+                  'SASS of {} in lib{}.so lacks {}: {}'.format(kernel, lib, opcodes, counts))
+    return report
+
+
 def wn_block_phase():
     from text_to_speech_tpu_torch.ops.wn_block import (
-        fused_wn_block, pack_wn_weights, wn_block_plain)
+        fused_wn_block, grid_tiles, l2_bytes, pack_wn_weights, wn_block_plain)
 
     C, L, S = 512, 8, 640
     rng = np.random.default_rng(0)
@@ -190,15 +265,19 @@ def wn_block_phase():
                     bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                     bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
                     else 'bytes')
-            if dtype == torch.bfloat16 and (B, T) == (1, 8192):
-                case['clocks'] = clocks_under(lambda: fused_wn_block(* args))
+            if dtype == torch.bfloat16 and T == 8192:
+                # the wgmma kernels: L2 bytes by their tiling, waves on the SMs
+                case.update(l2_bytes = l2_bytes(B, T, C, S, L),
+                            waves = waves(grid_tiles(B, T, C)),
+                            clocks = clocks_under(lambda: fused_wn_block(* args)))
+                case['l2_bytes_per_s'] = case['l2_bytes'] / (case['kernel_ms'] * 1e-3)
             cases['{}_B{}_T{}'.format(name, B, T)] = case
             check(err <= rel_tol * scale,
                   'wn_block {} B={} T={}: max abs err {} > {} x {}'.format(
                       name, B, T, err, rel_tol, scale))
             del args, out, ref
     emit({'phase': 'kernels', 'fused_wn_block': cases,
-          'shape': {'C': C, 'S': S, 'L': L},
+          'shape': {'C': C, 'S': S, 'L': L}, 'ptxas': ptxas_report('wn_block'),
           'library_ms': None,
           'library_note': 'no single PyTorch call computes the WN block'})
     return cases
@@ -290,7 +369,8 @@ def wn_block_int8_phase():
     case and one with the static gate scale."""
     from text_to_speech_tpu_torch.ops import wn_block_int8 as module
     from text_to_speech_tpu_torch.ops.wn_block_int8 import (
-        fused_wn_block_int8, pack_wn_int8, quantize_wn_weights, wn_block_int8_plain)
+        fused_wn_block_int8, grid_tiles, l2_bytes, pack_wn_int8, quantize_wn_weights,
+        wn_block_int8_plain)
 
     C, L, S = 512, 8, 640
     rng = np.random.default_rng(4)
@@ -302,18 +382,18 @@ def wn_block_int8_phase():
         w_rs = f(L - 1, C, 2 * C, scale = C ** -0.5), b_rs = f(L - 1, 2 * C, scale = 0.1),
         w_rs_last = f(C, C, scale = C ** -0.5), b_rs_last = f(C, scale = 0.1))))
 
-    # Tolerances, relative to the output's largest magnitude.  The integer
-    # sums are exact on both sides, every scale product is rounded in the
-    # same order and the gate takes the same device functions as PyTorch's,
-    # so the two sides agree to the bit where no value sits on a rounding
-    # tie of its row's int8 grid.  A value that does moves one product by a
-    # grid step; in bf16 that can flip one rounding of the stored stream and
-    # one of the output, 2^-8 of a value each: max 2^-7 (bf16), 1e-3
-    # (float32), mean 1e-6, under the JAX package's own max 1e-2 and mean
-    # 1e-5 (tests/test_pallas.py).  The control, which must miss them: the
-    # plain version with every float32 tensor it quantizes rounded to bf16
-    # first (the next layer's x from the stored stream, not the float32
-    # sum, and the gate as bf16).
+    # The kernel must equal its plain version to the bit: the integer sums
+    # are exact on both sides, every scale product is rounded in the same
+    # order, the row maxima are maxima and the gate takes the same device
+    # functions as PyTorch's.  The tolerances below, relative to the
+    # output's largest magnitude, are what the control must miss: a value
+    # on a rounding tie of its row's int8 grid moves one product by a grid
+    # step; in bf16 that can flip one rounding of the stored stream and one
+    # of the output, 2^-8 of a value each: max 2^-7 (bf16), 1e-3 (float32),
+    # mean 1e-6, under the JAX package's own max 1e-2 and mean 1e-5
+    # (tests/test_pallas.py).  The control: the plain version with every
+    # float32 tensor it quantizes rounded to bf16 first (the next layer's x
+    # from the stored stream, not the float32 sum, and the gate as bf16).
     mean_tol = 1e-6
     cases = {}
     for name, B, T, dtype, static in (
@@ -332,6 +412,7 @@ def wn_block_int8_phase():
         scale = float(ref.float().abs().max())
         max_tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-3
         case = {'dtype': str(dtype).split('.')[-1], 'B': B, 'T': T, 'static_gate_scale': static,
+                'equal': bool(torch.equal(out, ref)),
                 'max_abs_err': float(err.max()), 'max_rel_err': float(err.max()) / scale,
                 'mean_rel_err': float(err.mean()) / scale, 'scale': scale,
                 'tolerance_max_rel': max_tol, 'tolerance_mean_rel': mean_tol}
@@ -349,7 +430,7 @@ def wn_block_int8_phase():
                   or case['control']['mean_rel_err'] > mean_tol,
                   'wn_block_int8: the control meets the limits: {}'.format(case))
             del ctrl
-        if T == 8192 and not static and (dtype == torch.bfloat16 or B == 1):
+        if T == 8192 and (dtype == torch.bfloat16 or B == 1):
             ops, nbytes = wn_block_int8_work(B, T, C, S, L, x.element_size())
             case.update(
                 kernel_ms = time_ms(lambda: fused_wn_block_int8(x, spect, q, static)),
@@ -358,15 +439,17 @@ def wn_block_int8_phase():
                 ops = ops, bytes = nbytes,
                 bound_ms = 1e3 * max(ops / PEAK_INT8_OPS, nbytes / PEAK_BYTES),
                 bound_by = 'operations' if ops / PEAK_INT8_OPS > nbytes / PEAK_BYTES
-                else 'bytes')
-        if name == 'bfloat16_B1_T8192':
-            case['clocks'] = clocks_under(lambda: fused_wn_block_int8(x, spect, q, static))
+                else 'bytes',
+                l2_bytes = l2_bytes(B, T, C, S, L, x.element_size(), static),
+                waves = waves(grid_tiles(B, T, C)),
+                clocks = clocks_under(lambda: fused_wn_block_int8(x, spect, q, static)))
+            case['l2_bytes_per_s'] = case['l2_bytes'] / (case['kernel_ms'] * 1e-3)
         cases[name] = case
-        check(case['max_rel_err'] <= max_tol and case['mean_rel_err'] <= mean_tol,
-              'wn_block_int8 {}: {}'.format(name, case))
+        check(case['equal'], 'wn_block_int8 {} differs from its plain version: {}'.format(
+            name, case))
         del x, spect, out, ref, err
     emit({'phase': 'kernels', 'fused_wn_block_int8': cases,
-          'shape': {'C': C, 'S': S, 'L': L},
+          'shape': {'C': C, 'S': S, 'L': L}, 'ptxas': ptxas_report('wn_block_int8'),
           'library_ms': None,
           'library_note': 'no single PyTorch call computes the int8 WN block'})
     return cases
@@ -982,11 +1065,37 @@ SENTENCES = ['The quick brown fox jumps over the lazy dog.',
              'It was invented in the fifteenth century.']
 
 
+# kernel names in a profiler trace: K1's bf16 GEMMs, K2's GEMMs and row
+# quantization, K3
+KERNEL_PATTERNS = {'wn_block': r'wn_(in|rs)_wgmma',
+                   'wn_block_int8': r'(?<![a-z_])(row_quant|in_wgmma|rs_wgmma)',
+                   'decoder_steps': r'decoder_steps_kernel'}
+
+
+def kernel_trace(fn, wrapper):
+    """`fn` under the loggers' `torch.profiler` trace: its CUDA kernel
+    events, their device time, the events of each kernel family and the
+    calls of `wrapper` (its launch count) in the run."""
+    from text_to_speech_tpu_torch.loggers import start_profiler_trace, stop_profiler_trace
+    torch.cuda.synchronize()
+    start_profiler_trace()
+    wrapper.launches = 0
+    fn()
+    torch.cuda.synchronize()
+    calls = wrapper.launches
+    with open(stop_profiler_trace()) as f:
+        kernels = [e for e in json.load(f)['traceEvents'] if e.get('cat') == 'kernel']
+    return {'kernel_events': len(kernels),
+            'kernel_ms': 1e-3 * sum(e.get('dur', 0) for e in kernels),
+            'events': {name: sum(bool(re.search(pattern, e['name'])) for e in kernels)
+                       for name, pattern in KERNEL_PATTERNS.items()},
+            'wrapper_calls': calls}
+
+
 def e2e_phase(model, vocoder, setup_s):
     from text_to_speech_tpu_torch import tts
     from text_to_speech_tpu_torch.devices import get_memory_stats
-    from text_to_speech_tpu_torch.loggers import (
-        reset_timers, start_profiler_trace, stop_profiler_trace, timer_report)
+    from text_to_speech_tpu_torch.loggers import reset_timers, timer_report
     from text_to_speech_tpu_torch.models.tts.tacotron2 import pad_batch
     from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
     from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
@@ -1082,6 +1191,17 @@ def e2e_phase(model, vocoder, setup_s):
           'int8 gate: mode {}, SNR {} dB'.format(vocoder.serving_mode, gate_snr))
     drive('one_sentence_int8', SENTENCES[0], one, 'int8')
     drive('batch_of_4_int8', SENTENCES, batch, 'int8')
+    # K2's device kernels a block: a torch.profiler trace of one int8 sentence
+    int8_trace = kernel_trace(lambda: tts(
+        SENTENCES[0], model = model, vocoder = vocoder, vocoder_batch = vocoder_batch,
+        generator = generator, max_length = max_frames, ** gates), fused_wn_block_int8)
+    layers = wg_arch.hp.wn_layers
+    k2 = int8_trace['events']['wn_block_int8']
+    int8_trace['wn_block_int8_kernels_per_block'] = k2 / int8_trace['wrapper_calls']
+    int8_trace['limit'] = 2 * layers + 2
+    check(int8_trace['wrapper_calls'] == n_flows and k2 > 0
+          and k2 <= (2 * layers + 2) * int8_trace['wrapper_calls'],
+          'int8 sentence trace: {}'.format(int8_trace))
     # a gate that fails: the float32 chain serves, neither WN kernel runs
     vocoder.quantize_for_serving(validate = gate_mel, gate_db = 1e9)
     check(vocoder._last_serving_snr_db < 1e9, 'gate failure SNR')
@@ -1091,17 +1211,12 @@ def e2e_phase(model, vocoder, setup_s):
 
     # the loggers' device trace (torch.profiler) of one sentence: it must
     # hold the card's kernels, K3's and K1's among them
-    start_profiler_trace()
-    tts(SENTENCES[0], model = model, vocoder = vocoder, vocoder_batch = vocoder_batch,
-        generator = generator, max_length = max_frames, ** gates)
-    with open(stop_profiler_trace()) as f:
-        kernels = [e for e in json.load(f)['traceEvents'] if e.get('cat') == 'kernel']
-    count = lambda pattern: sum(bool(re.search(pattern, e['name'])) for e in kernels)
-    trace = {'kernel_events': len(kernels),
-             'kernel_ms': 1e-3 * sum(e.get('dur', 0) for e in kernels),
-             'decoder_steps_events': count('decoder_steps_kernel'),
-             'wn_block_in_kernel_events': count('(?<![a-z])in_kernel')}
-    check(trace['decoder_steps_events'] > 0 and trace['wn_block_in_kernel_events'] > 0,
+    trace = kernel_trace(lambda: tts(
+        SENTENCES[0], model = model, vocoder = vocoder, vocoder_batch = vocoder_batch,
+        generator = generator, max_length = max_frames, ** gates), fused_wn_block)
+    trace['wn_block_kernels_per_block'] = trace['events']['wn_block'] / trace['wrapper_calls']
+    check(trace['events']['decoder_steps'] > 0 and trace['wrapper_calls'] == n_flows
+          and trace['events']['wn_block'] == 2 * wg_arch.hp.wn_layers * n_flows,
           'profiler trace of one sentence: {}'.format(trace))
 
     # the fused decode against the plain decode on the card: float32, no
@@ -1168,7 +1283,7 @@ def e2e_phase(model, vocoder, setup_s):
     check(0 < memory['bytes_in_use'] <= memory['peak_bytes_in_use'] <= memory['bytes_limit'],
           'memory stats: {}'.format(memory))
     emit({'phase': 'e2e', 'setup_s': setup_s, 'runs': runs, 'memory_stats': memory,
-          'profiler_trace': trace,
+          'profiler_trace': trace, 'int8_profiler_trace': int8_trace,
           'fused_vs_plain_decode': routes, 'int8_lstm_decode': int8_lstm,
           'int8_gate': {'snr_db': gate_snr, 'gate_db': 25., 'frames': 32},
           'vocoder_kernel_vs_f32': {'max_rel_err': err, 'snr_db': snr_db(plain, fast),
@@ -1200,7 +1315,8 @@ def main():
                     if 'registers' in line or 'spill' in line]
              for name, log in _build.build_logs.items()}
     emit({'phase': 'device', 'nvidia_smi': smi, 'build_s': build_s,
-          'torch': torch.__version__, 'cuda': torch.version.cuda, 'ptxas': ptxas})
+          'torch': torch.__version__, 'cuda': torch.version.cuda, 'ptxas': ptxas,
+          'sass': sass_check()})
 
     start = time.perf_counter()
     # random weights at NVIDIA sizes (the `HParamsTacotron2` and
@@ -1215,6 +1331,25 @@ def main():
     dec_cases = decoder_steps_phase(model)
     runs, int8_lstm = e2e_phase(model, vocoder, setup_s)
     steps, fit, evals = train_phase()
+
+    # K1's and K2's rates against K5's of the same type, from this run
+    shares = {}
+    for key, case, rate_key in (
+            ('fused_wn_block_bf16_B1', wn_cases['bfloat16_B1_T8192'], 'bfloat16_M512_reps64'),
+            ('fused_wn_block_bf16_B4', wn_cases['bfloat16_B4_T8192'], 'bfloat16_M512_reps64'),
+            ('fused_wn_block_bf16_B8', wn_cases['bfloat16_B8_T8192'], 'bfloat16_M512_reps64'),
+            ('fused_wn_block_int8_B1', wn8_cases['bfloat16_B1_T8192'], 'int8_M512_reps64'),
+            ('fused_wn_block_int8_B4', wn8_cases['bfloat16_B4_T8192'], 'int8_M512_reps64')):
+        work = case.get('flops', case.get('ops'))
+        rate = work / (case['kernel_ms'] * 1e-3)
+        peak = PEAK_INT8_OPS if 'int8' in rate_key else PEAK_BF16_FLOPS
+        shares[key] = {'ms': case['kernel_ms'], 'rate': rate,
+                       'share_of_k5_rate': rate / rate_cases[rate_key]['rate'],
+                       'share_of_peak': rate / peak, 'l2_bytes': case['l2_bytes'],
+                       'l2_bytes_per_s': case['l2_bytes_per_s'], 'waves': case['waves'],
+                       'sm_clock_mhz': case['clocks']['during']['sm_clock_mhz'],
+                       'power_w': case['clocks']['during']['power_w']}
+    emit({'phase': 'kernels', 'wn_shares_of_k5': shares})
 
     launches = lambda kernel: sum(r['launches'][kernel] for r in runs.values())
     summary = lambda case, ** entry: dict(

@@ -399,6 +399,83 @@ def test_optimizer_steps_match_jax(name):
         assert abs(float(t.detach()[0]) - float(w['w'][0])) > 0.05
 
 
+# The calls of the JAX get_optimizer that the port once refused (optax's keywords, a dict
+# config, `learning_rate`, lr=None, rmsprop's momentum and nesterov), and
+# the rest of optax's keywords for the five ported names.
+@pytest.mark.parametrize('args,kwargs', [
+    (('adam',), dict(b1 = 0.8)),
+    ((), dict(learning_rate = 1e-2)),
+    (({'name': 'adam', 'b1': 0.8},), {}),
+    (('adam',), dict(lr = None)),
+    (('rmsprop',), dict(momentum = 0.9, nesterov = True, lr = 1e-2)),
+    (('rmsprop',), dict(centered = True, lr = 1e-2)),
+    (('rmsprop',), dict(bias_correction = True, eps_in_sqrt = False, momentum = 0.5, lr = 1e-2)),
+    (('adam',), dict(nesterov = True, eps_root = 1e-8, b2 = 0.99, lr = 1e-2)),
+    (('adamw',), dict(b1 = 0.85, weight_decay = 1e-2, learning_rate = 1e-2)),
+    (({'class_name': 'sgd', 'momentum': 0.9, 'nesterov': True},), dict(lr = 1e-2)),
+    (({'name': 'adagrad', 'initial_accumulator_value': 0.2},), dict(lr = 1e-2)),
+    (('adam',), dict(lr = 1e-2, lr_scheduler = {'name': 'DivideByStep', 'maxval': 1e-2}))],
+    ids = lambda v: repr(v) if isinstance(v, dict) else repr(v[0]) if v else '-')
+def test_optimizer_keywords_match_jax(args, kwargs):
+    """Each call gives the JAX `get_optimizer`'s update: three steps from
+    weights of 1.0 at gradients 1e-5 .. 1e-1, within 2.4e-7 absolute (the
+    limit of `test_optimizer_steps_match_jax`; measured equal to the bit)."""
+    import optax
+    from text_to_speech_tpu.train.optimizers import get_optimizer as jax_get_optimizer
+    copy = lambda: [dict(a) if isinstance(a, dict) else a for a in args]
+    grads = np.asarray([1e-5, 1e-4, 1e-3, 1e-1], np.float32)
+    tx = jax_get_optimizer(* copy(), ** kwargs)
+    w = {'w': jnp.ones(4)}
+    state = tx.init(w)
+    t = torch.ones(4, requires_grad = True)
+    opt = get_optimizer(* copy(), ** kwargs).init({'w': t})
+    for _ in range(3):
+        updates, state = tx.update({'w': jnp.asarray(grads)}, state, w)
+        w = optax.apply_updates(w, updates)
+        t.grad = torch.from_numpy(grads)
+        opt.step()
+    np.testing.assert_allclose(t.detach().numpy(), np.asarray(w['w']), atol = 2.4e-7, rtol = 0)
+
+
+def test_optimizer_refuses_what_optax_refuses_or_torch_cannot_honour():
+    with pytest.raises(TypeError, match = 'betas'):
+        get_optimizer('adam', betas = (0.9, 0.99))          # torch's name, not optax's
+    with pytest.raises(ValueError, match = 'mu_dtype'):
+        get_optimizer('adam', mu_dtype = 'bfloat16')
+
+
+def test_fit_takes_the_jax_keywords(setup, tmp_path, monkeypatch):
+    """`fit` takes the JAX `fit`'s `async_checkpointing` and `token_multiple`:
+    the background writer's checkpoint loads in the JAX package, as in
+    `test_fit_checkpoint_loads_in_jax`, and an error on the writer's thread
+    reaches the caller."""
+    from text_to_speech_tpu.train.checkpoint import CheckpointManager as JaxManager
+    from text_to_speech_tpu_torch.train import checkpoint
+    params, _, _ = setup
+    task = WaveGlowTask.from_jax(params, device = 'cpu', name = 'tiny_async',
+                                 root = str(tmp_path), ** CONFIG)
+    rows = _rows(2)
+    fit_kw = dict(valid_size = 0, epochs = 1, batch_size = 2, lr = 1e-4, device = 'cpu',
+                  async_checkpointing = True, token_multiple = 32)
+    task.fit(rows, ** fit_kw)
+    assert task.epochs == 1
+    ckpt = tmp_path / 'tiny_async' / 'saving' / 'checkpoint'
+    jax_params = JaxManager(str(ckpt)).load(trees = ('params',))['params']
+    for name, value in flatten_tree(waveglow_to_jax(task.params)).items():
+        np.testing.assert_array_equal(flatten_tree(jax_params)[name], np.asarray(value))
+
+    def full_disk(* args, ** kwargs):
+        raise OSError('disk full')
+    writes = []
+    save = checkpoint.AsyncCheckpointSaver._write
+    monkeypatch.setattr(checkpoint.AsyncCheckpointSaver, '_write',
+                        lambda * a, ** kw: writes.append(1) or save(* a, ** kw))
+    monkeypatch.setattr(task.ckpt_manager, 'save', full_disk)
+    with pytest.raises(OSError, match = 'disk full'):
+        task.fit(rows, ** fit_kw)
+    assert writes == [1]
+
+
 def test_repeated_batch_spike_matches_jax():
     """Adam on one repeated batch of white noise (0.1 std) overshoots.  The
     loss falls toward the noise's Gaussian optimum (the flows' log-s summing

@@ -99,11 +99,16 @@ def cuda_device():
 # tiles against f32 cuBLAS differ in summation order only; bf16 rounds the
 # gated activations and the residual stream after every layer, where a
 # different float32 sum can flip one bf16 rounding.
+# Shapes: whole 128-row tiles; a tile that crosses the end of each batch row
+# (T = 1000, and B = 3); T = 37 at L = 8, shorter than the dilations 64 and
+# 128, so that whole taps read the zero fill of the bf16 kernels' TMA loads;
+# S = 608 (S % 64 == 32), whose last 64-wide mel stage reads zeros past S.
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,rel_tol', [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize('T', [512, 1000])
-def test_kernel_matches_plain(cuda_device, dtype, rel_tol, T):
-    C, L, S, B = 256, 4, 640, 2
+@pytest.mark.parametrize('B,T,L,S', [(2, 512, 4, 640), (2, 1000, 4, 640), (1, 37, 8, 640),
+                                     (3, 1000, 4, 608)])
+def test_kernel_matches_plain(cuda_device, dtype, rel_tol, B, T, L, S):
+    C = 256
     x, spect, w = _inputs(C, L, S, T, B, seed = 3)
     args = _port(x, spect, w, dtype = dtype, device = cuda_device)
     before = fused_wn_block.launches
@@ -118,9 +123,17 @@ def test_kernel_matches_plain(cuda_device, dtype, rel_tol, T):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_shapes(cuda_device):
+    """Outside the envelope (C % 128), and a spect whose base address is not
+    16-byte aligned, which a TMA tensor map cannot describe."""
     x, spect, w = _inputs(64, 2, 64, 64, 1)
     with pytest.raises(ValueError):
         fused_wn_block(* _port(x, spect, w, device = cuda_device))
+    x, spect, w = _inputs(128, 2, 64, 64, 1)
+    args = list(_port(x, spect, w, dtype = torch.bfloat16, device = cuda_device))
+    shifted = torch.empty(args[1].numel() + 1, dtype = torch.bfloat16, device = cuda_device)
+    args[1] = shifted[1:].view(args[1].shape).copy_(args[1])
+    with pytest.raises(ValueError, match = 'aligned'):
+        fused_wn_block(* args)
 
 
 def _waveglow(device, ** change):

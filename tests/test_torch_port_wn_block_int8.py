@@ -325,19 +325,25 @@ def cuda_device():
     return torch.device('cuda')
 
 
-# Tolerance, relative to the output's largest magnitude (as in chip_smoke.py):
-# the integer sums are exact, the scales apply in the same order and the gate
-# takes PyTorch's device functions, so the two agree to the bit unless a
-# value sits on a rounding tie of its row's int8 grid; that moves one product
-# by a grid step, and in bf16 can flip one rounding of the stored stream and
-# one of the output (2^-8 of a value each).
+# The integer sums are exact, the scales apply in the same order, the gate
+# takes PyTorch's device functions and the row maxima are maxima, so the
+# kernel equals its plain version to the bit.  Shapes: whole tiles; a tile
+# that crosses the end of each batch row (T = 1000, and B = 3); T = 37 at
+# L = 8, shorter than the dilations 64 and 128, so that whole taps read the
+# TMA zero fill; and rows whose scales differ by orders of magnitude, so
+# that each row's gate maximum, gathered by atomics from the column tiles of
+# the first GEMM, decides its quantization in the second.
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype,static_gate_scale', [
     (torch.bfloat16, False), (torch.float32, False), (torch.bfloat16, True)])
-@pytest.mark.parametrize('T', [512, 1000])
-def test_kernel_matches_plain(cuda_device, dtype, static_gate_scale, T):
-    C, S, L, B = 256, 640, 4, 2
+@pytest.mark.parametrize('B,T,L,spread', [(2, 512, 4, False), (2, 1000, 4, False),
+                                          (1, 37, 8, False), (3, 1000, 4, True)])
+def test_kernel_matches_plain(cuda_device, dtype, static_gate_scale, B, T, L, spread):
+    C, S = 256, 640
     x, spect = _activations(B, T, C, S, seed = 6)
+    if spread:
+        rows = 10. ** np.random.default_rng(9).uniform(-3., .5, (B, T, 1))
+        x, spect = (x * rows).astype(np.float32), (spect * rows).astype(np.float32)
     q = _kernel_weights(_packed(C, S, L, seed = 7), cuda_device)
     x = torch.from_numpy(x).to(cuda_device, dtype)
     spect = torch.from_numpy(spect).to(cuda_device, dtype)
@@ -347,18 +353,25 @@ def test_kernel_matches_plain(cuda_device, dtype, static_gate_scale, T):
     assert fused_wn_block_int8.launches == before + 1
     ref = wn_block_int8_plain(x, spect, q, static_gate_scale)
     assert out.dtype == dtype and out.shape == (B, T, C)
-    err = (out.float() - ref.float()).abs()
-    scale = float(ref.float().abs().max())
-    assert float(err.max()) <= (2 ** -7 if dtype == torch.bfloat16 else 1e-3) * scale
-    assert float(err.mean()) <= 1e-6 * scale
+    assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
 
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_shapes(cuda_device):
+    """Outside the envelope (S % 64, C > 512), and a spect whose base
+    address is not 16-byte aligned, which a TMA tensor map cannot describe."""
     q = _kernel_weights(_packed(128, 96, 2), cuda_device)        # S % 64 != 0
     x = torch.zeros((1, 64, 128), device = cuda_device)
     with pytest.raises(ValueError):
         fused_wn_block_int8(x, torch.zeros((1, 64, 96), device = cuda_device), q)
+    q = _kernel_weights(_packed(640, 64, 2), cuda_device)        # C > 512
+    with pytest.raises(ValueError, match = 'C <= 512'):
+        fused_wn_block_int8(torch.zeros((1, 64, 640), device = cuda_device),
+                            torch.zeros((1, 64, 64), device = cuda_device), q)
+    q = _kernel_weights(_packed(128, 64, 2), cuda_device)
+    spect = torch.empty(64 * 64 + 1, device = cuda_device)[1:].view(1, 64, 64).zero_()
+    with pytest.raises(ValueError, match = 'aligned'):
+        fused_wn_block_int8(x, spect, q)
 
 
 @pytest.mark.cuda

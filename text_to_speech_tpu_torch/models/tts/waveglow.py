@@ -146,10 +146,12 @@ class WaveGlow:
     def get_config(self):
         return {'pad_mel_value': self.pad_mel_value}
 
-    def save(self, *, epoch = None, metric = None, extra_trees = None):
+    def save(self, *, epoch = None, metric = None, extra_trees = None, saver = None):
         """Write the model's directory in the JAX package's layout, with a
         checkpoint of the params (JAX tree layout) and of `extra_trees` for
-        `epoch` (default: ``epochs``)."""
+        `epoch` (default: ``epochs``); through `saver`
+        (`train.checkpoint.AsyncCheckpointSaver`), when given, the checkpoint
+        is written on its thread."""
         saving = os.path.join(self.folder, 'saving')
         dump_json(os.path.join(self.folder, 'config.json'), {
             'class_name': 'WaveGlow', 'config': {** self.get_config(), 'name': self.name}})
@@ -158,8 +160,8 @@ class WaveGlow:
         self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
         self.history.save(os.path.join(saving, 'history.json'))
         trees = {'params': waveglow_to_jax(self.params), ** (extra_trees or {})}
-        self.ckpt_manager.save(trees, epoch if epoch is not None else self.epochs,
-                               metric = metric)
+        (saver or self.ckpt_manager).save(trees, epoch if epoch is not None else self.epochs,
+                                          metric = metric)
         return self.folder
 
     def fit(self, dataset, ** kwargs):

@@ -2,7 +2,9 @@
 
 Replaces the TPU kernel `fused_wn_block`
 (``text_to_speech_tpu/ops/pallas_kernels.py``).  The kernel is
-``csrc/wn_block.cu`` (see its header for the design and its bound).
+``csrc/wn_block.cu`` (see its header for the design and its bound): in
+bfloat16 warp-specialised wgmma kernels fed by TMA, in float32 FMA tiles.
+`l2_bytes` counts what the bf16 kernels move through L2.
 
 `fused_wn_block` launches the kernel for CUDA tensors and counts its calls in
 ``fused_wn_block.launches``.  For CPU tensors it computes `wn_block_plain`,
@@ -87,6 +89,33 @@ def wn_block_plain(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last,
     return skip.to(dtype)
 
 
+BM = 128        # rows of the bf16 kernels' tiles; the in-GEMM's cover 256
+IN_N, RS_N = 256, 128       # accumulator columns, in-GEMM and rs-GEMM
+
+
+def grid_tiles(B, T, C):
+    """Tiles of one layer's two bf16 GEMMs: {'in', 'rs', 'rs_last'}."""
+    row_tiles = B * -(-T // BM)
+    return {'in': row_tiles * (2 * C // IN_N), 'rs': row_tiles * (2 * C // RS_N),
+            'rs_last': row_tiles * (C // RS_N)}
+
+
+def l2_bytes(B, T, C, S, L):
+    """Bytes that cross L2 in one bfloat16 call, by the kernels' tiling:
+    every 128-row tile reads, for each of its column tiles, its A stages
+    and its weight stages (whole TMA boxes, zero-filled ones included); the
+    in-GEMM's epilogue writes gated, the rs-GEMM's reads and writes x and
+    the skip sum and writes the output, each once."""
+    M, row_tiles = B * T, B * -(-T // BM)
+    tiles = grid_tiles(B, T, C)
+    total = L * tiles['in'] * (3 * C + 64 * -(-S // 64)) * (BM + IN_N) * 2
+    total += ((L - 1) * tiles['rs'] + tiles['rs_last']) * C * (BM + RS_N) * 2
+    total += L * M * C * 2                  # gated
+    total += (L - 1) * M * C * 2 * 2        # x, read and written
+    total += M * C * 4 * (2 * (L - 1) - 1) + M * C * (4 + 2)    # skip; the output
+    return total
+
+
 def _kernel():
     fn = load_library('wn_block').wn_block_forward
     if fn.argtypes is None:
@@ -151,6 +180,10 @@ def fused_wn_block(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last,
             b_rs.data_ptr(), w_rs_last.data_ptr(), b_rs_last.data_ptr(),
             work.data_ptr(), gated.data_ptr(), skip.data_ptr(), out.data_ptr(),
             B, T, C, spect.shape[-1], w_in_cond.shape[0], stream)
+    if err == -1:
+        raise ValueError('fused_wn_block: the CUDA driver refused a TMA tensor map (base '
+                         'addresses must be 16-byte aligned, row strides a multiple of 16 '
+                         'bytes)')
     if err != 0:
         raise RuntimeError('wn_block kernel launch failed: CUDA error {}'.format(err))
     fused_wn_block.launches += 1

@@ -3,7 +3,10 @@ weight quantizer and plain version.
 
 Replaces the TPU kernel `fused_wn_block_int8`
 (``text_to_speech_tpu/ops/pallas_kernels.py``).  The kernel is
-``csrc/wn_block_int8.cu`` (see its header for the design and its bound).
+``csrc/wn_block_int8.cu`` (see its header for the design and its bound):
+warp-specialised wgmma s8 kernels fed by TMA, 2L + 2 launches a block, the
+row quantization of the gate and of x inside the GEMMs.  `l2_bytes` counts
+what they move through L2.
 
 `fused_wn_block_int8` launches the kernel for CUDA tensors and counts its
 calls in ``fused_wn_block_int8.launches``.  For CPU tensors it computes
@@ -148,6 +151,40 @@ def wn_block_int8_plain(x, spect, q, static_gate_scale = False):
     return skip.to(dtype)
 
 
+MAX_C = 512     # the residual columns of a 64-row tile stay in registers
+
+
+def grid_tiles(B, T, C):
+    """Tiles of one layer's two GEMMs: 128 x 64-gate-column tiles of the
+    first, 64-row blocks of the second."""
+    return {'in': B * -(-T // 128) * (C // 64), 'rs': B * -(-T // 64)}
+
+
+def l2_bytes(B, T, C, S, L, itemsize, static_gate_scale = False):
+    """Bytes that cross L2 in one call, by the kernels' tiling: the two
+    row quantizations; every 128-row in-GEMM tile reads, for each of its
+    64-column gate tiles, its A and weight stages (whole TMA boxes) and
+    writes its gate; every 64-row rs tile reads its gate rows and all of
+    the layer's weights in 256-column pairs, reads and writes x and the skip
+    sum, and writes the next layer's qx."""
+    M = B * T
+    gate = 1 if static_gate_scale else 4
+    total = M * (S + C) * (itemsize + 1)                     # row_quant: mel, x
+    k_in = 3 * C + 128 * -(-S // 128)
+    total += L * B * -(-T // 128) * (C // 64) * k_in * (128 + 128)
+    total += L * M * C * gate                                 # the gate written
+    rs_tiles = B * -(-T // 64)
+    for i in range(L):
+        last = i == L - 1
+        chunks = C // 128 if last else 2 * C // 128
+        pairs = -(-chunks // 2) if last else 2 * -(-(C // 128) // 2)
+        total += rs_tiles * (64 * C * gate + pairs * 256 * C)
+        if not last:
+            total += M * C * (2 * itemsize + 1)              # x read and written, qx
+    total += M * C * 4 * (2 * (L - 1) - 1) + M * C * (4 + itemsize)   # skip; output
+    return total
+
+
 def _kernel():
     fn = load_library('wn_block_int8').wn_block_int8_forward
     if fn.argtypes is None:
@@ -167,9 +204,9 @@ def _check(x, spect, q):
     B, T, C = x.shape
     S = spect.shape[-1]
     L = q['w_in_cond'].shape[0]
-    if C % 128 or S % 64 or L < 2:
-        raise ValueError('fused_wn_block_int8 needs C % 128 == 0, S % 64 == 0 and '
-                         'L >= 2; got C={}, S={}, L={}'.format(C, S, L))
+    if C % 128 or C > MAX_C or S % 64 or L < 2:
+        raise ValueError('fused_wn_block_int8 needs C % 128 == 0, C <= {}, S % 64 == 0 '
+                         'and L >= 2; got C={}, S={}, L={}'.format(MAX_C, C, S, L))
     i8, f32 = torch.int8, torch.float32
     expected = {
         'spect': (spect, (B, T, S), x.dtype),
@@ -208,16 +245,17 @@ def fused_wn_block_int8(x, spect, q, static_gate_scale = False):
     on = dict(device = x.device)
     f32, i8 = dict(on, dtype = torch.float32), dict(on, dtype = torch.int8)
     work = x.clone()
-    # the float32 stream the next layer quantizes: the buffer itself in f32
-    x_f32 = torch.empty((M, C), ** f32) if x.dtype == torch.bfloat16 else None
+    # the f32 gate (the int8 one with the static scale) and the two per-row
+    # amax buffers the kernels clear in turn
     gated = None if static_gate_scale else torch.empty((M, C), ** f32)
-    scratch = [torch.empty((M, C), ** i8), torch.empty((M,), ** f32),     # x_q, x_s
+    gate_q = torch.empty((M, C), ** i8) if static_gate_scale else None
+    scratch = [torch.empty((2, M), dtype = torch.int32, device = x.device),   # amax
+               torch.empty((M, C), ** i8), torch.empty((M,), ** f32),     # x_q, x_s
                torch.empty((M, S), ** i8), torch.empty((M,), ** f32),     # spect
-               torch.empty((M, C), ** i8), torch.empty((M,), ** f32),     # gate
-               torch.empty((M, C), ** f32)]                               # skip sum
+               gate_q, torch.empty((M, C), ** f32)]                       # gate, skip sum
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    tensors = [work, spect] + [q[k] for k in _WEIGHTS] + [x_f32, gated] + scratch + [out]
+    tensors = [work, spect] + [q[k] for k in _WEIGHTS] + [gated] + scratch + [out]
     ptrs = (ctypes.c_void_p * len(tensors))(* (ptr(t) for t in tensors))
     ints = (ctypes.c_longlong * 7)(int(x.dtype == torch.bfloat16), B, T, C, S,
                                    q['w_in_cond'].shape[0], int(bool(static_gate_scale)))
@@ -225,6 +263,10 @@ def fused_wn_block_int8(x, spect, q, static_gate_scale = False):
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = kernel(ptrs, ints, stream)
+    if err == -1:
+        raise ValueError('fused_wn_block_int8: the CUDA driver refused a TMA tensor map (base '
+                         'addresses must be 16-byte aligned, row strides a multiple of 16 '
+                         'bytes)')
     if err != 0:
         raise RuntimeError('wn_block_int8 kernel launch failed: CUDA error {}'.format(err))
     fused_wn_block_int8.launches += 1

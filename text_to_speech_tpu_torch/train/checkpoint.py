@@ -7,10 +7,11 @@ Counterpart of ``text_to_speech_tpu/train/checkpoint.py``, in its layout::
 
 A tree is nested dicts of arrays or tensors, flattened to ``/``-joined
 paths (`weights.flatten_tree`).  `max_to_keep` checkpoints are kept, and
-the best one (lowest metric) is never deleted.  Saves are synchronous (the
-JAX package's `AsyncCheckpointSaver` is not ported).
+the best one (lowest metric) is never deleted.  `AsyncCheckpointSaver`
+moves the writes onto one background thread.
 """
 
+import concurrent.futures
 import os
 
 import numpy as np
@@ -101,3 +102,61 @@ class CheckpointManager:
     def _save_manifest(self):
         self._manifest['checkpoints'].sort(key = lambda c: c['epoch'])
         dump_json(os.path.join(self.directory, self.MANIFEST), self._manifest, indent = 2)
+
+
+class AsyncCheckpointSaver:
+    """Checkpoint writes on one background thread over a `CheckpointManager`
+    (the JAX package's `AsyncCheckpointSaver`).
+
+    `save` snapshots every tensor with a copy on its device, so that the next
+    step's in-place update cannot change it, and starts a non-blocking copy
+    of that snapshot to the host, then returns; the thread waits for the
+    copies and writes the ``.npz`` files and the manifest.  At most one save
+    is in flight: `save` and `wait_until_finished` first join the previous
+    one, and an error raised on the thread is raised there."""
+
+    def __init__(self, manager):
+        self.manager = manager
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers = 1, thread_name_prefix = 'ckpt-writer')
+        self._future = None
+
+    def save(self, trees, epoch, *, metric = None):
+        self.wait_until_finished()
+        snapshot, devices = {}, set()
+        for name, tree in trees.items():
+            leaves = {}
+            for key, value in flatten_tree(tree).items():
+                if torch.is_tensor(value):
+                    value = value.detach().clone()
+                    if value.is_cuda:
+                        devices.add(value.device)
+                        value = value.to('cpu', non_blocking = True)
+                else:
+                    value = np.array(value)
+                leaves[key] = value
+            snapshot[name] = leaves
+        copied = []
+        for device in devices:
+            event = torch.cuda.Event()
+            event.record(torch.cuda.current_stream(device))
+            copied.append(event)
+        self._future = self._pool.submit(self._write, snapshot, epoch, metric, copied)
+
+    def _write(self, snapshot, epoch, metric, copied):
+        for event in copied:
+            event.synchronize()
+        trees = {name: unflatten_tree(leaves) for name, leaves in snapshot.items()}
+        return self.manager.save(trees, epoch, metric = metric)
+
+    def wait_until_finished(self):
+        """Join the save in flight, if any, and raise its error."""
+        future, self._future = self._future, None
+        if future is not None:
+            return future.result()
+
+    def close(self):
+        try:
+            self.wait_until_finished()
+        finally:
+            self._pool.shutdown(wait = True)

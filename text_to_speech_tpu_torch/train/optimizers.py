@@ -1,24 +1,37 @@
 """Optimizers and learning-rate schedules on `torch.optim`.
 
 Counterpart of ``text_to_speech_tpu/train/optimizers.py`` (optax there).
-`get_optimizer` returns an `OptimizerConfig`, which, like an optax
-transformation, holds no state: ``config.init(params)`` binds it to a tree
-of parameter tensors and returns the stateful `Optimizer`.  Names with a
-`torch.optim` counterpart are ported, with optax's default constants:
+`get_optimizer` takes what the JAX one takes (a name, a dict config with
+``name`` or ``class_name``, ``lr`` or ``learning_rate``, ``lr_scheduler``,
+``clip_norm``, ``weight_decay`` and optax's keywords for the optimizer) and
+returns an `OptimizerConfig`, which, like an optax transformation, holds no
+state: ``config.init(params)`` binds it to a tree of parameter tensors and
+returns the stateful `Optimizer`.  Names with a `torch.optim` counterpart
+are ported, with optax's default constants, and optax's keywords map onto
+the classes:
 
-  - ``adam``: b1 0.9, b2 0.999, eps 1e-8 outside the square root (optax's
-    and torch's formula alike);
-  - ``adamw``: the same, weight decay 1e-4 (optax's default), decoupled and
-    applied to the parameter before the step in both;
-  - ``sgd``: no momentum;
-  - ``rmsprop``: optax's `scale_by_rms` in the port's own `RMSprop`
-    (decay 0.9, eps 1e-8 inside the square root, initial second moment 0);
+  - ``adam``: optax's `adam` in the port's own `Adam` (``b1`` 0.9, ``b2``
+    0.999, ``eps`` 1e-8, ``eps_root`` 0, ``nesterov``), in optax's order of
+    operations, with optax's float32 bias correction: `torch.optim.Adam`
+    rounds elsewhere and lands 3e-7 from optax after three steps at lr 1e-2;
+    ``mu_dtype`` only as None;
+  - ``adamw``: the same plus ``weight_decay`` (1e-4, optax's default),
+    optax's `add_decayed_weights` before the learning rate; ``mask`` only as
+    None;
+  - ``sgd``: ``momentum`` (None: none) and ``nesterov``, optax's `trace`
+    before the learning rate as torch's buffer; ``accumulator_dtype`` only
+    as None;
+  - ``rmsprop``: optax's whole `rmsprop` in the port's own `RMSprop`
+    (``decay`` 0.9, ``eps`` 1e-8 inside the square root, ``initial_scale``
+    0, ``eps_in_sqrt``, ``centered``, ``momentum``, ``nesterov``,
+    ``bias_correction``), in optax's order of operations.
     `torch.optim.RMSprop` adds eps outside the square root, where it damps
     nothing: a gradient far under sqrt(eps) moves its weight as far as a
     large one;
-  - ``adagrad``: initial accumulator 0.1, eps 1e-7, which torch adds
-    outside the square root and optax's `scale_by_rss` inside: with the
-    accumulator at 0.1 or more the updates differ in float32 noise only.
+  - ``adagrad``: ``initial_accumulator_value`` 0.1, ``eps`` 1e-7, which
+    torch adds outside the square root and optax's `scale_by_rss` inside:
+    with the accumulator at 0.1 or more the updates differ in float32 noise
+    only.
 
 ``adafactor`` and ``lion`` have no `torch.optim` counterpart and raise.  A
 schedule is evaluated at optax's step count (0 for the first update), and
@@ -86,40 +99,153 @@ def get_scheduler(scheduler, ** kwargs):
     return _SCHEDULERS[key](** kwargs)
 
 
-class RMSprop(torch.optim.Optimizer):
-    """optax's ``rmsprop``: ``nu = decay * nu + (1 - decay) * g**2``, then
-    ``p -= lr * g * rsqrt(nu + eps)`` (`scale_by_rms`, eps inside the
-    square root, then the learning rate), in optax's order of operations."""
+def _bias_correction(decay, count):
+    """``1 - decay**count`` in float32, as optax computes it."""
+    return 1 - torch.tensor(decay, dtype = torch.float32) ** count
 
-    def __init__(self, params, lr = 1e-3, decay = 0.9, eps = 1e-8, initial_scale = 0.):
-        super().__init__(params, dict(lr = lr, decay = decay, eps = eps,
-                                      initial_scale = initial_scale))
+
+class Adam(torch.optim.Optimizer):
+    """optax's ``adam`` (and ``adamw``), in its order of operations:
+    `scale_by_adam` (``mu = (1 - b1) * g + b1 * mu``, ``nu = (1 - b2) * g**2
+    + b2 * nu``, each divided by its bias correction ``1 - b**count`` in
+    float32; with `nesterov` the first moment is ``b1 * mu / (1 -
+    b1**(count + 1)) + (1 - b1) * g / (1 - b1**count)``; then ``mu_hat /
+    (sqrt(nu_hat + eps_root) + eps)``), plus ``weight_decay * p`` (adamw's
+    `add_decayed_weights`), times ``-lr``."""
+
+    def __init__(self, params, lr = 1e-3, b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0.,
+                 nesterov = False, weight_decay = 0.):
+        super().__init__(params, dict(lr = lr, b1 = b1, b2 = b2, eps = eps, eps_root = eps_root,
+                                      nesterov = nesterov, weight_decay = weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2, lr = group['b1'], group['b2'], group['lr']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if 'mu' not in state:
+                    state.update(mu = torch.zeros_like(p), nu = torch.zeros_like(p),
+                                 step = torch.zeros(()))
+                g = p.grad
+                state['mu'] = mu = (1 - b1) * g + b1 * state['mu']
+                state['nu'] = nu = (1 - b2) * g ** 2 + b2 * state['nu']
+                state['step'] += 1
+                count = state['step']
+                if group['nesterov']:
+                    mu_hat = (b1 * (mu / _bias_correction(b1, count + 1))
+                              + (1 - b1) * (g / _bias_correction(b1, count)))
+                else:
+                    mu_hat = mu / _bias_correction(b1, count)
+                nu_hat = nu / _bias_correction(b2, count)
+                u = mu_hat / (torch.sqrt(nu_hat + group['eps_root']) + group['eps'])
+                if group['weight_decay']:
+                    u = u + group['weight_decay'] * p
+                p.add_(u * -lr)
+
+
+class RMSprop(torch.optim.Optimizer):
+    """optax's ``rmsprop``, in its order of operations: `scale_by_rms`
+    (``nu = (1 - decay) * g**2 + decay * nu``; centered, `scale_by_stddev`,
+    which also keeps ``mu`` and uses ``nu - mu**2``; both optionally bias
+    corrected), the scaling ``rsqrt(nu + eps)`` (or ``1 / (sqrt(nu) + eps)``
+    without `eps_in_sqrt`) times g, times ``-lr``, then optax's `trace` with
+    `momentum` (``t = u + momentum * t``; with `nesterov` the update is
+    ``u + momentum * t``)."""
+
+    def __init__(self, params, lr = 1e-3, decay = 0.9, eps = 1e-8, initial_scale = 0.,
+                 eps_in_sqrt = True, centered = False, momentum = None, nesterov = False,
+                 bias_correction = False):
+        super().__init__(params, dict(
+            lr = lr, decay = decay, eps = eps, initial_scale = initial_scale,
+            eps_in_sqrt = eps_in_sqrt, centered = centered, momentum = momentum,
+            nesterov = nesterov, bias_correction = bias_correction))
 
     @torch.no_grad()
     def step(self):
         for group in self.param_groups:
             decay, eps, lr = group['decay'], group['eps'], group['lr']
+            momentum = group['momentum']
             for p in group['params']:
                 if p.grad is None:
                     continue
                 state = self.state[p]
                 if 'nu' not in state:
                     state['nu'] = torch.full_like(p, group['initial_scale'])
+                    if group['centered']: state['mu'] = torch.zeros_like(p)
+                    if momentum is not None: state['trace'] = torch.zeros_like(p)
+                    if group['bias_correction']: state['step'] = torch.zeros(())
                 g = p.grad
                 nu = (1 - decay) * g ** 2 + decay * state['nu']
                 state['nu'] = nu
-                p.add_(torch.rsqrt(nu + eps) * g * -lr)
+                if group['centered']:
+                    mu = (1 - decay) * g + decay * state['mu']
+                    state['mu'] = mu
+                if group['bias_correction']:
+                    state['step'] += 1
+                    correction = _bias_correction(decay, state['step'])
+                    nu = nu / correction
+                    if group['centered']: mu = mu / correction
+                if group['centered']:
+                    nu = nu - mu * mu
+                scaling = (torch.rsqrt(nu + eps) if group['eps_in_sqrt']
+                           else 1 / (torch.sqrt(nu) + eps))
+                u = scaling * g * -lr
+                if momentum is not None:
+                    trace = u + momentum * state['trace']
+                    state['trace'] = trace
+                    u = u + momentum * trace if group['nesterov'] else trace
+                p.add_(u)
 
 
-# name → (optimizer class, optax's default constants in its names)
+# name → (optimizer class, optax's default constants in the class's names)
 _OPTIMIZERS = {
-    'adam': (torch.optim.Adam, dict(betas = (0.9, 0.999), eps = 1e-8)),
-    'adamw': (torch.optim.AdamW, dict(betas = (0.9, 0.999), eps = 1e-8,
-                                      weight_decay = 1e-4)),
+    'adam': (Adam, dict(b1 = 0.9, b2 = 0.999, eps = 1e-8)),
+    'adamw': (Adam, dict(b1 = 0.9, b2 = 0.999, eps = 1e-8, weight_decay = 1e-4)),
     'sgd': (torch.optim.SGD, dict(momentum = 0.)),
     'rmsprop': (RMSprop, dict(decay = 0.9, eps = 1e-8)),
     'adagrad': (torch.optim.Adagrad, dict(initial_accumulator_value = 0.1, eps = 1e-7)),
 }
+# optax's keywords that the classes have no counterpart for, and the
+# only value each may take
+_AT_DEFAULT = {
+    'adam': dict(mu_dtype = None),
+    'adamw': dict(mu_dtype = None, mask = None),
+    'sgd': dict(accumulator_dtype = None),
+    'rmsprop': {}, 'adagrad': {},
+}
+_OPTAX_KEYWORDS = {
+    'adam': ('b1', 'b2', 'eps', 'eps_root', 'nesterov'),
+    'adamw': ('b1', 'b2', 'eps', 'eps_root', 'nesterov', 'weight_decay'),
+    'sgd': ('momentum', 'nesterov'),
+    'rmsprop': ('decay', 'eps', 'initial_scale', 'eps_in_sqrt', 'centered', 'momentum',
+                'nesterov', 'bias_correction'),
+    'adagrad': ('initial_accumulator_value', 'eps'),
+}
+
+
+def _class_keywords(key, kwargs):
+    """optax's keywords of optimizer `key` → its class's; raises
+    TypeError for a keyword optax's constructor does not take, ValueError for
+    one the class cannot honour."""
+    out = {}
+    for name, value in kwargs.items():
+        if name in _AT_DEFAULT[key]:
+            if value != _AT_DEFAULT[key][name]:
+                raise ValueError('{}={!r} has no counterpart in torch.optim for {!r}; only '
+                                 '{!r} is ported'.format(name, value, key,
+                                                         _AT_DEFAULT[key][name]))
+        elif name not in _OPTAX_KEYWORDS[key]:
+            raise TypeError('optax.{} got an unexpected keyword argument {!r}'.format(key, name))
+        elif key == 'sgd' and name == 'momentum':
+            out['momentum'] = 0. if value is None else value
+        else:
+            out[name] = value
+    return out
+
+
 _NOT_PORTED = ('adafactor', 'lion')
 
 
@@ -182,14 +308,16 @@ class Optimizer:
 
     # -- the port's checkpoint layout of the state -----------------------------
 
-    def state_arrays(self):
+    def state_arrays(self, host = True):
         """{'count', 'state/<index>/<name>'}: numpy arrays of the state,
-        indexed by the parameter's position in sorted-key order."""
+        indexed by the parameter's position in sorted-key order; with `host`
+        False the state's own tensors, left where they are (for
+        `AsyncCheckpointSaver`, which copies them)."""
         out = {'count': torch.tensor(self.count).numpy()}
         for index, state in self.torch.state_dict()['state'].items():
             for name, value in state.items():
-                value = value if torch.is_tensor(value) else torch.tensor(value)
-                out['state/{}/{}'.format(index, name)] = value.detach().cpu().numpy()
+                value = (value if torch.is_tensor(value) else torch.tensor(value)).detach()
+                out['state/{}/{}'.format(index, name)] = value.cpu().numpy() if host else value
         return out
 
     def load_state_arrays(self, arrays):
@@ -216,15 +344,22 @@ class Optimizer:
         self.count = int(arrays['count'])
 
 
-def get_optimizer(optimizer = 'adam', *, lr = 1e-3, lr_scheduler = None, clip_norm = None,
-                  weight_decay = None, ** kwargs):
-    """An `OptimizerConfig` from a name (or the config itself).
+def get_optimizer(optimizer = 'adam', *, lr = None, learning_rate = None,
+                  lr_scheduler = None, clip_norm = None, weight_decay = None, ** kwargs):
+    """An `OptimizerConfig` from a name, a dict config (``name`` or
+    ``class_name``, the rest as keywords) or the config itself.
 
-    `lr_scheduler` is a schedule name, config or callable of the step;
-    `clip_norm` adds global-norm clipping; `weight_decay` is decoupled decay,
-    for ``adamw`` only; other keywords go to the optimizer class."""
+    The learning rate is `learning_rate`, else `lr`, else 1e-3, as in the
+    JAX package; `lr_scheduler` (a schedule name, config or callable of the
+    step) overrides both.  `clip_norm` adds global-norm clipping;
+    `weight_decay` is decoupled decay, for ``adamw`` only; other keywords
+    are optax's for the optimizer (module docstring)."""
     if isinstance(optimizer, OptimizerConfig):
         return optimizer
+    if isinstance(optimizer, dict):
+        kwargs = {** optimizer, ** kwargs}
+        optimizer = kwargs.pop('name', kwargs.pop('class_name', 'adam'))
+    learning_rate = learning_rate if learning_rate is not None else (lr or 1e-3)
     schedule = get_scheduler(lr_scheduler) if lr_scheduler is not None else None
     key = optimizer.lower()
     if key in _NOT_PORTED:
@@ -233,11 +368,13 @@ def get_optimizer(optimizer = 'adam', *, lr = 1e-3, lr_scheduler = None, clip_no
     if key not in _OPTIMIZERS:
         raise ValueError('Unknown optimizer {!r} (known: {})'.format(
             optimizer, sorted(_OPTIMIZERS)))
-    if weight_decay:
-        if key != 'adamw':
+    if weight_decay is not None:
+        if key == 'adamw':
+            kwargs['weight_decay'] = weight_decay
+        elif weight_decay:
             raise ValueError(
                 'weight_decay is taken by adamw only: the JAX package adds it after '
                 'the learning-rate-scaled update for {!r}, with the wrong sign; use '
                 'adamw for decoupled weight decay'.format(optimizer))
-        kwargs['weight_decay'] = weight_decay
-    return OptimizerConfig(key, lr, schedule, clip_norm, ** kwargs)
+    return OptimizerConfig(key, learning_rate, schedule, clip_norm,
+                           ** _class_keywords(key, kwargs))

@@ -6,12 +6,14 @@ optimizer's update; the parameters are leaf tensors that the optimizer
 updates in place (where the JAX step returns new arrays), which keeps one
 copy of them and of the Adam moments on the device.  `fit` resumes from
 ``model.epochs`` with the optimizer state checkpointed beside the weights
-(when its configuration is unchanged), checkpoints every epoch, keeps the
-best one by `monitor`, stops early and on a non-finite loss.  The `mesh`
-and pipeline-parallel arguments are not ported and raise.
+(when its configuration is unchanged), checkpoints every epoch (on a
+background writer thread with `async_checkpointing`, the default), keeps
+the best one by `monitor`, stops early and on a non-finite loss.  The
+`mesh` and pipeline-parallel arguments are not ported and raise.
 """
 
 import logging
+import sys
 import time
 
 import numpy as np
@@ -19,15 +21,13 @@ import torch
 
 from ..devices import default_device
 from ..weights import flatten_tree
+from .checkpoint import AsyncCheckpointSaver
 from .datasets import prepare_dataset, train_test_split
 from .losses import get_loss
 from .optimizers import get_optimizer, global_norm
 from .precision import compute_dtype as policy_dtype, get_policy
 
 logger = logging.getLogger(__name__)
-
-_OPT_KEYS = ('clip_norm', 'weight_decay', 'lr_scheduler')
-
 
 def _not_ported(mesh, pp_microbatches):
     if mesh is not None or pp_microbatches:
@@ -99,10 +99,11 @@ def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
     return np.pad(data, pads, mode = 'constant', constant_values = constant_values)
 
 
-def bucket_pad(batch, model, *, frame_multiple = 64):
+def bucket_pad(batch, model, *, token_multiple = 32, frame_multiple = 64):
     """A collated WaveGlow batch padded into shape buckets: the mel to a
     multiple of `frame_multiple` frames with ``model.pad_mel_value``, the
-    audio padded or cut to the mel's length in samples."""
+    audio padded or cut to the mel's length in samples.  `token_multiple`
+    is the JAX package's bucket for token inputs; WaveGlow rows have none."""
     inputs, targets = batch
     mel, audio = inputs
     mel = pad_to_multiple(np.asarray(mel), frame_multiple, axis = 1,
@@ -136,8 +137,8 @@ def _item_length(item):
 def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_size = 8,
         loss = None, optimizer = 'adam', lr = 1e-3, mesh = None, shuffle = True,
         early_stopping_patience = None, monitor = 'loss', terminate_on_nan = True,
-        frame_multiple = 64, precision = None, seed = 0,
-        verbose = True, device = None, ** kwargs):
+        token_multiple = 32, frame_multiple = 64, precision = None, seed = 0,
+        verbose = True, async_checkpointing = True, device = None, ** kwargs):
     """Train `model` on `data` (rows that ``model.prepare_data`` reads) on
     `device`: ``cuda`` unless ``device='cpu'`` is given (the model moves
     there); without a GPU and without a device it raises.
@@ -145,12 +146,14 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     Resumes from ``model.epochs``; checkpoints every epoch (params in the
     JAX package's layout, and the optimizer state under its configuration's
     fingerprint); the manager keeps the best by `monitor` (on the
-    validation data when there is some).  ``clip_norm``, ``weight_decay``
-    and ``lr_scheduler`` go to `get_optimizer`.  Returns ``model.history``."""
+    validation data when there is some).  With `async_checkpointing` each
+    epoch's checkpoint is written by an `AsyncCheckpointSaver` while the next
+    epoch runs, and `fit` waits for the last one before it returns; an error
+    on the writer's thread is raised here.  `token_multiple` goes to
+    `bucket_pad`.  ``clip_norm``, ``weight_decay``, ``lr_scheduler`` and
+    optax's keywords for the optimizer go to `get_optimizer`.  Returns
+    ``model.history``."""
     _not_ported(mesh, kwargs.pop('pp_microbatches', None))
-    unknown = set(kwargs) - set(_OPT_KEYS)
-    if unknown:
-        raise TypeError('fit got unexpected arguments {}'.format(sorted(unknown)))
     device = default_device(device)
     model.to(device)
     loss_fn = get_loss(loss or model._default_loss)
@@ -174,11 +177,10 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
 
     # saved moments only hold under the optimizer configuration that made
     # them: a changed one starts fresh
-    fingerprint = repr((optimizer, lr, sorted((k, kwargs[k]) for k in _OPT_KEYS
-                                              if k in kwargs)))
+    fingerprint = repr((optimizer, lr, sorted(kwargs.items())))
 
-    def opt_tree():
-        return {** opt_state.state_arrays(),
+    def opt_tree(host = True):
+        return {** opt_state.state_arrays(host = host),
                 'config': np.frombuffer(fingerprint.encode(), np.uint8).copy()}
 
     resumed_from = None
@@ -212,13 +214,15 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     initial_epoch = model.epochs
     best_value, patience_left = None, early_stopping_patience
     interrupted = False
+    saver = AsyncCheckpointSaver(model.ckpt_manager) if async_checkpointing else None
     try:
         for epoch in range(initial_epoch, initial_epoch + epochs):
             history.on_epoch_begin(epoch)
             sums, n_batches = {}, 0
             start = time.time()
             for batch in train_ds:
-                inputs, targets = bucket_pad(batch, model, frame_multiple = frame_multiple)
+                inputs, targets = bucket_pad(batch, model, token_multiple = token_multiple,
+                                             frame_multiple = frame_multiple)
                 params, state, opt_state, metrics = train_step(
                     params, state, opt_state, generator, _to_device(inputs, device),
                     _to_device(targets, device))
@@ -237,7 +241,8 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
             if valid_ds is not None:
                 val_sums, n_val = {}, 0
                 for batch in valid_ds:
-                    inputs, targets = bucket_pad(batch, model, frame_multiple = frame_multiple)
+                    inputs, targets = bucket_pad(batch, model, token_multiple = token_multiple,
+                                                 frame_multiple = frame_multiple)
                     m = eval_step(params, state, generator, _to_device(inputs, device),
                                   _to_device(targets, device))
                     for k, v in m.items():
@@ -252,7 +257,8 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
             monitor_key = 'val_' + monitor if valid_ds is not None else monitor
             value = epoch_metrics.get(monitor_key, epoch_metrics.get(monitor))
             model.set_weights(params, state)
-            model.save(epoch = epoch + 1, metric = value, extra_trees = {'opt': opt_tree()})
+            model.save(epoch = epoch + 1, metric = value, saver = saver,
+                       extra_trees = {'opt': opt_tree(host = saver is None)})
 
             if early_stopping_patience:
                 if best_value is None or (value is not None and value < best_value):
@@ -268,7 +274,17 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     except FloatingPointError:
         interrupted = True
     finally:
+        # drain the writer whatever happened; its error reaches the caller
+        # unless another one is already on its way
+        exc_in_flight = sys.exc_info()[0] is not None
         model.set_weights(params, state)
+        if saver is not None:
+            try:
+                saver.close()
+            except Exception:
+                if not exc_in_flight:
+                    raise
+                logger.exception('background checkpoint writer failed')
         if interrupted:
             model.save(epoch = model.epochs, metric = None, extra_trees = {'opt': opt_tree()})
     return history
