@@ -22,8 +22,12 @@ Phases, one JSON line each:
            registers and spills of every kernel; then K1's and K2's rates as
            shares of K5's of the same type, measured in the same run; the decoder steps (K3) in float32, bfloat16 and the
            int8 LSTM mode, deterministic and with dropout, with the attention
-           window at a memory length that is no multiple of 64, and as two
-           launches of 32 steps against one of 64; one WN layer (K4) in
+           window at a memory length that is no multiple of 64, float32 also
+           at a memory of 256, and as two launches of 32 steps against one of
+           64; for each timed case the kernel's shared-memory plan (bytes
+           resident per block, bytes streamed per step), the serial floor it
+           implies, the µs of each of its seven phases from its clock stamps,
+           and every instantiation's ptxas registers and spills; one WN layer (K4) in
            float32 and bfloat16 at the training batch and at one utterance,
            dilations 1, 16 and 128, residual and last layer, also at a length
            that is no multiple of any tile;
@@ -83,6 +87,8 @@ PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_INT8_OPS = 1979e12       # H100 SXM dense int8
 PEAK_F32_FLOPS = 67e12        # H100 SXM float32 outside the tensor cores
 PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+SMEM_BYTES_PER_CLOCK = 128    # shared memory read per SM and clock (Hopper)
+BOOST_HZ = 1.98e9             # H100 SXM maximum SM clock
 
 
 def emit(record):
@@ -527,7 +533,7 @@ def int8_lockstep(key, steps, limit):
 def decoder_steps_phase(model):
     from text_to_speech_tpu_torch.ops.decoder_kernel import (
         PHASES, decoder_steps, decoder_steps_plain, init_decoder_state, int8_lstm_lockstep,
-        pack_decoder_weights, phase_times_us, quantize_lstm_weights)
+        pack_decoder_weights, phase_times_us, quantize_lstm_weights, stamps_size)
     from text_to_speech_tpu_torch.weights import cast_tree
 
     arch, hp, K = model.arch, model.arch.hp, 64
@@ -597,7 +603,10 @@ def decoder_steps_phase(model):
 
     cases = {}
     for name, dtype, weights in modes:
-        for B, S, window in ((1, 64, False), (4, 64, False), (2, 72, True)):
+        # float32 also at S = 256, where the attention takes more items
+        shapes = ((1, 64, False), (4, 64, False), (2, 72, True)) \
+            + (((1, 256, False),) if name == 'float32' else ())
+        for B, S, window in shapes:
             args, fresh = inputs(B, S, dtype, weights)
             for deterministic in (True, False):
                 kw = dict(n_steps = K, deterministic = deterministic, use_window = window,
@@ -666,27 +675,40 @@ def decoder_steps_phase(model):
                     plain_ms = time_ms(lambda: decoder_steps_plain(* args, st, seed, ** kw),
                                        reps = 3, warmup = 1)
                     # where a step's time goes: the kernel's own clock stamps
-                    stamps = torch.zeros((8 * K + 4,), dtype = torch.int64, device = 'cuda')
+                    stamps = torch.zeros((stamps_size(K),), dtype = torch.int64, device = 'cuda')
                     decoder_steps(* args, st, seed, stamps = stamps, ** kw)
                     torch.cuda.synchronize()
                     times = phase_times_us(stamps)
                     case['phase_us'] = {
                         kind: dict(zip(PHASES, spans.median(dim = 0).values.tolist()))
                         for kind, spans in times.items()}
+                    # the shared-memory plan: what stays resident, what streams
+                    plan = decoder_steps.last_plan
+                    sms = torch.cuda.get_device_properties(0).multi_processor_count
+                    resident = plan['resident_bytes_per_block'] * plan['slab_blocks']
+                    streamed = weight_bytes - resident
                     case.update(
                         chunked_equal = True, kernel_ms = kernel_ms,
                         us_per_step = 1e3 * kernel_ms / K, plain_ms = plain_ms,
                         ops_ms = 1e3 * ops_s, bytes = nbytes,
                         bound_ms = 1e3 * max(ops_s, nbytes / PEAK_BYTES),
                         bound_by = 'operations' if ops_s > nbytes / PEAK_BYTES else 'bytes',
-                        # the steps are serial, and each reads every weight
-                        # (from device memory where they exceed the L2)
-                        serial_floor_ms = 1e3 * K * weight_bytes / PEAK_BYTES)
+                        plan = plan,
+                        # the steps are serial; each reads every weight: the
+                        # resident ones from shared memory, the rest (the
+                        # slabs' streamed rows and the row phases' weights)
+                        # from device memory
+                        serial_floor_ms = 1e3 * K * max(
+                            streamed / PEAK_BYTES,
+                            resident / (sms * SMEM_BYTES_PER_CLOCK * BOOST_HZ)),
+                        # the floor if every weight came from device memory every step
+                        serial_floor_all_streamed_ms = 1e3 * K * weight_bytes / PEAK_BYTES)
                     if key == 'float32_B1_S64_dropout':
                         case['clocks'] = clocks_under(
                             lambda: decoder_steps(* args, st, seed, ** kw))
             del args, fresh
     emit({'phase': 'kernels', 'decoder_steps': cases,
+          'ptxas': ptxas_report('decoder_steps'),
           'shape': {'P': list(hp.prenet_sizes), 'U': U, 'D': hp.encoder_embedding_dim,
                     'A': hp.lsa_attention_dim, 'n_mel': n_mel},
           'library_ms': None,

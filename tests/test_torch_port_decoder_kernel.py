@@ -281,9 +281,22 @@ def test_bf16_rounding_contract(model):
     assert float((steps16 - steps32).abs().max()) > 0.
 
 
+def _unslab(slabs):
+    """The kernel's (U / 8, K, 32) slabs → the (K, 4U) weight they hold."""
+    n, K = slabs.shape[:2]
+    return slabs.reshape(n, K, 8, 4).permute(1, 3, 0, 2).reshape(K, 32 * n)
+
+
+def _unslab_int8(slabs):
+    """The kernel's int8 (U / 8, K / 4, 32, 4) slabs → the (K, 4U) weight."""
+    n, K4 = slabs.shape[:2]
+    return slabs.reshape(n, K4, 8, 4, 4).permute(1, 4, 3, 0, 2).reshape(4 * K4, 32 * n)
+
+
 def test_pack_layouts(model):
     """The packed names and shapes, the gate order against `lstm_cell`, and
-    the kernel's slab layout of an LSTM weight."""
+    the kernel's slab layout of an LSTM weight, which unpacks to the packed
+    matrices bit for bit."""
     from text_to_speech_tpu_torch.nn import layers as nn
     arch, _, (params, _) = model
     dec = params['decoder']
@@ -307,6 +320,9 @@ def test_pack_layouts(model):
     assert slabs.shape == (U // 8, P + D + U, 32)
     for slab, k, unit, gate in ((0, 0, 0, 0), (1, 5, 3, 2), (1, 39, 7, 3)):
         assert slabs[slab, k, 4 * unit + gate] == w['att_w'][k, gate * U + slab * 8 + unit]
+    kw = dk._kernel_weights(dict(w))
+    assert torch.equal(_unslab(kw['att_k']), w['att_w'])
+    assert torch.equal(_unslab(kw['dec_k']), w['dec_w'])
 
 
 def test_int8_slab_layout(model):
@@ -324,6 +340,9 @@ def test_int8_slab_layout(model):
     for slab, k, unit, gate in ((0, 0, 0, 0), (1, 5, 3, 2), (1, 47, 7, 3)):
         assert slabs[slab, k // 4, 4 * unit + gate, k % 4] == \
             w['dec_w'][k, gate * U + slab * 8 + unit]
+    kw = dk._kernel_weights(dict(w))
+    assert torch.equal(_unslab_int8(kw['att_k']), w['att_w'])
+    assert torch.equal(_unslab_int8(kw['dec_k']), w['dec_w'])
     only = dk.kernel_weights_only(w)
     assert dk._check(only, * args[1:], new_state(), _seed(0), 2)[0] == 2
     with pytest.raises(ValueError, match = 's_att_w'):
@@ -402,7 +421,7 @@ def test_envelope_errors(model):
     with pytest.raises(ValueError, match = 'U % 8'):
         dk.kernel_weights_only({** args[0], 'att_w': args[0]['att_w'][:, :48]})
     only = dk.kernel_weights_only(dict(args[0]))
-    assert not {'att_w', 'dec_w', 'proj_w'} & set(only)
+    assert not {'att_w', 'dec_w'} & set(only) and 'proj_w' in only
     assert dk._check(only, * args[1:], new_state(), _seed(0), 2)[0] == 2
     args, new_state = _step_inputs(arch, params, state, _tokens(2, 32))
     with pytest.raises(ValueError, match = 'stamps'):    # only the kernel takes stamps
@@ -439,8 +458,11 @@ def test_grid_difference_finds_a_tie_flip():
 
 def test_phase_times_from_stamps():
     """Two steps, a stamp every 100 clocks, 2 clocks a nanosecond."""
-    stamps = torch.cat([1000 + 100 * torch.arange(16),
-                        torch.tensor([5000, 900, 5850, 2600])])      # ns, clock, ns, clock
+    n = dk.stamps_size(2) - 4
+    assert n == 2 * 2 * len(dk.PHASES)
+    clock1 = 1000 + 100 * n
+    stamps = torch.cat([1000 + 100 * torch.arange(n),                 # ns, clock, ns, clock
+                        torch.tensor([5000, 900, 5000 + (clock1 - 900) // 2, clock1])])
     times = dk.phase_times_us(stamps)
     assert times['work'].shape == times['barrier'].shape == (2, len(dk.PHASES))
     np.testing.assert_allclose(times['barrier'].numpy(), 0.05)
@@ -558,14 +580,18 @@ def test_kernel_state_carries_across_launches(cuda_device):
 def test_kernel_phase_stamps(cuda_device):
     arch, params, state = _tiny_model()
     args, new_state = _step_inputs(arch, params, state, _tokens(2, 32), device = cuda_device)
-    stamps = torch.zeros((8 * 5 + 4,), dtype = torch.int64, device = cuda_device)
+    stamps = torch.zeros((dk.stamps_size(5),), dtype = torch.int64, device = cuda_device)
     dk.decoder_steps(* args, new_state(), _seed(3, cuda_device), n_steps = 5, stamps = stamps)
     torch.cuda.synchronize()
     times = dk.phase_times_us(stamps)
-    assert times['work'].shape == (5, 4)
+    assert times['work'].shape == (5, len(dk.PHASES))
     assert float(times['work'].min()) > 0. and float(times['barrier'].min()) > 0.
-    total_us = 1e-3 * float(stamps[-2] - stamps[-4])
-    assert float(times['work'].sum() + times['barrier'].sum()) <= total_us
+    # the spans tile the launch from its first clock stamp to its last: in
+    # clocks, no more than the launch's own
+    ns0, clock0, ns1, clock1 = (float(v) for v in stamps[-4:].cpu())
+    us_per_clock = 1e-3 * (ns1 - ns0) / (clock1 - clock0)
+    spans = float(times['work'].sum() + times['barrier'].sum()) / us_per_clock
+    assert spans <= clock1 - clock0
     with pytest.raises(ValueError, match = 'stamps'):
         dk.decoder_steps(* args, new_state(), _seed(3, cuda_device), n_steps = 5,
                          stamps = stamps[:8])
@@ -586,3 +612,123 @@ def test_kernel_rejects_unsupported_shapes(cuda_device):
                      for a in args)
         dk.decoder_steps(* half, new_state(), _seed(0, cuda_device), n_steps = 2)
     assert dk.decoder_steps.launches == before
+
+
+# -- on the card, at NVIDIA width ----------------------------------------------------------
+# U = 1024, D = 512, P = 256, A = 128: the LSTM slabs exceed shared memory in
+# float32 and bfloat16, so these cases reach the streamed tail of the ring,
+# and the attention of each row is split over 8 energies items and 16
+# context items.  Random weights from a numpy seed, scaled by 1 / sqrt(fan-in).
+
+_WIDE = dict(n_mel = 80, P = 256, U = 1024, D = 512, A = 128)
+
+
+def _wide_weights(device, dtype):
+    n_mel, P, U, D, A = (_WIDE[k] for k in ('n_mel', 'P', 'U', 'D', 'A'))
+    rng = np.random.default_rng(7)
+
+    def w(* shape):
+        v = rng.standard_normal(shape).astype(np.float32) / np.sqrt(shape[0])
+        return torch.from_numpy(v).to(device)
+
+    bias = lambda n: torch.from_numpy(
+        0.1 * rng.standard_normal(n).astype(np.float32)).to(device)
+    packed = {'w0': w(n_mel, P), 'b0': bias(P), 'w1': w(P, P), 'b1': bias(P),
+              'att_w': w(P + D + U, 4 * U), 'att_b': bias(4 * U), 'q_w': w(U, A),
+              'loc_w': w(2 * dk.LOC_KERNEL, A), 'v_w': bias(A) * 10.,
+              'dec_w': w(2 * U + D, 4 * U), 'dec_b': bias(4 * U),
+              'proj_w': w(U + D, n_mel + 1), 'proj_b': bias(n_mel + 1)}
+    return {k: v.to(dtype) if v.dim() > 1 else v for k, v in packed.items()}
+
+
+def _wide_inputs(device, dtype, B, S):
+    rng = np.random.default_rng(11 + B + S)
+    lengths = [S - 7 * b for b in range(B)]
+    mask = np.zeros((B, S), np.float32)
+    for b, n in enumerate(lengths):
+        mask[b, :n] = 1.
+    t = lambda v: torch.from_numpy(v.astype(np.float32)).to(device)
+    mem = t(rng.standard_normal((B, S, _WIDE['D'])) * mask[..., None]).to(dtype)
+    pm = t(0.5 * rng.standard_normal((B, S, _WIDE['A']))).to(dtype)
+    enc_len = torch.tensor(lengths, dtype = torch.int32, device = device)
+    extra = torch.zeros((B, _WIDE['P']), device = device)
+    new_state = lambda: dk.init_decoder_state(B, S, _WIDE['D'], _WIDE['U'], _WIDE['n_mel'],
+                                              dtype, device)
+    return (mem, pm, t(mask), enc_len, extra), new_state
+
+
+def _max_rel_err(a, b):
+    """Largest error over frames and gates, alignments and every state
+    tensor, each relative to its largest magnitude."""
+    keys = ('h_att', 'c_att', 'h_dec', 'c_dec', 'ctx', 'prev', 'cum')
+    return max([dk._rel_err(a[0], b[0]), dk._rel_err(a[1], b[1])]
+               + [dk._rel_err(a[2][k], b[2][k]) for k in keys])
+
+
+# (mode, tolerance of scale): float32 and bfloat16 as in
+# `test_kernel_matches_plain`; the int8 LSTM mode (float32 compute) through
+# `int8_lstm_lockstep`, as in `test_kernel_int8_lstm_matches_plain`
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode,tol', [('float32', 1e-4), ('bfloat16', 5e-2), ('int8_lstm', 1e-4)])
+@pytest.mark.parametrize('deterministic', [True, False])
+@pytest.mark.parametrize('B,S', [(1, 64), (1, 256), (8, 64), (8, 256)])
+def test_kernel_matches_plain_at_nvidia_width(cuda_device, mode, tol, deterministic, B, S):
+    dtype = torch.bfloat16 if mode == 'bfloat16' else torch.float32
+    weights = _wide_weights(cuda_device, dtype)
+    inputs, new_state = _wide_inputs(cuda_device, dtype, B, S)
+    seed = _seed(5, cuda_device)
+    kw = dict(n_steps = 8, deterministic = deterministic)
+    if mode == 'int8_lstm':
+        control, weights = weights, dk.quantize_lstm_weights(weights)
+        steps, frames = dk.int8_lstm_lockstep(weights, * inputs, new_state(), seed,
+                                              control = control, ** kw)
+        whole = dk.decoder_steps(weights, * inputs, new_state(), seed, ** kw)[0]
+        assert torch.equal(frames, whole)
+        held = [s for s in steps if s['grids_equal']]
+        assert len(held) >= len(steps) // 2
+        assert max(s['rel_err'] for s in held) <= tol
+        assert max(s['control_rel_err'] for s in held) > tol
+        for s in steps:
+            if not s['grids_equal']:
+                moved = s.get('att', s.get('dec'))
+                assert moved['row_diff_rel_amax'] <= 1e-5 and moved['max_grid_steps'] <= 1.
+        for s in steps:
+            if not s['path_grids_equal']:
+                break
+            assert s['path_rel_err'] <= tol
+        # every int8 weight of a block fits beside the work area at B = 1
+        if B == 1:
+            assert dk.decoder_steps.last_plan['streamed_bytes_per_step'] == 0
+        return
+    before = dk.decoder_steps.launches
+    out = dk.decoder_steps(weights, * inputs, new_state(), seed, ** kw)
+    torch.cuda.synchronize()
+    assert dk.decoder_steps.launches == before + 1
+    assert dk.decoder_steps.last_plan['streamed_bytes_per_step'] > 0
+    ref = dk.decoder_steps_plain(weights, * inputs, new_state(), seed, ** kw)
+    assert out[0].shape == (8, B, _WIDE['n_mel'] + 1) and out[1].shape == (8, B, S)
+    assert bool(torch.isfinite(out[0]).all())
+    assert _max_rel_err(out, ref) <= tol
+    assert torch.equal(out[2]['main'], ref[2]['main'])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['float32', 'bfloat16', 'int8_lstm'])
+def test_kernel_launch_split_at_nvidia_width(cuda_device, mode):
+    """Two launches of 4 steps equal one of 8 to the bit (same plan, same
+    summation order, dropout keyed by the absolute step)."""
+    dtype = torch.bfloat16 if mode == 'bfloat16' else torch.float32
+    weights = _wide_weights(cuda_device, dtype)
+    if mode == 'int8_lstm':
+        weights = dk.quantize_lstm_weights(weights)
+    inputs, new_state = _wide_inputs(cuda_device, dtype, 4, 64)
+    seed = _seed(5, cuda_device)
+    whole = dk.decoder_steps(weights, * inputs, new_state(), seed, n_steps = 8)
+    st = new_state()
+    a = dk.decoder_steps(weights, * inputs, st, seed, n_steps = 4)
+    b = dk.decoder_steps(weights, * inputs, st, seed, n_steps = 4, step0 = 4)
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([a[0], b[0]]), whole[0])
+    assert torch.equal(torch.cat([a[1], b[1]]), whole[1])
+    for key in dk._STATE_KEYS:
+        assert torch.equal(st[key], whole[2][key]), key

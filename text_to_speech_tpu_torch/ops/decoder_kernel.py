@@ -287,11 +287,14 @@ def decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed, *,
 
 # -- the kernel --------------------------------------------------------------------
 
-def _kernel():
-    fn = load_library('decoder_steps').decoder_steps_forward
+def _kernel(name = 'decoder_steps_forward'):
+    fn = getattr(load_library('decoder_steps'), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
-                       ctypes.c_float, ctypes.c_void_p]
+        if name == 'decoder_steps_plan':
+            fn.argtypes = [ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_longlong)]
+        else:
+            fn.argtypes = [ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+                           ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
@@ -320,22 +323,21 @@ def _slabs_int8(w):
         .reshape(U // SLAB_UNITS, K // 4, 4 * SLAB_UNITS, 4).contiguous()
 
 
-_LOGICAL_ONLY = ('att_w', 'dec_w', 'proj_w')
+_LOGICAL_ONLY = ('att_w', 'dec_w')
 
 
 def _kernel_weights(weights):
-    """The kernel's layouts of the three large matrices, made once per packed
+    """The kernel's slab layouts of the two LSTM weights, made once per packed
     dictionary and kept in it."""
     if '_kernel' not in weights:
         slabs = _slabs_int8 if weights['att_w'].dtype == torch.int8 else _slabs
         weights['_kernel'] = {'att_k': slabs(weights['att_w']),
-                              'dec_k': slabs(weights['dec_w']),
-                              'proj_t': weights['proj_w'].T.contiguous()}
+                              'dec_k': slabs(weights['dec_w'])}
     return weights['_kernel']
 
 
 def kernel_weights_only(weights):
-    """`weights` with the three large matrices in the kernel's layouts alone,
+    """`weights` with the two LSTM weights in the kernel's slab layouts alone,
     their logical copies left out: what a model keeps on a card, where only
     the kernel reads them.  `decoder_steps_plain` does not take the result."""
     _kernel_weights(weights)
@@ -351,11 +353,17 @@ def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
     P1 = weights['w1'].shape[1]
     U, A = weights['q_w'].shape
     if not (1 <= B <= MAX_ROWS and U % SLAB_UNITS == 0 and P0 % 4 == 0 and P1 % 4 == 0
-            and A % 4 == 0 and (U + D) % 4 == 0 and max(P0, P1, A) <= 2048):
+            and A % 4 == 0 and (U + D) % 4 == 0):
         raise ValueError(
             'decoder_steps needs 1 <= B <= {}, U % {} == 0, and P0, P1, A, U + D '
-            'multiples of 4 with P0, P1, A <= 2048; got B={}, U={}, P0={}, P1={}, '
-            'A={}, D={}'.format(MAX_ROWS, SLAB_UNITS, B, U, P0, P1, A, D))
+            'multiples of 4; got B={}, U={}, P0={}, P1={}, A={}, D={}'.format(
+                MAX_ROWS, SLAB_UNITS, B, U, P0, P1, A, D))
+    if mem.device.type == 'cuda':
+        # a block of the persistent grid owns one slab of each LSTM
+        sms = torch.cuda.get_device_properties(mem.device).multi_processor_count
+        if U // SLAB_UNITS > sms:
+            raise ValueError('decoder_steps needs U / {} <= {} (the SMs of {}), got U={}'
+                             .format(SLAB_UNITS, sms, mem.device, U))
     if n_steps < 1:
         raise ValueError('n_steps must be positive, got {}'.format(n_steps))
     f32, i32 = torch.float32, torch.int32
@@ -378,7 +386,7 @@ def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
         'loc_w': (weights['loc_w'], (2 * LOC_KERNEL, A), dt),
         'v_w': (weights['v_w'], (A,), f32),
         'dec_b': (weights['dec_b'], (4 * U,), f32),
-        'proj_w transposed': (kw['proj_t'], (n_mel + 1, U + D), dt),
+        'proj_w': (weights['proj_w'], (U + D, n_mel + 1), dt),
         'proj_b': (weights['proj_b'], (n_mel + 1,), f32),
         'pm': (pm, (B, S, A), dt), 'mask': (mask, (B, S), f32),
         'enc_len': (enc_len, (B,), i32), 'extra': (extra, (B, P0), f32),
@@ -405,25 +413,54 @@ def _check(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps):
     return B, S, D, n_mel, P0, P1, U, A
 
 
-PHASES = ('projection_prenet', 'attention_lstm', 'attention', 'decoder_lstm')
+PHASES = ('prenet_0', 'prenet_1', 'attention_lstm', 'energies', 'context', 'decoder_lstm',
+          'frame')
+
+
+def stamps_size(n_steps):
+    """Elements of the `stamps` tensor of a launch of `n_steps` steps."""
+    return 2 * len(PHASES) * n_steps + 4
 
 
 def phase_times_us(stamps):
     """The kernel's clock stamps (`decoder_steps(..., stamps = ...)`) → microseconds
-    per step of each phase in `PHASES`, as seen by the block that owns row
-    0: ``work`` (n_steps, 4), the phase up to its barrier, and ``barrier``
-    (n_steps, 4), the wait in that barrier (for the two LSTM phases, in
-    which that block may own no weight slab, the wait is the phase)."""
+    per step of each phase in `PHASES`, as block 0 saw them (it takes the
+    first item of every phase): ``work`` (n_steps, 7), from the previous
+    barrier to its arrival at this phase's, and ``barrier`` (n_steps, 7),
+    its wait there (for the slowest block, then the barrier itself)."""
     stamps = stamps.cpu().double()
     ns0, clock0, ns1, clock1 = stamps[-4:]
     us_per_clock = 1e-3 * (ns1 - ns0) / (clock1 - clock0)
-    per_step = stamps[:-4].reshape(-1, 8)
-    ends = torch.cat([per_step[1:, :1], clock1.reshape(1, 1)])
-    spans = torch.diff(torch.cat([per_step, ends], dim = 1), dim = 1) * us_per_clock
-    # spans: barrier 1, att lstm, barrier 2, attention, barrier 3, dec lstm,
-    # barrier 4, and the next step's projection + prenet
-    work = torch.stack([spans[:, 7], spans[:, 1], spans[:, 3], spans[:, 5]], dim = 1)
-    return {'work': work, 'barrier': spans[:, 0::2]}
+    per_phase = stamps[:-4].reshape(-1, len(PHASES), 2)
+    passed = torch.cat([clock0.reshape(1), per_phase[..., 1].reshape(-1)[:-1]])
+    work = per_phase[..., 0] - passed.reshape(per_phase.shape[:2])
+    barrier = per_phase[..., 1] - per_phase[..., 0]
+    return {'work': work * us_per_clock, 'barrier': barrier * us_per_clock}
+
+
+def _ints(mem, B, S, n_mel, P0, P1, D, U, A, n_steps, step0, deterministic, use_window,
+          win_len, win_offset, drop_rate, int8):
+    return (ctypes.c_longlong * 17)(
+        int(mem.dtype == torch.bfloat16), B, S, n_mel, P0, P1, D, U, A, n_steps, step0,
+        int(bool(deterministic)), int(bool(use_window)), int(win_len), int(win_offset),
+        drop_threshold(drop_rate), int(int8))
+
+
+_PLAN_KEYS = ('smem_bytes', 'resident_bytes_per_block', 'streamed_bytes_per_step', 'blocks',
+              'slab_blocks', 'resident_att_units', 'resident_dec_units', 'unit_bytes',
+              'scratch_floats')
+
+
+def kernel_plan(ints):
+    """The kernel's shared-memory plan for a launch (its `_ints`), on the
+    current CUDA device: resident bytes per block, bytes streamed per step
+    from device memory, the blocks; see ``decoder_steps_plan`` in the source."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    err = _kernel('decoder_steps_plan')(ints, out)
+    if err != 0:
+        raise RuntimeError('decoder_steps: no shared-memory plan fits (CUDA error {})'
+                           .format(err))
+    return dict(zip(_PLAN_KEYS, out))
 
 
 def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
@@ -444,7 +481,7 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
     - seed (1,) int64 tensor: key of the prenet dropout; `step0` is the
       absolute index of this launch's first step, so that the mask does
       not depend on how the steps are split into launches;
-    - stamps: optional int64 CUDA tensor of ``8 * n_steps + 4`` elements
+    - stamps: optional int64 CUDA tensor of `stamps_size(n_steps)` elements
       that receives the kernel's clock stamps (see `phase_times_us`);
     - prenet_out: optional float32 CUDA tensor (B, P1) that receives the
       prenet output of the launch's last step, the first segment of the
@@ -452,7 +489,8 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
 
     Returns (steps (n_steps, B, n_mel + 1) float32 — ``[..., :n_mel]`` the
     frame, ``[..., n_mel]`` the gate after its sigmoid —, attn
-    (n_steps, B, S) float32, state).
+    (n_steps, B, S) float32, state).  On a card, `decoder_steps.last_plan`
+    holds the launch's shared-memory plan (`kernel_plan`).
     """
     options = dict(n_steps = n_steps, step0 = step0, deterministic = deterministic,
                    use_window = use_window, win_len = win_len, win_offset = win_offset,
@@ -475,38 +513,40 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
                                    or not prenet_out.is_contiguous()):
         raise ValueError('prenet_out: expected contiguous float32 ({}, {}) on {}'.format(
             B, P1, mem.device))
-    x = prenet_out if prenet_out is not None else torch.empty((B, P1), ** f32)
-    h_att_alt, h_dec_alt = torch.empty_like(state['h_att']), torch.empty_like(state['h_dec'])
-    steps = torch.empty((n_steps, B, n_mel + 1), ** f32)
-    attn = torch.empty((n_steps, B, S), ** f32)
-    tensors = [weights['w0'], weights['w1'], kw['att_k'], weights['q_w'], weights['loc_w'],
-               kw['dec_k'], kw['proj_t'], weights['b0'], weights['b1'], weights['att_b'],
-               weights['v_w'], weights['dec_b'], weights['proj_b'], mem, pm, mask, enc_len,
-               extra, seed] + [state[k] for k in _STATE_KEYS] \
-        + [x, h_att_alt, h_dec_alt, steps, attn]
     if stamps is not None and (stamps.dtype != torch.int64 or stamps.device != mem.device
-                               or tuple(stamps.shape) != (8 * n_steps + 4,)):
-        raise ValueError('stamps: expected int64 ({},) on {}'.format(8 * n_steps + 4, mem.device))
+                               or tuple(stamps.shape) != (stamps_size(n_steps),)):
+        raise ValueError('stamps: expected int64 ({},) on {}'.format(
+            stamps_size(n_steps), mem.device))
     int8 = kw['att_k'].dtype == torch.int8
-    optional = [stamps] + ([weights['s_att_w'], weights['s_dec_w']] if int8 else [None, None])
-    ptrs = (ctypes.c_void_p * (len(tensors) + len(optional)))(
-        * (t.data_ptr() for t in tensors),
-        * (t.data_ptr() if t is not None else None for t in optional))
-    ints = (ctypes.c_longlong * 17)(
-        int(mem.dtype == torch.bfloat16), B, S, n_mel, P0, P1, D, U, A, n_steps, step0,
-        int(bool(deterministic)), int(bool(use_window)), int(win_len), int(win_offset),
-        drop_threshold(drop_rate), int(int8))
-    kernel = _kernel()
+    ints = _ints(mem, B, S, n_mel, P0, P1, D, U, A, n_steps, step0, deterministic, use_window,
+                 win_len, win_offset, drop_rate, int8)
     with torch.cuda.device(mem.device):
+        plan = kernel_plan(ints)
+        x = prenet_out if prenet_out is not None else torch.empty((B, P1), ** f32)
+        h_att_alt, h_dec_alt = torch.empty_like(state['h_att']), torch.empty_like(state['h_dec'])
+        scratch = torch.zeros((plan['scratch_floats'],), ** f32)   # the barrier's count at 0
+        steps = torch.empty((n_steps, B, n_mel + 1), ** f32)
+        attn = torch.empty((n_steps, B, S), ** f32)
+        tensors = [weights['w0'], weights['w1'], kw['att_k'], weights['q_w'], weights['loc_w'],
+                   kw['dec_k'], weights['proj_w'], weights['b0'], weights['b1'],
+                   weights['att_b'], weights['v_w'], weights['dec_b'], weights['proj_b'], mem,
+                   pm, mask, enc_len, extra, seed] + [state[k] for k in _STATE_KEYS] \
+            + [x, h_att_alt, h_dec_alt, scratch, steps, attn]
+        optional = [stamps] + ([weights['s_att_w'], weights['s_dec_w']] if int8 else [None, None])
+        ptrs = (ctypes.c_void_p * (len(tensors) + len(optional)))(
+            * (t.data_ptr() for t in tensors),
+            * (t.data_ptr() if t is not None else None for t in optional))
         stream = torch.cuda.current_stream(mem.device).cuda_stream
-        err = kernel(ptrs, ints, 1. / (1. - drop_rate), stream)
+        err = _kernel()(ptrs, ints, 1. / (1. - drop_rate), stream)
     if err != 0:
         raise RuntimeError('decoder_steps kernel launch failed: CUDA error {}'.format(err))
     decoder_steps.launches += 1
+    decoder_steps.last_plan = plan
     return steps, attn, state
 
 
 decoder_steps.launches = 0
+decoder_steps.last_plan = None
 
 
 # -- holding the int8 LSTM mode step by step ------------------------------------
