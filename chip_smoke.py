@@ -7,9 +7,10 @@ WaveGlow at that width.
 
 Phases, one JSON line each:
   device   the card (nvidia-smi), the kernels' build time and ptxas report,
-           and the SASS check: K1's bf16 kernels must hold HGMMA (wgmma)
-           and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG (cuobjdump
-           of build/torch_kernels/lib<name>.so);
+           and the SASS check: K1's and K4's bf16 kernels must hold HGMMA
+           (wgmma) and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG,
+           K5's int8 kernel IGMMA and its bf16 one HGMMA, both UTMALDG
+           (cuobjdump of build/torch_kernels/lib<name>.so);
   kernels  every ported kernel at the main path's shapes (one utterance and
            the batch of four): error against its plain version, median time
            of the kernel and of the plain version (CUDA events), and the
@@ -20,7 +21,8 @@ Phases, one JSON line each:
            timed bf16 / int8 case the L2 bytes by the kernels' tiling, the
            waves of each GEMM on the SMs and the clocks under it, with the
            registers and spills of every kernel; then K1's and K2's rates as
-           shares of K5's of the same type, measured in the same run; the decoder steps (K3) in float32, bfloat16 and the
+           shares of K5's of the same type, measured in the same run (K4's
+           too); the decoder steps (K3) in float32, bfloat16 and the
            int8 LSTM mode, deterministic and with dropout, with the attention
            window at a memory length that is no multiple of 64, float32 also
            at a memory of 256, and as two launches of 32 steps against one of
@@ -29,16 +31,18 @@ Phases, one JSON line each:
            implies, the µs of each of its seven phases from its clock stamps,
            and every instantiation's ptxas registers and spills; one WN layer (K4) in
            float32 and bfloat16 at the training batch and at one utterance,
-           dilations 1, 16 and 128, residual and last layer, also at a length
-           that is no multiple of any tile;
+           dilations 1, 16, 128 and 200, residual and last layer, also at a
+           length that is no multiple of any tile, with the L2 bytes, waves,
+           registers, spills and clocks of the timed bf16 cases;
            the rate probe (K5) in int8 (to the bit) and bfloat16 at the
            probe's shapes and a small one, one bfloat16 product, and four
-           beside a control that must miss their limit, the kernel's L2 bytes and
-           rate, the library yardstick (stacked rows, `torch._int_mm` / bf16
+           beside a control that must miss their limit, the kernel's L2 bytes,
+           cluster shape, waves of clusters, clock stamps (a product, the
+           hand-off of the next x) and rate, the library yardstick (stacked rows, `torch._int_mm` / bf16
            `matmul`, one CUDA graph); then the probe (`main`) as
            `python -m text_to_speech_tpu_torch.ops.matmul_rate` runs it.
            Around one timed case of each kernel (K1 and K2 bfloat16 at one
-           utterance, K3 float32 with dropout at B=1, K4 bfloat16 at B=8, K5
+           utterance, K3 float32 with dropout at B=1, K4 bfloat16 at B=8 and 1, K5
            both types), nvidia-smi's SM clock and power draw: just after the
            timed runs, 1 s into 2 s of calls back to back, and after them;
   e2e      `tts()` on one sentence (the one-launch path: fused decoder →
@@ -65,7 +69,9 @@ Phases, one JSON line each:
            epochs on K1 (the loss falls, a checkpoint is written) and one
            more that resumes the optimizer state; the eval step of a
            `use_pallas` model (K4 in every layer) against the plain chain in
-           float32 and mixed_bfloat16, and its train step refused.
+           float32 and mixed_bfloat16, and its train step refused; the eval
+           forward of a `use_pallas` model at the train step's shape (B=8 x
+           256 frames, mixed_bfloat16: 96 K4 launches) beside the plain chain.
 Then the kernel summary, the card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
 It needs a CUDA device and imports neither JAX nor the JAX package.
@@ -201,13 +207,19 @@ def cuobjdump():
 
 
 def sass_check():
-    """The SASS of the built WN libraries: K1's bf16 kernels must hold
-    HGMMA (wgmma) and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG."""
+    """The SASS of the built wgmma libraries: K1's and K4's bf16 kernels must
+    hold HGMMA (wgmma) and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG,
+    K5's int8 instantiation IGMMA and its bf16 one HGMMA, both UTMALDG (the
+    multicast loads of w).  Kernels are found by a piece of their mangled
+    name (`ILb1E`: the template argument true)."""
     from text_to_speech_tpu_torch.ops import _build
-    wanted = {'wn_block': (('wn_in_wgmma', 'wn_rs_wgmma'), ('HGMMA', 'UTMALDG')),
-              'wn_block_int8': (('in_wgmma', 'rs_wgmma'), ('IGMMA', 'UTMALDG'))}
+    wanted = [('wn_block', ('wn_in_wgmma', 'wn_rs_wgmma'), ('HGMMA', 'UTMALDG')),
+              ('wn_block_int8', ('in_wgmma', 'rs_wgmma'), ('IGMMA', 'UTMALDG')),
+              ('wn_layer', ('wn_in_wgmma', 'wn_rs_wgmma'), ('HGMMA', 'UTMALDG')),
+              ('matmul_rate', ('rate_wgmmaILb1E',), ('IGMMA', 'UTMALDG')),
+              ('matmul_rate', ('rate_wgmmaILb0E',), ('HGMMA', 'UTMALDG'))]
     report = {}
-    for lib, (kernels, opcodes) in wanted.items():
+    for lib, kernels, opcodes in wanted:
         sass = subprocess.run([cuobjdump(), '--dump-sass', _build._paths(lib)[1]],
                               capture_output = True, text = True, check = True).stdout
         functions = re.split(r'\n\s*Function : ', sass)[1:]
@@ -302,8 +314,11 @@ def wn_layer_work(B, T, C, residual, itemsize):
 def wn_layer_phase():
     """K4 against its plain version: float32 and bfloat16, the training
     batch (B=8) and one utterance (B=1) at T=8192 and a ragged T=8000,
-    dilations 1, 16 and 128, residual and last layer."""
-    from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer, wn_layer_plain
+    dilations 1, 16, 128 and 200 (beyond a 128-row tile, no power of two),
+    residual and last layer; for the timed bf16 cases the L2 bytes by the
+    tiling, the waves, the clocks and the share of the bound."""
+    from text_to_speech_tpu_torch.ops.wn_layer import (
+        fused_wn_layer, grid_tiles, l2_bytes, wn_layer_plain)
 
     C = 512
     rng = np.random.default_rng(6)
@@ -328,7 +343,7 @@ def wn_layer_phase():
                 w_rs = f(1, C, N, scale = C ** -0.5).to(dtype)
                 b_rs = f(N, scale = 0.1).to(dtype)
                 args = (x, cond, w_in, b_in, w_rs, b_rs)
-                for dilation in (1, 16, 128):
+                for dilation in (1, 16, 128, 200):
                     kw = dict(dilation = dilation, residual = residual)
                     out = fused_wn_layer(* args, ** kw)
                     torch.cuda.synchronize()
@@ -354,8 +369,13 @@ def wn_layer_phase():
                             bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                             bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
                             else 'bytes')
-                    if 'kernel_ms' in case and dtype == torch.bfloat16 and B == 8:
-                        case['clocks'] = clocks_under(lambda: fused_wn_layer(* args, ** kw))
+                    if 'kernel_ms' in case and dtype == torch.bfloat16:
+                        # the wgmma kernels: L2 bytes by their tiling, waves on the SMs
+                        case.update(l2_bytes = l2_bytes(B, T, C, residual),
+                                    waves = waves(grid_tiles(B, T, C, residual)),
+                                    clocks = clocks_under(lambda: fused_wn_layer(* args, ** kw)))
+                        case['l2_bytes_per_s'] = case['l2_bytes'] / (case['kernel_ms'] * 1e-3)
+                        case['share_of_bound'] = case['bound_ms'] / case['kernel_ms']
                     key = '{}_B{}_T{}_d{}_{}'.format(name, B, T, dilation,
                                                     'residual' if residual else 'last')
                     cases[key] = case
@@ -364,7 +384,7 @@ def wn_layer_phase():
                     del out, ref
             del x, cond, args
     emit({'phase': 'kernels', 'fused_wn_layer': cases, 'shape': {'C': C},
-          'library_ms': None,
+          'ptxas': ptxas_report('wn_layer'), 'library_ms': None,
           'library_note': 'no single PyTorch call computes the WN layer'})
     return cases
 
@@ -754,7 +774,9 @@ def matmul_rate_phase():
     N = 1024, REPS = GRID = 64) and a small one, with its time, rate, L2
     bytes and the library yardstick; then the probe's main path."""
     from text_to_speech_tpu_torch.ops import matmul_rate as module
-    from text_to_speech_tpu_torch.ops.matmul_rate import l2_bytes, matmul_rate, matmul_rate_plain
+    from text_to_speech_tpu_torch.ops.matmul_rate import (
+        cluster_shape, l2_bytes, matmul_rate, matmul_rate_plain, max_clusters,
+        product_times_us, ring_stages, shared_bytes, stamps_size)
 
     M, K, N, reps, grid = 512, 512, 1024, 64, 64
     rng = np.random.default_rng(8)
@@ -831,7 +853,18 @@ def matmul_rate_phase():
                 'max_rel_err_vs_plain': lib_err[1], 'mean_rel_err_vs_plain': lib_err[2]}
             del lib, replay
             l2 = l2_bytes(M, K, N, reps, grid, itemsize)
+            R, P = cluster_shape(M, N, grid)
+            clusters, resident = grid * M // 64 // R, max_clusters(x, N, grid)
+            # the clock stamps of one more call: a product, the hand-off
+            stamps = torch.zeros(stamps_size(M, N, reps, grid), dtype = torch.int64,
+                                 device = 'cuda')
+            matmul_rate(x, w, reps, grid, stamps = stamps)
             case.update(
+                cluster = {'row_tiles': R, 'column_blocks': P, 'blocks': R * P,
+                           'clusters': clusters, 'resident_clusters': resident,
+                           'waves': clusters / resident},
+                stamps_us = product_times_us(stamps, M, N, reps, grid),
+                ring_stages = ring_stages(K, itemsize), shared_bytes = shared_bytes(K, itemsize),
                 ops = ops, bytes = nbytes, l2_bytes = l2,
                 bound_ms = 1e3 * max(ops / peak, nbytes / PEAK_BYTES),
                 bound_by = 'operations' if ops / peak > nbytes / PEAK_BYTES else 'bytes',
@@ -874,7 +907,7 @@ def matmul_rate_phase():
     probe = module.main()
     check(matmul_rate.launches == sum(launches.values()) == 2 * (2 + module.ITERS),
           'matmul_rate probe launches: {} then {}'.format(launches, matmul_rate.launches))
-    emit({'phase': 'kernels', 'matmul_rate': cases,
+    emit({'phase': 'kernels', 'matmul_rate': cases, 'ptxas': ptxas_report('matmul_rate'),
           'probe': {'launches': launches, 'main': probe},
           'shape': {'M': M, 'K': K, 'N': N, 'reps': reps, 'grid': grid}})
     return cases, launches
@@ -965,6 +998,42 @@ def train_phase():
             fused['first_loss'], default['first_loss']))
         emit({'phase': 'train', 'train_step': steps, 'init_s': init_s,
               'fused_vs_default_first_loss_rel': gap, 'tolerance_rel': 1e-2})
+
+        # 1b. the eval forward of a use_pallas model (K4 in all 96 layers) at
+        #     the train step's shape and weights under mixed_bfloat16, beside
+        #     the plain chain in mixed_bfloat16 and in float32 (the limit of
+        #     section 3: 5e-2 of the float32 chain's loss)
+        eval_full = {}
+        for name, use_pallas, precision in (('use_pallas', True, 'mixed_bfloat16'),
+                                            ('plain_chain', False, 'mixed_bfloat16'),
+                                            ('plain_chain_float32', False, 'float32')):
+            task = new_model('eval_full', use_pallas = use_pallas)
+            run = make_eval_step(task, WaveGlowLoss(), precision = precision)
+            float(run(task.params, {}, None, (mel, audio), audio)['loss'])
+            times = []
+            for _ in range(3):
+                fused_wn_layer.launches = fused_wn_block.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                loss = float(run(task.params, {}, None, (mel, audio), audio)['loss'])
+                times.append(1e3 * (time.perf_counter() - t0))
+            eval_full[name] = {'precision': precision, 'loss': loss,
+                               'ms': statistics.median(times), 'eval_ms': times,
+                               'wn_layer_launches': fused_wn_layer.launches,
+                               'wn_block_launches': fused_wn_block.launches}
+            del task, run
+        k4_eval, f32_eval = eval_full['use_pallas'], eval_full['plain_chain_float32']
+        k4_eval['rel_err_float32_chain'] = abs(k4_eval['loss'] - f32_eval['loss']) / abs(
+            f32_eval['loss'])
+        k4_eval['tolerance_rel'] = 5e-2
+        check(k4_eval['wn_layer_launches'] == hp.n_flows * hp.wn_layers
+              and k4_eval['wn_block_launches'] == 0
+              and eval_full['plain_chain']['wn_layer_launches'] == 0,
+              'use_pallas eval at B={} x {} frames: {}'.format(B, frames, eval_full))
+        check(np.isfinite(k4_eval['loss']) and k4_eval['rel_err_float32_chain'] <= 5e-2,
+              'use_pallas eval at B={} x {} frames: {}'.format(B, frames, eval_full))
+        emit({'phase': 'train', 'use_pallas_eval_train_shape': eval_full, 'B': B,
+              'frames': frames})
 
         # 2. fit on the four in-repo WAVs on K1 (wn_train_fused), 3 epochs,
         #    validation on two of them; then one more epoch, resumed
@@ -1078,7 +1147,7 @@ def train_phase():
               'use_pallas_train_step_refused': refused})
     finally:
         shutil.rmtree(directory, ignore_errors = True)
-    return steps, fit, evals
+    return steps, eval_full
 
 
 SENTENCES = ['The quick brown fox jumps over the lazy dog.',
@@ -1352,16 +1421,20 @@ def main():
     rate_cases, probe_launches = matmul_rate_phase()
     dec_cases = decoder_steps_phase(model)
     runs, int8_lstm = e2e_phase(model, vocoder, setup_s)
-    steps, fit, evals = train_phase()
+    steps, eval_full = train_phase()
 
-    # K1's and K2's rates against K5's of the same type, from this run
+    # K1's, K2's and K4's rates against K5's of the same type, from this run
     shares = {}
     for key, case, rate_key in (
             ('fused_wn_block_bf16_B1', wn_cases['bfloat16_B1_T8192'], 'bfloat16_M512_reps64'),
             ('fused_wn_block_bf16_B4', wn_cases['bfloat16_B4_T8192'], 'bfloat16_M512_reps64'),
             ('fused_wn_block_bf16_B8', wn_cases['bfloat16_B8_T8192'], 'bfloat16_M512_reps64'),
             ('fused_wn_block_int8_B1', wn8_cases['bfloat16_B1_T8192'], 'int8_M512_reps64'),
-            ('fused_wn_block_int8_B4', wn8_cases['bfloat16_B4_T8192'], 'int8_M512_reps64')):
+            ('fused_wn_block_int8_B4', wn8_cases['bfloat16_B4_T8192'], 'int8_M512_reps64'),
+            ('fused_wn_layer_bf16_B8', layer_cases['bfloat16_B8_T8192_d1_residual'],
+             'bfloat16_M512_reps64'),
+            ('fused_wn_layer_bf16_B1', layer_cases['bfloat16_B1_T8192_d1_residual'],
+             'bfloat16_M512_reps64')):
         work = case.get('flops', case.get('ops'))
         rate = work / (case['kernel_ms'] * 1e-3)
         peak = PEAK_INT8_OPS if 'int8' in rate_key else PEAK_BF16_FLOPS
@@ -1396,11 +1469,11 @@ def main():
                 source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
                 launches = launches('wn_block_int8')),
-        # the use_pallas eval step under mixed_bfloat16, at the training batch
+        # the use_pallas eval forward under mixed_bfloat16, at the train step's shape
         summary(layer_cases['bfloat16_B8_T8192_d1_residual'], name = 'fused_wn_layer',
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_layer.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:91',
-                launches = evals['mixed_bfloat16']['wn_layer_launches']),
+                launches = eval_full['use_pallas']['wn_layer_launches']),
         # wn_train_fused: launches per train step (forward and remat recompute)
         summary(wn_cases['bfloat16_B8_T8192'], name = 'fused_wn_block (wn_train_fused training)',
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',

@@ -45,7 +45,8 @@ import torch
 
 from text_to_speech_tpu_torch.ops import matmul_rate as module
 from text_to_speech_tpu_torch.ops.matmul_rate import (
-    MAX_SHARED, _check, l2_bytes, matmul_rate, matmul_rate_plain, shared_bytes)
+    MAX_SHARED, _check, cluster_shape, l2_bytes, matmul_rate, matmul_rate_plain, ring_stages,
+    shared_bytes)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = dict(M = 32, K = 32, N = 64, REPS = 10, GRID = 2)
@@ -177,28 +178,38 @@ def test_wrapper_on_cpu_takes_the_plain_version():
 
 
 def test_envelope_and_tiling_counts():
-    """The wrapper's checks (run here on CPU tensors) and the byte counts
-    that the chip run reports."""
-    for shape in ((48, 64, 64), (32, 96, 128), (32, 64, 96), (32, 128, 64), (32, 64, 1088)):
+    """The wrapper's checks (run here on CPU tensors) and the counts that the
+    chip run reports: shared memory, cluster shape and L2 bytes."""
+    for shape in ((96, 64, 64), (64, 96, 128), (64, 64, 96), (64, 128, 64), (64, 64, 1088),
+                  (64, 576, 1024)):
         M, K, N = shape
         with pytest.raises(ValueError):
             _check(torch.zeros((M, K), dtype = torch.int8),
                    torch.zeros((8, K, N), dtype = torch.int8), 4, 1)
     with pytest.raises(TypeError):
-        _check(torch.zeros((32, 64), dtype = torch.int8),
+        _check(torch.zeros((64, 64), dtype = torch.int8),
                torch.zeros((8, 64, 64), dtype = torch.bfloat16), 4, 1)
     with pytest.raises(ValueError):
-        _check(torch.zeros((32, 64), dtype = torch.int8),
+        _check(torch.zeros((64, 64), dtype = torch.int8),
                torch.zeros((8, 64, 64), dtype = torch.int8), 0, 1)
-    # bf16 K = 1024 at N = 1024 needs more shared memory than a block has
-    with pytest.raises(ValueError, match = 'shared memory'):
-        _check(torch.zeros((32, 1024), dtype = torch.bfloat16),
-               torch.zeros((8, 1024, 1024), dtype = torch.bfloat16), 4, 1)
-    _check(torch.zeros((512, 512), dtype = torch.bfloat16),
-           torch.zeros((8, 512, 1024), dtype = torch.bfloat16), 64, 64)
-    assert shared_bytes(512, 1024, 2) == 229888 <= MAX_SHARED
-    # 1,024 blocks, each reading w[r % 8] (0.5 MiB int8) for each of 64 products
-    assert l2_bytes(512, 512, 1024, 64, 64, 1) == 1024 * (64 * 2 ** 19 + 32 * 512 + 32 * 4096)
+    # the edges of the envelope: K = N = 512 (one block a row tile), the
+    # probe's shapes, the smallest tile
+    for M, K, N in ((64, 512, 512), (512, 512, 1024), (64, 64, 64)):
+        _check(torch.zeros((M, K), dtype = torch.bfloat16),
+               torch.zeros((8, K, N), dtype = torch.bfloat16), 64, 64)
+    # two x buffers (64 KB each in bf16 at K = 512, 32 KB in int8) and as
+    # many 32 KB stages as fit in a block's 227 KB
+    assert (ring_stages(512, 2), ring_stages(512, 1)) == (3, 5)
+    assert shared_bytes(512, 2) == 1024 + 2 * 2 ** 16 + 3 * 2 ** 15 + 256 <= MAX_SHARED
+    assert shared_bytes(512, 1) == 1024 + 2 * 2 ** 15 + 5 * 2 ** 15 + 256 <= MAX_SHARED
+    # (row tiles a cluster, blocks a row tile): 512 row tiles at the probe's
+    # shapes, 2 at (64, 128) x 2, 9 at (192, 192) x 3
+    assert cluster_shape(512, 1024, 64) == (4, 2)
+    assert cluster_shape(64, 128, 2) == (2, 1) and cluster_shape(192, 192, 3) == (1, 1)
+    # 128 clusters, each reading w[r % 8] (0.5 MiB int8) once for each of 64
+    # products; 1,024 blocks reading their 64 rows of x; 512 row tiles writing out
+    assert l2_bytes(512, 512, 1024, 64, 64, 1) == (128 * 64 * 2 ** 19 + 1024 * 64 * 512
+                                                   + 512 * 64 * 1024 * 4)
 
 
 def test_main_prints_the_scripts_lines(monkeypatch, capsys):
@@ -227,8 +238,13 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize('dtype', [torch.int8, torch.bfloat16])
 @pytest.mark.parametrize('M,K,N,reps,grid', [(512, 512, 1024, 64, 64), (64, 64, 128, 10, 2),
-                                             (96, 128, 192, 5, 3)])
+                                             (192, 128, 192, 5, 3), (64, 512, 512, 6, 4),
+                                             (128, 64, 1024, 7, 3), (64, 512, 1024, 3, 1)])
 def test_kernel_matches_plain(cuda_device, dtype, M, K, N, reps, grid):
+    """The probe's shapes (clusters of 4 row tiles x 2 blocks), and the edges
+    of the envelope: the smallest K and N, K = N = 512 (no partner block),
+    N = 1024 with K = 64 (the partner's x a partly used chunk), and row
+    tiles that divide by 2 or by nothing."""
     x, w = (t.to(cuda_device) for t in _inputs(dtype, M, K, N, seed = M + K))
     before = matmul_rate.launches
     out = matmul_rate(x, w, reps, grid)
@@ -264,11 +280,12 @@ def test_short_bf16_chain_and_its_control(cuda_device):
 
 @pytest.mark.cuda
 def test_kernel_rejects_unsupported_shapes(cuda_device):
-    for (M, K, N) in ((48, 64, 64), (32, 96, 128), (32, 128, 64), (32, 64, 1088)):
+    for (M, K, N) in ((96, 64, 64), (64, 96, 128), (64, 128, 64), (64, 64, 1088),
+                      (64, 576, 1024)):
         x, w = (t.to(cuda_device) for t in _inputs(torch.int8, M, K, N))
         with pytest.raises(ValueError):
             matmul_rate(x, w, 2)
-    x, w = (t.to(cuda_device) for t in _inputs(torch.int8, 32, 64, 64))
+    x, w = (t.to(cuda_device) for t in _inputs(torch.int8, 64, 64, 64))
     with pytest.raises(TypeError):
         matmul_rate(x, w.to(torch.bfloat16), 2)
     with pytest.raises(ValueError):

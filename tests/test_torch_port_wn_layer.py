@@ -22,7 +22,8 @@ import numpy as np
 import pytest
 import torch
 
-from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer, wn_layer_plain
+from text_to_speech_tpu_torch.ops.wn_layer import (
+    fused_wn_layer, grid_tiles, l2_bytes, wn_layer_plain)
 
 REL_TOL = {torch.float32: 1e-5, torch.bfloat16: 2 ** -7}
 
@@ -79,6 +80,25 @@ def test_plain_keeps_the_dtype_contract():
         assert _rel_err(a.float(), b) < 3e-2
 
 
+def test_tiling_counts():
+    """The bf16 kernels' tiles and L2 bytes against a hand count.  B=2,
+    T=200: 128-row tiles cut per batch row, two a row, 4 row tiles; at
+    C=128 one 256-column in-tile and two (residual) or one (last) 128-column
+    rs-tiles a row tile.  The chip run divides the tiles by the SM count for
+    the waves."""
+    assert grid_tiles(2, 200, 128) == {'in': 4, 'rs': 8}
+    assert grid_tiles(2, 200, 128, residual = False) == {'in': 4, 'rs': 4}
+    assert grid_tiles(8, 8192, 512) == {'in': 2048, 'rs': 4096}
+    # in: 4 tiles x 3C of k x (128 rows of x + 256 weight columns) x 2 bytes,
+    # cond read and the gate written once; rs: its tiles x C x (128 + 128) x
+    # 2, then x read, x_out and skip written (the last layer: skip)
+    M = 400
+    in_bytes = 4 * 384 * (128 + 256) * 2 + M * 256 * 2 + M * 128 * 2
+    assert l2_bytes(2, 200, 128) == in_bytes + 8 * 128 * 256 * 2 + 3 * M * 128 * 2
+    assert l2_bytes(2, 200, 128, residual = False) == (in_bytes + 4 * 128 * 256 * 2
+                                                       + M * 128 * 2)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -93,10 +113,13 @@ def cuda_device():
 @pytest.mark.parametrize('residual', [True, False])
 @pytest.mark.parametrize('C,T,B,dilation', [(512, 1000, 2, 1), (512, 1000, 2, 128),
                                              (256, 300, 3, 16), (128, 50, 2, 64),
-                                             (128, 37, 1, 128)])
+                                             (128, 37, 1, 128), (512, 333, 8, 200),
+                                             (256, 1000, 1, 200), (128, 130, 2, 200)])
 def test_kernel_matches_plain(cuda_device, dtype, residual, C, T, B, dilation):
-    """Ragged lengths (no multiple of the 64-row tile), rows of one sequence
-    that must not tap the next, and dilations beyond the tile and beyond T."""
+    """Ragged lengths (no multiple of the 128-row tile), B of 1, 2, 3 and 8,
+    rows of one sequence that must not tap the next, and dilations beyond
+    the tile (200: no power of two) and beyond T.  Each call launches the
+    kernel once (bf16: the wgmma pair; no fallback)."""
     args = [torch.from_numpy(a).to(cuda_device, dtype)
             for a in _inputs(C, T, B, residual, seed = T + dilation)]
     before = fused_wn_layer.launches

@@ -23,7 +23,8 @@
 //     after the layer's in-GEMM has finished reading x) and accumulates skip
 //     in an f32 buffer; the last layer writes the output.
 //
-// bf16 (the serving and wn_train_fused path), `sm90::` below: warp-specialised
+// bf16 (the serving and wn_train_fused path), `sm90::` (wn_sm90.cuh, whose
+// kernels K4 shares, templated on what differs): warp-specialised
 // wgmma kernels on a persistent grid (a block takes tiles i, i + gridDim.x,
 // ...).  A producer warpgroup (one thread, the others idle after giving up
 // registers with setmaxnreg) keeps a 4-stage ring full with TMA loads, each
@@ -74,8 +75,8 @@
 // in-GEMM) ran 69.5 us a layer against 66.5 on an H100: the in-GEMM is not
 // bound by L2, and the pair's coupling costs more than the bytes save.
 
+#include "wn_sm90.cuh"
 #include "wn_tile.cuh"
-#include "wn_wgmma.cuh"
 
 #include <stdint.h>
 
@@ -240,320 +241,6 @@ int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
 
 namespace sm90 {
 
-using bf16 = __nv_bfloat16;
-
-constexpr int BM = 128;                     // rows a tile: two consumer warpgroups of 64
-constexpr int BK = 64;                      // k a stage: one 128-byte swizzle row of bf16
-constexpr int STAGES = 4;
-constexpr int THREADS = 384;                // producer warpgroup + two consumer warpgroups
-constexpr int A_BYTES = BM * BK * 2;        // 16 KB
-constexpr int CHUNK = 64 * BK * 2;          // one 64-column weight box, 8 KB
-constexpr int BOX = BM * 128;               // one 128-byte-wide box of a tile's rows, 16 KB
-// in: 128 x 256 accumulator tiles (four weight chunks); rs: 128 x 128 (two
-// chunks), a 64 KB staging tile for x or the skip sum and 32 KB for the
-// output
-constexpr int IN_CHUNKS = 4, RS_CHUNKS = 2;
-constexpr int RS_EXTRA = 6 * BOX;
-constexpr int smem_bytes(int chunks, int extra) {
-  return STAGES * (A_BYTES + chunks * CHUNK) + extra + 1024 + (2 * STAGES + 2) * 8;
-}
-
-// the ring of stages (1024-byte aligned for the swizzle), `extra` bytes
-// of staging tiles behind it, and the barriers: full[s] completes when
-// stage s has landed, empty[s] when the consumers are done with it;
-// e_full / e_empty do the same for the staging tile
-template <int CHUNKS>
-struct Ring {
-  static constexpr int STAGE = A_BYTES + CHUNKS * CHUNK;
-  unsigned char* base;
-  unsigned char* extra;
-  uint64_t *full, *empty, *e_full, *e_empty;
-  __device__ unsigned char* a(int s) const { return base + s * STAGE; }
-  __device__ unsigned char* b(int s) const { return base + s * STAGE + A_BYTES; }
-};
-
-template <int CHUNKS>
-__device__ __forceinline__ Ring<CHUNKS> make_ring(unsigned char* smem, int extra) {
-  Ring<CHUNKS> r;
-  r.base = smem + ((1024 - (hop::smem_u32(smem) & 1023)) & 1023);
-  r.extra = r.base + STAGES * Ring<CHUNKS>::STAGE;
-  r.full = reinterpret_cast<uint64_t*>(r.extra + extra);
-  r.empty = r.full + STAGES;
-  r.e_full = r.empty + STAGES;
-  r.e_empty = r.e_full + 1;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < STAGES; ++s) {
-      hop::mbar_init(&r.full[s], 1);
-      hop::mbar_init(&r.empty[s], 8);       // lane 0 of each consumer warp
-    }
-    hop::mbar_init(r.e_full, 1);
-    hop::mbar_init(r.e_empty, 1);
-    hop::mbar_fence_init();
-  }
-  __syncthreads();
-  return r;
-}
-
-// One tile's stages from the producer thread, ring steps it0 .. it0 + nk - 1:
-// stage kb gets A from `load_a(dst, bar, kb)` and the weight boxes at
-// columns n[q], k row k_of(kb), of `layer`.
-template <int CHUNKS, typename LoadA, typename KOf>
-__device__ __forceinline__ void produce(const Ring<CHUNKS>& r, int it0, int nk,
-                                        const CUtensorMap* map_w, const int (&n)[CHUNKS],
-                                        int layer, LoadA load_a, KOf k_of) {
-  for (int kb = 0; kb < nk; ++kb) {
-    const int it = it0 + kb, s = it % STAGES;
-    hop::mbar_wait(&r.empty[s], ((it / STAGES) & 1) ^ 1);
-    hop::mbar_expect_tx(&r.full[s], Ring<CHUNKS>::STAGE);
-    load_a(r.a(s), &r.full[s], kb);
-#pragma unroll
-    for (int q = 0; q < CHUNKS; ++q)
-      hop::tma_load(r.b(s) + q * CHUNK, map_w, &r.full[s], n[q], k_of(kb), layer);
-  }
-}
-
-// A consumer warpgroup's product: rows [64 wg, +64) of the tile times all
-// 64 CHUNKS columns, over ring steps it0 .. it0 + nk - 1, into acc.  One
-// stage's products stay in flight while the next stage's are issued; a
-// stage goes back to the producer once its products have completed.
-template <int CHUNKS>
-__device__ __forceinline__ void consume(const Ring<CHUNKS>& r, int it0, int nk, int wg,
-                                        float (&acc)[32 * CHUNKS]) {
-  const int lane = threadIdx.x & 31;
-  for (int kb = 0; kb < nk; ++kb) {
-    const int it = it0 + kb, s = it % STAGES;
-    hop::mbar_wait(&r.full[s], (it / STAGES) & 1);
-    const unsigned char* a = r.a(s) + wg * 64 * 128;
-    const unsigned char* b = r.b(s);
-    hop::wgmma_fence();
-#pragma unroll
-    for (int k = 0; k < BK / 16; ++k) {
-      const uint64_t da = hop::desc_sw128(a + 32 * k, 16, 1024);
-      const uint64_t db = hop::desc_sw128(b + 2048 * k, CHUNK, 1024);
-      if constexpr (CHUNKS == 4) hop::wgmma_bf16_n256(acc, da, db, kb > 0 || k > 0);
-      else hop::wgmma_bf16_n128(acc, da, db, kb > 0 || k > 0);
-    }
-    hop::wgmma_commit();
-    if (kb > 0) {
-      hop::wgmma_wait<1>();
-      if (lane == 0) hop::mbar_arrive(&r.empty[(it - 1) % STAGES]);
-    }
-  }
-  hop::wgmma_wait<0>();
-  if (lane == 0) hop::mbar_arrive(&r.empty[(it0 + nk - 1) % STAGES]);
-  hop::fence_regs(acc);
-}
-
-// Tile `tile` of a GEMM whose row tiles run fastest (so the blocks at work
-// at one time share their weight columns): batch row b, first time step
-// t0, column tile n.
-struct Tile {
-  int b, t0, n;
-  __device__ Tile(int tile, int T_len, int row_tiles) {
-    const int tiles_t = (T_len + BM - 1) / BM, m = tile % row_tiles;
-    n = tile / row_tiles;
-    b = m / tiles_t;
-    t0 = (m % tiles_t) * BM;
-  }
-};
-
-// Byte offset of element (row, col) in a staging tile of 128-byte-wide
-// boxes of BM rows, 128-byte swizzled as TMA reads and writes them.
-template <typename E>
-__device__ __forceinline__ int staged(int row, int col) {
-  constexpr int PER = 128 / sizeof(E);      // elements a box row
-  const int byte = (col % PER) * (int)sizeof(E);
-  return (col / PER) * BOX + row * 128 + ((((byte >> 4) ^ (row & 7))) << 4) + (byte & 15);
-}
-
-__device__ __forceinline__ float gate(float a_t, float a_s) {
-  return tanhf(a_t) * (1.f / (1.f + expf(-a_s)));
-}
-
-// Layer `layer`, first GEMM, with the gate in the epilogue.  A tile is
-// rows [t0, t0 + 128) of batch row b and gated columns [128 n, +128).  The
-// grid is persistent: block i takes tiles i, i + gridDim.x, ..., and the
-// producer runs on into the next tile while the consumers finish one.  The
-// gated pairs go to memory straight from registers (staging them for a TMA
-// store made ptxas spill here and cost 10 us a layer on an H100).
-__global__ void __launch_bounds__(THREADS, 1)
-wn_in_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_sp,
-            const __grid_constant__ CUtensorMap map_w, const float* __restrict__ bias,
-            bf16* __restrict__ gated, int B, int T_len, int C, int S, int layer, int dilation) {
-  extern __shared__ unsigned char smem[];
-  const Ring<IN_CHUNKS> r = make_ring<IN_CHUNKS>(smem, 0);
-  const int row_tiles = B * ((T_len + BM - 1) / BM);
-  const int n_tiles = row_tiles * (C / 128);
-  const int kb_tap = C / BK;
-  const int nk = 3 * kb_tap + (S + BK - 1) / BK;
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    hop::regs_dec<40>();
-    if (threadIdx.x == 0) {
-      hop::prefetch_map(&map_x);
-      hop::prefetch_map(&map_sp);
-      hop::prefetch_map(&map_w);
-      int it = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, it += nk) {
-        const Tile tl(tile, T_len, row_tiles);
-        const int n0 = tl.n * 128;
-        const int n[4] = {n0, n0 + 64, C + n0, C + n0 + 64};
-        produce(r, it, nk, &map_w, n, layer,
-                [&](unsigned char* dst, uint64_t* bar, int kb) {
-                  if (kb < 3 * kb_tap) {
-                    const int tap = kb / kb_tap;
-                    hop::tma_load(dst, &map_x, bar, (kb - tap * kb_tap) * BK,
-                                  tl.t0 + (tap - 1) * dilation, tl.b);
-                  } else {
-                    hop::tma_load(dst, &map_sp, bar, (kb - 3 * kb_tap) * BK, tl.t0, tl.b);
-                  }
-                },
-                [&](int kb) {
-                  return kb < 3 * kb_tap ? kb * BK : 3 * C + (kb - 3 * kb_tap) * BK;
-                });
-      }
-    }
-  } else {
-    hop::regs_inc<232>();
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, tq = lane & 3;
-    int it = 0;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, it += nk) {
-      const Tile tl(tile, T_len, row_tiles);
-      const int n0 = tl.n * 128;
-      float acc[128];
-      consume(r, it, nk, wg - 1, acc);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int t = tl.t0 + (wg - 1) * 64 + warp * 16 + g + 8 * h;
-        if (t >= T_len) continue;
-        bf16* row = gated + ((size_t)tl.b * T_len + t) * C + n0;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int n = 8 * j + 2 * tq;
-          const float2 bt = *reinterpret_cast<const float2*>(bias + n0 + n);
-          const float2 bs = *reinterpret_cast<const float2*>(bias + C + n0 + n);
-          const float g0 = gate(acc[4 * j + 2 * h] + bt.x, acc[64 + 4 * j + 2 * h] + bs.x);
-          const float g1 = gate(acc[4 * j + 2 * h + 1] + bt.y, acc[64 + 4 * j + 2 * h + 1] + bs.y);
-          *reinterpret_cast<__nv_bfloat162*>(row + n) = __floats2bfloat162_rn(g0, g1);
-        }
-      }
-    }
-  }
-}
-
-// Layer `layer`, second GEMM: rs = gated @ w_rs + b_rs, with the residual
-// update and the skip sum in the epilogue.  A tile is rows [t0, t0 + 128)
-// of batch row b and rs columns [128 n, +128) of N: residual columns
-// (x += rs) or skip columns (skip += rs; the last layer writes the output),
-// never both, as C % 128 == 0.  Persistent as above.  The producer loads the
-// tile's x or skip sum into the staging tile by TMA behind its stages, so it
-// lands while the products run; the consumers add to it there and one TMA
-// store writes it back (x and skip in place; the output from a second tile).
-__global__ void __launch_bounds__(THREADS, 1)
-wn_rs_wgmma(const __grid_constant__ CUtensorMap map_g, const __grid_constant__ CUtensorMap map_w,
-            const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_skip,
-            const __grid_constant__ CUtensorMap map_out, const float* __restrict__ bias,
-            int B, int T_len, int C, int N, int layer, int first, int last) {
-  extern __shared__ unsigned char smem[];
-  const Ring<RS_CHUNKS> r = make_ring<RS_CHUNKS>(smem, RS_EXTRA);
-  unsigned char* stage_e = r.extra;             // x (2 boxes) or the skip sum (4)
-  unsigned char* stage_out = r.extra + 4 * BOX; // the output (2 boxes)
-  const int row_tiles = B * ((T_len + BM - 1) / BM);
-  const int n_tiles = row_tiles * (N / 128);
-  const int nk = C / BK;
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    hop::regs_dec<40>();
-    if (threadIdx.x == 0) {
-      hop::prefetch_map(&map_g);
-      hop::prefetch_map(&map_w);
-      int it = 0, ti = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, it += nk, ++ti) {
-        const Tile tl(tile, T_len, row_tiles);
-        const int n0 = tl.n * 128;
-        const int n[2] = {n0, n0 + 64};
-        produce(r, it, nk, &map_w, n, layer,
-                [&](unsigned char* dst, uint64_t* bar, int kb) {
-                  hop::tma_load(dst, &map_g, bar, kb * BK, tl.t0, tl.b);
-                },
-                [](int kb) { return kb * BK; });
-        // the staging tile, once the previous tile's store has read it
-        hop::mbar_wait(r.e_empty, (ti & 1) ^ 1);
-        if (!last && n0 < C) {
-          hop::mbar_expect_tx(r.e_full, 2 * BOX);
-          for (int q = 0; q < 2; ++q)
-            hop::tma_load(stage_e + q * BOX, &map_x, r.e_full, n0 + 64 * q, tl.t0, tl.b);
-        } else if (!first) {
-          hop::mbar_expect_tx(r.e_full, 4 * BOX);
-          const int c0 = last ? n0 : n0 - C;
-          for (int q = 0; q < 4; ++q)
-            hop::tma_load(stage_e + q * BOX, &map_skip, r.e_full, c0 + 32 * q, tl.t0, tl.b);
-        } else {
-          hop::mbar_arrive(r.e_full);
-        }
-      }
-    }
-  } else {
-    hop::regs_inc<232>();
-    const int ctid = threadIdx.x - 128;
-    const int lane = threadIdx.x & 31, warp = (threadIdx.x >> 5) & 3;
-    const int g = lane >> 2, tq = lane & 3;
-    int it = 0, ti = 0;
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x, it += nk, ++ti) {
-      const Tile tl(tile, T_len, row_tiles);
-      const int n0 = tl.n * 128;
-      const bool residual = !last && n0 < C;
-      float acc[64];
-      consume(r, it, nk, wg - 1, acc);
-      hop::mbar_wait(r.e_full, ti & 1);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = (wg - 1) * 64 + warp * 16 + g + 8 * h;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          const int n = 8 * j + 2 * tq;
-          const float2 bv = *reinterpret_cast<const float2*>(bias + n0 + n);
-          const float v0 = acc[4 * j + 2 * h] + bv.x, v1 = acc[4 * j + 2 * h + 1] + bv.y;
-          if (residual) {
-            __nv_bfloat162* p = reinterpret_cast<__nv_bfloat162*>(stage_e + staged<bf16>(row, n));
-            const float2 old = __bfloat1622float2(*p);
-            *p = __floats2bfloat162_rn(old.x + v0, old.y + v1);
-          } else {
-            float2* p = reinterpret_cast<float2*>(stage_e + staged<float>(row, n));
-            const float2 old = first ? make_float2(0.f, 0.f) : *p;
-            if (last) {
-              *reinterpret_cast<__nv_bfloat162*>(stage_out + staged<bf16>(row, n)) =
-                  __floats2bfloat162_rn(old.x + v0, old.y + v1);
-            } else {
-              *p = make_float2(old.x + v0, old.y + v1);
-            }
-          }
-        }
-      }
-      hop::fence_proxy_async();
-      hop::bar_sync(1, 256);
-      if (ctid == 0) {
-        const int c0 = last ? n0 : n0 - C;
-        if (residual) {
-          for (int q = 0; q < 2; ++q)
-            hop::tma_store(&map_x, stage_e + q * BOX, n0 + 64 * q, tl.t0, tl.b);
-        } else if (last) {
-          for (int q = 0; q < 2; ++q)
-            hop::tma_store(&map_out, stage_out + q * BOX, c0 + 64 * q, tl.t0, tl.b);
-        } else {
-          for (int q = 0; q < 4; ++q)
-            hop::tma_store(&map_skip, stage_e + q * BOX, c0 + 32 * q, tl.t0, tl.b);
-        }
-        hop::bulk_commit();
-        hop::bulk_wait_read();
-        hop::mbar_arrive(r.e_empty);
-      }
-    }
-    if (ctid == 0) hop::bulk_wait();
-  }
-}
-
 // -1: the CUDA driver refused a tensor map (alignment or strides)
 int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
               const void* w_rs, const float* b_rs, const void* w_rs_last,
@@ -574,9 +261,10 @@ int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
     return -1;
   const int in_smem = smem_bytes(IN_CHUNKS, 0), rs_smem = smem_bytes(RS_CHUNKS, RS_EXTRA);
   cudaError_t err = cudaFuncSetAttribute(
-      wn_in_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, in_smem);
+      wn_in_wgmma<float, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, in_smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(wn_rs_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, rs_smem);
+  err = cudaFuncSetAttribute(wn_rs_wgmma<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             rs_smem);
   if (err != cudaSuccess) return (int)err;
   int device, sms;
   err = cudaGetDevice(&device);
@@ -586,18 +274,18 @@ int run_block(const void* spect, const void* w_in_cond, const float* b_in_cond,
   const int row_tiles = B * ((T_len + BM - 1) / BM);
   const auto grid = [&](int tiles) { return tiles < sms ? tiles : sms; };
   for (int i = 0; i < L; ++i) {
-    wn_in_wgmma<<<grid(row_tiles * (C / 128)), THREADS, in_smem, stream>>>(
-        m_x, m_sp, m_in, b_in_cond + (size_t)i * 2 * C, static_cast<bf16*>(gated), B, T_len,
-        C, S, i, 1 << i);
+    wn_in_wgmma<float, false><<<grid(row_tiles * (C / 128)), THREADS, in_smem, stream>>>(
+        m_x, m_sp, m_in, m_x, b_in_cond + (size_t)i * 2 * C, static_cast<bf16*>(gated), B,
+        T_len, C, S, i, 1 << i);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
 
     const bool last = i == L - 1;
     const int N = last ? C : 2 * C;
-    wn_rs_wgmma<<<grid(row_tiles * (N / 128)), THREADS, rs_smem, stream>>>(
-        m_g, last ? m_last : m_rs, m_x, m_skip, m_out,
+    wn_rs_wgmma<float><<<grid(row_tiles * (N / 128)), THREADS, rs_smem, stream>>>(
+        m_g, last ? m_last : m_rs, m_x, m_x, m_skip, m_out,
         last ? b_rs_last : b_rs + (size_t)i * 2 * C, B, T_len, C, N, last ? 0 : i, i == 0,
-        last);
+        !last, last);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }

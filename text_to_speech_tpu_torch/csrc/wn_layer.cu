@@ -14,36 +14,38 @@
 // padding of the reference; the TPU kernel's pre-padded input and halo DMA
 // are not needed.
 //
-// Design.  A block owns BM = 64 rows and runs both products of the layer:
-//   1. acts in 8 passes of 64 gated columns: each pass is a (64 x 3C) @
-//      (3C x 128) product whose A tile is gathered by cp.async from the
-//      rows t-d, t, t+d of x (zero-filled outside [0, T), so any dilation
-//      works, also one beyond the tile or the sequence), and whose weight
-//      columns pair j with C + j, so the epilogue adds b_in and cond and
-//      applies the gate.  The gate goes to a (64 x C) tile in shared memory
-//      in T; it never reaches device memory, which is the point of the
-//      kernel (the per-layer chain writes and reads a (B, T, 2C) f32 acts
-//      tensor and a (B, T, C) gate tensor).
-//   2. rs in passes of 128 columns: (64 x C) @ (C x 128) with the A operand
-//      read in place from the gate tile; the epilogue adds b_rs and writes
-//      x_out and skip.
-// Every pass streams its operands through a 3-stage cp.async ring of 32-deep
-// stages (`tile::product` of wn_tile.cuh, shared with wn_block.cu).  T =
-// bf16 multiplies on the tensor cores through nvcuda::wmma (bf16 operands,
-// f32 accumulation); T = float runs FMA tiles in true f32, so the card can
-// check the indexing tightly against the plain version.  Shared
-// memory: ring 41 KB + gate 65 KB in bf16 (two blocks an SM), 78 + 129 KB in
-// f32, at C = 512.  Envelope: C % 128 == 0 and C <= 512.
+// Design.  bf16: the two GEMMs of K1's layer (wn_sm90.cuh, `sm90::`), not
+// a copy of them: warp-specialised wgmma kernels on a persistent grid, a
+// producer thread keeping a 4-stage TMA ring full, two consumer warpgroups.
+//   1. in: M = B*T rows, K = 3C, N = 2C on m64n256k16, 128 x 256 tiles.
+//      The A tile is the im2col of rows t-d, t, t+d of x, done by TMA on a
+//      (C, T, B) tensor map: a box at time coordinate t0 + (k-1)d is
+//      zero-filled wherever it leaves [0, T), wholly so for a dilation
+//      beyond the tile or the sequence, which is the SAME padding.  The
+//      weight columns pair j with C + j, so the epilogue adds b_in, then
+//      cond (read at the fragment's own positions), and applies the gate in
+//      registers; the gate goes to a (B, T, C) bf16 scratch.
+//   2. rs: M = B*T, K = C, N = 2C (C for the last layer) on m64n128k16:
+//      residual columns load x by TMA into a staging tile, add rs there and
+//      store x_out (a new tensor: the caller still holds x) by TMA; skip
+//      columns store rs in bf16 the same way.
+// The TPU kernel keeps the gate in VMEM; here it crosses device memory
+// between the two kernels (64 MB written and read a layer at B = 8, T =
+// 8192, about 14 % of the layer's bound at 3.35 TB/s), which buys K1's
+// pipeline whole.
+// float32: one block owns BM = 64 rows and runs both products on the FMA
+// tiles of wn_tile.cuh (`tile::product`, a 3-stage cp.async ring) in true
+// f32, with the gate in a (64 x C) shared tile; it checks the indexing
+// tightly against the plain version.  Envelope: C % 128 == 0 and C <= 512.
 //
 // Bound on an H100 SXM, for B = 8, T = 8192, C = 512 and a residual layer:
 // 2 * B * T * (3C * 2C + C * 2C) = 2.75e11 operations, 0.278 ms at 989
 // TFLOP/s dense bf16 (4.10 ms in f32 outside the tensor cores at 67
 // TFLOP/s).  It moves x, cond, x_out, skip and the weights once, 335 MB in
-// bf16, 0.100 ms at 3.35 TB/s: the layer is bound by operations.  Each
-// block re-reads the weights (4 MB in bf16) from L2, 67 operations a byte.
-// Not done yet: wgmma with TMA and warp specialisation, and keeping the
-// three shifted x views resident instead of gathering them once per pass.
+// bf16, 0.100 ms at 3.35 TB/s: the layer is bound by operations.  L2
+// traffic by the tiling: `l2_bytes` in ops/wn_layer.py.
 
+#include "wn_sm90.cuh"
 #include "wn_tile.cuh"
 
 #include <stdint.h>
@@ -160,24 +162,69 @@ wn_layer_kernel(const T* __restrict__ x, const T* __restrict__ cond,
   }
 }
 
-template <typename T>
-int run_layer(const void* x, const void* cond, const void* w_in, const void* b_in,
-              const void* w_rs, const void* b_rs, void* x_out, void* skip,
-              int B, int T_len, int C, int N, int dilation, int residual,
-              cudaStream_t stream) {
+int run_layer_f32(const void* x, const void* cond, const void* w_in, const void* b_in,
+                  const void* w_rs, const void* b_rs, void* x_out, void* skip, int B,
+                  int T_len, int C, int N, int dilation, int residual, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      wn_layer_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem_bytes<T>(MAX_C));
+      wn_layer_kernel<float>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem_bytes<float>(MAX_C));
   if (err != cudaSuccess) return (int)err;
   const int M = B * T_len;
   const dim3 grid((M + BM - 1) / BM);
-  wn_layer_kernel<T><<<grid, THREADS, smem_bytes<T>(C), stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(cond),
-      static_cast<const T*>(w_in), static_cast<const T*>(b_in),
-      static_cast<const T*>(w_rs), static_cast<const T*>(b_rs),
-      static_cast<T*>(x_out), static_cast<T*>(skip), M, T_len, C, N, dilation, residual);
+  wn_layer_kernel<float><<<grid, THREADS, smem_bytes<float>(C), stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(cond),
+      static_cast<const float*>(w_in), static_cast<const float*>(b_in),
+      static_cast<const float*>(w_rs), static_cast<const float*>(b_rs),
+      static_cast<float*>(x_out), static_cast<float*>(skip), M, T_len, C, N, dilation, residual);
   return (int)cudaGetLastError();
 }
+
+namespace sm90 {
+
+// -1: the CUDA driver refused a tensor map (alignment or strides)
+int run_layer(const void* x, const void* cond, const void* w_in, const void* b_in,
+              const void* w_rs, const void* b_rs, void* x_out, void* skip, void* gated,
+              int B, int T_len, int C, int N, int dilation, int residual, cudaStream_t stream) {
+  const auto BF16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  CUtensorMap m_x, m_c, m_xo, m_g, m_skip, m_in, m_rs;
+  if (!hop::make_map(&m_x, BF16, 2, x, C, T_len, B, BK, BM, true) ||
+      !hop::make_map(&m_c, BF16, 2, cond, 2 * C, T_len, B, BK, BM, true) ||
+      !hop::make_map(&m_xo, BF16, 2, residual ? x_out : x, C, T_len, B, BK, BM, true) ||
+      !hop::make_map(&m_g, BF16, 2, gated, C, T_len, B, BK, BM, true) ||
+      !hop::make_map(&m_skip, BF16, 2, skip, C, T_len, B, BK, BM, true) ||
+      !hop::make_map(&m_in, BF16, 2, w_in, 2 * C, 3 * C, 1, 64, BK, true) ||
+      !hop::make_map(&m_rs, BF16, 2, w_rs, N, C, 1, 64, BK, true))
+    return -1;
+  const int in_smem = smem_bytes(IN_CHUNKS, IN_COND_EXTRA, IN_COND_STAGES);
+  const int rs_smem = smem_bytes(RS_CHUNKS, RS_EXTRA);
+  cudaError_t err = cudaFuncSetAttribute(
+      wn_in_wgmma<bf16, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, in_smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(wn_rs_wgmma<bf16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             rs_smem);
+  if (err != cudaSuccess) return (int)err;
+  int device, sms;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int row_tiles = B * ((T_len + BM - 1) / BM);
+  const auto grid = [&](int tiles) { return tiles < sms ? tiles : sms; };
+  // S = 0: no mel segment; the map in its place is never read
+  wn_in_wgmma<bf16, true><<<grid(row_tiles * (C / 128)), THREADS, in_smem, stream>>>(
+      m_x, m_x, m_in, m_c, static_cast<const bf16*>(b_in), static_cast<bf16*>(gated), B, T_len,
+      C, 0, 0, dilation);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // every skip tile is written in bf16 from rs alone (first, skip_out); the
+  // f32 skip map in its place is never read or written
+  wn_rs_wgmma<bf16><<<grid(row_tiles * (N / 128)), THREADS, rs_smem, stream>>>(
+      m_g, m_rs, m_x, m_xo, m_x, m_skip, static_cast<const bf16*>(b_rs), B, T_len, C, N, 0,
+      1, residual, 1);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace sm90
 
 }  // namespace
 
@@ -185,19 +232,19 @@ int run_layer(const void* x, const void* cond, const void* w_in, const void* b_i
 // b_rs (N), all in one dtype (bf16 when is_bf16, else f32), contiguous and
 // 16-byte aligned.  N = 2C with `residual` (x_out (B, T, C) receives x + rs[:, :C],
 // skip (B, T, C) rs[:, C:]), N = C without (skip (B, T, C) receives rs; x_out
-// is not written).  Requires C % 128 == 0 and C <= 512.  Returns the CUDA
-// error code of the launch (0 on success).
+// is not written).  gated (B, T, C, bf16) is the bf16 path's scratch.
+// Requires C % 128 == 0 and C <= 512.  Returns the CUDA error code of the
+// launches (0 on success), or -1 when the CUDA driver refuses a tensor map.
 extern "C" int wn_layer_forward(int is_bf16, const void* x, const void* cond,
                                 const void* w_in, const void* b_in,
                                 const void* w_rs, const void* b_rs,
-                                void* x_out, void* skip, int B, int T_len, int C,
-                                int N, int dilation, int residual, void* stream) {
+                                void* x_out, void* skip, void* gated, int B, int T_len,
+                                int C, int N, int dilation, int residual, void* stream) {
   if (C % 128 != 0 || C > MAX_C || N != (residual ? 2 * C : C) || dilation < 1)
     return (int)cudaErrorInvalidValue;
   if (is_bf16)
-    return run_layer<__nv_bfloat16>(x, cond, w_in, b_in, w_rs, b_rs, x_out, skip, B,
-                                    T_len, C, N, dilation, residual,
-                                    (cudaStream_t)stream);
-  return run_layer<float>(x, cond, w_in, b_in, w_rs, b_rs, x_out, skip, B, T_len, C,
-                          N, dilation, residual, (cudaStream_t)stream);
+    return sm90::run_layer(x, cond, w_in, b_in, w_rs, b_rs, x_out, skip, gated, B, T_len, C,
+                           N, dilation, residual, (cudaStream_t)stream);
+  return run_layer_f32(x, cond, w_in, b_in, w_rs, b_rs, x_out, skip, B, T_len, C, N,
+                       dilation, residual, (cudaStream_t)stream);
 }

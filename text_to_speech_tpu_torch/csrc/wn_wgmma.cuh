@@ -1,22 +1,25 @@
-// Hopper building blocks shared by the redesigned WN kernels (wn_block.cu
-// bf16, wn_block_int8.cu): TMA tensor maps and loads, mbarrier rings,
-// wgmma shared-memory descriptors and the two wgmma shapes they issue,
-// register hand-over between producer and consumer warpgroups.  Written in
-// inline PTX for sm_90a.  K4 (wn_layer.cu) and K1's float32 path keep the
-// cp.async / mma.sync mainloop of wn_tile.cuh.
+// Hopper building blocks shared by the redesigned kernels (wn_sm90.cuh,
+// used by wn_block.cu and wn_layer.cu in bf16; wn_block_int8.cu;
+// matmul_rate.cu): TMA tensor maps and loads (multicast too), mbarrier
+// rings, cluster barriers and remote arrivals, wgmma shared-memory
+// descriptors and the wgmma shapes they issue, register hand-over between
+// producer and consumer warpgroups.  Written in inline PTX for sm_90a.  The
+// float32 paths of K1 and K4 keep the FMA tiles of wn_tile.cuh.
 //
 // The layouts the descriptors describe (CUTLASS's canonical GMMA layouts,
 // in 16-byte units):
-//   - K-major, 128-byte swizzle (A of both kernels, B of the int8 one): a
+//   - K-major, 128-byte swizzle (A of every kernel, B of the int8 WN one): a
 //     tile of rows of 128 bytes of K, 8-row atoms of 1024 bytes; SBO = 1024
 //     bytes between atoms, LBO unused; one k step (32 bytes: 16 bf16 or 32
 //     int8) advances the start address by 32 bytes inside the swizzle atom.
+//   - K-major, 64-byte swizzle (B of the rate probe): rows of 64 bytes of K,
+//     8-row atoms of 512 bytes; SBO = 512; k steps as above.
 //   - MN-major, 128-byte swizzle (B of bf16, the weights as packed, N
 //     contiguous): chunks of 64 columns (128 bytes) by 64 k rows, 8 KB each;
 //     SBO = 1024 bytes between 8-row groups of k, LBO = 8192 bytes between
 //     64-column chunks; one k16 step advances 16 rows, 2048 bytes.
-// A TMA box written with CU_TENSOR_MAP_SWIZZLE_128B lands in exactly these
-// layouts when the destination is 1024-byte aligned.
+// A TMA box written with the matching CU_TENSOR_MAP_SWIZZLE_* lands in
+// exactly these layouts when the destination is 1024-byte aligned.
 
 #pragma once
 
@@ -61,7 +64,7 @@ inline EncodeTiled encode_tiled() {
 // Returns false when the CUDA driver refuses it (alignment, strides, box).
 inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
                      uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1,
-                     bool swizzle128) {
+                     CUtensorMapSwizzle swizzle) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return false;
   const cuuint64_t dims[3] = {d0, d1, d2};
@@ -69,10 +72,15 @@ inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const
   const cuuint32_t box[3] = {b0, b1, 1};
   const cuuint32_t unit[3] = {1, 1, 1};
   return fn(map, type, 3, const_cast<void*>(base), dims, strides, box, unit,
-            CU_TENSOR_MAP_INTERLEAVE_NONE,
-            swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int elem, const void* base,
+                     uint64_t d0, uint64_t d1, uint64_t d2, uint32_t b0, uint32_t b1,
+                     bool swizzle128) {
+  return make_map(map, type, elem, base, d0, d1, d2, b0, b1,
+                  swizzle128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE);
 }
 
 // ---- device: barriers and TMA ------------------------------------------------
@@ -118,6 +126,56 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       " [%0], [%1, {%3, %4, %5}], [%2];\n"
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
          "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// ---- device: clusters ----------------------------------------------------------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster, with release / acquire
+// semantics: orders barrier inits before remote use, and keeps a block's
+// shared memory alive until its peers are done with it
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\nbarrier.cluster.wait.acquire;\n" ::: "memory");
+}
+// the address of the same shared-memory object in block `rank` of the cluster
+__device__ __forceinline__ uint32_t remote(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_u32(p)), "r"(rank));
+  return r;
+}
+// arrive on a barrier of block `rank` (this block too).  The default
+// semantics (release at CTA scope), as CUTLASS's cluster pipelines use:
+// with .release.cluster every arrival waited about half a microsecond, and
+// a ring that releases each stage so ran at one stage per arrival.
+__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n"
+               :: "r"(remote(bar, rank)) : "memory");
+}
+// one box of a 3-D map into the same offset of shared memory in every block
+// of `mask` (cluster ranks), each completing on its own barrier at `bar`'s offset
+__device__ __forceinline__ void tma_load_multicast(void* dst, const CUtensorMap* map,
+                                                   uint64_t* bar, int c0, int c1, int c2,
+                                                   uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)),
+         "r"(c0), "r"(c1), "r"(c2), "h"(mask)
+      : "memory");
+}
+// `bytes` of this block's shared memory at `src` to the same offset in block
+// `rank`, completing on that block's barrier at `bar`'s offset
+__device__ __forceinline__ void bulk_copy_to(const void* src, uint32_t bytes, uint64_t* bar,
+                                             uint32_t rank) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(remote(src, rank)), "r"(smem_u32(src)), "r"(bytes), "r"(remote(bar, rank))
       : "memory");
 }
 
@@ -171,6 +229,12 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
 }
 
+// descriptor of a K-major 64-byte-swizzled tile at `p` (512-byte aligned base)
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (1ull << 16) | ((uint64_t)(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -190,9 +254,10 @@ template <int N> __device__ __forceinline__ void fence_regs(int (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
-// D (64 x 256, f32) += A (64 x 16 bf16, K-major) . B (16 x 256 bf16, MN-major);
-// scale_d 0 overwrites D.  Thread (warp w, lane l) holds rows 16w + l/4 (+ 8)
-// and columns 8j + 2(l%4) (+ 1) in d[4j .. 4j + 3].
+// D (64 x 256, f32) += A (64 x 16 bf16, K-major) . B (16 x 256 bf16, MN-major;
+// K-major with TRANS_B = 0); scale_d 0 overwrites D.  Thread (warp w, lane l)
+// holds rows 16w + l/4 (+ 8) and columns 8j + 2(l%4) (+ 1) in d[4j .. 4j + 3].
+template <int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t desc_a, uint64_t desc_b,
                                        int scale_d) {
   asm volatile(
@@ -206,7 +271,7 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t desc_a
       " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
       " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
       " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, 1;\n}\n"
+      "%128, %129, p, 1, 1, 0, %131;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -223,7 +288,7 @@ __device__ __forceinline__ void wgmma_bf16_n256(float (&d)[128], uint64_t desc_a
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
 // D (64 x 128, f32) += A (64 x 16 bf16, K-major) . B (16 x 128 bf16, MN-major)
@@ -268,6 +333,41 @@ __device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a, uin
         "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
         "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
         "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D (64 x 256, s32) += A (64 x 32 s8, K-major) . B (32 x 256 s8, K-major), the
+// fragment layout of wgmma_bf16_n256
+__device__ __forceinline__ void wgmma_s8_n256(int (&d)[128], uint64_t desc_a, uint64_t desc_b,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      " %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      " %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      " %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      " %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "%128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]),
+        "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]),
+        "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]),
+        "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]),
+        "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),
+        "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 

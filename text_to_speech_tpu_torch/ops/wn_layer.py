@@ -2,7 +2,10 @@
 
 Replaces the TPU kernel `fused_wn_layer`
 (``text_to_speech_tpu/ops/pallas_kernels.py``).  The kernel is
-``csrc/wn_layer.cu`` (see its header for the design and its bound).
+``csrc/wn_layer.cu`` (see its header for the design and its bound): in
+bfloat16 the whole-block kernel's two wgmma GEMMs (``csrc/wn_sm90.cuh``),
+in float32 FMA tiles.  `grid_tiles` and `l2_bytes` count the bf16 kernels'
+tiles and what they move through L2.
 
 `fused_wn_layer` launches the kernel for CUDA tensors and counts its calls in
 ``fused_wn_layer.launches``.  For CPU tensors it computes `wn_layer_plain`,
@@ -25,7 +28,7 @@ import ctypes
 import torch
 
 from ._build import load_library
-from .wn_block import _shift
+from .wn_block import BM, IN_N, RS_N, _shift
 
 
 def wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, *, dilation, residual = True):
@@ -43,11 +46,35 @@ def wn_layer_plain(x, cond, w_in, b_in, w_rs, b_rs, *, dilation, residual = True
     return x, rs.to(dtype)
 
 
+def grid_tiles(B, T, C, residual = True):
+    """Tiles of the two bf16 GEMMs of one call: {'in', 'rs'} (128-row tiles,
+    cut per batch row; 256 acts columns an in-tile, 128 rs columns an
+    rs-tile)."""
+    row_tiles = B * -(-T // BM)
+    N = 2 * C if residual else C
+    return {'in': row_tiles * (2 * C // IN_N), 'rs': row_tiles * (N // RS_N)}
+
+
+def l2_bytes(B, T, C, residual = True):
+    """Bytes that cross L2 in one bfloat16 call, by the kernels' tiling:
+    every tile reads, for each of its k stages, its A box and its weight
+    boxes (whole TMA boxes, zero-filled ones included); the in-GEMM's
+    epilogue reads cond and writes the gate, the rs-GEMM's reads x and
+    writes x_out and skip (the last layer: skip alone), each once."""
+    M = B * T
+    tiles = grid_tiles(B, T, C, residual)
+    total = tiles['in'] * 3 * C * (BM + IN_N) * 2
+    total += M * 2 * C * 2 + M * C * 2          # cond; the gate
+    total += tiles['rs'] * C * (BM + RS_N) * 2
+    total += M * C * 2 * (3 if residual else 1)
+    return total
+
+
 def _kernel():
     fn = load_library('wn_layer').wn_layer_forward
     if fn.argtypes is None:
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i32] + [ptr] * 8 + [i32] * 6 + [ptr]
+        fn.argtypes = [i32] + [ptr] * 9 + [i32] * 6 + [ptr]
         fn.restype = i32
     return fn
 
@@ -90,16 +117,23 @@ def fused_wn_layer(x, cond, w_in, b_in, w_rs, b_rs, *, dilation, residual = True
                          'version), got {}'.format(x.device))
     _check(* args, dilation, residual)
     B, T, C = x.shape
+    bf16 = x.dtype == torch.bfloat16
     x_out = torch.empty_like(x) if residual else None
     skip = torch.empty_like(x)
+    gated = torch.empty_like(x) if bf16 else None      # between the two GEMMs
     kernel = _kernel()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = kernel(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), cond.data_ptr(),
+            int(bf16), x.data_ptr(), cond.data_ptr(),
             w_in.data_ptr(), b_in.data_ptr(), w_rs.data_ptr(), b_rs.data_ptr(),
             x_out.data_ptr() if residual else None, skip.data_ptr(),
+            gated.data_ptr() if bf16 else None,
             B, T, C, w_rs.shape[-1], dilation, int(residual), stream)
+    if err == -1:
+        raise ValueError('fused_wn_layer: the CUDA driver refused a TMA tensor map (base '
+                         'addresses must be 16-byte aligned, row strides a multiple of 16 '
+                         'bytes)')
     if err != 0:
         raise RuntimeError('wn_layer kernel launch failed: CUDA error {}'.format(err))
     fused_wn_layer.launches += 1
