@@ -11,8 +11,9 @@ Phases, one JSON line each:
            (wgmma) and UTMALDG (TMA loads), K2's GEMMs IGMMA and UTMALDG,
            K5's int8 kernel IGMMA and its bf16 one HGMMA, both UTMALDG
            (cuobjdump of build/torch_kernels/lib<name>.so);
-  kernels  every ported kernel at the main path's shapes (one utterance and
-           the batch of four): error against its plain version, median time
+  kernels  every ported kernel at the main path's shapes (one utterance,
+           the batch of four, and for K1 and K2 the long text's window batch
+           of 32 windows of 128 frames): error against its plain version, median time
            of the kernel and of the plain version (CUDA events), and the
            bound.  The WN block (K1) in float32 and bfloat16 and its int8
            variant (K2, equal to its plain version to the bit) with bf16
@@ -60,6 +61,21 @@ Phases, one JSON line each:
            K1's among them: 2L a block), and of one in int8 serving (K2's
            device kernels a block, at most 2L + 2); the card's memory
            (`devices.get_memory_stats`);
+  windowed a paragraph of 8 sentences (`max_text_length=-2`, 256 frames each)
+           vocoded in windows of 128 frames cut from the device mel
+           (`vocode_windowed_from_device`, 24 windows in one batch of 32: 12
+           K1 launches at B=32, T=4096; 4 K3 launches at B=8), in the default
+           and the int8 serving mode: total, decode and vocode ms, RTF,
+           launches, spans; the device slicer against the host one
+           (`vocode_windowed_batch`) on the decoded mels with ragged lengths;
+           one mel of 2,048 frames through `WaveGlow.infer` direct, windowed
+           one call a window and windowed in one batch: ms and peak memory
+           (the one-call-a-window peak must be below the direct one);
+  surface  `tts()` of the four sentences with `directory=`: map.json, each
+           saved WAV against the returned audio, and a second call answered
+           from the cache with no kernel launch; `stream()` over a queue of
+           three texts into a `QueueCallback`: order and launches (the two
+           `precompile_for_stream` texts included);
   train    WaveGlow training at NVIDIA width (12 flows, 8 WN layers, C=512),
            random seeded weights: the train step (B=8 x 256 frames, per-flow
            remat, Adam at 1e-4) on the default route in float32 and under
@@ -257,12 +273,15 @@ def wn_block_phase():
     # rounds gated activations and the residual stream every layer, where
     # another f32 summation order can flip a bf16 rounding.  Shapes: one
     # 256-frame utterance (B=1, T=8192), a ragged length, the batch of four
-    # (B=4: rows of one utterance must not tap the next) and the training
-    # batch (B=8), where `wn_train_fused` launches it.
+    # (B=4: rows of one utterance must not tap the next), the training
+    # batch (B=8), where `wn_train_fused` launches it, and in bf16 a batch of
+    # 32 windows of 128 frames (B=32, T=4096), the long text's window batch.
     cases = {}
     for dtype, rel_tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
         name = str(dtype).split('.')[-1]
-        for B, T in ((1, 8192), (1, 8000), (4, 8192), (8, 8192)):
+        shapes = ((1, 8192), (1, 8000), (4, 8192), (8, 8192)) \
+            + (((32, 4096),) if dtype == torch.bfloat16 else ())
+        for B, T in shapes:
             args = inputs(B, T, dtype)
             out = fused_wn_block(* args)
             torch.cuda.synchronize()
@@ -273,7 +292,7 @@ def wn_block_phase():
             scale = float(ref.float().abs().max())
             case = {'dtype': name, 'B': B, 'T': T, 'max_abs_err': err, 'max_rel_err': err / scale,
                     'tolerance_rel': rel_tol}
-            if T == 8192:
+            if T in (8192, 4096):
                 flops, nbytes = wn_block_work(B, T, C, S, L, args[0].element_size())
                 peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
                 case.update(
@@ -283,7 +302,7 @@ def wn_block_phase():
                     bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                     bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
                     else 'bytes')
-            if dtype == torch.bfloat16 and T == 8192:
+            if dtype == torch.bfloat16 and T in (8192, 4096):
                 # the wgmma kernels: L2 bytes by their tiling, waves on the SMs
                 case.update(l2_bytes = l2_bytes(B, T, C, S, L),
                             waves = waves(grid_tiles(B, T, C)),
@@ -426,6 +445,7 @@ def wn_block_int8_phase():
             ('bfloat16_B1_T8192', 1, 8192, torch.bfloat16, False),
             ('bfloat16_B1_T8000', 1, 8000, torch.bfloat16, False),
             ('bfloat16_B4_T8192', 4, 8192, torch.bfloat16, False),
+            ('bfloat16_B32_T4096', 32, 4096, torch.bfloat16, False),   # the window batch
             ('float32_B1_T8192', 1, 8192, torch.float32, False),
             ('bfloat16_B1_T8192_static_gate', 1, 8192, torch.bfloat16, True)):
         x, spect = f(B, T, C).to(dtype), f(B, T, S).to(dtype)
@@ -456,7 +476,7 @@ def wn_block_int8_phase():
                   or case['control']['mean_rel_err'] > mean_tol,
                   'wn_block_int8: the control meets the limits: {}'.format(case))
             del ctrl
-        if T == 8192 and (dtype == torch.bfloat16 or B == 1):
+        if T in (8192, 4096) and (dtype == torch.bfloat16 or B == 1):
             ops, nbytes = wn_block_int8_work(B, T, C, S, L, x.element_size())
             case.update(
                 kernel_ms = time_ms(lambda: fused_wn_block_int8(x, spect, q, static)),
@@ -1191,15 +1211,15 @@ def e2e_phase(model, vocoder, setup_s):
     from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
     from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
     from text_to_speech_tpu_torch.ops.wn_block_int8 import fused_wn_block_int8
-    from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer
 
     wg_arch = vocoder.arch
     n_flows = wg_arch.hp.n_flows
     generator = torch.Generator(device = 'cuda').manual_seed(0)
     max_frames, vocoder_batch, chunk = 256, 8, 64
     # the random stop gate is biased off, so every run decodes max_frames
-    # frames; the gates are opened wide so that this fixed length passes
-    gates = dict(min_fpt_ratio = 0., max_fpt_ratio = 1e9)
+    # frames; the gates are opened wide so that this fixed length passes.
+    # Nothing is saved (no map.json cache) or displayed: every run synthesizes
+    gates = dict(min_fpt_ratio = 0., max_fpt_ratio = 1e9, save = False, display = False)
     retries = []
     synthesize_chunks = model._synthesize_chunks
     model._synthesize_chunks = lambda * a, ** kw: \
@@ -1213,17 +1233,13 @@ def e2e_phase(model, vocoder, setup_s):
                   generator = generator, ** gates, ** route)
         tts(texts, max_length = 64, ** kw)                              # warm-up
         torch.cuda.synchronize()
-        fused_wn_block.launches = fused_wn_block_int8.launches = decoder_steps.launches = 0
-        fused_wn_layer.launches = 0
+        reset_launches()
         reset_timers()
         start = time.perf_counter()
         outputs = tts(texts, max_length = max_frames, ** kw)
         total_s = time.perf_counter() - start
         spans = timer_report()
-        launches = {'wn_block': fused_wn_block.launches,
-                    'wn_block_int8': fused_wn_block_int8.launches,
-                    'decoder_steps': decoder_steps.launches,
-                    'wn_layer': fused_wn_layer.launches}
+        launches = read_launches()
         rows = sum(len(out['mel']) for out in outputs)
         vocoder_calls = -(-rows // vocoder_batch)
         # each vocoder call runs every flow on the mode's kernel, and no other
@@ -1385,6 +1401,202 @@ def e2e_phase(model, vocoder, setup_s):
     return runs, int8_lstm
 
 
+def counted_launches():
+    """Every kernel wrapper's launch count: {name: count}."""
+    from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
+    from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
+    from text_to_speech_tpu_torch.ops.wn_block_int8 import fused_wn_block_int8
+    from text_to_speech_tpu_torch.ops.wn_layer import fused_wn_layer
+    return {'wn_block': fused_wn_block, 'wn_block_int8': fused_wn_block_int8,
+            'decoder_steps': decoder_steps, 'wn_layer': fused_wn_layer}
+
+
+def reset_launches():
+    for wrapper in counted_launches().values():
+        wrapper.launches = 0
+
+
+def read_launches():
+    return {name: wrapper.launches for name, wrapper in counted_launches().items()}
+
+
+def windowed_phase(model, vocoder):
+    """A long text vocoded in windows cut from the device mel, in both
+    serving modes, the device slicer against the host one, and one long mel
+    through `WaveGlow.infer` direct and windowed (time and peak memory)."""
+    from text_to_speech_tpu_torch import tts
+    from text_to_speech_tpu_torch.loggers import reset_timers, timer_report
+    from text_to_speech_tpu_torch.models.tts.waveglow import _get_steps
+
+    generator = torch.Generator(device = 'cuda').manual_seed(2)
+    rate, n_mel = vocoder.upsample_rate, vocoder.arch.hp.n_mel_channels
+    frames, win_len, hop_len = 256, 128, -32
+    # eight sentences, one a line (SENTENCES[1] ends in a comma: joined by
+    # spaces it would run into SENTENCES[2])
+    paragraph = '\n'.join(SENTENCES * 2)
+    kw = dict(model = model, vocoder = vocoder, max_text_length = -2, max_length = frames,
+              vocoder_config = {'win_len': win_len, 'hop_len': hop_len}, generator = generator,
+              min_fpt_ratio = 0., max_fpt_ratio = 1e9, save = False, display = False)
+    retries = []
+    synthesize_chunks = model._synthesize_chunks
+    model._synthesize_chunks = lambda * a, ** k: retries.append(1) or synthesize_chunks(* a, ** k)
+    # 8 chunks decode as one K3 batch of 8 (frames / 64 launches); 3 windows
+    # a chunk, 24 in all, one window batch under the auto policy: min(64,
+    # 32 x 8192 / (128 x 256 / 8), 32) = 32 windows of T = 4096, one launch
+    # of the serving mode's WN kernel a flow
+    n_flows = vocoder.arch.hp.n_flows
+    windows = 8 * len(_get_steps(frames, win_len, win_len + hop_len))
+    batch = vocoder._auto_vocoder_batch(win_len, windows, None)
+    check(windows == 24 and batch == 32, 'windows {} batch {}'.format(windows, batch))
+    runs = {}
+
+    def drive(name, serving):
+        tts(paragraph, ** kw)                                           # warm-up
+        torch.cuda.synchronize()
+        reset_launches()
+        reset_timers()
+        start = time.perf_counter()
+        out = tts(paragraph, ** kw)[0]
+        total_s = time.perf_counter() - start
+        launches = read_launches()
+        spans = timer_report()
+        kernel = {'default': 'wn_block', 'int8': 'wn_block_int8'}[serving]
+        expected = dict(wn_block = 0, wn_block_int8 = 0, wn_layer = 0,
+                        decoder_steps = frames // 64)
+        expected[kernel] = n_flows * -(-windows // batch)
+        check(vocoder.serving_mode == serving and launches == expected and not retries,
+              '{}: launches {} (expected {}), retries {}'.format(name, launches, expected,
+                                                                 len(retries)))
+        check(len(out['mel']) == 8 and all(m.shape == (frames, n_mel) for m in out['mel']),
+              '{}: mels {}'.format(name, [m.shape for m in out['mel']]))
+        check(out['audio'].shape == (8 * frames * rate,) and bool(np.isfinite(out['audio']).all()),
+              '{}: audio {}'.format(name, out['audio'].shape))
+        timings = model.last_timings
+        runs[name] = {'serving_mode': serving, 'chunks': len(out['mel']), 'frames': frames,
+                      'win_len': win_len, 'hop_len': hop_len, 'windows': windows,
+                      'window_batch': batch, 'audio_s': out['time'],
+                      'total_ms': 1e3 * total_s, 'decode_ms': 1e3 * timings['decode_s'],
+                      'vocode_ms': 1e3 * timings['vocode_s'], 'rtf': out['time'] / total_s,
+                      'launches': launches, 'spans': spans.splitlines()}
+        for span in ('predict', 'inference', 'processing', 'compiled_infer'):
+            check('- {} : '.format(span) in spans,
+                  '{}: no span {!r} in\n{}'.format(name, span, spans))
+        return out
+
+    out = drive('long_text_windowed', 'default')
+    print('\n'.join(runs['long_text_windowed']['spans']), flush = True)
+
+    # the device slicer against the host one on the decoded mels, ragged
+    # lengths (100: one window, its last 28 frames padding), deterministic:
+    # the same windows in the same batches
+    lengths = [256, 256, 200, 256, 100, 256, 129, 256]
+    buffer = torch.from_numpy(np.stack(out['mel'])).cuda()       # every chunk: 256 frames
+    device = vocoder.vocode_windowed_from_device(buffer, lengths, win_len = win_len,
+                                                 hop_len = hop_len, deterministic = True)
+    host = vocoder.vocode_windowed_batch([m[:n] for m, n in zip(out['mel'], lengths)],
+                                         win_len = win_len, hop_len = hop_len,
+                                         deterministic = True)
+    slicer_err = max(float(np.abs(d - h).max()) for d, h in zip(device, host))
+    check([len(d) for d in device] == [len(h) for h in host] == [n * rate for n in lengths]
+          and slicer_err <= 1e-5, 'device slicer vs host slicer: {}'.format(slicer_err))
+
+    gate_mel = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        (1, 32, n_mel)).astype(np.float32) - 5.).cuda()
+    vocoder.quantize_for_serving(validate = gate_mel)
+    gate_snr = getattr(vocoder, '_last_serving_snr_db', None)
+    check(vocoder.serving_mode == 'int8', 'int8 gate: {} dB'.format(gate_snr))
+    drive('long_text_windowed_int8', 'int8')
+    vocoder.quantize_for_serving(False)
+    model._synthesize_chunks = synthesize_chunks
+
+    # one long mel, three ways: direct, windowed one call a window, windowed
+    # in one batch; peak memory from a reset before each (after a warm-up)
+    mel = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        (1, 2048, n_mel)).astype(np.float32) - 5.).cuda()
+    memory = {}
+    for name, options in (('direct', {}), ('windowed', dict(win_len = 256, batch = False)),
+                          ('windowed_batch', dict(win_len = 256, batch = True))):
+        vocoder.infer(mel, ** options)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        start = time.perf_counter()
+        audio = vocoder.infer(mel, ** options)
+        ms = 1e3 * (time.perf_counter() - start)
+        peak = torch.cuda.max_memory_allocated()
+        check(audio.shape == (1, 2048 * rate) and bool(np.isfinite(audio).all()),
+              'long mel {}: {}'.format(name, audio.shape))
+        memory[name] = {'ms': ms, 'peak_bytes': peak, 'peak_above_start_bytes': peak - base,
+                        'rtf': 2048 * rate / vocoder.rate / (ms * 1e-3)}
+    check(memory['windowed']['peak_bytes'] < memory['direct']['peak_bytes'],
+          'windowed peak not below direct: {}'.format(memory))
+    emit({'phase': 'windowed', 'runs': runs, 'int8_gate_snr_db': gate_snr,
+          'slicer_vs_host_max_abs': slicer_err,
+          'slicer_tolerance': 1e-5, 'long_mel': dict(memory, frames = 2048, win_len = 256,
+                                                     hop_len = -64)})
+    return runs
+
+
+def surface_phase(model, vocoder):
+    """`tts()` with `directory=`: map.json, the saved WAVs and a second call
+    answered from the cache; `stream()` over a queue into a `QueueCallback`."""
+    import queue
+    import tempfile
+    from scipy.io import wavfile
+    from text_to_speech_tpu_torch import stream, tts
+    from text_to_speech_tpu_torch.utils.file_utils import load_json
+
+    generator = torch.Generator(device = 'cuda').manual_seed(3)
+    frames, n_flows = 256, vocoder.arch.hp.n_flows
+    kw = dict(model = model, vocoder = vocoder, max_length = frames, generator = generator,
+              min_fpt_ratio = 0., max_fpt_ratio = 1e9, display = False)
+    one_text = {'decoder_steps': frames // 64, 'wn_block': n_flows}
+    runs = {}
+    with tempfile.TemporaryDirectory() as directory:
+        for name in ('callbacks_and_cache', 'callbacks_and_cache_hit'):
+            reset_launches()
+            start = time.perf_counter()
+            outputs = tts(SENTENCES, directory = directory, ** kw)
+            total_s = time.perf_counter() - start
+            launches = read_launches()
+            entries = load_json(os.path.join(directory, 'map.json'))
+            runs[name] = {'texts': len(outputs), 'total_ms': 1e3 * total_s,
+                          'map_entries': len(entries), 'launches': launches}
+            check(len(entries) == 4 and list(entries) == SENTENCES,
+                  '{}: map.json {}'.format(name, list(entries)))
+            if name == 'callbacks_and_cache':
+                expected = {k: len(SENTENCES) * one_text.get(k, 0) for k in launches}
+                for text, out in zip(SENTENCES, outputs):
+                    wav_rate, audio = wavfile.read(entries[text]['audio'])
+                    check(wav_rate == vocoder.rate and np.array_equal(audio, out['audio']),
+                          '{}: the WAV of {!r} differs from the audio'.format(name, text))
+            else:
+                expected = {k: 0 for k in launches}
+                check(outputs == [entries[t] for t in SENTENCES], 'cache hit outputs')
+            check(launches == expected, '{}: launches {} (expected {})'.format(
+                name, launches, expected))
+
+    texts, inputs, delivered = SENTENCES[:3], queue.Queue(), queue.Queue()
+    for text in texts + [None]:
+        inputs.put(text)
+    reset_launches()
+    start = time.perf_counter()
+    results = stream(inputs, play = False, save = False, post_processing = delivered, ** kw)
+    total_s = time.perf_counter() - start
+    launches = read_launches()
+    got = [delivered.get_nowait() for _ in range(delivered.qsize())]
+    # `precompile_for_stream` synthesizes one text at each of two token buckets first
+    expected = {k: (len(texts) + 2) * one_text.get(k, 0) for k in launches}
+    check([r['text'] for r in results] == [g['text'] for g in got] == texts
+          and launches == expected and all(np.isfinite(g['audio']).all() for g in got),
+          'stream: {} results, {} delivered, launches {} (expected {})'.format(
+              len(results), len(got), launches, expected))
+    runs['stream'] = {'texts': len(results), 'total_ms': 1e3 * total_s, 'launches': launches,
+                      'warmups': 2}
+    emit({'phase': 'surface', 'runs': runs})
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
@@ -1421,6 +1633,8 @@ def main():
     rate_cases, probe_launches = matmul_rate_phase()
     dec_cases = decoder_steps_phase(model)
     runs, int8_lstm = e2e_phase(model, vocoder, setup_s)
+    runs.update(windowed_phase(model, vocoder))
+    runs.update(surface_phase(model, vocoder))
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -1429,8 +1643,12 @@ def main():
             ('fused_wn_block_bf16_B1', wn_cases['bfloat16_B1_T8192'], 'bfloat16_M512_reps64'),
             ('fused_wn_block_bf16_B4', wn_cases['bfloat16_B4_T8192'], 'bfloat16_M512_reps64'),
             ('fused_wn_block_bf16_B8', wn_cases['bfloat16_B8_T8192'], 'bfloat16_M512_reps64'),
+            ('fused_wn_block_bf16_B32_T4096', wn_cases['bfloat16_B32_T4096'],
+             'bfloat16_M512_reps64'),
             ('fused_wn_block_int8_B1', wn8_cases['bfloat16_B1_T8192'], 'int8_M512_reps64'),
             ('fused_wn_block_int8_B4', wn8_cases['bfloat16_B4_T8192'], 'int8_M512_reps64'),
+            ('fused_wn_block_int8_B32_T4096', wn8_cases['bfloat16_B32_T4096'],
+             'int8_M512_reps64'),
             ('fused_wn_layer_bf16_B8', layer_cases['bfloat16_B8_T8192_d1_residual'],
              'bfloat16_M512_reps64'),
             ('fused_wn_layer_bf16_B1', layer_cases['bfloat16_B1_T8192_d1_residual'],
@@ -1438,7 +1656,7 @@ def main():
         work = case.get('flops', case.get('ops'))
         rate = work / (case['kernel_ms'] * 1e-3)
         peak = PEAK_INT8_OPS if 'int8' in rate_key else PEAK_BF16_FLOPS
-        shares[key] = {'ms': case['kernel_ms'], 'rate': rate,
+        shares[key] = {'ms': case['kernel_ms'], 'bound_ms': case['bound_ms'], 'rate': rate,
                        'share_of_k5_rate': rate / rate_cases[rate_key]['rate'],
                        'share_of_peak': rate / peak, 'l2_bytes': case['l2_bytes'],
                        'l2_bytes_per_s': case['l2_bytes_per_s'], 'waves': case['waves'],
@@ -1469,6 +1687,15 @@ def main():
                 source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
                 launches = launches('wn_block_int8')),
+        # the long text's window batch (B=32, T=4096): launches in its run of each mode
+        summary(wn_cases['bfloat16_B32_T4096'], name = 'fused_wn_block (window batch)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = runs['long_text_windowed']['launches']['wn_block']),
+        summary(wn8_cases['bfloat16_B32_T4096'], name = 'fused_wn_block_int8 (window batch)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
+                launches = runs['long_text_windowed_int8']['launches']['wn_block_int8']),
         # the use_pallas eval forward under mixed_bfloat16, at the train step's shape
         summary(layer_cases['bfloat16_B8_T8192_d1_residual'], name = 'fused_wn_layer',
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_layer.cu',

@@ -40,7 +40,9 @@ def test_port_imports_without_jax():
     for name in ('ops.wn_layer', 'ops.stft', 'ops.audio_io', 'train.trainer',
                  'train.optimizers', 'train.losses', 'train.precision', 'train.datasets',
                  'train.history', 'train.checkpoint', 'ops.matmul_rate', 'loggers',
-                 'loggers.time_logging', 'loggers.handlers'):
+                 'loggers.time_logging', 'loggers.handlers', 'utils.stream', 'utils.callbacks',
+                 'utils.file_utils', 'utils.generic_utils', 'ops.audio_stream',
+                 'ops.audio_processing', 'models.base_model'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 

@@ -151,8 +151,9 @@ def test_timer_logs_at_time_debug(caplog):
 
 
 def test_tts_handler_goes_to_handle_error(monkeypatch):
-    """The port's tts() refuses `play`, so a spoken record is an error that
-    the handler hands to `handleError`, and it does not re-enter."""
+    """A handler whose model cannot load (here: by name, with no GPU and no
+    device given) hands the record to `handleError`, and it does not
+    re-enter; `tts(..., play=True)` itself raises the load's error."""
     errors = []
     handler = loggers.try_tts_handler(model = 'overfit_demo')
     assert isinstance(handler, TTSHandler)
@@ -161,7 +162,7 @@ def test_tts_handler_goes_to_handle_error(monkeypatch):
     handler.emit(record)
     assert errors == [record] and not handler._busy
     from text_to_speech_tpu_torch import tts
-    with pytest.raises(TypeError, match = 'play'):
+    with pytest.raises(RuntimeError, match = 'device'):
         tts('hello', model = 'overfit_demo', play = True)
 
 
@@ -272,7 +273,8 @@ def tiny_models(tmp_path_factory):
         vocoder = WaveGlow.from_jax(params, device = 'cpu', ** VOCODER)
         yield (lambda text, ** kw: jax_tts(text, model = 'overfit_demo', vocoder = jax_vocoder,
                                            save = False, display = False, ** kw),
-               lambda text, ** kw: tts(text, model = model, vocoder = vocoder, ** kw))
+               lambda text, ** kw: tts(text, model = model, vocoder = vocoder, save = False,
+                                       display = False, ** kw))
         reset_instances()
 
 

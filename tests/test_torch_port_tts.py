@@ -35,6 +35,7 @@ from text_to_speech_tpu_torch import tts
 from text_to_speech_tpu_torch.init import init_waveglow
 from text_to_speech_tpu_torch.models.tts import Tacotron2, WaveGlow
 from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow as WaveGlowArch
+from text_to_speech_tpu_torch.utils.callbacks import FunctionCallback
 
 VOCODER = dict(n_mel_channels = 80, n_flows = 4, n_group = 8, n_early_every = 2,
                n_early_size = 2, wn_layers = 2, wn_channels = 64,
@@ -63,7 +64,7 @@ def outputs(tmp_model_dir):
         model = Tacotron2.from_pretrained('overfit_demo', root = tmp_model_dir,
                                           device = 'cpu')
         out = tts(TEXTS, model = model, vocoder = 'tiny_wg', device = 'cpu',
-                  root = tmp_model_dir, ** kwargs)
+                  root = tmp_model_dir, save = False, display = False, ** kwargs)
         # one sentence, no batch_size: the one-launch int16 path on both sides
         # (the JAX package hands its vocoder only `vocoder_config` there)
         single = dict(deterministic = True, max_length = 3., min_fpt_ratio = -1.,
@@ -72,7 +73,7 @@ def outputs(tmp_model_dir):
         ref_one = jax_tts(TEXTS[1], model = 'overfit_demo', vocoder = jwg, save = False,
                           display = False, ** single)
         out_one = tts(TEXTS[1], model = model, vocoder = 'tiny_wg', device = 'cpu',
-                      root = tmp_model_dir, ** single)
+                      root = tmp_model_dir, save = False, display = False, ** single)
         yield ref, out, model, get_pretrained('overfit_demo'), ref_one, out_one
     finally:
         reset_instances()
@@ -127,8 +128,12 @@ def _single_sentence_matches_jax(ref, out):
 # -- the port's own routing (no JAX) -------------------------------------------------
 
 @pytest.fixture(scope = 'module')
-def port_models():
-    model = Tacotron2.from_pretrained('overfit_demo', device = 'cpu')
+def port_models(tmp_path_factory):
+    # read from a copy: `predict` without a vocoder saves mels under the
+    # model's own directory
+    root = str(tmp_path_factory.mktemp('models'))
+    shutil.copytree('pretrained_models/overfit_demo', root + '/overfit_demo')
+    model = Tacotron2.from_pretrained('overfit_demo', root = root, device = 'cpu')
     arch = WaveGlowArch(** VOCODER)
     vocoder = WaveGlow.from_jax(init_waveglow(arch.hp, arch.flow_channels, seed = 0),
                                 device = 'cpu', ** VOCODER)
@@ -181,7 +186,7 @@ def test_one_launch_hands_the_vocoder_its_config_alone(port_models, monkeypatch)
     model, vocoder = port_models
     calls = _count_calls(monkeypatch, vocoder, 'device_vocoder_fn')
     kw = dict(model = model, vocoder = vocoder, max_length = 2., min_fpt_ratio = -1.,
-              max_fpt_ratio = float('inf'))
+              max_fpt_ratio = float('inf'), save = False, display = False)
     tts('Hello world!', deterministic = True, ** kw)
     tts('Hello world!', deterministic = True, vocoder_config = {'sigma': 0.5}, ** kw)
     assert calls == [{}, {'sigma': 0.5}]
@@ -225,12 +230,19 @@ def test_attention_follows_the_fetch_contract(port_models):
     assert out['attention'][0].shape == (frames(out), 64) and 'audio' not in out
     out = model.infer('Hello world!', fetch_attention = False, ** kw)
     assert out['attention'] == [None]
-    batched = model.predict(['Hello world!', 'Hi.'], batch_size = 2, vocoder = vocoder, ** kw)
+    batched = model.predict(['Hello world!', 'Hi.'], batch_size = 2, vocoder = vocoder,
+                            save = False, display = False, ** kw)
     assert [o['attention'] for o in batched] == [[None], [None]]
+    # with callbacks the queued path fetches attention, as in the JAX package
+    seen = []
+    out = model.infer('Hello world!', vocoder = vocoder,
+                      callbacks = [FunctionCallback(seen.append)], ** kw)
+    assert out['attention'][0].shape == (frames(out), 64) and seen == [out]
+    # a win_len vocodes in windows, off the one-launch path, to the full length
+    out = model.infer('Hello world!', vocoder = vocoder, win_len = 48, hop_len = -16, ** kw)
+    assert out['audio'].shape == (frames(out) * 256,) and out['attention'] == [None]
     with pytest.raises(TypeError):
-        model.infer('Hello world!', callbacks = [])
-    with pytest.raises(NotImplementedError):
-        model.infer('Hello world!', vocoder = vocoder, win_len = 64, ** kw)
+        model.infer('Hello world!', embeddings = np.zeros(4, np.float32))
 
 
 def test_predict_routing(port_models, monkeypatch):

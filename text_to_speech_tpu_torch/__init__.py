@@ -12,6 +12,6 @@ channels-last activations and mel ``(B, frames, n_mel)``.
 """
 
 from .devices import default_device
-from .models.tts import tts, get_models
+from .models.tts import tts, get_models, stream
 
-__all__ = ['default_device', 'tts', 'get_models']
+__all__ = ['default_device', 'tts', 'get_models', 'stream']

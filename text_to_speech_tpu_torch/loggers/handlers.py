@@ -1,9 +1,10 @@
 """Extra logging handlers.
 
 Counterpart of ``text_to_speech_tpu/loggers/handlers.py``.  `TTSHandler`
-calls the port's `tts()`, which does not play audio yet (it refuses
-``play``): every record it is given goes to `handleError`, as the JAX
-package's handler does when synthesis fails.
+speaks a record through the port's `tts(..., play=True)`, on the thread
+that logs it; on a host without a player the playback logs a warning and
+returns, and the handler does not re-enter itself for it.  A failed
+synthesis goes to `handleError`.
 """
 
 import logging
@@ -48,8 +49,12 @@ class TTSHandler(logging.Handler):
         try:
             self._busy = True
             from ..models.tts import tts
+            # on this thread (workers=0): a record logged while it speaks
+            # (the player's own warning) then finds the handler's lock held
+            # by its own thread and returns on `_busy`, where a `Stream`
+            # thread would wait for that lock for ever
             tts(self.format(record), model = self.model, lang = self.lang,
-                play = True, save = False, blocking = self.blocking)
+                play = True, save = False, blocking = self.blocking, workers = 0)
         except Exception:
             self.handleError(record)
         finally:

@@ -15,9 +15,9 @@ when it trains (`models.tts.waveglow.WaveGlow.save`).  The root is
 directory), like the JAX package's, unless a caller passes its own.
 """
 
-import json
 import os
 
+from ..utils.file_utils import load_json
 from ..weights import load_tree
 
 
@@ -27,11 +27,6 @@ def pretrained_root(root = None):
 
 def model_dir(name, * parts, root = None):
     return os.path.join(pretrained_root(root), name, * parts)
-
-
-def load_json(path):
-    with open(path, encoding = 'utf-8') as file:
-        return json.load(file)
 
 
 def load_model_files(name, root = None):

@@ -1,19 +1,51 @@
 """TTS user API.
 
-Counterpart of ``text_to_speech_tpu/models/tts/__init__.py`` (`tts`,
-`get_models`).  Models are instances or the names of saved models under
-the pretrained-models root; the language map and streaming are not ported.
+Counterpart of ``text_to_speech_tpu/models/tts/__init__.py``: the
+language → pretrained-model map (`set_pretrained_model`,
+`get_pretrained_model`, `get_model_lang`), `get_models`, `tts` and
+`stream`.  Models are instances or the names of saved models under the
+pretrained-models root (or the caller's `root`), loaded on `device`.  The
+map's defaults name models that are not in the repo, so loading them
+raises; nothing is downloaded.  `serve()` is not ported.
 """
+
+import os
 
 from .tacotron2 import Tacotron2
 from .waveglow import WaveGlow
 
+_pretrained = {
+    'en': 'pretrained_tacotron2',
+    'fr': 'sv2tts_siwis_v3',
+}
+
 _default_vocoder = 'waveglow'
 
 
-def get_models(model, vocoder = None, *, device = None, root = None):
-    """Resolve (synthesizer, vocoder) from instances or saved-model names;
+def set_pretrained_model(model, lang):
+    """Map `lang` onto `model` for future `tts(..., lang = lang)` calls."""
+    _pretrained[lang] = model
+
+
+def get_pretrained_model(lang):
+    return _pretrained.get(lang)
+
+
+def get_model_lang(lang):
+    if lang not in _pretrained:
+        raise ValueError('No pretrained model for lang {!r} (known: {})'.format(
+            lang, sorted(_pretrained)
+        ))
+    return _pretrained[lang]
+
+
+def get_models(model = None, lang = None, vocoder = None, *, device = None, root = None):
+    """Resolve (synthesizer, vocoder) from a model name/instance or a lang;
     names load on `device` (``cuda`` unless the caller passes ``'cpu'``)."""
+    if model is None:
+        if lang is None:
+            raise ValueError('Provide either `model` or `lang`')
+        model = get_model_lang(lang)
     if isinstance(model, str):
         model = Tacotron2.from_pretrained(model, root = root, device = device)
     if vocoder is None:
@@ -23,15 +55,28 @@ def get_models(model, vocoder = None, *, device = None, root = None):
     return model, vocoder
 
 
-def tts(text, *, model, vocoder = None, device = None, root = None, ** kwargs):
+def tts(text, *, model = None, lang = None, vocoder = None, add_model_name = False,
+        device = None, root = None, ** kwargs):
     """Main entry point: text (str or list) → one output dict per text (see
-    `Tacotron2.predict_batched`), always a list.  Audio playback is not
-    ported: ``play`` raises `TypeError`."""
-    if 'play' in kwargs:
-        raise TypeError('tts() does not take `play` yet: audio playback is not ported '
-                        '(see ROADMAP.md)')
-    model, vocoder = get_models(model, vocoder, device = device, root = root)
+    `Tacotron2.predict`), always a list.
+
+    `add_model_name` redirects an explicit `directory=` into a per-model
+    subdirectory, so several models can predict into one artifact root."""
+    model, vocoder = get_models(model = model, lang = lang, vocoder = vocoder,
+                                device = device, root = root)
+    if add_model_name and kwargs.get('directory'):
+        kwargs['directory'] = os.path.join(kwargs['directory'], model.name)
     return model.predict(text, vocoder = vocoder, ** kwargs)
 
 
-__all__ = ['Tacotron2', 'WaveGlow', 'get_models', 'tts']
+def stream(stream_input, *, model = None, lang = None, vocoder = None, play = True,
+           device = None, root = None, ** kwargs):
+    """Synthesis over a queue (ended by `None`) or an iterator of texts
+    (`Tacotron2.stream`)."""
+    model, vocoder = get_models(model = model, lang = lang, vocoder = vocoder,
+                                device = device, root = root)
+    return model.stream(stream_input, vocoder = vocoder, play = play, ** kwargs)
+
+
+__all__ = ['Tacotron2', 'WaveGlow', 'get_models', 'get_model_lang', 'get_pretrained_model',
+           'set_pretrained_model', 'stream', 'tts']

@@ -4,14 +4,23 @@ Counterpart of ``text_to_speech_tpu/models/tts/tacotron2.py``: loading a
 saved model, `clean_text` / `encode_text`, `compiled_infer` with the ×64
 token padding and max-length bucketing, and the two synthesis flows:
 
-  - `infer` (one text; what `predict` runs without a `batch_size`): a single
-    chunk goes through `_tts_one_launch` → `compiled_tts`, decode → vocode →
-    16-bit quantisation queued on the device with no host read in between;
-    several chunks decode as one batch in `_synthesize_and_vocode`.  A
-    frames-per-token ratio outside its gates falls to `_synthesize_chunks`,
-    which retries the failing chunks with fresh prenet dropout.
+  - `infer` (one text; what `predict` runs, on its `Stream` thread, without
+    a `batch_size`): a single chunk goes through `_tts_one_launch` →
+    `compiled_tts`, decode → vocode → 16-bit quantisation queued on the
+    device with no host read in between; several chunks decode as one batch
+    in `_synthesize_and_vocode`, and with a `win_len` the vocoder cuts the
+    windows of the decoded mels on the device
+    (`WaveGlow.vocode_windowed_from_device`; a `win_len` never takes the
+    one-launch path).  A frames-per-token ratio outside its gates falls to
+    `_synthesize_chunks`, which retries the failing chunks with fresh prenet
+    dropout, then `_vocode_chunks` (windowed: `vocode_windowed_batch`).
   - `predict_batched` (lists with ``batch_size > 1``): the chunks of several
     texts share one decode batch, through the same helpers.
+
+Both take the inference callbacks (`get_inference_callbacks`: audio and mel
+savers, the ``map.json`` prediction cache, playback, user functions and
+queues); a text in the cache is answered from it without decoding.
+`stream` runs `predict` over a queue or an iterator.
 
 The decoder is the fused kernel (`arch.infer_fused`) or the plain loop
 (`arch.infer`), chosen in `_use_fused_decoder`.
@@ -21,12 +30,12 @@ dispatch: `predict`, `inference` (`infer`) with `processing` (cleaning and
 tokenizing), `compiled_tts` (the one-launch path) and `compiled_infer`
 (each other decode).
 
-Not ported yet (see ROADMAP.md): windowed vocoding, the artifact callbacks
-and the ``map.json`` cache, speaker embeddings, streaming.
+Not ported yet (see ROADMAP.md): speaker embeddings (SV2TTS).
 """
 
 import logging
 import os
+import shutil
 import time
 
 import numpy as np
@@ -36,8 +45,14 @@ from ...devices import default_device
 from ...loggers import Timer, timer
 from ...ops.decoder_kernel import kernel_weights_only, pack_decoder_weights
 from ...text import Tokenizer, split_text, split_sentences
+from ...utils.callbacks import (
+    AudioSaver, SpectrogramSaver, JSONSaver, AudioPlayer, FunctionCallback,
+    QueueCallback, apply_callbacks,
+)
+from ...utils.file_utils import load_json
 from ...weights import cast_tree, tacotron2_from_jax, tree_to
-from ..saving import load_json, load_model_files
+from ..base_model import BaseModel
+from ..saving import load_model_files, model_dir
 from ..tacotron2_arch import Tacotron2 as Tacotron2Arch
 
 logger = logging.getLogger(__name__)
@@ -91,12 +106,16 @@ def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
     return np.pad(data, pads, mode = 'constant', constant_values = constant_values)
 
 
-class Tacotron2:
+class Tacotron2(BaseModel):
     def __init__(self, params, state, *, tokenizer, name = 'tacotron2',
                  device = None, rate = 22050, pad_mel_value = -11.,
-                 max_output_length = DEFAULT_MAX_MEL_LENGTH, ** arch_config):
-        """`params`, `state`: the port's trees (`weights.tacotron2_from_jax`)."""
+                 max_output_length = DEFAULT_MAX_MEL_LENGTH, root = None, ** arch_config):
+        """`params`, `state`: the port's trees (`weights.tacotron2_from_jax`).
+        `root`: the directory holding ``<name>/``, whose ``predictions/``
+        the inference callbacks write by default (the pretrained-models root
+        unless given)."""
         self.name = name
+        self.folder = model_dir(name, root = root)
         self.device = default_device(device)
         self.tokenizer = tokenizer
         self.arch = Tacotron2Arch(** arch_config)
@@ -131,7 +150,7 @@ class Tacotron2:
         config = files['config'].get('config', {})
         mel_fn = load_json(os.path.join(saving, 'mel_fn.json'))
         return cls.from_jax(
-            files['params'], files['state'], name = name, device = device,
+            files['params'], files['state'], name = name, device = device, root = root,
             tokenizer = Tokenizer.load_from_file(os.path.join(saving, 'tokenizer.json')),
             rate = mel_fn.get('sampling_rate', 22050),
             pad_mel_value = config.get('pad_mel_value', -11.),
@@ -267,10 +286,25 @@ class Tacotron2:
         keep = [i for i, e in enumerate(encoded) if len(e)]
         return [splitted[i] for i in keep], [encoded[i] for i in keep]
 
+    def precompile_for_stream(self, ** kwargs):
+        """Warm the decode at the stream's padding buckets (64 and 128
+        tokens) with one short text each, before a `stream` starts."""
+        for key in ('max_trial', 'padding_multiple', 'play', 'display',
+                    'save', 'save_mel', 'save_audio'):
+            kwargs.pop(key, None)
+        for multiple in (64, 128):
+            self.infer('precompile warmup', max_trial = 1,
+                       padding_multiple = multiple, ** kwargs)
+
     @timer(name = 'inference')
     def infer(self,
               text,
               *,
+              embeddings = None,
+              callbacks = None,
+              predicted = None,
+              overwrite = False,
+              return_output = True,
               max_length = 10.,
               max_text_length = -1,
               max_trial = 5,
@@ -288,25 +322,37 @@ class Tacotron2:
         frames-per-token gates (`min_fpt_ratio`, `max_fpt_ratio`) catch
         degenerate attention (too short, or runaway); only the failing
         chunks are retried, with fresh prenet dropout, up to `max_trial`
-        times, and the last output is kept.
+        times, and the last output is kept.  A `win_len` (top level or in
+        `vocoder_config`, with its `hop_len`) vocodes in windows.
+
+        A text found in `predicted` (the ``map.json`` cache) is answered
+        from it, unless `overwrite`: its entry goes through the `callbacks`
+        unsaved and is returned.  Otherwise the output goes through the
+        callbacks, which record it in `predicted`.
 
         Returns {'text', 'cleaned', 'splitted', 'mel' and 'attention' (one
-        entry per chunk), and with a vocoder 'audio', 'rate', 'time'}.
-        Attention maps are fetched by default on the sequential (retry)
-        path; on the paths that queue the vocoder behind the decoder their
-        entries are None unless ``fetch_attention=True``."""
-        for name in ('callbacks', 'predicted', 'embeddings'):
-            if name in kwargs:
-                raise TypeError('infer() does not take `{}` yet: see ROADMAP.md'.format(name))
+        entry per chunk), and with a vocoder 'audio', 'rate', 'time'}, or
+        with ``return_output=False`` the text's cache entry.  Attention maps
+        are fetched by default on the sequential (retry) path; on the paths
+        that queue the vocoder behind the decoder only when callbacks are
+        given, unless `fetch_attention` says otherwise."""
+        if embeddings is not None:
+            raise TypeError('infer() does not take `embeddings` yet: speaker embeddings '
+                            'come with SV2TTS (see ROADMAP.md)')
         if isinstance(text, dict):
             text = text.get('text', text.get('content'))
+
+        predicted = predicted if predicted is not None else {}
+        if predicted and not overwrite and text in predicted:
+            if callbacks:
+                apply_callbacks(callbacks, predicted[text], {}, save = False)
+            return predicted[text]
+
         with Timer('processing'):
             splitted, encoded = self._split_and_encode(text, max_text_length)
-            cleaned = '\n\n'.join(splitted) if len(splitted) > 1 else (
-                splitted[0] if splitted else '')
 
         fa_sequential = True if fetch_attention is None else fetch_attention
-        fa_pipelined = False if fetch_attention is None else fetch_attention
+        fa_pipelined = bool(callbacks) if fetch_attention is None else fetch_attention
 
         mels, attn_weights, audios = [], [], []
         if encoded:
@@ -316,18 +362,40 @@ class Tacotron2:
                 vocoder_config = vocoder_config, batch_chunks = batch_chunks,
                 fa_sequential = fa_sequential, fa_pipelined = fa_pipelined, ** kwargs)
 
-        output = {'text': text, 'cleaned': cleaned, 'splitted': splitted,
-                  'mel': mels, 'attention': attn_weights}
+        output = self._output(text, splitted, mels, attn_weights)
         if vocoder is not None:
             output.update(self._audio_infos(audios, silence_time))
-        return output
+        if callbacks:
+            self._record(text, output, callbacks, predicted)
+        if return_output:
+            return output
+        return predicted.get(text, {k: v for k, v in output.items()
+                                    if k not in ('mel', 'attention')})
+
+    @staticmethod
+    def _output(text, splitted, mels, attention):
+        return {'text': text,
+                'cleaned': '\n\n'.join(splitted) if len(splitted) > 1 else (
+                    splitted[0] if splitted else ''),
+                'splitted': splitted, 'mel': mels, 'attention': attention}
+
+    @staticmethod
+    def _record(text, output, callbacks, predicted):
+        """A new text's cache entry (its output without the arrays), then
+        every callback on the output."""
+        if text not in predicted:
+            predicted[text] = {k: v for k, v in output.items()
+                               if k not in ('mel', 'attention', 'audio')}
+        apply_callbacks(callbacks, predicted[text], output, save = True)
 
     def _audio_infos(self, audios, silence_time = 0.15):
+        """'audio' (the chunks' audio joined), 'rate' and 'time'; without
+        audio, `silence_time` seconds of silence."""
         if audios:
             audio = audios[0] if len(audios) == 1 else np.concatenate(audios, axis = 0)
-        else:
-            audio = np.zeros((int(silence_time * self.rate),), np.float32)
-        return {'audio': audio, 'rate': self.rate, 'time': len(audio) / self.rate}
+            return {'audio': audio, 'rate': self.rate, 'time': len(audio) / self.rate}
+        audio = np.zeros((int(silence_time * self.rate),), np.float32)
+        return {'audio': audio, 'rate': self.rate, 'time': silence_time}
 
     def _synthesize(self, encoded, vocoder, *, max_length, max_trial, min_fpt_ratio,
                     max_fpt_ratio, vocoder_config, fa_sequential, fa_pipelined,
@@ -371,13 +439,14 @@ class Tacotron2:
                                vocoder_config = {}, vocoder_batch = None,
                                fetch_attention = True, ** kwargs):
         """Decode → vocode with the vocoder queued on the device mel before
-        any host read.  Returns (mels, attention, audios), or None on a
-        frames-per-token gate failure: the caller's retry path then decodes
-        again, chunk by chunk."""
-        if kwargs.pop('win_len', None) or vocoder_config.get('win_len'):
-            raise NotImplementedError('windowed vocoding is not ported yet: see ROADMAP.md')
-
-        if len(encoded) == 1:
+        any host read.  With a `win_len` (top level or in `vocoder_config`)
+        the vocoder cuts the windows of the decoded mels on the device once
+        the gate has read the lengths (`vocode_windowed_from_device`), and a
+        single chunk does not take the one-launch path.  Returns (mels,
+        attention, audios), or None on a frames-per-token gate failure: the
+        caller's retry path then decodes again, chunk by chunk."""
+        win_len = kwargs.pop('win_len', None) or vocoder_config.get('win_len')
+        if len(encoded) == 1 and not win_len:
             return self._tts_one_launch(
                 encoded, vocoder, max_length = max_length, min_fpt_ratio = min_fpt_ratio,
                 max_fpt_ratio = max_fpt_ratio, vocoder_config = vocoder_config,
@@ -394,30 +463,43 @@ class Tacotron2:
         for k in _DECODE_ONLY:
             if k not in vocoder_config:
                 vkwargs.pop(k, None)
-        if vocoder_batch is None:
+        vkwargs.pop('win_len', None)
+        hop_len = vkwargs.pop('hop_len', -64)
+        # a top-level `vocoder_batch` wins on both routes; with none, the
+        # windowed route keeps the vocoder's own policy (`_auto_vocoder_batch`)
+        if vocoder_batch is not None:
+            vkwargs['vocoder_batch'] = vocoder_batch
+        else:
             vocoder_batch = vkwargs.get('vocoder_batch') or 8
-        # the vocoder launches are queued before the gate reads the lengths
-        audio_dev = [vocoder.compiled_infer(outputs.mel[lo: lo + vocoder_batch], ** vkwargs)
-                     for lo in range(0, len(encoded), vocoder_batch)]
-        clock.mark()
+        if not win_len:
+            # the vocoder launches are queued before the gate reads the lengths
+            audio_dev = [vocoder.compiled_infer(outputs.mel[lo: lo + vocoder_batch], ** vkwargs)
+                         for lo in range(0, len(encoded), vocoder_batch)]
 
         out_lengths = outputs.lengths.cpu().numpy()
-        decode_s, vocode_s = clock.seconds()
-        self.last_timings = {'decode_s': decode_s, 'vocode_s': vocode_s}
         if not self._passes_gates(out_lengths, [len(e) for e in encoded],
                                   min_fpt_ratio, max_fpt_ratio, 'pipelined'):
             return None
+        if win_len:
+            audios = vocoder.vocode_windowed_from_device(
+                outputs.mel, out_lengths, win_len = win_len, hop_len = hop_len, ** vkwargs)
+        clock.mark()
+        decode_s, vocode_s = clock.seconds()
+        self.last_timings = {'decode_s': decode_s, 'vocode_s': vocode_s}
 
         mel_host = outputs.mel.cpu().numpy()
         attn_host = outputs.attention_weights.cpu().numpy() if fetch_attention else None
-        audio_host = [a.cpu().numpy() for a in audio_dev]
         rate = vocoder.upsample_rate
-        mels, attn, audios = [], [], []
+        mels, attn = [], []
+        if not win_len:
+            audio_host = [a.cpu().numpy() for a in audio_dev]
+            audios = [audio_host[i // vocoder_batch][i % vocoder_batch,
+                                                     : max(1, int(out_lengths[i])) * rate]
+                      for i in range(len(encoded))]
         for i in range(len(encoded)):
             out_len = max(1, int(out_lengths[i]))
             mels.append(mel_host[i, :out_len])
             attn.append(attn_host[i, :out_len] if attn_host is not None else None)
-            audios.append(audio_host[i // vocoder_batch][i % vocoder_batch, : out_len * rate])
         return mels, attn, audios
 
     def _tts_one_launch(self, encoded, vocoder, *, max_length = 10.,
@@ -501,14 +583,18 @@ class Tacotron2:
 
     def _vocode_chunks(self, vocoder, mels, *, batch_chunks = True, vocoder_batch = None,
                        ** kwargs):
-        """Vocode chunk mels: in padded sub-batches of `vocoder_batch` when
-        their lengths are close (bounded padding waste), else one by one."""
-        if kwargs.pop('win_len', None):
-            raise NotImplementedError('windowed vocoding is not ported yet: see ROADMAP.md')
+        """Vocode chunk mels: with a `win_len`, every chunk's windows in
+        shared batches (`vocode_windowed_batch`; `vocoder_batch` None: the
+        vocoder's own policy), or chunk by chunk without `batch_chunks`;
+        else in padded sub-batches of `vocoder_batch` when their lengths are
+        close (bounded padding waste), or one by one."""
         for k in _DECODE_ONLY:
             kwargs.pop(k, None)
+        if len(mels) > 1 and batch_chunks and kwargs.get('win_len'):
+            return vocoder.vocode_windowed_batch(
+                mels, pad_value = self.pad_mel_value, vocoder_batch = vocoder_batch, ** kwargs)
         if vocoder_batch is None: vocoder_batch = 8
-        use_batch = (len(mels) > 1 and batch_chunks
+        use_batch = (len(mels) > 1 and batch_chunks and kwargs.get('win_len') is None
                      and min(m.shape[0] for m in mels) >= max(m.shape[0] for m in mels) // 2)
         if not use_batch:
             return [vocoder(mel, ** kwargs)[0] for mel in mels]
@@ -521,35 +607,127 @@ class Tacotron2:
             audios.extend(audio[i, : m.shape[0] * rate] for i, m in enumerate(group))
         return audios
 
+    def get_inference_callbacks(self,
+                                *,
+                                vocoder = None,
+                                save = None,
+                                save_mel = None,
+                                save_audio = None,
+                                directory = None,
+                                mel_dir = None,
+                                audio_dir = None,
+                                mel_filename = 'mel-{}.npy',
+                                audio_filename = 'audio-{}.mp3',
+                                play = False,
+                                display = None,
+                                post_processing = None,
+                                save_in_parallel = False,
+                                ** _):
+        """(predicted, callbacks) for `predict`, as in the JAX package: with
+        a vocoder the audio is saved unless ``save=False`` (without one, the
+        mels), under `directory` (by default `pred_dir`), whose ``map.json``
+        is `predicted`; without ``ffmpeg`` on the host an audio format other
+        than WAV is written as WAV.  With a vocoder and nothing saved, the
+        audio is displayed unless played.  `post_processing`: functions
+        called on each output, or queues that receive it."""
+        if vocoder is None:
+            play, display, save_audio = False, False, False
+        elif save_audio is None:
+            save_audio = save is not False
+        if save is None: save = bool(directory) or vocoder is None
+        if save_mel is None: save_mel = save and vocoder is None
+
+        save = save_mel or save_audio
+        if vocoder is not None:
+            if save:
+                save_audio = True
+            elif display is None:
+                display = not play
+
+        predicted, callbacks = {}, []
+        if save:
+            if directory is None: directory = self.pred_dir
+            map_file = os.path.join(directory, 'map.json')
+            predicted = load_json(map_file, default = {})
+
+            if save_mel:
+                if mel_dir is None: mel_dir = os.path.join(directory, 'mels')
+                callbacks.append(SpectrogramSaver(
+                    file_format = os.path.join(mel_dir, mel_filename),
+                    save_in_parallel = save_in_parallel,
+                ))
+            if save_audio:
+                if audio_dir is None: audio_dir = os.path.join(directory, 'audios')
+                ext = audio_filename.rsplit('.', 1)[-1].lower()
+                if ext != 'wav' and shutil.which('ffmpeg') is None:
+                    logger.info('ffmpeg unavailable: saving audio as .wav instead of .%s', ext)
+                    audio_filename = audio_filename.rsplit('.', 1)[0] + '.wav'
+                callbacks.append(AudioSaver(
+                    file_format = os.path.join(audio_dir, audio_filename),
+                    save_in_parallel = save_in_parallel,
+                ))
+            callbacks.append(JSONSaver(
+                data = predicted, filename = map_file, primary_key = 'text',
+                save_in_parallel = save_in_parallel,
+            ))
+
+        if display or play:
+            callbacks.append(AudioPlayer(display = bool(display), play = bool(play)))
+
+        if post_processing is not None:
+            if not isinstance(post_processing, list):
+                post_processing = [post_processing]
+            for fn in post_processing:
+                if callable(fn):
+                    callbacks.append(FunctionCallback(fn))
+                elif hasattr(fn, 'put'):
+                    callbacks.append(QueueCallback(fn))
+        return predicted, callbacks
+
     def predict_batched(self,
                         texts,
                         *,
                         batch_size = 8,
+                        callbacks = None,
+                        overwrite = False,
                         vocoder = None,
+                        embeddings = None,
                         max_length = 10.,
                         max_text_length = -1,
                         max_trial = 5,
                         min_fpt_ratio = 2.,
                         max_fpt_ratio = 10.,
                         vocoder_config = {},
+                        return_output = True,
                         fetch_attention = None,
                         ** kwargs
                        ):
         """Synthesize `texts`: all chunks of up to `batch_size` texts decode
         as one batch, and vocoding is batched the same way.  Returns one
         dict per text, as `infer` does, under the same attention-fetch
-        contract and ratio gates.  `last_timings` holds the decode and
-        vocode seconds of the last group."""
+        contract, ratio gates, callbacks and cache (a cached text is not
+        decoded).  `last_timings` holds the decode and vocode seconds of
+        the last group."""
+        if embeddings is not None:
+            raise TypeError('predict_batched() does not take `embeddings` yet: speaker '
+                            'embeddings come with SV2TTS (see ROADMAP.md)')
+        if callbacks is None:
+            predicted, callbacks = self.get_inference_callbacks(vocoder = vocoder, ** kwargs)
+        else:
+            predicted = {}
         texts = [t.get('text', t.get('content')) if isinstance(t, dict) else t
                  for t in texts]
         fa_sequential = True if fetch_attention is None else fetch_attention
-        fa_pipelined = False if fetch_attention is None else fetch_attention
+        fa_pipelined = bool(callbacks) if fetch_attention is None else fetch_attention
 
         results = []
         for group_start in range(0, len(texts), batch_size):
             group = texts[group_start: group_start + batch_size]
             flat, owners, metas = [], [], []
             for idx, text in enumerate(group):
+                if not overwrite and text in predicted:
+                    metas.append(None)      # answered from the cache below
+                    continue
                 splitted, encoded = self._split_and_encode(text, max_text_length)
                 metas.append(splitted)
                 flat.extend(encoded)
@@ -564,27 +742,36 @@ class Tacotron2:
                     fa_sequential = fa_sequential, fa_pipelined = fa_pipelined, ** kwargs)
 
             for idx, text in enumerate(group):
-                splitted = metas[idx]
+                if metas[idx] is None:
+                    if callbacks:
+                        apply_callbacks(callbacks, predicted[text], {}, save = False)
+                    results.append(predicted[text])
+                    continue
                 rows = [i for i, o in enumerate(owners) if o == idx]
-                output = {
-                    'text': text,
-                    'cleaned': '\n\n'.join(splitted) if len(splitted) > 1
-                               else (splitted[0] if splitted else ''),
-                    'splitted': splitted,
-                    'mel': [mels[i] for i in rows],
-                    'attention': [attns[i] for i in rows],
-                }
+                output = self._output(text, metas[idx], [mels[i] for i in rows],
+                                      [attns[i] for i in rows])
                 if vocoder is not None:
                     output.update(self._audio_infos([audios[i] for i in rows]))
-                results.append(output)
+                if callbacks:
+                    self._record(text, output, callbacks, predicted)
+                results.append(output if return_output else predicted.get(text, {}))
+
+        for cb in callbacks:
+            if hasattr(cb, 'join'): cb.join()
         return results
 
     @timer(name = 'predict')
     def predict(self, inputs, *, batch_size = None, ** kwargs):
         """One output dict per text.  A list with ``batch_size > 1`` is
         synthesized in cross-text batches (`predict_batched`); otherwise
-        each text goes through `infer` on its own."""
+        each text goes through `infer` (`BaseModel.predict`)."""
         if isinstance(inputs, (str, dict)): inputs = [inputs]
         if batch_size and batch_size > 1 and isinstance(inputs, (list, tuple)):
             return self.predict_batched(list(inputs), batch_size = batch_size, ** kwargs)
-        return [self.infer(text, ** kwargs) for text in inputs]
+        return super().predict(inputs, ** kwargs)
+
+    def stream(self, stream, *, vocoder, ** kwargs):
+        """`predict` over a queue (ended by `None`) or an iterator of texts,
+        after `precompile_for_stream`."""
+        self.precompile_for_stream(vocoder = vocoder, ** kwargs)
+        return super().stream(stream, vocoder = vocoder, ** kwargs)

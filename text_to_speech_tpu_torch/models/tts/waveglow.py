@@ -9,8 +9,13 @@ after `quantize_for_serving`, `ops.wn_block_int8`, its weights quantized
 once from the float32 params.  With a `validate` mel the int8 mode is
 gated on its waveform SNR against the float32 chain; when the gate fails,
 the vocoder serves on the float32 chain, never on the bf16 kernel.  The
-kernel weights are made once and cached.  Windowed vocoding is not ported
-yet (see ROADMAP.md).
+kernel weights are made once and cached.
+
+Windowed vocoding (`infer(win_len=...)`, `vocode_windowed_batch`,
+`vocode_windowed_from_device`) cuts a long mel into overlapping windows,
+vocodes them in batches through the same serving route and stitches the
+audio with half-overlap trimming, as the JAX package does.  The windows of
+a mel on the card are cut on the card.
 
 Training (the JAX package's `BaseModel.fit` and the task's data hooks):
 the model owns its mel front end (`mel_fn`, saved as ``saving/mel_fn.json``),
@@ -23,6 +28,7 @@ package's tree layout (`weights.waveglow_to_jax`).
 """
 
 import logging
+import math
 import os
 
 import numpy as np
@@ -33,9 +39,10 @@ from ...loggers import timer
 from ...ops.audio_io import load_audio
 from ...ops.stft import MelSTFT
 from ...train.checkpoint import CheckpointManager
-from ...train.history import History, dump_json
+from ...train.history import History
+from ...utils.file_utils import dump_json, load_json
 from ...weights import tree_to, waveglow_from_jax, waveglow_to_jax
-from ..saving import load_json, load_model_files, model_dir
+from ..saving import load_model_files, model_dir
 from ..waveglow_arch import WaveGlow as WaveGlowArch
 
 logger = logging.getLogger(__name__)
@@ -289,14 +296,265 @@ class WaveGlow:
         return fn(params, mel, generator)
 
     @timer(name = 'inference WaveGlow')
-    def infer(self, mel, ** kwargs):
-        """Vocode a mel in one call → numpy waveform (B, F * upsample_rate)."""
-        mel = np.asarray(mel) if not torch.is_tensor(mel) else mel
-        seq_len = mel.shape[-2]
-        audio = self.compiled_infer(mel, ** kwargs)
-        return audio[:, :seq_len * self.upsample_rate].cpu().numpy()
+    def infer(self,
+              mel,
+              *,
+              win_len = None,
+              hop_len = -64,
+              batch = False,
+              max_win_len = None,
+              ** kwargs
+             ):
+        """Vocode a mel (F, n_mel) or (B, F, n_mel) → numpy waveform
+        (B, F * upsample_rate).  Without `win_len`: one call.  With it:
+        overlapping windows of `win_len` frames (one padding bucket), `hop_len`
+        frames apart (negative: `win_len + hop_len`; a float: a share of
+        `win_len`), stitched with half-overlap trimming (`_stitch_windows`);
+        this bounds the card's memory for arbitrarily long audio.  A float
+        `win_len` is rounded as the JAX package rounds it, `max_win_len` caps
+        it.  A mel no longer than a window, or a batch of mels, is vocoded in
+        one call.  `batch` vocodes every window in one call; without it each
+        window is its own call.  Every call is queued before the first fetch
+        (`_materialize_window_batches`)."""
+        if isinstance(mel, str): mel = np.load(mel)
+        if not torch.is_tensor(mel): mel = np.asarray(mel)
+        if mel.ndim == 2: mel = mel[None]
+        seq_len = mel.shape[1]
+        audio_len = seq_len * self.upsample_rate
+
+        if win_len is not None:
+            if isinstance(win_len, float):
+                win_len = int(math.ceil(seq_len / win_len) * win_len)
+            if max_win_len is not None:
+                win_len = min(win_len, max_win_len)
+            kwargs['padding_multiple'] = win_len
+            if mel.shape[0] > 1 and seq_len > win_len:
+                logger.info('batched mel input: direct inference')
+        if win_len is None or seq_len <= win_len or mel.shape[0] > 1:
+            return self.compiled_infer(mel, ** kwargs)[:, :audio_len].cpu().numpy()
+
+        if isinstance(hop_len, float): hop_len = int(win_len * hop_len)
+        if hop_len < 0: hop_len = win_len + hop_len
+
+        starts = _get_steps(seq_len, win_len, hop_len)
+        parts = [mel[:, s: s + win_len] for s in starts]
+        if batch:
+            stacked = torch.cat(parts) if torch.is_tensor(mel) else np.concatenate(parts)
+            dev_parts, sizes = [self.compiled_infer(stacked, ** kwargs)], [len(parts)]
+        else:
+            dev_parts = [self.compiled_infer(p, ** kwargs) for p in parts]
+            sizes = [1] * len(parts)
+        audio_parts = _materialize_window_batches(dev_parts, sizes)
+        jobs = [(0, int(s), win_len) for s in starts]
+        return _stitch_windows(jobs, audio_parts, [seq_len], win_len, self.upsample_rate)[0][None]
 
     __call__ = infer
+
+    def vocode_windowed_batch(self, mels, *, win_len, hop_len = -64,
+                              pad_value = None, vocoder_batch = None,
+                              transfer_dtype = 'float32', ** kwargs):
+        """Windowed vocoding of several host mels with the windows of all of
+        them batched together: one call per `vocoder_batch` windows (by
+        default `_auto_vocoder_batch`), the tail batch padded with
+        `pad_value` to the same shape.  Every window crosses to the card in
+        one copy, and every call is queued before the first fetch.
+
+        ``transfer_dtype='int16'`` quantizes each window batch to 16-bit PCM
+        on the card before it is fetched (`_quantize_i16`; max abs error
+        1/32767 against float32).
+
+        Returns one stitched waveform per input mel."""
+        if isinstance(win_len, float):
+            win_len = int(win_len)
+        if isinstance(hop_len, float): hop_len = int(win_len * hop_len)
+        if hop_len < 0: hop_len = win_len + hop_len
+        if pad_value is None: pad_value = self.pad_mel_value
+        kwargs.pop('padding_multiple', None)    # windows are already one bucket
+        quantize = np.dtype(transfer_dtype) == np.int16
+
+        # (input_idx, start, valid_frames) of every window
+        jobs, windows, seq_lens = [], [], []
+        for idx, mel in enumerate(mels):
+            mel = mel.cpu().numpy() if torch.is_tensor(mel) else np.asarray(mel)
+            if mel.ndim == 3: mel = mel[0]
+            seq_len = mel.shape[0]
+            seq_lens.append(seq_len)
+            starts = _get_steps(seq_len, win_len, hop_len) if seq_len > win_len \
+                else np.array([0])
+            for start in starts:
+                part = mel[start: start + win_len]
+                valid = part.shape[0]
+                if valid < win_len:
+                    part = np.pad(part, ((0, win_len - valid), (0, 0)),
+                                  constant_values = pad_value)
+                jobs.append((idx, int(start), valid))
+                windows.append(part)
+
+        vocoder_batch = self._auto_vocoder_batch(win_len, len(windows), vocoder_batch)
+        n_batches = -(-len(windows) // vocoder_batch)
+        # the tail batch is padded to the shared shape (its rows are dropped)
+        windows += [np.full_like(windows[0], pad_value)] * (n_batches * vocoder_batch - len(windows))
+        windows = _to_device(np.stack(windows).astype(np.float32), self.device)
+
+        dev_parts, batch_sizes = [], []
+        for b in range(n_batches):
+            batch_sizes.append(min(vocoder_batch, len(jobs) - b * vocoder_batch))
+            dev = self.compiled_infer(windows[b * vocoder_batch: (b + 1) * vocoder_batch],
+                                      padding_multiple = None, ** kwargs)
+            dev_parts.append(self._quantize_i16(dev) if quantize else dev)
+        audio_parts = _materialize_window_batches(dev_parts, batch_sizes)
+        return _stitch_windows(jobs, audio_parts, seq_lens, win_len, self.upsample_rate)
+
+    def vocode_windowed_from_device(self, mel, lengths, *, win_len,
+                                    hop_len = -64, pad_value = None,
+                                    vocoder_batch = None,
+                                    transfer_dtype = 'float32', ** kwargs):
+        """Windowed vocoding straight off a mel batch ``(B, T, n_mel)`` on the
+        card (the synthesizer's decode output): the windows are cut on the
+        card (`_slice_windows`, one gather a window batch), so the mel does
+        not cross to the host before the vocoder runs.
+
+        `lengths[i]` (on the host) gives row i's valid frames: frames past
+        it are replaced by `pad_value` inside the windows, as in the host
+        path's trimmed mels.  A window never starts where it would run past
+        the buffer (the buffer is padded to one window when shorter): a
+        start that would have to be clamped raises.  Returns one stitched
+        waveform per row, ``lengths[i] * upsample_rate`` samples long."""
+        if isinstance(win_len, float): win_len = int(win_len)
+        if isinstance(hop_len, float): hop_len = int(win_len * hop_len)
+        if hop_len < 0: hop_len = win_len + hop_len
+        if pad_value is None: pad_value = self.pad_mel_value
+        kwargs.pop('padding_multiple', None)
+        quantize = np.dtype(transfer_dtype) == np.int16
+
+        lengths = [max(1, int(l)) for l in np.asarray(lengths).reshape(-1)]
+        jobs = []
+        for idx, L in enumerate(lengths):
+            starts = _get_steps(L, win_len, hop_len) if L > win_len else np.array([0])
+            for start in starts:
+                jobs.append((idx, int(start), min(win_len, L - int(start))))
+
+        vocoder_batch = self._auto_vocoder_batch(win_len, len(jobs), vocoder_batch)
+
+        mel = torch.as_tensor(mel, dtype = torch.float32, device = self.device)
+        if mel.shape[1] < win_len:      # decode buffer shorter than a window
+            mel = torch.nn.functional.pad(mel, (0, 0, 0, win_len - mel.shape[1]),
+                                          value = pad_value)
+
+        # (owner, start, owner's length) of every window; the tail batch is
+        # padded with windows of row 0 at 0 (their audio is dropped)
+        n_batches = -(-len(jobs) // vocoder_batch)
+        table = np.zeros((n_batches * vocoder_batch, 3), np.int64)
+        table[:, 2] = lengths[0]
+        for k, (owner, start, _) in enumerate(jobs):
+            table[k] = (owner, start, lengths[owner])
+        if (table[:, 1] + win_len > mel.shape[1]).any():
+            raise ValueError('a window of {} frames would run past the {}-frame mel buffer '
+                             '(lengths {})'.format(win_len, mel.shape[1], lengths))
+        table = _to_device(table, mel.device)
+
+        dev_parts, batch_sizes = [], []
+        for b in range(n_batches):
+            batch_sizes.append(min(vocoder_batch, len(jobs) - b * vocoder_batch))
+            windows = _slice_windows(mel, table[b * vocoder_batch: (b + 1) * vocoder_batch],
+                                     win_len, pad_value)
+            dev = self.compiled_infer(windows, padding_multiple = None, ** kwargs)
+            dev_parts.append(self._quantize_i16(dev) if quantize else dev)
+        audio_parts = _materialize_window_batches(dev_parts, batch_sizes)
+        return _stitch_windows(jobs, audio_parts, lengths, win_len, self.upsample_rate)
+
+    @staticmethod
+    def _quantize_i16(audio):
+        """16-bit PCM on the card before a fetch: ``round(clip(audio, -1, 1)
+        * 32767)``."""
+        return torch.round(torch.clamp(audio, -1., 1.) * 32767.).to(torch.int16)
+
+    def _auto_vocoder_batch(self, win_len, n_windows, vocoder_batch):
+        """Windows per vocoder call: `vocoder_batch` when given; else each
+        call aims at batch × grouped length = 32 × 8192 rows (the grouped
+        length of a window is ``win_len * upsample_rate / n_group``), at most
+        64 windows and at most the power-of-two ceiling of `n_windows`, so
+        that few inputs do not pad a call and the batch sizes stay few."""
+        if vocoder_batch is not None:
+            return vocoder_batch
+        grouped = max(1, win_len * self.upsample_rate // self.arch.hp.n_group)
+        sweet = max(1, (32 * 8192) // grouped)
+        pow2 = 1
+        while pow2 < n_windows: pow2 *= 2
+        return int(min(64, sweet, pow2))
+
+
+def _to_device(array, device):
+    """A host array as a tensor on `device`; to a card by one copy from
+    pinned memory, which does not wait for the work queued before it."""
+    tensor = torch.from_numpy(np.ascontiguousarray(array))
+    if device.type == 'cuda':
+        return tensor.pin_memory().to(device, non_blocking = True)
+    return tensor
+
+
+def _slice_windows(mel, table, win_len, pad_value):
+    """Windows (N, win_len, n_mel) of `mel` (B, T, n_mel), one gather:
+    window k is row ``table[k, 0]`` from frame ``table[k, 1]``, its frames at
+    or past ``table[k, 2]`` (the row's length) set to `pad_value`."""
+    idx = table[:, 1:2] + torch.arange(win_len, device = mel.device)
+    windows = mel[table[:, 0:1], idx]
+    return windows.masked_fill((idx >= table[:, 2:3])[..., None], pad_value)
+
+
+def _materialize_window_batches(dev_parts, batch_sizes):
+    """Window batches (device tensors) → one host waveform per valid row.
+    Every device→host copy is queued (into pinned memory) before one wait;
+    int16 batches (see ``transfer_dtype``) come back as float32 / 32767."""
+    host = []
+    for dev in dev_parts:
+        if dev.is_cuda:
+            buf = torch.empty(dev.shape, dtype = dev.dtype, pin_memory = True)
+            host.append(buf.copy_(dev, non_blocking = True))
+        else:
+            host.append(dev)
+    cuda = [dev.device for dev in dev_parts if dev.is_cuda]
+    if cuda: torch.cuda.synchronize(cuda[0])
+    audio_parts = []
+    for out, n_valid in zip(host, batch_sizes):
+        out = out.numpy()
+        if out.dtype == np.int16:
+            out = out.astype(np.float32) / 32767.
+        audio_parts.extend(out[i] for i in range(n_valid))
+    return audio_parts
+
+
+def _stitch_windows(jobs, audio_parts, seq_lens, win_len, rate):
+    """Half-overlap-trim stitching of per-window waveforms back into one
+    waveform per input.  `jobs[k] = (input_idx, start_frame, valid_frames)`
+    in input-major order; `seq_lens[i]` is input i's total frame count."""
+    results = []
+    cursor = 0
+    for idx, seq_len in enumerate(seq_lens):
+        my_jobs = []
+        while cursor < len(jobs) and jobs[cursor][0] == idx:
+            my_jobs.append((jobs[cursor], audio_parts[cursor]))
+            cursor += 1
+        starts = np.array([j[0][1] for j in my_jobs])
+        overlaps = ((starts[:-1] + win_len) - starts[1:]) * rate \
+            if len(starts) > 1 else np.array([], np.int64)
+        pieces = []
+        for i, ((_, start, valid), audio) in enumerate(my_jobs):
+            audio = audio[: valid * rate]
+            lo = 0 if i == 0 else int(overlaps[i - 1]) // 2
+            trim = 0 if i == len(my_jobs) - 1 else int(overlaps[i]) // 2
+            pieces.append(audio[lo: len(audio) - trim])
+        results.append(np.concatenate(pieces)[: seq_len * rate])
+    return results
+
+
+def _get_steps(length, win_len, hop_len):
+    """Evenly-spread window starts covering [0, length-win_len]."""
+    num_steps = int(math.ceil((length - win_len) / hop_len)) + 1
+    if num_steps == 1: return np.array([0])
+    max_start = length - win_len
+    actual = max_start / (num_steps - 1)
+    return np.round(np.arange(num_steps) * actual).astype(np.int64)
 
 
 def _detach(tree):

@@ -1,17 +1,39 @@
-"""Audio reading for the training data: WAV files and raw arrays → mono
-float32 at the model's rate.
+"""Audio files and playback.
 
-Counterpart of what ``text_to_speech_tpu/ops/audio_io.py`` gives
-`WaveGlow.prepare_data` (`read_audio`, `load_audio`), on numpy and scipy:
-PCM and IEEE-float WAV (``scipy.io.wavfile``; the standard library's
-``wave`` reads PCM only), channels averaged to mono, FFT resampling
+Counterpart of ``text_to_speech_tpu/ops/audio_io.py``, on numpy and scipy.
+Reading, for the training data (`read_audio`, `load_audio`): PCM and
+IEEE-float WAV (``scipy.io.wavfile``; the standard library's ``wave`` reads
+PCM only), channels averaged to mono, FFT resampling
 (``scipy.signal.resample``, the JAX package's default), and the JAX
-package's normalization (DC offset removed, peak scaled to 1).  Other
-codecs (through ffmpeg), noise reduction and silence trimming are not
-ported.
+package's normalization (`audio_processing.normalize_audio`).  Writing, for
+the inference callbacks: the `register_writer` registry, `write_wav`,
+`write_ffmpeg` (mp3, m4a, ogg, flac, opus through an ``ffmpeg`` on the
+host) and `write_audio`.  Playback: `play_audio` through ``ffplay`` or
+``aplay``, which logs a warning and returns False on a host with neither,
+and `display_audio` (an IPython widget in a notebook, else playback).
+Reading other codecs, noise reduction and silence trimming are not ported.
 """
 
+import logging
+import os
+import shutil
+import subprocess
+
 import numpy as np
+
+from . import audio_processing
+from .audio_processing import normalize_audio
+
+logger = logging.getLogger(__name__)
+
+_write_fns = {}
+
+
+def register_writer(*exts):
+    def deco(fn):
+        for e in exts: _write_fns[e] = fn
+        return fn
+    return deco
 
 
 def read_wav(filename):
@@ -26,14 +48,6 @@ def resample_audio(audio, rate, target_rate):
     if rate == target_rate: return audio, rate
     from scipy.signal import resample
     return resample(audio, int(len(audio) / rate * target_rate)), target_rate
-
-
-def normalize_audio(audio, max_val = 1.):
-    """Remove the DC offset and scale the peak to `max_val` → float32."""
-    audio = audio - np.mean(audio)
-    peak = np.max(np.abs(audio))
-    if peak <= 1e-9: return audio.astype(np.float32)
-    return (audio * (max_val / peak)).astype(np.float32)
 
 
 def read_audio(data, *, rate = None, target_rate = None):
@@ -69,3 +83,72 @@ def load_audio(data, rate, ** kwargs):
         data = data[key]
     kwargs.setdefault('rate', rate)
     return read_audio(data, target_rate = rate, ** kwargs)[1]
+
+
+@register_writer('wav')
+def write_wav(filename, audio, rate, ** kwargs):
+    from scipy.io import wavfile
+    wavfile.write(filename, rate, audio)
+
+
+def _ffmpeg_available():
+    return shutil.which('ffmpeg') is not None
+
+
+@register_writer('mp3', 'm4a', 'ogg', 'flac', 'opus')
+def write_ffmpeg(filename, audio, rate, ** kwargs):
+    if not _ffmpeg_available():
+        raise RuntimeError('ffmpeg is required to write {!r} but was not found'.format(filename))
+    audio = audio_processing.convert_audio_dtype(np.asarray(audio), np.float32)
+    subprocess.run(
+        ['ffmpeg', '-y', '-v', 'quiet', '-f', 'f32le', '-ar', str(rate), '-ac', '1',
+         '-i', 'pipe:0', filename],
+        input = audio.astype('<f4').tobytes(), check = True,
+    )
+
+
+def write_audio(filename, audio, rate, *, normalize = False, makedirs = True, ** kwargs):
+    ext = filename.split('.')[-1].lower()
+    if ext not in _write_fns:
+        raise ValueError('Unsupported audio extension {!r} (known: {})'.format(
+            ext, tuple(_write_fns)
+        ))
+    if makedirs:
+        d = os.path.dirname(filename)
+        if d: os.makedirs(d, exist_ok = True)
+    audio = np.asarray(audio)
+    if normalize:
+        audio = normalize_audio(audio, max_val = 1.)
+    _write_fns[ext](filename, audio, rate, ** kwargs)
+    return filename
+
+
+def play_audio(audio, rate = 22050, *, blocking = True, ** kwargs):
+    """Play audio through a host player (ffplay/aplay) when one exists."""
+    import tempfile
+    player = shutil.which('ffplay') or shutil.which('aplay')
+    if player is None:
+        logger.warning('No audio player available on this host (ffplay/aplay)')
+        return False
+    with tempfile.NamedTemporaryFile(suffix = '.wav', delete = False) as f:
+        path = f.name
+    try:
+        write_audio(path, audio_processing.convert_audio_dtype(
+            np.asarray(audio), np.int16
+        ), rate)
+        cmd = [player, '-nodisp', '-autoexit', path] if 'ffplay' in player else [player, path]
+        proc = subprocess.Popen(cmd, stdout = subprocess.DEVNULL, stderr = subprocess.DEVNULL)
+        if blocking: proc.wait()
+        return True
+    finally:
+        if blocking and os.path.exists(path): os.remove(path)
+
+
+def display_audio(audio, rate = 22050, ** kwargs):
+    """Render an IPython audio widget in notebooks, else fall back to playback."""
+    try:
+        from IPython.display import Audio, display
+        display(Audio(np.asarray(audio), rate = rate))
+        return True
+    except Exception:
+        return play_audio(audio, rate, ** kwargs)

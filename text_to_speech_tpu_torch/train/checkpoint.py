@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from ..weights import flatten_tree, unflatten_tree
-from .history import dump_json, load_json
+from ..utils.file_utils import dump_json, load_json
 
 
 def save_tree(filename, tree):

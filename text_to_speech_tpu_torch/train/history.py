@@ -6,12 +6,12 @@ per-batch metric logs, one config record per training run, and the same
 [...]}``), so either package reads the other's.  Plotting is not ported.
 """
 
-import json
-import os
 import time
 
 import numpy as np
 import torch
+
+from ..utils.file_utils import load_json, dump_json
 
 
 def to_json_serializable(value):
@@ -27,21 +27,6 @@ def to_json_serializable(value):
     if isinstance(value, np.generic):
         return value.item()
     return value
-
-
-def dump_json(filename, data, indent = 2):
-    directory = os.path.dirname(filename)
-    if directory: os.makedirs(directory, exist_ok = True)
-    with open(filename, 'w', encoding = 'utf-8') as file:
-        json.dump(to_json_serializable(data), file, indent = indent)
-    return filename
-
-
-def load_json(filename, default = None):
-    if not os.path.exists(filename):
-        return default
-    with open(filename, encoding = 'utf-8') as file:
-        return json.load(file)
 
 
 class History:
@@ -99,7 +84,7 @@ class History:
     @classmethod
     def load(cls, filename):
         hist = cls(filename = filename)
-        config = load_json(filename)
+        config = load_json(filename, default = None)
         if config:
             hist.epoch_logs = config.get('epoch_logs', [])
             hist.trainings = config.get('trainings', [])
