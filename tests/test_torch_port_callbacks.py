@@ -129,8 +129,8 @@ def test_callbacks_and_cache_match_jax(models, tmp_path, monkeypatch):
 
 
 def test_tts_surface(models, monkeypatch, tmp_path):
-    """The language map, `add_model_name` and `embeddings` (refused until
-    SV2TTS is ported)."""
+    """The language map, `add_model_name` and `embeddings` (unused by a
+    model without speaker conditioning, as in the JAX architecture)."""
     _, model, vocoder, root = models
     _short_bucket(monkeypatch, vocoder)
     monkeypatch.setitem(tts_module._pretrained, 'en', tts_module._pretrained['en'])
@@ -146,8 +146,11 @@ def test_tts_surface(models, monkeypatch, tmp_path):
         get_model_lang('xx')
     with pytest.raises(ValueError):
         tts('hi', lang = 'xx')
-    with pytest.raises(TypeError, match = 'embeddings'):
-        model.infer('Hi.', embeddings = np.zeros(4, np.float32))
+    kw = dict(deterministic = True, max_length = 64, min_fpt_ratio = -1.,
+              max_fpt_ratio = float('inf'))
+    np.testing.assert_array_equal(
+        model.infer('Hi.', embeddings = np.zeros(4, np.float32), ** kw)['mel'][0],
+        model.infer('Hi.', ** kw)['mel'][0])
 
 
 # -- playback ---------------------------------------------------------------------------

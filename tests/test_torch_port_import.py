@@ -42,7 +42,10 @@ def test_port_imports_without_jax():
                  'train.history', 'train.checkpoint', 'ops.matmul_rate', 'loggers',
                  'loggers.time_logging', 'loggers.handlers', 'utils.stream', 'utils.callbacks',
                  'utils.file_utils', 'utils.generic_utils', 'ops.audio_stream',
-                 'ops.audio_processing', 'models.base_model'):
+                 'ops.audio_processing', 'models.base_model', 'models.encoder_arch',
+                 'models.encoder.speaker_encoder', 'models.base_audio_model',
+                 'models.tts.sv2tts_tacotron2', 'models.tts.speaker_embedding_mixin',
+                 'utils.embeddings', 'utils.distances'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
@@ -67,6 +70,10 @@ def test_entry_points_raise_without_device():
         raises(lambda: tts('hello', model = 'overfit_demo'))
         raises(lambda: Tacotron2({}, {}, tokenizer = default_english_tokenizer()))
         raises(lambda: WaveGlow({}))
+        from text_to_speech_tpu_torch.models.encoder import SpeakerEncoder
+        from text_to_speech_tpu_torch.models.tts import SV2TTSTacotron2
+        raises(lambda: SpeakerEncoder({}, {}))
+        raises(lambda: SV2TTSTacotron2({}, {}, tokenizer = default_english_tokenizer()))
         from text_to_speech_tpu_torch.train.trainer import fit
         vocoder = WaveGlow({}, device = 'cpu')
         raises(lambda: fit(vocoder, []))

@@ -1,11 +1,13 @@
 """Random parameter trees in the JAX package's layout, made with numpy.
 
-`init_tacotron2` and `init_waveglow` follow the JAX package's ``init``
-methods (glorot-uniform kernels, orthogonal recurrent and invertible
-kernels, unit forget bias, identity batch norms) but draw from a numpy
-generator, so that NVIDIA-size models can be built without JAX and the same
-arrays can be handed to both packages.  Pass the trees through
-`weights.tacotron2_from_jax` / `weights.waveglow_from_jax` for the port.
+`init_tacotron2`, `init_waveglow` and `init_audio_encoder` follow the JAX
+package's ``init`` methods (glorot-uniform kernels, orthogonal recurrent and
+invertible kernels, unit forget bias, identity batch norms, the identity
+'start' speaker projection) but draw from a numpy generator, so that
+NVIDIA-size models can be built without JAX and the same arrays can be
+handed to both packages.  Pass the trees through `weights.tacotron2_from_jax`
+/ `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax` for the
+port.
 
 WaveGlow's ``end`` convs start at zero in the JAX package, which leaves the
 waveform independent of the WN blocks; here they get small normal weights
@@ -60,11 +62,21 @@ def _batch_norm(dim):
 
 
 def init_tacotron2(hp, seed = 0):
-    """(params, state) for a `Tacotron2` with hparams `hp`."""
+    """(params, state) for a `Tacotron2` with hparams `hp`, speaker widths
+    included (`speaker_embedding_dim`, `speaker_concat_pos`)."""
+    from .models.tacotron2_arch import Tacotron2
+    arch = Tacotron2(** hp.get_config())
+    D = arch.encoder_output_dim
     rng = np.random.default_rng(seed)
     enc, enc_state = {}, {}
     enc['embedding'] = {'embeddings': rng.uniform(
         -0.05, 0.05, (hp.vocab_size, hp.encoder_embedding_dim)).astype(np.float32)}
+    if 'start' in arch.concat_pos:
+        E = hp.encoder_embedding_dim
+        # the identity on the embedding's rows, zeros on the speaker's
+        enc['speaker_projection'] = {
+            'kernel': np.eye(E + hp.speaker_embedding_dim, E, dtype = np.float32),
+            'bias': np.zeros((E,), np.float32)}
     for i in range(hp.encoder_n_conv):
         bn, bn_state = _batch_norm(hp.encoder_embedding_dim)
         enc['conv_{}'.format(i)] = {
@@ -77,11 +89,10 @@ def init_tacotron2(hp, seed = 0):
                      'backward': _lstm(rng, hp.encoder_embedding_dim, half)}
 
     dec = {'prenet': {}}
-    pre_in = hp.n_mel_channels
+    pre_in = arch.prenet_in_dim
     for i, size in enumerate(hp.prenet_sizes):
         dec['prenet']['layer_{}'.format(i)] = _dense(rng, pre_in, size, hp.prenet_use_bias)
         pre_in = size
-    D = hp.encoder_embedding_dim
     dec['attention_rnn'] = _lstm(rng, hp.prenet_sizes[-1] + D, hp.attention_rnn_dim)
     dec['attention'] = {
         'query': _dense(rng, hp.attention_rnn_dim, hp.lsa_attention_dim, False),
@@ -140,6 +151,31 @@ def init_waveglow(hp, flow_channels, seed = 0, end_scale = 1e-2):
         params['flow_{}'.format(k)] = {'convinv': {'kernel': _orthogonal(rng, (c, c))},
                                        'block': block}
     return params
+
+
+def init_audio_encoder(hp, seed = 0, statistics = False):
+    """(params, state) for an `AudioEncoder` with hparams `hp`.  With
+    `statistics`, the batch norms get seeded running statistics and affine
+    parameters away from the identity, so that a random encoder exercises
+    every term of its inference batch norm."""
+    rng = np.random.default_rng(seed)
+    params, state = {}, {}
+    ch_in = hp.n_mel_channels
+    for i, ch_out in enumerate(hp.filters):
+        bn, bn_state = _batch_norm(ch_out)
+        if statistics:
+            bn = {'gamma': rng.uniform(0.5, 1.5, ch_out).astype(np.float32),
+                  'beta': (0.1 * rng.standard_normal(ch_out)).astype(np.float32)}
+            bn_state = {'moving_mean': (0.1 * rng.standard_normal(ch_out)).astype(np.float32),
+                        'moving_var': rng.uniform(0.5, 2., ch_out).astype(np.float32)}
+        params['conv_{}'.format(i)] = {'conv': _conv(rng, hp.kernel_size, ch_in, ch_out),
+                                       'bn': bn}
+        state['conv_{}'.format(i)] = {'bn': bn_state}
+        ch_in = ch_out
+    # statistics pooling (mean ⊕ std) doubles the channels
+    params['projection'] = _dense(rng, 2 * ch_in, hp.embedding_dim)
+    params['ge2e'] = {'w': np.array(10., np.float32), 'b': np.array(-5., np.float32)}
+    return params, state
 
 
 def random_tts_models(device = None, *, tacotron2 = {}, waveglow = {}, seed = 0):

@@ -1,16 +1,23 @@
 """Tacotron-2 inference over dictionaries of tensors.
 
-Counterpart of ``text_to_speech_tpu/models/tacotron2_arch.py`` (inference
-only, no speaker conditioning): `encode`, `prenet`, location-sensitive
-attention (`process_memory`, `attention_step`), `decoder_cell`,
-`init_cell_state`, `_project`, `postnet` and the autoregressive `infer`
-with the gate stop and the sliding attention window.  Parameters are the
-port's layouts (`weights.tacotron2_from_jax`).
+Counterpart of ``text_to_speech_tpu/models/tacotron2_arch.py`` (inference):
+`encode`, `prenet`, location-sensitive attention (`process_memory`,
+`attention_step`), `decoder_cell`, `init_cell_state`, `_project`, `postnet`
+and the autoregressive `infer` with the gate stop and the sliding attention
+window.  Parameters are the port's layouts (`weights.tacotron2_from_jax`).
+
+Speaker conditioning (SV2TTS): with `speaker_embedding_dim`, a (B, spk)
+embedding enters where `speaker_concat_pos` (any of 'start', 'end',
+'prenet') says: 'start' projects ``[embedding | spk]`` back to the
+embedding width before the convs, 'end' appends it to the encoder output
+(the attention memory widens to ``encoder_output_dim``), 'prenet' appends
+it to every step's prenet input.
 
 `infer` is the JAX package's XLA while-loop decoder, run as a Python loop
 of small library calls.  `infer_fused` runs the same decode on the fused
 decoder-step kernel (`ops.decoder_kernel.decoder_steps`), 64 steps a launch,
 optionally with int8 LSTM weights; `supports_fused_decoder` is its envelope.
+There the prenet concat is folded into the kernel's per-row addend ``extra``.
 """
 
 import collections
@@ -41,9 +48,9 @@ HParamsTacotron2 = HParams(
     encoder_epsilon = 1e-5,
     encoder_momentum = 0.1,
 
-    # speaker conditioning (SV2TTS; not ported)
+    # speaker conditioning (SV2TTS)
     speaker_embedding_dim = None,
-    speaker_concat_pos = 'end',
+    speaker_concat_pos = 'end',        # subset of {'start', 'end', 'prenet'}
 
     # prenet
     prenet_sizes = (256, 256),
@@ -83,18 +90,36 @@ class Tacotron2:
 
     def __init__(self, ** kwargs):
         self.hp = HParamsTacotron2.extract(kwargs)
-        if self.hp.speaker_embedding_dim:
-            raise NotImplementedError('speaker conditioning (SV2TTS) is not ported yet')
-        self.encoder_output_dim = self.hp.encoder_embedding_dim
+        hp = self.hp
+        self.spk_dim = hp.speaker_embedding_dim
+        self.concat_pos = ()
+        if self.spk_dim:
+            pos = hp.speaker_concat_pos
+            self.concat_pos = (pos,) if isinstance(pos, str) else tuple(pos)
+        self.encoder_output_dim = hp.encoder_embedding_dim + (
+            self.spk_dim if 'end' in self.concat_pos else 0)
+        self.prenet_in_dim = hp.n_mel_channels + (
+            self.spk_dim if 'prenet' in self.concat_pos else 0)
 
     # -- encoder ---------------------------------------------------------------
 
-    def encode(self, params, state, tokens):
+    def _speaker(self, speaker_embedding, shape):
+        """The (B, spk) embedding broadcast over the leading axes `shape`."""
+        if speaker_embedding is None:
+            raise ValueError('this model is speaker-conditioned ({}): pass a speaker_embedding'
+                             .format('/'.join(self.concat_pos)))
+        spk = speaker_embedding.reshape((-1,) + (1,) * (len(shape) - 1) + (self.spk_dim,))
+        return spk.expand(tuple(shape) + (self.spk_dim,))
+
+    def encode(self, params, state, tokens, *, speaker_embedding = None):
         """tokens (B, S) → (encoder_output (B, S, D), mask (B, S))."""
         hp = self.hp
         enc, enc_state = params['encoder'], state['encoder']
         mask = tokens != hp.pad_token
         x = nn.embedding(enc['embedding'], tokens)
+        if 'start' in self.concat_pos:
+            spk = self._speaker(speaker_embedding, x.shape[:2]).to(x.dtype)
+            x = nn.dense(enc['speaker_projection'], torch.cat([x, spk], dim = -1))
         for i in range(hp.encoder_n_conv):
             name = 'conv_{}'.format(i)
             x = nn.conv1d(enc[name]['conv'], x, padding = 'SAME')
@@ -102,15 +127,24 @@ class Tacotron2:
                               epsilon = hp.encoder_epsilon)
             x = torch.relu(x)
             x = torch.where(mask[..., None], x, torch.zeros_like(x))
-        return nn.bilstm(enc['bilstm'], x, mask = mask), mask
+        x = nn.bilstm(enc['bilstm'], x, mask = mask)
+        if 'end' in self.concat_pos:
+            spk = self._speaker(speaker_embedding, x.shape[:2]).to(x.dtype)
+            x = torch.cat([x, spk], dim = -1)
+            x = torch.where(mask[..., None], x, torch.zeros_like(x))
+        return x, mask
 
     # -- prenet ----------------------------------------------------------------
 
-    def prenet(self, params, x, *, generator = None, deterministic = None):
+    def prenet(self, params, x, *, generator = None, deterministic = None,
+               speaker_embedding = None):
         """Bottleneck with always-on dropout (intentional inference noise),
         drawn from `generator` unless `deterministic`."""
         hp = self.hp
         if deterministic is None: deterministic = hp.prenet_deterministic
+        if 'prenet' in self.concat_pos and speaker_embedding is not None:
+            x = torch.cat([x, self._speaker(speaker_embedding, x.shape[:-1]).to(x.dtype)],
+                          dim = -1)
         for i in range(len(hp.prenet_sizes)):
             x = torch.relu(nn.dense(params['prenet']['layer_{}'.format(i)], x))
             if not deterministic:
@@ -214,6 +248,7 @@ class Tacotron2:
     # -- autoregressive inference -----------------------------------------------
 
     def infer(self, params, state, tokens, *,
+              speaker_embedding = None,
               generator = None,
               max_length = None,
               early_stopping = True,
@@ -226,7 +261,8 @@ class Tacotron2:
         `early_stopping`).  With ``attn_mask_win_len``, attention is
         restricted to a window around the previous argmax alignment.
         ``dtype`` runs the matmuls in that type; alignments and the stop
-        gate stay f32 and the outputs return f32.
+        gate stay f32 and the outputs return f32.  `speaker_embedding`
+        (B, spk): the speaker of each row, for a speaker-conditioned model.
         Returns `Tacotron2InferenceOutput`."""
         hp = self.hp
         r = hp.n_frames_per_step
@@ -238,10 +274,13 @@ class Tacotron2:
         if dtype is not None:
             params = cast_tree(params, dtype)
             state = cast_tree(state, dtype)
+            if speaker_embedding is not None:
+                speaker_embedding = speaker_embedding.to(dtype)
 
         device = tokens.device
         batch, seq_len = tokens.shape
-        encoder_output, enc_mask = self.encode(params, state, tokens)
+        encoder_output, enc_mask = self.encode(params, state, tokens,
+                                               speaker_embedding = speaker_embedding)
         memory, processed_memory = self.process_memory(
             params['decoder'], encoder_output, enc_mask)
         encoder_lengths = enc_mask.sum(dim = 1)
@@ -275,7 +314,8 @@ class Tacotron2:
             else:
                 attn_mask = enc_mask
             prenet_out = self.prenet(params['decoder'], frame[:, -hp.n_mel_channels:],
-                                     generator = generator, deterministic = deterministic)
+                                     generator = generator, deterministic = deterministic,
+                                     speaker_embedding = speaker_embedding)
             cell_out, attn_weights, cell_state = self.decoder_cell(
                 params['decoder'], prenet_out, memory, processed_memory,
                 attn_mask, cell_state)
@@ -319,7 +359,19 @@ class Tacotron2:
                 and hp.attention_rnn_dim == hp.decoder_rnn_dim
                 and hp.lsa_attention_kernel_size == 31)
 
+    def prenet_addend(self, params, speaker_embedding, batch, device):
+        """The fused decoder's per-row addend ``extra`` (B, P0), float32: the
+        'prenet' speaker concat folded out of the first prenet layer,
+        ``spk @ in0[n_mel:]`` (in0 its (in, out) kernel), from the values in
+        their compute dtype; zeros without it."""
+        if 'prenet' in self.concat_pos and speaker_embedding is not None:
+            in0 = params['decoder']['prenet']['layer_0']['weight'][:, self.hp.n_mel_channels:]
+            return (speaker_embedding.float() @ in0.float().T).expand(
+                batch, in0.shape[0]).contiguous()
+        return torch.zeros((batch, self.hp.prenet_sizes[0]), device = device)
+
     def infer_fused(self, params, state, tokens, *,
+                    speaker_embedding = None,
                     generator = None,
                     max_length = None,
                     early_stopping = True,
@@ -342,7 +394,10 @@ class Tacotron2:
         the compute dtype, to skip the packing.  ``int8_lstm=True`` runs the
         two LSTM products on int8 weights with per-column scales and per-row
         activation quantization (`ops.decoder_kernel.quantize_lstm_weights`),
-        quantizing `weights` unless they already are."""
+        quantizing `weights` unless they already are.  The 'prenet' speaker
+        concat enters the kernel as its per-row addend ``extra``:
+        ``layer_0([mel | spk]) = layer_0_mel(mel) + spk @ in0[n_mel:]``, in
+        float32 (from the compute-dtype values, as the JAX package folds it)."""
         hp = self.hp
         if deterministic is None: deterministic = hp.prenet_deterministic
         if max_length is None: max_length = hp.max_decoder_steps
@@ -358,9 +413,12 @@ class Tacotron2:
         if dtype is not None:
             params = cast_tree(params, dtype)
             state = cast_tree(state, dtype)
+            if speaker_embedding is not None:
+                speaker_embedding = speaker_embedding.to(dtype)
 
         device = tokens.device
-        encoder_output, enc_mask = self.encode(params, state, tokens)
+        encoder_output, enc_mask = self.encode(params, state, tokens,
+                                               speaker_embedding = speaker_embedding)
         memory, pm = self.process_memory(params['decoder'], encoder_output, enc_mask)
         n_mel = hp.n_mel_channels
         if weights is None:
@@ -370,7 +428,7 @@ class Tacotron2:
             weights = quantize_lstm_weights(weights)
         mask = enc_mask.float()
         enc_len = enc_mask.sum(dim = 1).to(torch.int32)
-        extra = torch.zeros((batch, hp.prenet_sizes[0]), device = device)
+        extra = self.prenet_addend(params, speaker_embedding, batch, device)
 
         use_window = attn_mask_win_len is not None
         win_len = int(attn_mask_win_len) if use_window else 0

@@ -4,13 +4,16 @@ Counterpart of ``text_to_speech_tpu/models/tts/__init__.py``: the
 language → pretrained-model map (`set_pretrained_model`,
 `get_pretrained_model`, `get_model_lang`), `get_models`, `tts` and
 `stream`.  Models are instances or the names of saved models under the
-pretrained-models root (or the caller's `root`), loaded on `device`.  The
+pretrained-models root (or the caller's `root`), loaded on `device` with
+the class their ``config.json`` names (`models.get_pretrained`): the `fr`
+default is an `SV2TTSTacotron2`, which takes `embeddings=` or `audio=`.  The
 map's defaults name models that are not in the repo, so loading them
 raises; nothing is downloaded.  `serve()` is not ported.
 """
 
 import os
 
+from .sv2tts_tacotron2 import SV2TTSTacotron2
 from .tacotron2 import Tacotron2
 from .waveglow import WaveGlow
 
@@ -46,12 +49,13 @@ def get_models(model = None, lang = None, vocoder = None, *, device = None, root
         if lang is None:
             raise ValueError('Provide either `model` or `lang`')
         model = get_model_lang(lang)
+    from .. import get_pretrained
     if isinstance(model, str):
-        model = Tacotron2.from_pretrained(model, root = root, device = device)
+        model = get_pretrained(model, root = root, device = device)
     if vocoder is None:
         vocoder = _default_vocoder
     if isinstance(vocoder, str):
-        vocoder = WaveGlow.from_pretrained(vocoder, root = root, device = device)
+        vocoder = get_pretrained(vocoder, root = root, device = device)
     return model, vocoder
 
 
@@ -78,5 +82,5 @@ def stream(stream_input, *, model = None, lang = None, vocoder = None, play = Tr
     return model.stream(stream_input, vocoder = vocoder, play = play, ** kwargs)
 
 
-__all__ = ['Tacotron2', 'WaveGlow', 'get_models', 'get_model_lang', 'get_pretrained_model',
-           'set_pretrained_model', 'stream', 'tts']
+__all__ = ['SV2TTSTacotron2', 'Tacotron2', 'WaveGlow', 'get_models', 'get_model_lang',
+           'get_pretrained_model', 'set_pretrained_model', 'stream', 'tts']

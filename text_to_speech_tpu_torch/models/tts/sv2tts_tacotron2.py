@@ -1,0 +1,62 @@
+"""SV2TTS Tacotron-2: voice cloning from a speaker embedding.
+
+Counterpart of ``text_to_speech_tpu/models/tts/sv2tts_tacotron2.py``
+(inference): a `Tacotron2` whose architecture takes a speaker embedding
+(`speaker_embedding_dim` = `embedding_dim`, concatenated at
+`speaker_concat_pos`, 'end' by default), with the embedding machinery of
+`SpeakerEmbeddingMixin`.  `infer`, `predict` and `predict_batched` take the
+speaker as `embeddings` (a vector, a table or its file, with `mode` and
+`label`), as reference `audio` (through the `encoder_name` speaker
+encoder), or from the stored default.
+
+The ``map.json`` cache is keyed by text alone, so these flows default to
+``overwrite=True``: a second speaker is never answered with the first
+one's audio.  (The JAX package's `predict` passes its own
+``overwrite=False`` to `infer`.)
+"""
+
+import numpy as np
+
+from .speaker_embedding_mixin import SpeakerEmbeddingMixin
+from .tacotron2 import Tacotron2
+from ..saving import load_model_files
+
+
+class SV2TTSTacotron2(SpeakerEmbeddingMixin, Tacotron2):
+    def __init__(self, params, state, *, name = 'sv2tts_tacotron2', embedding_dim = 256,
+                 encoder_name = None, speaker_encoder_name = None, ** kwargs):
+        if speaker_encoder_name: encoder_name = speaker_encoder_name
+        kwargs.setdefault('speaker_embedding_dim', embedding_dim)
+        kwargs.setdefault('speaker_concat_pos', 'end')
+        super().__init__(params, state, name = name, ** kwargs)
+        self._init_speaker_embedding(embedding_dim, encoder_name)
+
+    @classmethod
+    def from_pretrained(cls, name, *, root = None, device = None, ** kwargs):
+        """Load a saved SV2TTS Tacotron-2 with its `embedding_dim` and
+        `encoder_name` (or `speaker_encoder_name`)."""
+        config = load_model_files(name, root = root)['config'].get('config', {})
+        for key in ('embedding_dim', 'encoder_name', 'speaker_encoder_name'):
+            if key in config: kwargs.setdefault(key, config[key])
+        return super().from_pretrained(name, root = root, device = device, ** kwargs)
+
+    # -- inference -------------------------------------------------------------
+
+    def _resolve_speaker(self, embeddings, audio, mode, label):
+        return np.asarray(self.get_speaker_embedding(embeddings, audio = audio, mode = mode,
+                                                     label = label), np.float32)
+
+    def infer(self, text, *, embeddings = None, audio = None, mode = 'mean', label = None,
+              overwrite = True, ** kwargs):
+        return super().infer(
+            text, embeddings = self._resolve_speaker(embeddings, audio, mode, label),
+            overwrite = overwrite, ** kwargs)
+
+    def predict_batched(self, texts, *, embeddings = None, audio = None, mode = 'mean',
+                        label = None, overwrite = True, ** kwargs):
+        return super().predict_batched(
+            texts, embeddings = self._resolve_speaker(embeddings, audio, mode, label),
+            overwrite = overwrite, ** kwargs)
+
+    def predict(self, inputs, *, overwrite = True, ** kwargs):
+        return super().predict(inputs, overwrite = overwrite, ** kwargs)

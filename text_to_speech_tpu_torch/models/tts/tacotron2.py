@@ -30,7 +30,10 @@ dispatch: `predict`, `inference` (`infer`) with `processing` (cleaning and
 tokenizing), `compiled_tts` (the one-launch path) and `compiled_infer`
 (each other decode).
 
-Not ported yet (see ROADMAP.md): speaker embeddings (SV2TTS).
+Speaker embeddings (`embeddings`, for a speaker-conditioned architecture;
+`SV2TTSTacotron2` resolves them from tables, files or audio): a (D,) vector
+or one row per chunk of the decode batch, broadcast to every decode, and
+on the retry path each chunk keeps its row.
 """
 
 import logging
@@ -62,7 +65,7 @@ DEFAULT_MAX_MEL_LENGTH = 1024
 # decode options that the vocoder must not see: they would change its own
 # padding
 _DECODE_ONLY = ('padding_multiple', 'use_fused_decoder', 'attn_mask_win_len',
-                'attn_mask_offset', 'early_stopping')
+                'attn_mask_offset', 'early_stopping', 'embeddings')
 
 
 class _Clock:
@@ -115,6 +118,7 @@ class Tacotron2(BaseModel):
         the inference callbacks write by default (the pretrained-models root
         unless given)."""
         self.name = name
+        self.root = root
         self.folder = model_dir(name, root = root)
         self.device = default_device(device)
         self.tokenizer = tokenizer
@@ -142,8 +146,9 @@ class Tacotron2(BaseModel):
         return cls(* tacotron2_from_jax(params, state), ** kwargs)
 
     @classmethod
-    def from_pretrained(cls, name, *, root = None, device = None):
-        """Load a saved Tacotron-2 (the JAX package's directory layout)."""
+    def from_pretrained(cls, name, *, root = None, device = None, ** kwargs):
+        """Load a saved Tacotron-2 (the JAX package's directory layout);
+        `kwargs` go to the constructor."""
         files = load_model_files(name, root = root)
         saving = os.path.join(files['dir'], 'saving')
         arch = {k: v for k, v in files['architecture'].items() if k != 'architecture'}
@@ -155,7 +160,7 @@ class Tacotron2(BaseModel):
             rate = mel_fn.get('sampling_rate', 22050),
             pad_mel_value = config.get('pad_mel_value', -11.),
             max_output_length = config.get('max_output_length', DEFAULT_MAX_MEL_LENGTH),
-            ** arch)
+            ** arch, ** kwargs)
 
     # -- text ------------------------------------------------------------------
 
@@ -214,9 +219,18 @@ class Tacotron2(BaseModel):
             self._packed_decoder[dtype] = packed
         return self._packed_decoder[dtype]
 
+    @staticmethod
+    def _speaker_rows(embeddings, n):
+        """A (D,) embedding or (n, D) rows → (n, D) float32 numpy rows (None
+        stays None)."""
+        if embeddings is None: return None
+        embeddings = np.asarray(embeddings, np.float32)
+        return np.broadcast_to(embeddings, (n, embeddings.shape[-1]))
+
     def compiled_infer(self,
                        tokens,
                        *,
+                       embeddings = None,
                        max_length = None,
                        padding_multiple = 64,
                        attn_mask_win_len = None,
@@ -228,9 +242,12 @@ class Tacotron2(BaseModel):
                        use_fused_decoder = None,
                        ** _):
         """AR inference on one padded token batch (B, S), bucketed by
-        `_bucket`, on the decoder route `_use_fused_decoder` picks."""
+        `_bucket`, on the decoder route `_use_fused_decoder` picks;
+        `embeddings`: the speaker, (D,) or one row per text."""
         tokens, max_length = self._bucket(tokens, max_length, padding_multiple)
+        spk = self._speaker_rows(embeddings, tokens.shape[0])
         options = dict(
+            speaker_embedding = None if spk is None else torch.tensor(spk, device = self.device),
             generator = generator, max_length = max_length,
             early_stopping = early_stopping, attn_mask_win_len = attn_mask_win_len,
             attn_mask_offset = attn_mask_offset, deterministic = deterministic,
@@ -330,15 +347,15 @@ class Tacotron2(BaseModel):
         unsaved and is returned.  Otherwise the output goes through the
         callbacks, which record it in `predicted`.
 
+        `embeddings`: the speaker of a speaker-conditioned model, (D,) or a
+        row per chunk.
+
         Returns {'text', 'cleaned', 'splitted', 'mel' and 'attention' (one
         entry per chunk), and with a vocoder 'audio', 'rate', 'time'}, or
         with ``return_output=False`` the text's cache entry.  Attention maps
         are fetched by default on the sequential (retry) path; on the paths
         that queue the vocoder behind the decoder only when callbacks are
         given, unless `fetch_attention` says otherwise."""
-        if embeddings is not None:
-            raise TypeError('infer() does not take `embeddings` yet: speaker embeddings '
-                            'come with SV2TTS (see ROADMAP.md)')
         if isinstance(text, dict):
             text = text.get('text', text.get('content'))
 
@@ -360,7 +377,8 @@ class Tacotron2(BaseModel):
                 encoded, vocoder, max_length = max_length, max_trial = max_trial,
                 min_fpt_ratio = min_fpt_ratio, max_fpt_ratio = max_fpt_ratio,
                 vocoder_config = vocoder_config, batch_chunks = batch_chunks,
-                fa_sequential = fa_sequential, fa_pipelined = fa_pipelined, ** kwargs)
+                fa_sequential = fa_sequential, fa_pipelined = fa_pipelined,
+                embeddings = embeddings, ** kwargs)
 
         output = self._output(text, splitted, mels, attn_weights)
         if vocoder is not None:
@@ -542,9 +560,11 @@ class Tacotron2(BaseModel):
         """Decode every chunk, batched, with per-chunk ratio-gated retries;
         a retry draws fresh prenet dropout from the caller's generator.
         Returns (mels, attention) lists trimmed to each chunk's length
-        (attention entries are None unless `fetch_attention`)."""
+        (attention entries are None unless `fetch_attention`).  Each chunk
+        keeps its row of the `embeddings` through its retries."""
         n = len(encoded)
         lengths = [len(e) for e in encoded]
+        spk = self._speaker_rows(kwargs.pop('embeddings', None), n)
         mels, attn = [None] * n, [None] * n
         trials = max(1, max_trial)
 
@@ -558,7 +578,9 @@ class Tacotron2(BaseModel):
                 tokens = pad_batch([encoded[i] for i in group],
                                    pad_value = self.blank_token_idx)
                 with Timer('compiled_infer'):
-                    outputs = self.compiled_infer(tokens, max_length = max_length, ** kwargs)
+                    outputs = self.compiled_infer(
+                        tokens, max_length = max_length,
+                        embeddings = None if spk is None else spk[group], ** kwargs)
                 out_lengths = outputs.lengths.cpu().numpy()
                 mel_host = outputs.mel.cpu().numpy()
                 attn_host = outputs.attention_weights.cpu().numpy() \
@@ -706,11 +728,11 @@ class Tacotron2(BaseModel):
         as one batch, and vocoding is batched the same way.  Returns one
         dict per text, as `infer` does, under the same attention-fetch
         contract, ratio gates, callbacks and cache (a cached text is not
-        decoded).  `last_timings` holds the decode and vocode seconds of
-        the last group."""
-        if embeddings is not None:
-            raise TypeError('predict_batched() does not take `embeddings` yet: speaker '
-                            'embeddings come with SV2TTS (see ROADMAP.md)')
+        decoded).  `embeddings`: the speaker, (D,) for every text or one
+        row per text.  `last_timings` holds the decode and vocode seconds
+        of the last group."""
+        spk = None if embeddings is None else np.asarray(embeddings, np.float32)
+        per_text = spk is not None and spk.ndim == 2 and spk.shape[0] == len(texts)
         if callbacks is None:
             predicted, callbacks = self.get_inference_callbacks(vocoder = vocoder, ** kwargs)
         else:
@@ -737,6 +759,7 @@ class Tacotron2(BaseModel):
             if flat:
                 mels, attns, audios = self._synthesize(
                     flat, vocoder, max_length = max_length,
+                    embeddings = spk[[group_start + i for i in owners]] if per_text else spk,
                     max_trial = max_trial, min_fpt_ratio = min_fpt_ratio,
                     max_fpt_ratio = max_fpt_ratio, vocoder_config = vocoder_config,
                     fa_sequential = fa_sequential, fa_pipelined = fa_pipelined, ** kwargs)

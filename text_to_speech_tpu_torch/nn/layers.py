@@ -28,18 +28,22 @@ def embedding(params, ids):
     return params['weight'][ids]
 
 
-def _same_pads(width, dilation):
-    total = dilation * (width - 1)
+def _same_pads(width, dilation, stride = 1, length = 1):
+    """XLA's SAME padding of a `length`-long input: ``ceil(length / stride)``
+    outputs, the pad split with its smaller half in front (at stride 2 and
+    width 5 an even length pads (1, 2), where PyTorch's rule would pad 2 and 2)."""
+    out = -(-length // stride)
+    total = max((out - 1) * stride + dilation * (width - 1) + 1 - length, 0)
     return total // 2, total - total // 2
 
 
-def conv1d(params, x, *, padding = 'SAME', dilation = 1):
-    """x: (B, T, C_in) → (B, T', C_out), stride 1; `padding` 'SAME' or 'VALID'."""
+def conv1d(params, x, *, stride = 1, padding = 'SAME', dilation = 1):
+    """x: (B, T, C_in) → (B, T', C_out); `padding` 'SAME' (XLA's rule) or 'VALID'."""
     weight = params['weight']
     h = x.transpose(1, 2)
     if padding.upper() == 'SAME':
-        h = F.pad(h, _same_pads(weight.shape[2], dilation))
-    y = F.conv1d(h, weight, params.get('bias'), dilation = dilation)
+        h = F.pad(h, _same_pads(weight.shape[2], dilation, stride, h.shape[2]))
+    y = F.conv1d(h, weight, params.get('bias'), stride = stride, dilation = dilation)
     return y.transpose(1, 2)
 
 
@@ -48,6 +52,10 @@ def conv1d_transpose(params, x, *, stride):
     y = F.conv_transpose1d(x.transpose(1, 2), params['weight'], params.get('bias'),
                            stride = stride)
     return y.transpose(1, 2)
+
+
+def l2_norm(x, dim = -1, epsilon = 1e-12):
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim = dim, keepdim = True), min = epsilon)
 
 
 def batch_norm(params, state, x, *, epsilon = 1e-5):

@@ -1,7 +1,8 @@
 """Audio files and playback.
 
 Counterpart of ``text_to_speech_tpu/ops/audio_io.py``, on numpy and scipy.
-Reading, for the training data (`read_audio`, `load_audio`): PCM and
+Reading, for the training data and the speaker encoder (`read_audio`,
+`load_audio`, `load_mel`): PCM and
 IEEE-float WAV (``scipy.io.wavfile``; the standard library's ``wave`` reads
 PCM only), channels averaged to mono, FFT resampling
 (``scipy.signal.resample``, the JAX package's default), and the JAX
@@ -11,7 +12,8 @@ the inference callbacks: the `register_writer` registry, `write_wav`,
 host) and `write_audio`.  Playback: `play_audio` through ``ffplay`` or
 ``aplay``, which logs a warning and returns False on a host with neither,
 and `display_audio` (an IPython widget in a notebook, else playback).
-Reading other codecs, noise reduction and silence trimming are not ported.
+Reading other codecs, noise reduction and silence trimming are not ported:
+`load_mel` raises when asked for them.
 """
 
 import logging
@@ -83,6 +85,30 @@ def load_audio(data, rate, ** kwargs):
         data = data[key]
     kwargs.setdefault('rate', rate)
     return read_audio(data, target_rate = rate, ** kwargs)[1]
+
+
+def load_mel(data, stft_fn, *, device = None, trim_mode = None, trim_silence = False,
+             reduce_noise = False, ** kwargs):
+    """A mel spectrogram (frames, n_mels), float32 on `device` (the CPU by
+    default): read from a ``.npy`` file or a row's 'mel', taken as given
+    when it is an array of `stft_fn`'s width, else computed by `stft_fn` on
+    `device` from the audio `load_audio` reads at its rate."""
+    if trim_mode or trim_silence or reduce_noise:
+        raise NotImplementedError('silence trimming and noise reduction are not ported '
+                                  '(ROADMAP.md, queue 1, the periphery)')
+    import torch
+    if isinstance(data, str) and data.endswith('.npy'):
+        mel = np.load(data)
+    elif isinstance(data, dict) and 'mel' in data:
+        mel = data['mel']
+        if isinstance(mel, str): mel = np.load(mel)
+    elif getattr(data, 'ndim', 0) == 2 and data.shape[1] == stft_fn.n_mel_channels:
+        mel = data
+    else:
+        audio = load_audio(data, stft_fn.rate, ** kwargs)
+        with torch.no_grad():
+            return stft_fn(torch.as_tensor(np.asarray(audio, np.float32), device = device))[0]
+    return torch.as_tensor(np.asarray(mel, np.float32), device = device)
 
 
 @register_writer('wav')

@@ -2,9 +2,9 @@
 
 The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
 flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
-them without JAX.  `tacotron2_from_jax` and `waveglow_from_jax` turn those
-trees (nested dicts of numpy arrays) into nested dicts of torch tensors in
-the layouts `nn.layers` takes:
+them without JAX.  `tacotron2_from_jax`, `waveglow_from_jax` and
+`audio_encoder_from_jax` turn those trees (nested dicts of numpy arrays)
+into nested dicts of torch tensors in the layouts `nn.layers` takes:
 
   - conv ``kernel (W, in, out)``           → ``weight (out, in, W)``
   - conv-transpose ``kernel (W, in, out)`` → ``weight (in, out, W)``, taps
@@ -111,6 +111,12 @@ def tacotron2_from_jax(params, state):
     return convert_tree(params), convert_tree(state)
 
 
+def audio_encoder_from_jax(params, state):
+    """JAX speaker encoder (params, state) → the port's; the GE2E scalars
+    ``ge2e/w`` and ``ge2e/b`` become 0-d tensors."""
+    return convert_tree(params), convert_tree(state)
+
+
 def waveglow_from_jax(params):
     """JAX WaveGlow params tree → the port's params."""
     out = {k: convert_tree(v) for k, v in params.items() if k != 'upsample'}
@@ -161,6 +167,25 @@ def waveglow_to_jax(params):
             out[name] = {'convinv': {'kernel': _conv_to_jax(value['convinv'])['kernel']},
                          'block': _to_jax_tree(block)}
     return out
+
+
+def audio_encoder_to_jax(params, state):
+    """The port's speaker-encoder (params, state) → the JAX package's trees
+    (numpy float32), the inverse of `audio_encoder_from_jax`."""
+    out = {}
+    for name, node in params.items():
+        if name == 'ge2e':
+            out[name] = {k: _array(v) for k, v in node.items()}
+        elif 'bn' in node:
+            out[name] = {'conv': _conv_to_jax(node['conv']),
+                         'bn': {'gamma': _array(node['bn']['weight']),
+                                'beta': _array(node['bn']['bias'])}}
+        else:
+            out[name] = _conv_to_jax(node)
+    jax_state = {name: {'bn': {'moving_mean': _array(node['bn']['running_mean']),
+                               'moving_var': _array(node['bn']['running_var'])}}
+                 for name, node in state.items()}
+    return out, jax_state
 
 
 def tree_to(tree, device):
