@@ -1,7 +1,8 @@
 """Drive the PyTorch port on one NVIDIA GPU: build its CUDA kernels, hold
 each against its plain PyTorch version, run `tts()` end to end at the full
-NVIDIA width of Tacotron-2 and WaveGlow with random weights, and train
-WaveGlow at that width.
+NVIDIA width of Tacotron-2 and WaveGlow with random weights (also imported
+from NVIDIA-layout checkpoints, and with FastSpeech-2 in the Tacotron-2's
+place), and train WaveGlow at that width.
 
     python3 chip_smoke.py
 
@@ -90,6 +91,26 @@ Phases, one JSON line each:
            K3, 12 K1 or K2), decode, vocode and embed ms, spans; two speakers
            give two mels, and a second speaker with the same `directory=` is
            decoded again, not answered from map.json;
+  nvidia_import  NVIDIA's Tacotron-2 and WaveGlow checkpoints at full width
+           (seeded synthetic state dicts in NVIDIA's layout: the stop gate's
+           bias at -4, the WaveGlow weight-normed with fused cond layers and
+           early outputs every 4 flows), saved with `torch.save` and imported
+           by `from_nvidia_pretrained` into a temporary root (ms of each);
+           K3 at the imported widths against its plain version (as in the
+           kernels phase, B = 1, S = 64); `tts(lang='en', root=...)` loading
+           both by name (4 K3 and 12 K1 launches; its mel equal to the
+           in-memory model's, deterministic); one sentence timed in each
+           serving mode (12 K1, then 12 K2); the imported vocoder's K1 route
+           against its float32 chain;
+  fastspeech2  FastSpeech-2 at the JAX package's defaults (dim 256, 4 + 6
+           blocks, FFN 1,024, 256 bins), random seeded weights, durations
+           floored so that one sentence is ~256 frames, on the imported
+           NVIDIA-width WaveGlow: one sentence through `tts()` (the
+           one-launch path, 12 K1), in bfloat16 and in int8 serving (12 K2),
+           four through `predict_batched`: total, forward and vocode ms,
+           RTF, launches; the forward alone (CUDA events); the float32
+           forward on the card against the port on the CPU (durations
+           equal or on a tie, the rest within 1e-4 of the mel's scale);
   train    WaveGlow training at NVIDIA width (12 flows, 8 WN layers, C=512),
            random seeded weights: the train step (B=8 x 256 frames, per-flow
            remat, Adam at 1e-4) on the default route in float32 and under
@@ -1800,6 +1821,198 @@ def sv2tts_phase(vocoder):
     return cases, runs
 
 
+def _drive_counted(runs, name, texts, expected, ** kw):
+    """One `tts()` run of `texts` after a warm-up at the same options, the
+    launch counts read around it and checked against `expected`; records
+    total ms, the task model's decode and vocode ms and the real-time
+    factor under `runs[name]`."""
+    from text_to_speech_tpu_torch import tts
+    model = kw['model']
+    tts(texts, ** kw)                                                    # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    outputs = tts(texts, ** kw)
+    total_s = time.perf_counter() - start
+    launches = read_launches()
+    check(launches == dict(expected), '{}: launches {} (expected {})'.format(
+        name, launches, expected))
+    audio_s = 0.
+    for out in outputs:
+        check(bool(np.isfinite(out['audio']).all()) and bool(np.isfinite(out['mel'][0]).all())
+              and out['audio'].shape == (out['mel'][0].shape[0] * 256,),
+              '{}: output {}'.format(name, out['audio'].shape))
+        audio_s += out['time']
+    runs[name] = {'texts': len(outputs), 'frames': [o['mel'][0].shape[0] for o in outputs],
+                  'total_ms': 1e3 * total_s, 'decode_ms': 1e3 * model.last_timings['decode_s'],
+                  'vocode_ms': 1e3 * model.last_timings['vocode_s'], 'audio_s': audio_s,
+                  'rtf': audio_s / total_s, 'launches': launches}
+    return outputs
+
+
+def nvidia_import_phase():
+    """NVIDIA's Tacotron-2 and WaveGlow checkpoints imported at their full
+    width (synthetic, seeded, in NVIDIA's layout; the WaveGlow weight-normed
+    with fused cond layers), saved, and `tts(lang='en', root=...)` run from
+    them: K3 decodes, K1 (K2 in int8 serving) vocodes.  Returns (K3 cases,
+    runs, the imported vocoder)."""
+    import tempfile
+    from text_to_speech_tpu_torch import tts
+    from text_to_speech_tpu_torch.init import (
+        nvidia_tacotron2_state_dict, nvidia_waveglow_state_dict)
+    from text_to_speech_tpu_torch.models.tts import Tacotron2, WaveGlow
+
+    phase_start = time.perf_counter()
+    root = tempfile.mkdtemp(prefix = 'chip_smoke_nvidia_')
+    tacotron2_pt = os.path.join(root, 'tacotron2_statedict.pt')
+    waveglow_pt = os.path.join(root, 'waveglow.pt')
+    # the stop gate's bias at -4 keeps a random decoder running
+    torch.save({'state_dict': {k: torch.from_numpy(v) for k, v in
+                               nvidia_tacotron2_state_dict(11, gate_bias = -4.).items()}},
+               tacotron2_pt)
+    torch.save({'model': nvidia_waveglow_state_dict(12)}, waveglow_pt)
+    start = time.perf_counter()
+    model = Tacotron2.from_nvidia_pretrained(tacotron2_pt, root = root, device = 'cuda')
+    tacotron2_s = time.perf_counter() - start
+    start = time.perf_counter()
+    vocoder = WaveGlow.from_nvidia_pretrained(waveglow_pt, root = root, device = 'cuda')
+    waveglow_s = time.perf_counter() - start
+    hp, wg = model.arch.hp, vocoder.arch.hp
+    check(hp.lsa_attention_kernel_size == 31 and hp.attention_rnn_dim == 1024
+          and model.arch.supports_fused_decoder(1, 64), 'imported Tacotron-2: {}'.format(hp))
+    check((wg.n_flows, wg.wn_layers, wg.wn_channels, wg.n_early_every, wg.wn_fused)
+          == (12, 8, 512, 4, True), 'imported WaveGlow: {}'.format(wg))
+    n_flows, frames, chunk = wg.n_flows, 256, 64
+    gates = dict(min_fpt_ratio = 0., max_fpt_ratio = 1e9, save = False, display = False,
+                 max_length = frames)
+    # K3 at the imported widths against its plain version, as the kernels phase holds it
+    cases = decoder_steps_phase(model, shapes = ((1, 64, False),), name = 'decoder_steps_nvidia')
+
+    runs = {}
+    # `tts(lang='en')` loads 'pretrained_tacotron2' and 'waveglow' from the root by name
+    reset_launches()
+    start = time.perf_counter()
+    by_name = tts(SENTENCES[0], lang = 'en', root = root, device = 'cuda', deterministic = True,
+                  ** gates)
+    by_name_ms = 1e3 * (time.perf_counter() - start)
+    launches = read_launches()
+    expected = dict(wn_block = n_flows, wn_block_int8 = 0, wn_layer = 0,
+                    decoder_steps = frames // chunk)
+    check(launches == expected and by_name[0]['mel'][0].shape[0] == frames,
+          'tts(lang=en): launches {}, frames {}'.format(launches, by_name[0]['mel'][0].shape))
+    kw = dict(model = model, vocoder = vocoder, ** gates)
+    in_memory = tts(SENTENCES[0], deterministic = True, ** kw)
+    reload_err = float(np.abs(in_memory[0]['mel'][0] - by_name[0]['mel'][0]).max())
+    check(reload_err <= 1e-5 * float(np.abs(in_memory[0]['mel'][0]).max()),
+          'the model reloaded by name decodes another mel: {}'.format(reload_err))
+    runs['nvidia_by_name'] = {'total_ms_with_load': by_name_ms, 'launches': launches,
+                              'mel_vs_in_memory_max_abs': reload_err}
+    _drive_counted(runs, 'nvidia_one_sentence', SENTENCES[0], expected, ** kw)
+    # the vocoder's kernel route against its float32 chain on the imported
+    # weights (the tolerance of the e2e phase: 1e-2 of the largest sample)
+    mel = torch.from_numpy(in_memory[0]['mel'][0][None, :16].copy()).cuda()
+    lg = 16 * wg.upsample_stride // wg.n_group
+    with torch.no_grad():
+        z = torch.randn((1, lg, wg.n_group), generator = torch.Generator(device = 'cuda')
+                        .manual_seed(4), device = 'cuda')
+        fast = vocoder.arch.infer(vocoder._serving_params(True, False), mel, z = z,
+                                  use_kernel = True)
+        plain = vocoder.arch.infer(vocoder.params, mel, z = z, use_kernel = False)
+    vocoder_err = float((fast - plain).abs().max()) / float(plain.abs().max())
+    check(vocoder_err < 1e-2, 'imported vocoder, K1 vs f32 chain: {}'.format(vocoder_err))
+    vocoder.quantize_for_serving(validate = mel)
+    check(vocoder.serving_mode == 'int8', 'int8 gate: {}'.format(vocoder._last_serving_snr_db))
+    _drive_counted(runs, 'nvidia_one_sentence_int8', SENTENCES[0],
+                   dict(expected, wn_block = 0, wn_block_int8 = n_flows), ** kw)
+    runs['nvidia_one_sentence_int8']['gate_snr_db'] = vocoder._last_serving_snr_db
+    vocoder.quantize_for_serving(False)
+    emit({'phase': 'nvidia_import', 'import_ms': {'tacotron2': 1e3 * tacotron2_s,
+                                                  'waveglow': 1e3 * waveglow_s},
+          'runs': runs, 'vocoder_kernel_vs_f32_rel': vocoder_err, 'tolerance_rel': 1e-2,
+          'gate_bias': -4., 'phase_s': time.perf_counter() - phase_start})
+    del model
+    return cases, runs, vocoder
+
+
+def fastspeech2_phase(vocoder):
+    """FastSpeech-2 at the JAX package's default widths, random seeded
+    weights, vocoding on the NVIDIA-width `vocoder`: one sentence through
+    `tts()` (the one-launch path) in both serving modes, four through
+    `predict_batched`, bfloat16, and the float32 forward on the card against
+    the port on the CPU.  Returns the runs."""
+    import tempfile
+    from text_to_speech_tpu_torch.init import init_fastspeech2
+    from text_to_speech_tpu_torch.models.fastspeech2_arch import HParamsFastSpeech2
+    from text_to_speech_tpu_torch.models.tts import FastSpeech2
+    from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
+
+    phase_start = time.perf_counter()
+    hp = HParamsFastSpeech2(vocab_size = len(en_symbols))
+    params, state = init_fastspeech2(hp, seed = 13)
+    root = tempfile.mkdtemp(prefix = 'chip_smoke_fs2_')
+    build = lambda device: FastSpeech2.from_jax(
+        params, state, tokenizer = default_english_tokenizer(), device = device, root = root,
+        vocab_size = len(en_symbols))
+    model = build('cuda')
+    tokens = model.encode_text(SENTENCES[0])
+    # random predictors give durations near 0: the floor makes the sentence ~256 frames
+    min_duration = -(-256 // len(tokens))
+    n_flows = vocoder.arch.hp.n_flows
+    kw = dict(model = model, vocoder = vocoder, min_duration = min_duration, save = False,
+              display = False)
+    one = dict(wn_block = n_flows, wn_block_int8 = 0, wn_layer = 0, decoder_steps = 0)
+    runs = {}
+    single = _drive_counted(runs, 'fastspeech2_one_sentence', SENTENCES[0], one, ** kw)
+    frames = single[0]['mel'][0].shape[0]
+    check(frames >= 256, 'FastSpeech-2: {} frames for {} tokens'.format(frames, len(tokens)))
+    grid = single[0]['audio'].astype(np.float64) * 32767.
+    check(float(np.abs(grid - np.round(grid)).max()) < 1e-2, 'not on the int16 grid')
+    _drive_counted(runs, 'fastspeech2_batch_of_4', SENTENCES, one, batch_size = 4,
+                   min_fpt_ratio = 0., max_fpt_ratio = 1e9, ** kw)
+    _drive_counted(runs, 'fastspeech2_one_sentence_bf16', SENTENCES[0], one,
+                   dtype = torch.bfloat16, ** kw)
+    mel = torch.from_numpy(single[0]['mel'][0][None, :32].copy()).cuda()
+    vocoder.quantize_for_serving(validate = mel)
+    check(vocoder.serving_mode == 'int8', 'int8 gate: {}'.format(vocoder._last_serving_snr_db))
+    _drive_counted(runs, 'fastspeech2_one_sentence_int8', SENTENCES[0],
+                   dict(one, wn_block = 0, wn_block_int8 = n_flows), ** kw)
+    vocoder.quantize_for_serving(False)
+
+    # the forward alone (CUDA events), and the float32 forward on the card
+    # against the port on the CPU: durations equal, or apart only where the
+    # value before rounding is within 1e-5 of a tie; the mel within 1e-4 of
+    # its largest magnitude (float32 on both sides, TF32 off, another
+    # summation order)
+    forward = lambda: model.compiled_infer(tokens, max_length = 10., min_duration = min_duration)
+    forward_ms = time_ms(forward, reps = 5)
+    card = forward()
+    cpu_model = build('cpu')
+    cpu = cpu_model.compiled_infer(tokens, max_length = 10., min_duration = min_duration)
+    moved = (card.durations.cpu() != cpu.durations)
+    with torch.no_grad():
+        enc, _, pad = cpu_model.arch.encode(cpu_model.params, torch.as_tensor(
+            np.pad(tokens, (0, cpu.durations.shape[1] - len(tokens)))[None], dtype = torch.long))
+        log_d = cpu_model.arch._variance_predictor(cpu_model.params['duration_predictor'], enc,
+                                                   pad_mask = pad)
+    pre = torch.exp(log_d) - 1.
+    ties = float((pre[moved] - (torch.floor(pre[moved]) + 0.5)).abs().max()) \
+        if bool(moved.any()) else None
+    check(ties is None or ties <= 1e-5, 'durations differ off a tie: {}'.format(ties))
+    compared = {}
+    if ties is None:
+        for name in ('mel', 'decoder_output', 'pitch', 'energy'):
+            a, b = getattr(card, name).cpu(), getattr(cpu, name)
+            compared[name] = float((a - b).abs().max()) / float(cpu.mel.abs().max())
+        check(max(compared.values()) <= 1e-4 and torch.equal(card.lengths.cpu(), cpu.lengths),
+              'FastSpeech-2 card vs CPU: {}'.format(compared))
+    emit({'phase': 'fastspeech2', 'runs': runs, 'min_duration': min_duration,
+          'tokens': len(tokens), 'forward_ms': forward_ms,
+          'card_vs_cpu': {'durations_moved': int(moved.sum()), 'tie_distance': ties,
+                          'rel_err': compared, 'tolerance_rel': 1e-4},
+          'phase_s': time.perf_counter() - phase_start})
+    return runs
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
@@ -1839,6 +2052,9 @@ def main():
     runs.update(windowed_phase(model, vocoder))
     runs.update(surface_phase(model, vocoder))
     sv2tts_cases, sv2tts_runs = sv2tts_phase(vocoder)
+    nvidia_cases, nvidia_runs, nvidia_vocoder = nvidia_import_phase()
+    fs2_runs = fastspeech2_phase(nvidia_vocoder)
+    del nvidia_vocoder
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -1916,6 +2132,31 @@ def main():
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
                 launches = int(steps['wn_train_fused_mixed_bfloat16']['wn_block_launches_per_step'])),
+        # the NVIDIA import: K3 at the imported widths (its own cases), K1 and
+        # K2 at the shapes of the kernels phase (the imported WaveGlow has
+        # the same C, L, S and one sentence the same T); launches of one
+        # sentence through `tts()` in each serving mode
+        summary(nvidia_cases['float32_B1_S64_dropout'], name = 'decoder_steps (NVIDIA import)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = nvidia_runs['nvidia_one_sentence']['launches']['decoder_steps']),
+        summary(wn_cases['bfloat16_B1_T8192'], name = 'fused_wn_block (NVIDIA import)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = nvidia_runs['nvidia_one_sentence']['launches']['wn_block']),
+        summary(wn8_cases['bfloat16_B1_T8192'], name = 'fused_wn_block_int8 (NVIDIA import)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
+                launches = nvidia_runs['nvidia_one_sentence_int8']['launches']['wn_block_int8']),
+        # FastSpeech-2: no decoder kernel; its vocoder's launches, one sentence
+        summary(wn_cases['bfloat16_B1_T8192'], name = 'fused_wn_block (FastSpeech-2)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = fs2_runs['fastspeech2_one_sentence']['launches']['wn_block']),
+        summary(wn8_cases['bfloat16_B1_T8192'], name = 'fused_wn_block_int8 (FastSpeech-2)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
+                launches = fs2_runs['fastspeech2_one_sentence_int8']['launches']['wn_block_int8']),
         # the rate probe: launches in its int8 and its bf16 line
         dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
                      source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',

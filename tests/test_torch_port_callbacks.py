@@ -23,7 +23,7 @@ import numpy as np
 import pytest
 from scipy.io import wavfile
 
-from test_torch_port_train import one_torch_thread  # noqa: F401  (autouse, module)
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
 from text_to_speech_tpu.models import saving
 from text_to_speech_tpu.models.interfaces import reset_instances
 from text_to_speech_tpu.models.tts import WaveGlow as JaxWaveGlow, tts as jax_tts

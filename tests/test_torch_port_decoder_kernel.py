@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch.init import init_tacotron2
 from text_to_speech_tpu_torch.models.tacotron2_arch import Tacotron2
 from text_to_speech_tpu_torch.ops import decoder_kernel as dk

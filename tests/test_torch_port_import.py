@@ -45,7 +45,9 @@ def test_port_imports_without_jax():
                  'ops.audio_processing', 'models.base_model', 'models.encoder_arch',
                  'models.encoder.speaker_encoder', 'models.base_audio_model',
                  'models.tts.sv2tts_tacotron2', 'models.tts.speaker_embedding_mixin',
-                 'utils.embeddings', 'utils.distances'):
+                 'utils.embeddings', 'utils.distances', 'models.tts_checkpoints',
+                 'models.fastspeech2_arch', 'models.tts.fastspeech2', 'models.transformers',
+                 'models.transformers.attention', 'models.transformers.transformer_arch'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
@@ -74,6 +76,15 @@ def test_entry_points_raise_without_device():
         from text_to_speech_tpu_torch.models.tts import SV2TTSTacotron2
         raises(lambda: SpeakerEncoder({}, {}))
         raises(lambda: SV2TTSTacotron2({}, {}, tokenizer = default_english_tokenizer()))
+        from text_to_speech_tpu_torch.models.tts import FastSpeech2
+        from text_to_speech_tpu_torch.init import (
+            nvidia_tacotron2_state_dict, nvidia_waveglow_state_dict)
+        raises(lambda: FastSpeech2({}, {}, tokenizer = default_english_tokenizer()))
+        raises(lambda: Tacotron2.from_nvidia_pretrained(nvidia_tacotron2_state_dict(
+            embedding_dim = 8, prenet_dim = 8, attention_rnn_dim = 8, decoder_rnn_dim = 8,
+            attention_dim = 8, location_filters = 2, postnet_filters = 8), root = '/nonexistent'))
+        raises(lambda: WaveGlow.from_nvidia_pretrained(nvidia_waveglow_state_dict(
+            n_flows = 2, wn_layers = 2, wn_channels = 8), root = '/nonexistent'))
         from text_to_speech_tpu_torch.train.trainer import fit
         vocoder = WaveGlow({}, device = 'cpu')
         raises(lambda: fit(vocoder, []))

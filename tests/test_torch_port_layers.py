@@ -11,6 +11,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu.nn import layers as jnn
 from text_to_speech_tpu import text as jtext
 from text_to_speech_tpu_torch.nn import layers as tnn
@@ -174,3 +176,99 @@ def test_symbols_and_tokenizer_file(tmp_path):
     jt, tt = jtext.Tokenizer.load_from_file(path), ttext.Tokenizer.load_from_file(path)
     assert tt.blank_token_idx == jt.blank_token_idx
     np.testing.assert_array_equal(tt.encode(TEXTS[1]), jt.encode(TEXTS[1]))
+
+
+def test_tokenizer_save_is_the_jax_packages(tmp_path):
+    """`Tokenizer.get_config` / `save` write what the JAX package writes,
+    and each package reads the other's file."""
+    jt, tt = jtext.default_english_tokenizer(), ttext.default_english_tokenizer()
+    assert tt.get_config() == jt.get_config()
+    port_file, jax_file = tt.save(str(tmp_path / 'port')), str(tmp_path / 'jax.json')
+    jt.save(jax_file)
+    assert port_file.endswith('.json')
+    with open(port_file) as a, open(jax_file) as b:
+        assert a.read() == b.read()
+    for path in (port_file, jax_file):
+        j, t = jtext.Tokenizer.load_from_file(path), ttext.Tokenizer.load_from_file(path)
+        assert t.get_config() == j.get_config() == jt.get_config()
+        np.testing.assert_array_equal(t.encode(TEXTS[1]), j.encode(TEXTS[1]))
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('epsilon', [1e-9, 1e-5])
+def test_layer_norm_matches_jax(dtype, epsilon):
+    """float32 within 1e-5; bfloat16 (both reduce in float32 and round the
+    mean and variance once) within two bfloat16 steps of the output's scale."""
+    rng = _rng(7)
+    p = {'gamma': 1. + 0.1 * _f32(rng, 16), 'beta': 0.1 * _f32(rng, 16)}
+    x = 3. * _f32(rng, 2, 5, 16) + 1.
+    jdt, tdt = {'float32': (jnp.float32, torch.float32),
+                'bfloat16': (jnp.bfloat16, torch.bfloat16)}[dtype]
+    ref = jnn.layer_norm({k: jnp.asarray(v, jdt) for k, v in p.items()},
+                         jnp.asarray(x, jdt), epsilon)
+    out = tnn.layer_norm({k: v.to(tdt) for k, v in convert_tree(p).items()},
+                         torch.from_numpy(x).to(tdt), epsilon)
+    assert out.dtype == tdt
+    ref = np.asarray(ref, np.float32)
+    atol = ATOL if dtype == 'float32' else 2 * 2 ** -8 * float(np.abs(ref).max())
+    _close(out.float(), ref, atol = atol)
+
+
+def test_attention_and_positions_match_jax():
+    """FastSpeech-2's self-attention with a key mask, the padding masks and
+    the sinusoidal table, against the JAX package's."""
+    from text_to_speech_tpu.models.transformers import attention as jattn
+    from text_to_speech_tpu.models.transformers.transformer_arch import (
+        sinusoidal_embedding as jax_sinusoidal)
+    from text_to_speech_tpu_torch.models.transformers import attention as tattn
+    from text_to_speech_tpu_torch.models.transformers.transformer_arch import (
+        sinusoidal_embedding)
+    rng = _rng(8)
+    p = {name: {'kernel': 0.3 * _f32(rng, 16, 16), 'bias': 0.1 * _f32(rng, 16)}
+         for name in ('query', 'key', 'value', 'output')}
+    x = _f32(rng, 2, 7, 16)
+    tokens = np.array([[3, 4, 5, 6, 7, 8, 9], [3, 4, 5, 0, 0, 0, 0]])
+    mask = tattn.build_padding_mask(tokens = torch.from_numpy(tokens))
+    jmask = jattn.build_padding_mask(tokens = jnp.asarray(tokens))
+    np.testing.assert_array_equal(mask.numpy(), np.asarray(jmask))
+    lengths = np.array([7, 3])
+    np.testing.assert_array_equal(
+        tattn.build_padding_mask(lengths = torch.from_numpy(lengths), max_length = 9).numpy(),
+        np.asarray(jattn.build_padding_mask(lengths = jnp.asarray(lengths), max_length = 9)))
+    out, cache = tattn.mha(convert_tree(p), torch.from_numpy(x), n_heads = 2, mask = mask)
+    ref, _ = jattn.mha(_jax(p), jnp.asarray(x), n_heads = 2, mask = jmask)
+    assert cache is None
+    _close(out, ref)
+    # a masked key changes nothing
+    x2 = x.copy()
+    x2[1, 3:] = 9.
+    out2, _ = tattn.mha(convert_tree(p), torch.from_numpy(x2), n_heads = 2, mask = mask)
+    _close(out2[1, :3], out[1, :3].detach().numpy(), atol = 1e-6)
+    _close(sinusoidal_embedding(64, 16), jax_sinusoidal(64, 16), atol = 1e-6)
+
+
+def test_tacotron2_to_jax_round_trip():
+    """`weights.tacotron2_to_jax` inverts `tacotron2_from_jax` exactly,
+    batch-norm statistics and the speaker projection included."""
+    from text_to_speech_tpu_torch.init import init_tacotron2
+    from text_to_speech_tpu_torch.models.tacotron2_arch import HParamsTacotron2
+    from text_to_speech_tpu_torch.weights import tacotron2_from_jax, tacotron2_to_jax
+    params, state = init_tacotron2(HParamsTacotron2(
+        vocab_size = 20, encoder_embedding_dim = 8, encoder_n_conv = 2, prenet_sizes = (8, 8),
+        attention_rnn_dim = 8, decoder_rnn_dim = 8, lsa_attention_dim = 4,
+        lsa_attention_filters = 2, postnet_n_conv = 2, postnet_filters = 8,
+        speaker_embedding_dim = 4, speaker_concat_pos = 'start'), seed = 3)
+    state['postnet']['conv_0']['bn']['moving_var'] += 0.5
+    port = tacotron2_from_jax(params, state)
+    back = tacotron2_to_jax(* port)
+    for tree, want in zip(back, (params, state)):
+        got, ref = flatten_tree(tree), flatten_tree(want)
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            np.testing.assert_array_equal(got[key], ref[key], err_msg = key)
+    again = tacotron2_from_jax(* back)
+    for tree, want in zip(again, port):
+        got, ref = flatten_tree(tree), flatten_tree(want)
+        assert sorted(got) == sorted(ref)
+        for key in ref:
+            assert torch.equal(got[key], ref[key]), key

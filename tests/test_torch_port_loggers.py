@@ -28,6 +28,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch import devices, loggers
 from text_to_speech_tpu_torch.loggers import (
     Timer, add_handler, add_level, get_formatter, get_level, reset_timers, set_style,
@@ -37,17 +39,6 @@ from text_to_speech_tpu_torch.loggers.handlers import BufferingHandler, TTSHandl
 VOCODER = dict(n_mel_channels = 80, n_flows = 4, n_group = 8, n_early_every = 2,
                n_early_size = 2, wn_layers = 2, wn_channels = 64,
                upsample_width = 1024, upsample_stride = 256)
-
-
-@pytest.fixture(autouse = True, scope = 'module')
-def one_torch_thread():
-    """The suite runs test files in parallel worker processes; torch's own
-    thread pool in each would oversubscribe the cores, so these tests use one
-    thread and give the count back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(autouse = True)

@@ -43,6 +43,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch.ops import matmul_rate as module
 from text_to_speech_tpu_torch.ops.matmul_rate import (
     MAX_SHARED, _check, cluster_shape, l2_bytes, matmul_rate, matmul_rate_plain, ring_stages,
@@ -53,17 +55,6 @@ SMALL = dict(M = 32, K = 32, N = 64, REPS = 10, GRID = 2)
 # (max, mean), relative: the CPU's bf16 chains against JAX, and on the card one
 # product, 4 and 64
 TOL = {'cpu': (1e-3, 1e-5), 'one': (1e-5, 1e-6), 'short': (2e-3, 5e-5), 'long': (1e-2, 1e-3)}
-
-
-@pytest.fixture(autouse = True, scope = 'module')
-def one_torch_thread():
-    """The suite runs test files in parallel worker processes; torch's own
-    thread pool in each would oversubscribe the cores, so these tests use one
-    thread and give the count back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _errs(out, ref):

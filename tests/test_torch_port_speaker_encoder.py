@@ -24,7 +24,7 @@ import pytest
 import torch
 import jax.numpy as jnp
 
-from test_torch_port_train import one_torch_thread  # noqa: F401  (autouse, module)
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
 from text_to_speech_tpu.models import saving
 from text_to_speech_tpu.models.encoder import SpeakerEncoder as JaxSpeakerEncoder
 from text_to_speech_tpu.models.encoder_arch import AudioEncoder as JaxAudioEncoder

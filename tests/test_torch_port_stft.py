@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch.ops.audio_io import load_audio, read_audio
 from text_to_speech_tpu_torch.ops.stft import MelSTFT, TacotronSTFT, mel_filterbank
 
@@ -28,17 +30,6 @@ MODELS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))
 WAVS = sorted(glob.glob(os.path.join(MODELS, 'overfit_demo*', 'predictions', 'overfit',
                                      '*.wav')))
 MEL_FN = os.path.join(MODELS, 'overfit_demo', 'saving', 'mel_fn.json')
-
-
-@pytest.fixture(autouse = True, scope = 'module')
-def one_torch_thread():
-    """The suite runs test files in parallel worker processes; torch's own
-    thread pool in each oversubscribes the cores (a 1 s mel took 50 s), so
-    these tests use one thread and give the count back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def test_mel_matches_jax_on_a_seeded_signal():

@@ -42,6 +42,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 try:
     import jax.numpy as jnp
     from text_to_speech_tpu.models import saving
@@ -79,15 +81,6 @@ VOCODER = dict(n_mel_channels = 80, n_flows = 4, n_group = 8, n_early_every = 2,
 ATOL = 1e-4
 DECODE = dict(deterministic = True, max_length = 1., max_trial = 1, min_fpt_ratio = -1.,
               max_fpt_ratio = float('inf'))
-
-
-@pytest.fixture(autouse = True, scope = 'module')
-def one_torch_thread():
-    """One torch thread a worker process (the suite runs files in parallel)."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _jax(tree):

@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu.models.tacotron2_arch import Tacotron2 as JaxTacotron2
 from text_to_speech_tpu_torch.models.saving import load_model_files
 from text_to_speech_tpu_torch.models.tacotron2_arch import Tacotron2

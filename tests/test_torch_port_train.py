@@ -24,6 +24,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 import jax
 import jax.numpy as jnp
 
@@ -41,17 +43,6 @@ CONFIG = dict(n_mel_channels = 8, n_flows = 4, n_group = 8, n_early_every = 2,
               n_early_size = 2, wn_layers = 2, wn_channels = 128,
               upsample_width = 1024, upsample_stride = 256)
 FRAMES = 16
-
-
-@pytest.fixture(autouse = True, scope = 'module')
-def one_torch_thread():
-    """The suite runs test files in parallel worker processes; torch's own
-    thread pool in each oversubscribes the cores (a 1 s mel took 50 s), so
-    these tests use one thread and give the count back after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 @pytest.fixture(scope = 'module')

@@ -28,6 +28,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu.models import get_pretrained
 from text_to_speech_tpu.models.interfaces import reset_instances
 from text_to_speech_tpu.models.tts import WaveGlow as JaxWaveGlow, tts as jax_tts

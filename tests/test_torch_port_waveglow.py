@@ -13,6 +13,8 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu.models.waveglow_arch import WaveGlow as JaxWaveGlow
 from text_to_speech_tpu_torch.init import init_waveglow
 from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow

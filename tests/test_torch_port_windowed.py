@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_port_train import one_torch_thread  # noqa: F401  (autouse, module)
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
 from text_to_speech_tpu.models import get_pretrained, saving
 from text_to_speech_tpu.models.interfaces import reset_instances
 from text_to_speech_tpu.models.tts import WaveGlow as JaxWaveGlow
@@ -73,7 +73,7 @@ def _hop(win_len, hop_len):
 
 @pytest.mark.parametrize('length, win_len, hop_len', [
     (40, 16, -4), (40, 16, 0.75), (16, 16, -4), (17, 16, -4), (2048, 256, -64),
-    (257, 64, 0.5), (1000, 128, -32)])
+    (257, 64, 0.5), (1000, 128, -32), (256, 128, 128)])
 def test_steps_and_stitching_match_jax(length, win_len, hop_len):
     hop = _hop(win_len, hop_len)
     starts = port_waveglow._get_steps(length, win_len, hop)
@@ -112,6 +112,26 @@ def test_infer_windowed_matches_jax(models, batch):
     assert out.shape == ref.shape == (1, 40 * 256)
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, atol = ATOL, rtol = 0)
+
+
+def test_windows_without_overlap_keep_every_sample(models):
+    """``hop_len == win_len``: a mel of 256 frames in windows of 128 at
+    starts 0 and 128, an overlap of 0.  The reference's `WaveGlow.infer`
+    ends every piece but the last at ``-(overlap // 2)``
+    (``text_to_speech_tpu/models/tts/waveglow.py:319-323``), which is
+    ``-0`` here: it drops the first window's 32,768 samples and returns
+    32,768 of 65,536.  A defect of the reference that the port does not
+    reproduce: it returns all 65,536, each window's audio in its place."""
+    jax_vocoder, vocoder = models[:2]
+    mel = _mel(256, 3)
+    kw = dict(win_len = 128, hop_len = 128, deterministic = True)
+    out = vocoder.infer(mel, ** kw)
+    assert out.shape == (1, 65536)
+    windows = [vocoder.infer(mel[s: s + 128], ** kw) for s in (0, 128)]
+    np.testing.assert_array_equal(out, np.concatenate(windows, axis = -1))
+    ref = np.asarray(jax_vocoder.infer(mel, ** kw))
+    assert ref.shape == (1, 32768)                     # the first window dropped
+    np.testing.assert_allclose(ref, windows[1], atol = ATOL, rtol = 0)
 
 
 @pytest.mark.parametrize('transfer_dtype', ['float32', 'int16'])

@@ -20,6 +20,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch.ops.wn_block import (
     fused_wn_block, pack_wn_weights, wn_block_plain)
 

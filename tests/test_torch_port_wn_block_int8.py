@@ -35,6 +35,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch.init import init_waveglow
 from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow
 from text_to_speech_tpu_torch.ops.wn_block_int8 import (

@@ -22,6 +22,8 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
+
 from text_to_speech_tpu_torch.ops.wn_layer import (
     fused_wn_layer, grid_tiles, l2_bytes, wn_layer_plain)
 

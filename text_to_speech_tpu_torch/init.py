@@ -1,13 +1,14 @@
 """Random parameter trees in the JAX package's layout, made with numpy.
 
-`init_tacotron2`, `init_waveglow` and `init_audio_encoder` follow the JAX
-package's ``init`` methods (glorot-uniform kernels, orthogonal recurrent and
-invertible kernels, unit forget bias, identity batch norms, the identity
-'start' speaker projection) but draw from a numpy generator, so that
+`init_tacotron2`, `init_waveglow`, `init_audio_encoder` and
+`init_fastspeech2` follow the JAX package's ``init`` methods
+(glorot-uniform kernels, orthogonal recurrent and invertible kernels, unit
+forget bias, identity batch and layer norms, the identity 'start' speaker
+projection) but draw from a numpy generator, so that
 NVIDIA-size models can be built without JAX and the same arrays can be
 handed to both packages.  Pass the trees through `weights.tacotron2_from_jax`
-/ `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax` for the
-port.
+/ `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax` /
+`weights.fastspeech2_from_jax` for the port.
 
 WaveGlow's ``end`` convs start at zero in the JAX package, which leaves the
 waveform independent of the WN blocks; here they get small normal weights
@@ -15,6 +16,7 @@ waveform independent of the WN blocks; here they get small normal weights
 """
 
 import math
+import warnings
 
 import numpy as np
 
@@ -59,6 +61,21 @@ def _batch_norm(dim):
     return ({'gamma': np.ones((dim,), np.float32), 'beta': np.zeros((dim,), np.float32)},
             {'moving_mean': np.zeros((dim,), np.float32),
              'moving_var': np.ones((dim,), np.float32)})
+
+
+def _postnet(rng, hp):
+    """The conv + batch-norm postnet of Tacotron-2 and FastSpeech-2:
+    (params, state)."""
+    post, post_state = {}, {}
+    ch_in = hp.n_mel_channels
+    for i in range(hp.postnet_n_conv):
+        ch_out = hp.n_mel_channels if i == hp.postnet_n_conv - 1 else hp.postnet_filters
+        bn, bn_state = _batch_norm(ch_out)
+        post['conv_{}'.format(i)] = {
+            'conv': _conv(rng, hp.postnet_kernel_size, ch_in, ch_out), 'bn': bn}
+        post_state['conv_{}'.format(i)] = {'bn': bn_state}
+        ch_in = ch_out
+    return post, post_state
 
 
 def init_tacotron2(hp, seed = 0):
@@ -113,15 +130,7 @@ def init_tacotron2(hp, seed = 0):
     gate_in = proj_in + (hp.n_mel_channels * r if hp.pred_stop_on_mel else 0)
     dec['gate_layer'] = _dense(rng, gate_in, r)
 
-    post, post_state = {}, {}
-    ch_in = hp.n_mel_channels
-    for i in range(hp.postnet_n_conv):
-        ch_out = hp.n_mel_channels if i == hp.postnet_n_conv - 1 else hp.postnet_filters
-        bn, bn_state = _batch_norm(ch_out)
-        post['conv_{}'.format(i)] = {
-            'conv': _conv(rng, hp.postnet_kernel_size, ch_in, ch_out), 'bn': bn}
-        post_state['conv_{}'.format(i)] = {'bn': bn_state}
-        ch_in = ch_out
+    post, post_state = _postnet(rng, hp)
     params = {'encoder': enc, 'decoder': dec, 'postnet': post}
     state = {'encoder': enc_state, 'postnet': post_state}
     return params, state
@@ -176,6 +185,179 @@ def init_audio_encoder(hp, seed = 0, statistics = False):
     params['projection'] = _dense(rng, 2 * ch_in, hp.embedding_dim)
     params['ge2e'] = {'w': np.array(10., np.float32), 'b': np.array(-5., np.float32)}
     return params, state
+
+
+def _layer_norm(dim):
+    return {'gamma': np.ones((dim,), np.float32), 'beta': np.zeros((dim,), np.float32)}
+
+
+def init_fastspeech2(hp, seed = 0):
+    """(params, state) for a `FastSpeech2` with hparams `hp`, in the tree of
+    the JAX package's ``FastSpeech2.init`` (glorot kernels, zero biases,
+    uniform embeddings, identity layer and batch norms)."""
+    rng = np.random.default_rng(seed)
+    k1, k2 = hp.ffn_kernels
+
+    def fft_block():
+        return {'attention': {name: _dense(rng, hp.dim, hp.dim)
+                              for name in ('query', 'key', 'value', 'output')},
+                'attention_norm': _layer_norm(hp.dim),
+                'conv1': _conv(rng, k1, hp.dim, hp.ffn_dim),
+                'conv2': _conv(rng, k2, hp.ffn_dim, hp.dim),
+                'ffn_norm': _layer_norm(hp.dim)}
+
+    def variance_predictor():
+        k, f = hp.variance_kernel_size, hp.variance_filters
+        return {'conv1': _conv(rng, k, hp.dim, f), 'norm1': _layer_norm(f),
+                'conv2': _conv(rng, k, f, f), 'norm2': _layer_norm(f),
+                'proj': _dense(rng, f, 1)}
+
+    def embedding(n):
+        return {'embeddings': rng.uniform(-0.05, 0.05, (n, hp.dim)).astype(np.float32)}
+
+    params = {
+        'embedding': embedding(hp.vocab_size),
+        'encoder': {'layer_{}'.format(i): fft_block() for i in range(hp.encoder_layers)},
+        'decoder': {'layer_{}'.format(i): fft_block() for i in range(hp.decoder_layers)},
+        'duration_predictor': variance_predictor(),
+        'mel_linear': _dense(rng, hp.dim, hp.n_mel_channels),
+    }
+    for name in ('pitch', 'energy'):
+        if hp['use_' + name]:
+            params[name + '_predictor'] = variance_predictor()
+            params[name + '_embedding'] = embedding(hp.n_bins)
+    if hp.speaker_embedding_dim:
+        params['speaker_projection'] = _dense(rng, hp.speaker_embedding_dim, hp.dim)
+    state = {}
+    if hp.use_postnet:
+        params['postnet'], post_state = _postnet(rng, hp)
+        state = {'postnet': post_state}
+    return params, state
+
+
+def nvidia_tacotron2_state_dict(seed = 0, *, vocab_size = 148, embedding_dim = 512,
+                                prenet_dim = 256, attention_rnn_dim = 1024,
+                                decoder_rnn_dim = 1024, attention_dim = 128,
+                                location_filters = 32, location_kernel = 31,
+                                postnet_filters = 512, n_mel = 80, gate_bias = None):
+    """A seeded Tacotron-2 ``state_dict`` (numpy) in NVIDIA's layout and
+    names (3 encoder convs of width 5, a BiLSTM, 2 prenet layers, 5 postnet
+    convs), at NVIDIA's widths unless given: values ``0.05 * N(0, 1)``,
+    running variances ``|N(0, 1)| + 0.5``.  `gate_bias` sets the stop
+    gate's bias (far negative keeps a random decoder running)."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def add(name, * shape):
+        sd[name] = (0.05 * rng.standard_normal(shape)).astype(np.float32)
+
+    def batch_norm(prefix, dim):
+        add(prefix + '.weight', dim)
+        add(prefix + '.bias', dim)
+        add(prefix + '.running_mean', dim)
+        sd[prefix + '.running_var'] = (np.abs(rng.standard_normal(dim)) + 0.5).astype(np.float32)
+
+    def lstm(prefix, n_in, units, suffix = ''):
+        add('{}.weight_ih{}'.format(prefix, suffix), 4 * units, n_in)
+        add('{}.weight_hh{}'.format(prefix, suffix), 4 * units, units)
+        add('{}.bias_ih{}'.format(prefix, suffix), 4 * units)
+        add('{}.bias_hh{}'.format(prefix, suffix), 4 * units)
+
+    E, A, R = embedding_dim, attention_rnn_dim, decoder_rnn_dim
+    add('embedding.weight', vocab_size, E)
+    for i in range(3):
+        add('encoder.convolutions.{}.0.conv.weight'.format(i), E, E, 5)
+        add('encoder.convolutions.{}.0.conv.bias'.format(i), E)
+        batch_norm('encoder.convolutions.{}.1'.format(i), E)
+    for suffix in ('_l0', '_l0_reverse'):
+        lstm('encoder.lstm', E, E // 2, suffix)
+    add('decoder.prenet.layers.0.linear_layer.weight', prenet_dim, n_mel)
+    add('decoder.prenet.layers.1.linear_layer.weight', prenet_dim, prenet_dim)
+    lstm('decoder.attention_rnn', prenet_dim + E, A)
+    attention = 'decoder.attention_layer.'
+    add(attention + 'query_layer.linear_layer.weight', attention_dim, A)
+    add(attention + 'memory_layer.linear_layer.weight', attention_dim, E)
+    add(attention + 'v.linear_layer.weight', 1, attention_dim)
+    add(attention + 'location_layer.location_conv.conv.weight', location_filters, 2,
+        location_kernel)
+    add(attention + 'location_layer.location_dense.linear_layer.weight', attention_dim,
+        location_filters)
+    lstm('decoder.decoder_rnn', A + E, R)
+    add('decoder.linear_projection.linear_layer.weight', n_mel, R + E)
+    add('decoder.linear_projection.linear_layer.bias', n_mel)
+    add('decoder.gate_layer.linear_layer.weight', 1, R + E)
+    add('decoder.gate_layer.linear_layer.bias', 1)
+    if gate_bias is not None:
+        sd['decoder.gate_layer.linear_layer.bias'][:] = gate_bias
+    for i in range(5):
+        ch_in = n_mel if i == 0 else postnet_filters
+        ch_out = n_mel if i == 4 else postnet_filters
+        add('postnet.convolutions.{}.0.conv.weight'.format(i), ch_out, ch_in, 5)
+        add('postnet.convolutions.{}.0.conv.bias'.format(i), ch_out)
+        batch_norm('postnet.convolutions.{}.1'.format(i), ch_out)
+    return sd
+
+
+def nvidia_waveglow_state_dict(seed = 0, *, n_flows = 12, n_group = 8, n_early_every = 4,
+                               n_early_size = 2, wn_layers = 8, wn_channels = 512, n_mel = 80,
+                               upsample_width = 1024, upsample_stride = 256,
+                               end_scale = 1e-2):
+    """A seeded WaveGlow ``state_dict`` (torch tensors) as NVIDIA's release
+    ships it: its module names, a fused cond layer per WN block, early
+    outputs every `n_early_every` flows, and ``torch.nn.utils.weight_norm``
+    on the start, in, res/skip and cond convs (``weight_g`` / ``weight_v``),
+    at NVIDIA's widths unless given.  Glorot-uniform convs, orthogonal
+    invertible convs, and ``end`` convs of scale `end_scale` (as
+    `init_waveglow`), so that a random vocoder gives finite audio."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    C = wn_channels
+
+    def weight_norm(layer):
+        with warnings.catch_warnings():      # the parametrization gives other keys
+            warnings.simplefilter('ignore', FutureWarning)
+            return torch.nn.utils.weight_norm(layer)
+
+    def conv(n_in, n_out, width = 1, dilation = 1, scale = None, normed = True):
+        layer = torch.nn.Conv1d(n_in, n_out, width, dilation = dilation,
+                                padding = dilation * (width - 1) // 2)
+        weight = (scale * rng.standard_normal((n_out, n_in, width))).astype(np.float32) \
+            if scale is not None else _glorot(rng, (n_out, n_in, width), in_axis = 1, out_axis = 0)
+        with torch.no_grad():
+            layer.weight.copy_(torch.from_numpy(weight))
+            layer.bias.zero_()
+        return weight_norm(layer) if normed else layer
+
+    model = torch.nn.Module()
+    model.upsample = torch.nn.ConvTranspose1d(n_mel, n_mel, upsample_width,
+                                              stride = upsample_stride)
+    with torch.no_grad():
+        model.upsample.weight.copy_(torch.from_numpy(_glorot(
+            rng, (n_mel, n_mel, upsample_width), in_axis = 0, out_axis = 1)))
+        model.upsample.bias.zero_()
+    model.WN, model.convinv = torch.nn.ModuleList(), torch.nn.ModuleList()
+    remaining = n_group
+    for k in range(n_flows):
+        if k % n_early_every == 0 and k > 0:
+            remaining -= n_early_size
+        n_half = remaining // 2
+        wn = torch.nn.Module()
+        wn.start = conv(n_half, C)
+        wn.end = conv(C, 2 * n_half, scale = end_scale, normed = False)
+        wn.cond_layer = conv(n_mel * n_group, 2 * C * wn_layers)
+        wn.in_layers = torch.nn.ModuleList(
+            [conv(C, 2 * C, 3, dilation = 2 ** i) for i in range(wn_layers)])
+        wn.res_skip_layers = torch.nn.ModuleList(
+            [conv(C, 2 * C if i < wn_layers - 1 else C) for i in range(wn_layers)])
+        model.WN.append(wn)
+        invertible = torch.nn.Module()
+        invertible.conv = torch.nn.Conv1d(remaining, remaining, 1, bias = False)
+        with torch.no_grad():
+            invertible.conv.weight.copy_(torch.from_numpy(
+                _orthogonal(rng, (remaining, remaining))[..., None]))
+        model.convinv.append(invertible)
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
 
 
 def random_tts_models(device = None, *, tacotron2 = {}, waveglow = {}, seed = 0):

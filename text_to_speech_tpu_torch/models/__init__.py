@@ -1,5 +1,6 @@
-"""Architectures (`tacotron2_arch`, `waveglow_arch`, `encoder_arch`), task
-models (`tts`, `encoder`) and `get_pretrained`.
+"""Architectures (`tacotron2_arch`, `waveglow_arch`, `encoder_arch`,
+`fastspeech2_arch`), task models (`tts`, `encoder`), the NVIDIA checkpoint
+importers (`tts_checkpoints`) and `get_pretrained`.
 
 Counterpart of ``text_to_speech_tpu/models/__init__.py``: `get_pretrained`
 loads a saved model by name with the class its ``config.json`` names.
@@ -13,8 +14,9 @@ from .saving import model_dir
 
 def _model_classes():
     from .encoder import SpeakerEncoder
-    from .tts import SV2TTSTacotron2, Tacotron2, WaveGlow
-    return {cls.__name__: cls for cls in (Tacotron2, SV2TTSTacotron2, WaveGlow, SpeakerEncoder)}
+    from .tts import FastSpeech2, SV2TTSTacotron2, Tacotron2, WaveGlow
+    return {cls.__name__: cls for cls in (Tacotron2, SV2TTSTacotron2, FastSpeech2, WaveGlow,
+                                          SpeakerEncoder)}
 
 
 def get_pretrained(name, *, root = None, device = None):

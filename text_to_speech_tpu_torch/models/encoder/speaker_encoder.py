@@ -21,11 +21,10 @@ from ...devices import default_device
 from ...loggers import timer
 from ...utils.distances import distance
 from ...train.checkpoint import CheckpointManager
-from ...utils.file_utils import dump_json
 from ...weights import audio_encoder_from_jax, audio_encoder_to_jax, tree_to
 from ..base_audio_model import BaseAudioModel
 from ..encoder_arch import AudioEncoder
-from ..saving import load_model_files, model_dir
+from ..saving import load_model_files, model_dir, write_model_config
 
 _NOT_PORTED = 'GE2E training of the speaker encoder is not ported (ROADMAP.md, queue 1, item 8)'
 
@@ -69,12 +68,10 @@ class SpeakerEncoder(BaseAudioModel):
         architecture, ``mel_fn.json``, a checkpoint of the params and the
         batch-norm statistics as JAX trees at epoch 0)."""
         saving = os.path.join(self.folder, 'saving')
-        dump_json(os.path.join(self.folder, 'config.json'), {
-            'class_name': 'SpeakerEncoder',
-            'config': {** self.get_config_audio(), 'audio_rate': self.rate,
-                       'max_audio_time': self.max_audio_time, 'name': self.name}})
-        dump_json(os.path.join(saving, 'config_models.json'),
-                  {'architecture': 'audioencoder', ** self.arch.get_config()})
+        write_model_config(self.folder, 'SpeakerEncoder',
+                           {** self.get_config_audio(), 'audio_rate': self.rate,
+                            'max_audio_time': self.max_audio_time, 'name': self.name},
+                           'audioencoder', self.arch.get_config())
         self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
         params, state = audio_encoder_to_jax(self.params, self.state)
         CheckpointManager(os.path.join(saving, 'checkpoint')).save(

@@ -9,15 +9,15 @@ The layout (``text_to_speech_tpu/models/saving.py``)::
     <root>/<name>/saving/checkpoint/checkpoint.json   # manifest, newest last
     <root>/<name>/saving/checkpoint/ckpt-<epoch>.<tree>.npz
 
-The port reads these files; the WaveGlow task model also writes them
-when it trains (`models.tts.waveglow.WaveGlow.save`).  The root is
+The port reads these files, and its task models write them (`save`:
+`write_model_config` and a checkpoint), so that the JAX package loads them.  The root is
 ``$TTS_PRETRAINED_DIR`` or ``pretrained_models`` (relative to the working
 directory), like the JAX package's, unless a caller passes its own.
 """
 
 import os
 
-from ..utils.file_utils import load_json
+from ..utils.file_utils import dump_json, load_json
 from ..weights import load_tree
 
 
@@ -27,6 +27,16 @@ def pretrained_root(root = None):
 
 def model_dir(name, * parts, root = None):
     return os.path.join(pretrained_root(root), name, * parts)
+
+
+def write_model_config(folder, class_name, config, architecture, arch_config):
+    """``config.json`` (the class and its constructor config) and
+    ``saving/config_models.json`` (the architecture's name and hparams) of
+    the model directory `folder`, as the JAX package writes them."""
+    dump_json(os.path.join(folder, 'config.json'),
+              {'class_name': class_name, 'config': config}, indent = 2)
+    dump_json(os.path.join(folder, 'saving', 'config_models.json'),
+              {'architecture': architecture, ** arch_config}, indent = 2)
 
 
 def load_model_files(name, root = None):

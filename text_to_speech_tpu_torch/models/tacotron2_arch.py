@@ -101,6 +101,9 @@ class Tacotron2:
         self.prenet_in_dim = hp.n_mel_channels + (
             self.spk_dim if 'prenet' in self.concat_pos else 0)
 
+    def get_config(self):
+        return self.hp.get_config()
+
     # -- encoder ---------------------------------------------------------------
 
     def _speaker(self, speaker_embedding, shape):

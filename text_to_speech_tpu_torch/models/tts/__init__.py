@@ -6,13 +6,18 @@ language → pretrained-model map (`set_pretrained_model`,
 `stream`.  Models are instances or the names of saved models under the
 pretrained-models root (or the caller's `root`), loaded on `device` with
 the class their ``config.json`` names (`models.get_pretrained`): the `fr`
-default is an `SV2TTSTacotron2`, which takes `embeddings=` or `audio=`.  The
-map's defaults name models that are not in the repo, so loading them
-raises; nothing is downloaded.  `serve()` is not ported.
+default is an `SV2TTSTacotron2`, which takes `embeddings=` or `audio=`; a
+saved `FastSpeech2` (``fs2_train``) is named with `model=`.  The map's
+defaults are not in the repo: the `en` one, ``pretrained_tacotron2``, is
+made from NVIDIA's checkpoints by `Tacotron2.from_nvidia_pretrained` (with
+`WaveGlow.from_nvidia_pretrained` for the ``waveglow`` vocoder) into a
+`root`; otherwise loading them raises, and nothing is downloaded.
+`serve()` is not ported.
 """
 
 import os
 
+from .fastspeech2 import FastSpeech2
 from .sv2tts_tacotron2 import SV2TTSTacotron2
 from .tacotron2 import Tacotron2
 from .waveglow import WaveGlow
@@ -82,5 +87,5 @@ def stream(stream_input, *, model = None, lang = None, vocoder = None, play = Tr
     return model.stream(stream_input, vocoder = vocoder, play = play, ** kwargs)
 
 
-__all__ = ['SV2TTSTacotron2', 'Tacotron2', 'WaveGlow', 'get_models', 'get_model_lang',
+__all__ = ['FastSpeech2', 'SV2TTSTacotron2', 'Tacotron2', 'WaveGlow', 'get_models', 'get_model_lang',
            'get_pretrained_model', 'set_pretrained_model', 'stream', 'tts']

@@ -40,6 +40,9 @@ class SV2TTSTacotron2(SpeakerEmbeddingMixin, Tacotron2):
             if key in config: kwargs.setdefault(key, config[key])
         return super().from_pretrained(name, root = root, device = device, ** kwargs)
 
+    def get_config(self):
+        return {** super().get_config(), ** self.get_speaker_config()}
+
     # -- inference -------------------------------------------------------------
 
     def _resolve_speaker(self, embeddings, audio, mode, label):

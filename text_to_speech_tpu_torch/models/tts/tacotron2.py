@@ -30,6 +30,11 @@ dispatch: `predict`, `inference` (`infer`) with `processing` (cleaning and
 tokenizing), `compiled_tts` (the one-launch path) and `compiled_infer`
 (each other decode).
 
+`save` writes the JAX package's directory layout, which both packages
+load; `from_nvidia_pretrained` imports an NVIDIA Tacotron-2 checkpoint
+(`models.tts_checkpoints`) and saves it, as the JAX package builds its
+``en`` default ``pretrained_tacotron2``.
+
 Speaker embeddings (`embeddings`, for a speaker-conditioned architecture;
 `SV2TTSTacotron2` resolves them from tables, files or audio): a (D,) vector
 or one row per chunk of the decode batch, broadcast to every decode, and
@@ -47,19 +52,25 @@ import torch
 from ...devices import default_device
 from ...loggers import Timer, timer
 from ...ops.decoder_kernel import kernel_weights_only, pack_decoder_weights
-from ...text import Tokenizer, split_text, split_sentences
+from ...ops.stft import MelSTFT
+from ...text import Tokenizer, default_english_tokenizer, split_text, split_sentences
+from ...train.checkpoint import CheckpointManager
+from ...train.history import History
 from ...utils.callbacks import (
     AudioSaver, SpectrogramSaver, JSONSaver, AudioPlayer, FunctionCallback,
     QueueCallback, apply_callbacks,
 )
 from ...utils.file_utils import load_json
-from ...weights import cast_tree, tacotron2_from_jax, tree_to
+from ...weights import cast_tree, tacotron2_from_jax, tree_to, tree_to_jax
 from ..base_model import BaseModel
-from ..saving import load_model_files, model_dir
+from ..saving import load_model_files, model_dir, write_model_config
 from ..tacotron2_arch import Tacotron2 as Tacotron2Arch
+from ..tts_checkpoints import (
+    _load_state_dict, convert_nvidia_tacotron2, tacotron2_config_from_state_dict)
 
 logger = logging.getLogger(__name__)
 
+DEFAULT_MAX_TEXT_LENGTH = 150
 DEFAULT_MAX_MEL_LENGTH = 1024
 
 # decode options that the vocoder must not see: they would change its own
@@ -110,10 +121,15 @@ def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
 
 
 class Tacotron2(BaseModel):
+    arch_class = Tacotron2Arch
+
     def __init__(self, params, state, *, tokenizer, name = 'tacotron2',
-                 device = None, rate = 22050, pad_mel_value = -11.,
+                 device = None, rate = 22050, mel_fn = 'TacotronSTFT', lang = 'en',
+                 pad_mel_value = -11., max_input_length = DEFAULT_MAX_TEXT_LENGTH,
                  max_output_length = DEFAULT_MAX_MEL_LENGTH, root = None, ** arch_config):
         """`params`, `state`: the port's trees (`weights.tacotron2_from_jax`).
+        `mel_fn`: the mel front end the model was trained on (a `MelSTFT`,
+        its config or class name, made at `rate`), saved with the model.
         `root`: the directory holding ``<name>/``, whose ``predictions/``
         the inference callbacks write by default (the pretrained-models root
         unless given)."""
@@ -122,11 +138,16 @@ class Tacotron2(BaseModel):
         self.folder = model_dir(name, root = root)
         self.device = default_device(device)
         self.tokenizer = tokenizer
-        self.arch = Tacotron2Arch(** arch_config)
+        self.arch = self.arch_class(** arch_config)
         self.params = params
         self.state = tree_to(state, self.device)
-        self.rate = rate
+        if isinstance(mel_fn, str) and not os.path.isfile(mel_fn):
+            mel_fn = MelSTFT.create(mel_fn, sampling_rate = rate)
+        self.mel_fn = MelSTFT.create(mel_fn)
+        self.rate = self.mel_fn.rate
+        self.lang = lang
         self.pad_mel_value = pad_mel_value
+        self.max_input_length = max_input_length
         self.max_output_length = max_output_length
         self.last_timings = {}
 
@@ -136,9 +157,10 @@ class Tacotron2(BaseModel):
 
     @params.setter
     def params(self, params):
-        """New parameters drop the decoder packed from the old ones."""
+        """New parameters drop the weights derived from the old ones (the
+        packed decoder, cast copies)."""
         self._params = tree_to(params, self.device)
-        self._packed_decoder = {}
+        self._derived = {}
 
     @classmethod
     def from_jax(cls, params, state, ** kwargs):
@@ -147,20 +169,70 @@ class Tacotron2(BaseModel):
 
     @classmethod
     def from_pretrained(cls, name, *, root = None, device = None, ** kwargs):
-        """Load a saved Tacotron-2 (the JAX package's directory layout);
+        """Load a saved model (the JAX package's directory layout);
         `kwargs` go to the constructor."""
         files = load_model_files(name, root = root)
         saving = os.path.join(files['dir'], 'saving')
         arch = {k: v for k, v in files['architecture'].items() if k != 'architecture'}
         config = files['config'].get('config', {})
-        mel_fn = load_json(os.path.join(saving, 'mel_fn.json'))
         return cls.from_jax(
             files['params'], files['state'], name = name, device = device, root = root,
             tokenizer = Tokenizer.load_from_file(os.path.join(saving, 'tokenizer.json')),
-            rate = mel_fn.get('sampling_rate', 22050),
+            mel_fn = load_json(os.path.join(saving, 'mel_fn.json')),
+            lang = config.get('lang', 'en'),
             pad_mel_value = config.get('pad_mel_value', -11.),
+            max_input_length = config.get('max_input_length', DEFAULT_MAX_TEXT_LENGTH),
             max_output_length = config.get('max_output_length', DEFAULT_MAX_MEL_LENGTH),
             ** arch, ** kwargs)
+
+    @classmethod
+    def from_nvidia_pretrained(cls, checkpoint, *, name = 'pretrained_tacotron2', lang = 'en',
+                               config = None, root = None, device = None, ** kwargs):
+        """Import an NVIDIA-layout Tacotron-2 checkpoint (a state dict, or a
+        ``.pt`` / ``.pth`` / ``.safetensors`` file) as `name` under `root`,
+        as the JAX package's `from_nvidia_pretrained` does: the sizes come
+        from the tensors' shapes, the vocabulary from the tokenizer (the
+        English symbols with ``english_cleaners`` unless `tokenizer` is
+        given), `config` overrides what the shapes cannot say (rates,
+        flags); the model is saved, so that ``tts(lang = 'en', root = root)``
+        finds it."""
+        sd = _load_state_dict(checkpoint)
+        inferred = tacotron2_config_from_state_dict(sd)
+        inferred.pop('vocab_size', None)
+        inferred.update(config or {})
+        tokenizer = kwargs.pop('tokenizer', None) or default_english_tokenizer()
+        model = cls.from_jax(
+            * convert_nvidia_tacotron2(sd), name = name, lang = lang, root = root,
+            device = device, tokenizer = tokenizer,
+            ** {'pad_token': tokenizer.blank_token_idx, 'vocab_size': len(tokenizer),
+                ** inferred, ** kwargs})
+        model.save()
+        return model
+
+    # -- saving ----------------------------------------------------------------
+
+    def get_config(self):
+        """The constructor's config that ``config.json`` holds."""
+        return {'lang': self.lang, 'audio_format': 'mel', 'pad_mel_value': self.pad_mel_value,
+                'max_input_length': self.max_input_length,
+                'max_output_length': self.max_output_length}
+
+    def save(self):
+        """Write ``<root>/<name>/`` in the JAX package's layout
+        (``config.json``, ``saving/config_models.json``, ``tokenizer.json``,
+        ``mel_fn.json``, ``history.json`` and a checkpoint of the params and
+        state at the history's epoch), which both packages load."""
+        saving = os.path.join(self.folder, 'saving')
+        write_model_config(self.folder, type(self).__name__, {** self.get_config(), 'name': self.name},
+                           type(self.arch).__name__.lower(), self.arch.get_config())
+        self.tokenizer.save(os.path.join(saving, 'tokenizer.json'))
+        self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
+        history = History.load(os.path.join(saving, 'history.json'))
+        history.save(os.path.join(saving, 'history.json'))
+        trees = {'params': tree_to_jax(self.params)}
+        if self.state: trees['state'] = tree_to_jax(self.state)
+        CheckpointManager(os.path.join(saving, 'checkpoint')).save(trees, history.epochs)
+        return self.folder
 
     # -- text ------------------------------------------------------------------
 
@@ -209,15 +281,15 @@ class Tacotron2(BaseModel):
     def _decoder_weights(self, dtype):
         """The decoder packed for the fused kernel, once per compute dtype
         and set of parameters; on a card, in the kernel's layouts only."""
-        if dtype not in self._packed_decoder:
+        if dtype not in self._derived:
             dec = self.params['decoder']
             packed = pack_decoder_weights(
                 cast_tree(dec, dtype) if dtype is not None else dec,
                 n_mel = self.arch.hp.n_mel_channels, dtype = dtype or torch.float32)
             if self.device.type == 'cuda':
                 packed = kernel_weights_only(packed)
-            self._packed_decoder[dtype] = packed
-        return self._packed_decoder[dtype]
+            self._derived[dtype] = packed
+        return self._derived[dtype]
 
     @staticmethod
     def _speaker_rows(embeddings, n):

@@ -24,7 +24,9 @@ prepares (mel, audio) pairs from WAV files or arrays (`prepare_data`,
 JAX package's directory layout under ``<root>/<name>/`` (``config.json``,
 ``saving/config_models.json``, ``saving/mel_fn.json``,
 ``saving/history.json`` and ``saving/checkpoint/``), the params in the JAX
-package's tree layout (`weights.waveglow_to_jax`).
+package's tree layout (`weights.waveglow_to_jax`).  `from_nvidia_pretrained`
+imports NVIDIA's weight-normed checkpoint (`models.tts_checkpoints`) and
+saves it.
 """
 
 import logging
@@ -40,9 +42,12 @@ from ...ops.audio_io import load_audio
 from ...ops.stft import MelSTFT
 from ...train.checkpoint import CheckpointManager
 from ...train.history import History
-from ...utils.file_utils import dump_json, load_json
+from ...utils.file_utils import load_json
 from ...weights import tree_to, waveglow_from_jax, waveglow_to_jax
-from ..saving import load_model_files, model_dir
+from ..saving import load_model_files, model_dir, write_model_config
+from ..tts_checkpoints import (
+    _load_state_dict, convert_nvidia_waveglow, remove_torch_weight_norm,
+    waveglow_config_from_state_dict)
 from ..waveglow_arch import WaveGlow as WaveGlowArch
 
 logger = logging.getLogger(__name__)
@@ -95,6 +100,23 @@ class WaveGlow:
         return cls.from_jax(files['params'], name = name, device = device, root = root,
                             mel_fn = mel_fn, pad_mel_value = config.get('pad_mel_value', -11.),
                             ** arch)
+
+    @classmethod
+    def from_nvidia_pretrained(cls, checkpoint, *, name = 'waveglow', config = None,
+                               root = None, device = None, ** kwargs):
+        """Import an NVIDIA-layout WaveGlow checkpoint (a state dict, or a
+        ``.pt`` / ``.pth`` / ``.safetensors`` file; weight norm folded, fused
+        cond layers) as `name` under `root`, as the JAX package's
+        `from_nvidia_pretrained` does: the sizes come from the tensors'
+        shapes, `config` overrides the rest (``upsample_stride`` if not
+        256); the model is saved."""
+        sd = remove_torch_weight_norm(_load_state_dict(checkpoint))
+        inferred = waveglow_config_from_state_dict(sd)
+        inferred.update(config or {})
+        model = cls.from_jax(convert_nvidia_waveglow(sd), name = name, root = root,
+                             device = device, ** {** inferred, ** kwargs})
+        model.save()
+        return model
 
     # -- training ----------------------------------------------------------------
 
@@ -151,7 +173,7 @@ class WaveGlow:
         return (self.pad_mel_value, 0.)
 
     def get_config(self):
-        return {'pad_mel_value': self.pad_mel_value}
+        return {'audio_format': 'mel', 'pad_mel_value': self.pad_mel_value}
 
     def save(self, *, epoch = None, metric = None, extra_trees = None, saver = None):
         """Write the model's directory in the JAX package's layout, with a
@@ -160,10 +182,8 @@ class WaveGlow:
         (`train.checkpoint.AsyncCheckpointSaver`), when given, the checkpoint
         is written on its thread."""
         saving = os.path.join(self.folder, 'saving')
-        dump_json(os.path.join(self.folder, 'config.json'), {
-            'class_name': 'WaveGlow', 'config': {** self.get_config(), 'name': self.name}})
-        dump_json(os.path.join(saving, 'config_models.json'),
-                  {'architecture': 'waveglow', ** self.arch.get_config()})
+        write_model_config(self.folder, 'WaveGlow', {** self.get_config(), 'name': self.name},
+                           'waveglow', self.arch.get_config())
         self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
         self.history.save(os.path.join(saving, 'history.json'))
         trees = {'params': waveglow_to_jax(self.params), ** (extra_trees or {})}

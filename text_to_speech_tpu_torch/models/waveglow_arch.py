@@ -34,6 +34,8 @@ HParamsWaveGlow = HParams(
     wn_layers = 8,
     wn_channels = 512,
     wn_kernel_size = 3,
+    wn_fused = False,          # one cond conv per block (NVIDIA's layout); the
+                               # blocks' params say which layout they hold
     use_pallas = False,        # the chain runs each layer in `ops.wn_layer`
     wn_train_conv = 'dilated', # read so a JAX config loads; the port runs nn.conv1d
     wn_train_fused = False,    # training forward on `ops.wn_block` (wn_block_train)

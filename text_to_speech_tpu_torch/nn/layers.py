@@ -12,6 +12,7 @@ layouts, which `weights.py` produces from the JAX trees:
   - LSTM cell:  ``weight_ih (4U, in)``, ``weight_hh (4U, U)``, one fused
     ``bias (4U,)``; gates ordered i, f, g, o
   - batch norm: params ``weight``/``bias``, state ``running_mean``/``running_var``
+  - layer norm: ``weight``/``bias`` (the JAX package's ``gamma``/``beta``)
 """
 
 import torch
@@ -117,6 +118,18 @@ def bilstm(params, xs, *, mask = None):
     fw, _ = lstm(params['forward'], xs, mask = mask)
     bw, _ = lstm(params['backward'], xs, mask = mask, reverse = True)
     return torch.cat([fw, bw], dim = -1)
+
+
+def layer_norm(params, x, epsilon = 1e-5):
+    """Over the last axis, as the JAX package computes it: population
+    variance and ``rsqrt(var + epsilon)``; for a bfloat16 `x` the mean and
+    the variance are reduced in float32 and rounded to bfloat16, as
+    ``jnp.mean`` / ``jnp.var`` do, and the rest runs in bfloat16."""
+    x32 = x.float()
+    mean32 = x32.mean(dim = -1, keepdim = True)
+    var = ((x32 - mean32) ** 2).mean(dim = -1, keepdim = True).to(x.dtype)
+    return (x - mean32.to(x.dtype)) * torch.rsqrt(var + epsilon) * params['weight'] \
+        + params['bias']
 
 
 def dropout(x, rate, *, generator = None):

@@ -1,14 +1,15 @@
 """Character-level text tokenizer with a cleaner pipeline.
 
 The char-level part of ``text_to_speech_tpu/text/tokenizer.py``, copied so
-that the port imports nothing of the JAX package.  It reads the same
-``tokenizer.json`` files; other levels (byte, BPE, word) are not ported.
+that the port imports nothing of the JAX package.  It reads and writes the
+same ``tokenizer.json`` files; other levels (byte, BPE, word) are not ported.
 """
 
 import json
 
 import numpy as np
 
+from ..utils.file_utils import dump_json
 from .cleaners import get_cleaners_fn, clean_text
 
 
@@ -22,6 +23,8 @@ class Tokenizer:
                  eos_token = None,
                  blank_token = None,
                  ukn_token = None,
+                 sep_token = None,
+                 mask_token = None,
                  use_sos_and_eos = False,
                  ** _
                 ):
@@ -39,6 +42,8 @@ class Tokenizer:
             self.vocab[0] if self.vocab else None
         )
         self.ukn_token = ukn_token
+        self.sep_token = sep_token
+        self.mask_token = mask_token
         self.use_sos_and_eos = use_sos_and_eos
         self._token_to_idx = {tok: i for i, tok in enumerate(self.vocab)}
 
@@ -81,6 +86,26 @@ class Tokenizer:
         return np.asarray(ids, dtype = np.int32)
 
     __call__ = encode
+
+    def get_config(self):
+        """The ``tokenizer.json`` content, as the JAX package writes it."""
+        return {
+            'vocab': self.vocab,
+            'level': self.level,
+            'cleaners': [c for c in self.cleaners if isinstance(c, (str, dict))]
+                        or list(self.cleaners),
+            'sos_token': self.sos_token,
+            'eos_token': self.eos_token,
+            'blank_token': self.blank_token,
+            'ukn_token': self.ukn_token,
+            'sep_token': self.sep_token,
+            'mask_token': self.mask_token,
+            'use_sos_and_eos': self.use_sos_and_eos,
+        }
+
+    def save(self, filename):
+        if not filename.endswith('.json'): filename += '.json'
+        return dump_json(filename, self.get_config(), indent = 2)
 
     @classmethod
     def load_from_file(cls, filename):

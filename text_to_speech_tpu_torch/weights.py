@@ -2,9 +2,10 @@
 
 The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
 flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
-them without JAX.  `tacotron2_from_jax`, `waveglow_from_jax` and
-`audio_encoder_from_jax` turn those trees (nested dicts of numpy arrays)
-into nested dicts of torch tensors in the layouts `nn.layers` takes:
+them without JAX.  `tacotron2_from_jax`, `waveglow_from_jax`,
+`audio_encoder_from_jax` and `fastspeech2_from_jax` turn those trees
+(nested dicts of numpy arrays) into nested dicts of torch tensors in the
+layouts `nn.layers` takes (the ``*_to_jax`` functions go back):
 
   - conv ``kernel (W, in, out)``           → ``weight (out, in, W)``
   - conv-transpose ``kernel (W, in, out)`` → ``weight (in, out, W)``, taps
@@ -13,7 +14,7 @@ into nested dicts of torch tensors in the layouts `nn.layers` takes:
     1×1 invertible conv ``(c, c)`` maps the same way
   - LSTM ``kernel`` / ``recurrent_kernel`` / ``bias`` → ``weight_ih`` /
     ``weight_hh`` / one fused ``bias``
-  - batch norm ``gamma``/``beta`` → ``weight``/``bias``; its running
+  - batch and layer norm ``gamma``/``beta`` → ``weight``/``bias``; the running
     statistics ``moving_mean``/``moving_var`` → ``running_mean``/``running_var``
     (a separate state tree, as in the JAX package)
   - embedding ``embeddings`` → ``weight``
@@ -117,6 +118,13 @@ def audio_encoder_from_jax(params, state):
     return convert_tree(params), convert_tree(state)
 
 
+def fastspeech2_from_jax(params, state):
+    """JAX FastSpeech-2 (params, state) trees → the port's (params, state):
+    layer norms, embeddings, attention projections, convs and the
+    postnet's batch norms, all by `convert_tree`."""
+    return convert_tree(params), convert_tree(state)
+
+
 def waveglow_from_jax(params):
     """JAX WaveGlow params tree → the port's params."""
     out = {k: convert_tree(v) for k, v in params.items() if k != 'upsample'}
@@ -143,10 +151,36 @@ def _conv_to_jax(node):
     return out
 
 
-def _to_jax_tree(tree):
-    if 'weight' in tree and not isinstance(tree['weight'], dict):
-        return _conv_to_jax(tree)
-    return {k: _to_jax_tree(v) for k, v in tree.items()}
+def _node_to_jax(name, node):
+    """One of the port's layer dicts back to the JAX layout; `name` (its key
+    in the tree) tells an embedding from a dense layer without bias."""
+    if 'weight_hh' in node:
+        return {'kernel': np.ascontiguousarray(_array(node['weight_ih']).T),
+                'recurrent_kernel': np.ascontiguousarray(_array(node['weight_hh']).T),
+                'bias': _array(node['bias'])}
+    if 'running_mean' in node:
+        return {'moving_mean': _array(node['running_mean']),
+                'moving_var': _array(node['running_var'])}
+    if node['weight'].dim() == 1:
+        return {'gamma': _array(node['weight']), 'beta': _array(node['bias'])}
+    if name == 'embedding' or name.endswith('_embedding'):
+        return {'embeddings': _array(node['weight'])}
+    return _conv_to_jax(node)
+
+
+def tree_to_jax(tree, name = ''):
+    """The inverse of `convert_tree` for the layer dicts of Tacotron-2,
+    FastSpeech-2 and WaveGlow's coupling blocks (numpy float32)."""
+    if tree and all(not isinstance(v, dict) for v in tree.values()):
+        return _node_to_jax(name, tree)
+    return {k: tree_to_jax(v, k) for k, v in tree.items()}
+
+
+def tacotron2_to_jax(params, state):
+    """The port's Tacotron-2 (params, state) → the JAX package's trees
+    (numpy float32), batch-norm statistics included: the inverse of
+    `tacotron2_from_jax`."""
+    return tree_to_jax(params), tree_to_jax(state)
 
 
 def waveglow_to_jax(params):
@@ -165,7 +199,7 @@ def waveglow_to_jax(params):
             block = {k: v for k, v in value['block'].items()
                      if k not in ('packed', 'packed_q')}
             out[name] = {'convinv': {'kernel': _conv_to_jax(value['convinv'])['kernel']},
-                         'block': _to_jax_tree(block)}
+                         'block': tree_to_jax(block)}
     return out
 
 
