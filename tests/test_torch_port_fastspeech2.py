@@ -70,7 +70,7 @@ from text_to_speech_tpu_torch.models.fastspeech2_arch import (
 from text_to_speech_tpu_torch.models.tts import FastSpeech2 as FastSpeech2Task
 from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow as WaveGlowArch
 from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
-from text_to_speech_tpu_torch.weights import fastspeech2_from_jax
+from text_to_speech_tpu_torch.weights import convert_tree
 
 TRAINED = ('fs2_smoke', 'fs2_train', 'distill_student')
 TEXTS = ['Hello world!', 'Dr. Smith has 2 cats.']
@@ -293,7 +293,7 @@ def test_frame_level_and_speaker_projection_match_jax():
     ref = jax.jit(lambda p, s, t, e: jarch.infer(p, s, t, speaker_embedding = e, ** kw))(
         _jax(jparams), _jax(jstate), jnp.asarray(tokens), jnp.asarray(spk))
     arch = FastSpeech2(** config)
-    params, state = fastspeech2_from_jax(jparams, jstate)
+    params, state = convert_tree(jparams), convert_tree(jstate)
     with torch.no_grad():
         out = arch.infer(params, state, torch.from_numpy(tokens).long(),
                          speaker_embedding = torch.from_numpy(spk), ** kw)

@@ -248,11 +248,12 @@ def test_attention_and_positions_match_jax():
 
 
 def test_tacotron2_to_jax_round_trip():
-    """`weights.tacotron2_to_jax` inverts `tacotron2_from_jax` exactly,
-    batch-norm statistics and the speaker projection included."""
+    """`weights.tree_to_jax` of the port's Tacotron-2 params and state
+    inverts `tacotron2_from_jax` exactly, batch-norm statistics and the
+    speaker projection included."""
     from text_to_speech_tpu_torch.init import init_tacotron2
     from text_to_speech_tpu_torch.models.tacotron2_arch import HParamsTacotron2
-    from text_to_speech_tpu_torch.weights import tacotron2_from_jax, tacotron2_to_jax
+    from text_to_speech_tpu_torch.weights import tacotron2_from_jax, tree_to_jax
     params, state = init_tacotron2(HParamsTacotron2(
         vocab_size = 20, encoder_embedding_dim = 8, encoder_n_conv = 2, prenet_sizes = (8, 8),
         attention_rnn_dim = 8, decoder_rnn_dim = 8, lsa_attention_dim = 4,
@@ -260,7 +261,7 @@ def test_tacotron2_to_jax_round_trip():
         speaker_embedding_dim = 4, speaker_concat_pos = 'start'), seed = 3)
     state['postnet']['conv_0']['bn']['moving_var'] += 0.5
     port = tacotron2_from_jax(params, state)
-    back = tacotron2_to_jax(* port)
+    back = tuple(tree_to_jax(tree) for tree in port)
     for tree, want in zip(back, (params, state)):
         got, ref = flatten_tree(tree), flatten_tree(want)
         assert sorted(got) == sorted(ref)

@@ -7,8 +7,9 @@ forget bias, identity batch and layer norms, the identity 'start' speaker
 projection) but draw from a numpy generator, so that
 NVIDIA-size models can be built without JAX and the same arrays can be
 handed to both packages.  Pass the trees through `weights.tacotron2_from_jax`
-/ `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax` /
-`weights.fastspeech2_from_jax` for the port.
+/ `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax`, or
+FastSpeech-2's params and state each through `weights.convert_tree`, for the
+port.
 
 WaveGlow's ``end`` convs start at zero in the JAX package, which leaves the
 waveform independent of the WN blocks; here they get small normal weights

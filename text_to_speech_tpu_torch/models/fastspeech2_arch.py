@@ -6,7 +6,7 @@ transformer blocks (self-attention, then a conv FFN with kernels 9 and 1),
 the variance adaptor (duration, pitch and energy predictors, the quantized
 pitch and energy embeddings, at phoneme or frame level), the length
 regulator and the conv + batch-norm postnet.  Parameters are the port's
-layouts (`weights.fastspeech2_from_jax`).
+layouts (`weights.convert_tree` of the JAX trees).
 
 Every frame comes out of one parallel pass: the predicted durations drive
 `length_regulator`, which expands the phoneme states into a fixed

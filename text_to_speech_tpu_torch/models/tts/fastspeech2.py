@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from ...loggers import timer
-from ...weights import cast_tree, fastspeech2_from_jax
+from ...weights import cast_tree, convert_tree
 from ..fastspeech2_arch import FastSpeech2 as FastSpeech2Arch
 from .tacotron2 import Tacotron2, pad_to_multiple
 
@@ -38,7 +38,7 @@ class FastSpeech2(Tacotron2):
     @classmethod
     def from_jax(cls, params, state, ** kwargs):
         """From the JAX package's (params, state) trees (numpy arrays)."""
-        return cls(* fastspeech2_from_jax(params, state), ** kwargs)
+        return cls(convert_tree(params), convert_tree(state), ** kwargs)
 
     @property
     def variance_level(self):

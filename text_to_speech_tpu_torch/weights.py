@@ -2,10 +2,11 @@
 
 The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
 flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
-them without JAX.  `tacotron2_from_jax`, `waveglow_from_jax`,
-`audio_encoder_from_jax` and `fastspeech2_from_jax` turn those trees
-(nested dicts of numpy arrays) into nested dicts of torch tensors in the
-layouts `nn.layers` takes (the ``*_to_jax`` functions go back):
+them without JAX.  `convert_tree` (FastSpeech-2's params and state),
+`tacotron2_from_jax`, `waveglow_from_jax` and `audio_encoder_from_jax` turn
+those trees (nested dicts of numpy arrays) into nested dicts of torch
+tensors in the layouts `nn.layers` takes (`tree_to_jax` and the
+``*_to_jax`` functions go back):
 
   - conv ``kernel (W, in, out)``           → ``weight (out, in, W)``
   - conv-transpose ``kernel (W, in, out)`` → ``weight (in, out, W)``, taps
@@ -118,13 +119,6 @@ def audio_encoder_from_jax(params, state):
     return convert_tree(params), convert_tree(state)
 
 
-def fastspeech2_from_jax(params, state):
-    """JAX FastSpeech-2 (params, state) trees → the port's (params, state):
-    layer norms, embeddings, attention projections, convs and the
-    postnet's batch norms, all by `convert_tree`."""
-    return convert_tree(params), convert_tree(state)
-
-
 def waveglow_from_jax(params):
     """JAX WaveGlow params tree → the port's params."""
     out = {k: convert_tree(v) for k, v in params.items() if k != 'upsample'}
@@ -174,13 +168,6 @@ def tree_to_jax(tree, name = ''):
     if tree and all(not isinstance(v, dict) for v in tree.values()):
         return _node_to_jax(name, tree)
     return {k: tree_to_jax(v, k) for k, v in tree.items()}
-
-
-def tacotron2_to_jax(params, state):
-    """The port's Tacotron-2 (params, state) → the JAX package's trees
-    (numpy float32), batch-norm statistics included: the inverse of
-    `tacotron2_from_jax`."""
-    return tree_to_jax(params), tree_to_jax(state)
 
 
 def waveglow_to_jax(params):
