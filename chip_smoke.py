@@ -2,7 +2,9 @@
 each against its plain PyTorch version, run `tts()` end to end at the full
 NVIDIA width of Tacotron-2 and WaveGlow with random weights (also imported
 from NVIDIA-layout checkpoints, and with FastSpeech-2 in the Tacotron-2's
-place), and train WaveGlow at that width.
+place), train WaveGlow at that width, and train the synthesizers (Tacotron-2
+and SV2TTS by teacher forcing, FastSpeech-2 distilled from the trained
+Tacotron-2, the speaker encoder by GE2E) and serve the trained ones.
 
     python3 chip_smoke.py
 
@@ -128,8 +130,27 @@ Phases, one JSON line each:
            float32 and mixed_bfloat16, and its train step refused; the eval
            forward of a `use_pallas` model at the train step's shape (B=8 x
            256 frames, mixed_bfloat16: 96 K4 launches) beside the plain chain.
-The files of the sv2tts, nvidia_import and fastspeech2 phases go in one
-temporary directory, removed when they end.  Then the kernel summary, the
+  training the synthesizers at full width, random seeded weights (each
+           family's float32 train step without dropout on a batch of 2 rows
+           held against the port on the CPU: loss within 1e-4, the
+           gradients' global norm within 1e-3, relative): Tacotron-2 at
+           NVIDIA width made by `Tacotron2.create`, decoded once on K3,
+           `fit` for 3 epochs on the four in-repo WAVs (each 4 times, their
+           text, batch 4, 320 teacher-forced steps) in float32 and in
+           mixed_bfloat16 (the loss must fall), ms per step and peak memory;
+           the fitted teacher's K3 decode equal, within 1e-5 of its scale,
+           to that of a model rebuilt from the fitted weights; its `tts()` of the text:
+           K3 decodes (held against its plain version on the fitted
+           weights, as in the kernels phase), K1 vocodes, launches counted,
+           the attention turned into durations; SV2TTS at D = 768 ('end'),
+           two steps; FastSpeech-2 at the JAX defaults fitted for 3 epochs
+           on the teacher's alignment (the loss must fall), then its
+           `tts()` (12 K1); the speaker encoder by GE2E (4 speakers × 4
+           utterances, one epoch); the XLA-level int8 WaveGlow path on the
+           random vocoder: one layer's int8 conv on the card equal to the
+           CPU's to the bit, the waveform's SNR against the float32 chain.
+The files of the sv2tts, nvidia_import, fastspeech2 and training phases go
+in one temporary directory, removed when they end.  Then the kernel summary, the
 card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
 It needs a CUDA device and imports neither JAX nor the JAX package.
@@ -1969,7 +1990,7 @@ def fastspeech2_with_durations(model, tokens, durations, max_frames):
                 params, x, pad_mask = frame_mask[..., None].to(x.dtype), p_control = 1.,
                 e_control = 1.)
         mel = arch.decode(params, x, frame_mask) * frame_mask[..., None]
-        return {'mel': arch.postnet(params, model.state, mel, frame_mask = frame_mask),
+        return {'mel': arch.postnet(params, model.state, mel, frame_mask = frame_mask)[0],
                 'decoder_output': mel, 'pitch': pitch, 'energy': energy, 'lengths': lengths}
 
 
@@ -2071,6 +2092,322 @@ def fastspeech2_phase(vocoder, root):
     return runs, shapes
 
 
+# the text of the in-repo WAVs (examples/overfit_single_utterance.py)
+TRAIN_TEXT = 'the birch canoe slid on the smooth planks of the lake.'
+
+
+def _train_steps(model, batch, precision = None, n = 3, device = 'cuda', loss = None):
+    """`n` train steps of `model` on one bucketed batch from fresh Adam
+    moments (the model's own weights stay as they are): losses, gradient
+    norms, host ms of each step (synchronised), peak memory."""
+    from text_to_speech_tpu_torch.train.losses import get_loss
+    from text_to_speech_tpu_torch.train.optimizers import get_optimizer
+    from text_to_speech_tpu_torch.train.trainer import _to_device, _trainable, make_train_step
+
+    tx = get_optimizer('adam', lr = 1e-3)
+    params = _trainable(_clone(model.params))
+    opt = tx.init(params)
+    step = make_train_step(model, loss or get_loss(model._default_loss), tx,
+                           precision = precision)
+    inputs, targets = _to_device(batch[0], device), _to_device(batch[1], device)
+    generator = torch.Generator(device = device).manual_seed(0)
+    state = model.state
+    cuda = device == 'cuda'
+    if cuda:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    out = {'losses': [], 'grad_norms': [], 'step_ms': []}
+    for _ in range(n):
+        start = time.perf_counter()
+        params, state, opt, metrics = step(params, state, opt, generator, inputs, targets)
+        out['losses'].append(float(metrics['loss']))
+        out['grad_norms'].append(float(metrics['grad_norm']))
+        if cuda: torch.cuda.synchronize()
+        out['step_ms'].append(1e3 * (time.perf_counter() - start))
+    check(all(np.isfinite(out['losses'])), 'non-finite train loss: {}'.format(out['losses']))
+    if cuda:
+        # the card's peak, and the part the steps added to what was resident
+        out['peak_bytes'] = torch.cuda.max_memory_allocated()
+        out['peak_above_start_bytes'] = out['peak_bytes'] - before
+    return out
+
+
+def _clone(tree):
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.detach().clone()
+
+
+def _card_vs_cpu(build, batch, loss = None):
+    """One train step (float32, dropout off) of the model `build(device)`
+    makes, on the card and on the CPU from the same weights and batch: loss
+    within 1e-4 and the gradients' global norm within 1e-3, relative."""
+    steps = {device: _train_steps(build(device), batch, n = 1, device = device, loss = loss)
+             for device in ('cuda', 'cpu')}
+    card, cpu = steps['cuda'], steps['cpu']
+    loss_rel = abs(card['losses'][0] - cpu['losses'][0]) / abs(cpu['losses'][0])
+    norm_rel = abs(card['grad_norms'][0] - cpu['grad_norms'][0]) / abs(cpu['grad_norms'][0])
+    check(loss_rel <= 1e-4 and norm_rel <= 1e-3,
+          'train step, card vs CPU: loss {} vs {}, grad norm {} vs {}'.format(
+              card['losses'][0], cpu['losses'][0], card['grad_norms'][0], cpu['grad_norms'][0]))
+    return {'loss_card': card['losses'][0], 'loss_cpu': cpu['losses'][0], 'loss_rel': loss_rel,
+            'grad_norm_card': card['grad_norms'][0], 'grad_norm_cpu': cpu['grad_norms'][0],
+            'grad_norm_rel': norm_rel, 'tolerance_rel': {'loss': 1e-4, 'grad_norm': 1e-3}}
+
+
+def _fit_record(model, rows, epochs, precision, ** kw):
+    """`fit` for `epochs` epochs: the epoch losses (finite, and the last
+    below the first), seconds of each epoch and ms per step after the
+    first epoch (which also computes the rows' mels), peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    history = model.fit(rows, epochs = epochs, valid_size = 0., device = 'cuda',
+                        precision = precision, ** kw)
+    fit_s = time.perf_counter() - start
+    logs = history.epoch_logs[-epochs:]
+    losses = [log['metrics']['loss'] for log in logs]
+    check(len(logs) == epochs and all(np.isfinite(losses)),
+          '{} fit ({}): epoch losses {}'.format(type(model).__name__, precision, losses))
+    steps = -(-len(rows) // kw.get('batch_size', 8))
+    return {'epoch_losses': losses, 'epoch_s': [log['time'] for log in logs], 'fit_s': fit_s,
+            'steps_per_epoch': steps,
+            'ms_per_step_after_first_epoch': 1e3 * statistics.median(
+                [log['time'] for log in logs[1:]]) / steps,
+            'peak_bytes': torch.cuda.max_memory_allocated(),
+            'peak_above_start_bytes': torch.cuda.max_memory_allocated() - before}
+
+
+def synthesizer_training_phase(vocoder, root):
+    """Train the synthesizers at full width on the card, random seeded
+    weights: Tacotron-2 at NVIDIA width (`create`, `fit` on the four in-repo
+    WAVs, float32 and mixed_bfloat16), its `tts()` (K3 decodes, K1 vocodes)
+    and the durations of its attention; SV2TTS at D = 768 (two steps);
+    FastSpeech-2 at the JAX defaults distilled from the teacher's alignment,
+    then its `tts()` (K1); the speaker encoder by GE2E; the XLA-level int8
+    WaveGlow path on `vocoder`'s weights.  Each family's train step on the
+    card is held against the port on the CPU.  Returns (the teacher's K3
+    cases, runs, the student's K1 (B, T))."""
+    import glob
+    from text_to_speech_tpu_torch import tts
+    from text_to_speech_tpu_torch.models.encoder import SpeakerEncoder
+    from text_to_speech_tpu_torch.models.tts import FastSpeech2, SV2TTSTacotron2, Tacotron2
+    from text_to_speech_tpu_torch.models.waveglow_arch import int8_conv1d
+    from text_to_speech_tpu_torch.ops.pitch import durations_from_attention
+    from text_to_speech_tpu_torch.train.trainer import bucket_pad
+    from text_to_speech_tpu_torch.weights import tree_to
+
+    phase_start = time.perf_counter()
+    out, runs = {}, {}
+    wavs = sorted(glob.glob(WAVS))
+    check(len(wavs) == 4, 'in-repo WAVs: {}'.format(wavs))
+    rows = [{'text': TRAIN_TEXT, 'filename': wav} for wav in wavs for _ in range(4)]
+    fit_kw = dict(batch_size = 4, token_multiple = 32, frame_multiple = 64)
+
+    def batch_of(model, items):
+        return bucket_pad(model.collate(items), model, token_multiple = 32,
+                          frame_multiple = 64)
+
+    def rebuild(model, device, ** change):
+        """`model`'s weights in a new model on `device` with `change`d hparams."""
+        trees = model.jax_trees()
+        extra = {'tokenizer': model.tokenizer} if hasattr(model, 'tokenizer') else {}
+        config = {k: v for k, v in {** model.arch.get_config(), ** change}.items()
+                  if not (isinstance(model, SpeakerEncoder) and k == 'n_mel_channels')}
+        return type(model).from_jax(trees['params'], trees.get('state', {}),
+                                    name = model.name + '_' + device, root = root,
+                                    device = device, mel_fn = model.mel_fn, ** extra, ** config)
+
+    taco_no_drop = dict(encoder_drop_rate = 0., prenet_drop_rate = 0., postnet_drop_rate = 0.)
+
+    # 1. Tacotron-2 at NVIDIA width (the HParamsTacotron2 defaults, location kernel 31)
+    teacher = Tacotron2.create('en', name = 'teacher', root = root, device = 'cuda', seed = 21)
+    check(teacher.arch.hp.lsa_attention_kernel_size == 31
+          and teacher.arch.hp.attention_rnn_dim == 1024, 'teacher: {}'.format(teacher.arch.hp))
+    items = [teacher.prepare_data(row) for row in rows[::4]]
+    batch = batch_of(teacher, items)
+    steps_bucket = batch[0][1].shape[1]
+    check(steps_bucket == 320, 'teacher-forced steps {} (frames {})'.format(
+        steps_bucket, [i[0][2] for i in items]))
+    # the teacher decodes on K3 once before `fit`, which caches its packed
+    # decoder; after `fit` it must decode as a model rebuilt from the fitted
+    # weights does, not with the packed copy of the old ones
+    probe_tokens = teacher.encode_text(TRAIN_TEXT)
+    probe_kw = dict(max_length = 64, deterministic = True, early_stopping = False,
+                    use_fused_decoder = True)
+
+    def probe(model):
+        return model.compiled_infer(probe_tokens, ** probe_kw).mel.float().cpu().numpy()
+
+    before_fit = probe(teacher)
+    check(bool(teacher._derived), 'teacher: no packed decoder cached by the K3 decode')
+    fits = {'float32': _fit_record(teacher, rows, 3, 'float32', ** fit_kw)}
+    after_fit, rebuilt = probe(teacher), probe(rebuild(teacher, 'cuda'))
+    scale = float(np.abs(rebuilt).max())
+    refit = {'max_abs_err_vs_rebuilt': float(np.abs(after_fit - rebuilt).max()),
+             'max_abs_change_by_fit': float(np.abs(after_fit - before_fit).max()),
+             'scale': scale, 'tolerance': 1e-5 * scale}
+    check(refit['max_abs_err_vs_rebuilt'] <= refit['tolerance']
+          and refit['max_abs_change_by_fit'] > 1e-3 * scale,
+          'teacher K3 decode after fit against a rebuilt model: {}'.format(refit))
+    teacher_bf16 = Tacotron2.create('en', name = 'teacher_bf16', root = root,
+                                    device = 'cuda', seed = 21)
+    fits['mixed_bfloat16'] = _fit_record(teacher_bf16, rows, 3, 'mixed_bfloat16', ** fit_kw)
+    del teacher_bf16
+    for precision, record in fits.items():
+        check(record['epoch_losses'][-1] < record['epoch_losses'][0],
+              'Tacotron-2 fit ({}): the loss did not fall: {}'.format(
+                  precision, record['epoch_losses']))
+    out['tacotron2'] = {
+        'fit': fits, 'steps_bucket': steps_bucket, 'k3_decode_after_fit': refit,
+        'frames': [int(i[0][2]) for i in items],
+        'step_B4': {p: _train_steps(teacher, batch, p) for p in ('float32', 'mixed_bfloat16')},
+        'card_vs_cpu_B2': _card_vs_cpu(
+            lambda device: rebuild(teacher, device, ** taco_no_drop), batch_of(teacher, items[:2]))}
+
+    # 2. the fitted teacher's `tts()`: K3 decodes (float32, dropout on), K1 vocodes
+    teacher_cases = decoder_steps_phase(teacher, shapes = ((1, 64, False),),
+                                        name = 'decoder_steps_teacher')
+    kw = dict(model = teacher, vocoder = vocoder, max_length = 320, min_fpt_ratio = 0.,
+              max_fpt_ratio = 1e9, fetch_attention = True, save = False, display = False)
+    tts(TRAIN_TEXT, ** kw)                                                  # warm-up
+    torch.cuda.synchronize()
+    reset_launches()
+    start = time.perf_counter()
+    spoken = tts(TRAIN_TEXT, ** kw)[0]
+    total_s = time.perf_counter() - start
+    launches = read_launches()
+    frames = spoken['mel'][0].shape[0]
+    n_flows = vocoder.arch.hp.n_flows
+    check(launches['decoder_steps'] >= 1 and launches['decoder_steps'] <= 5
+          and launches['wn_block'] == n_flows and launches['wn_layer'] == 0
+          and launches['wn_block_int8'] == 0, 'teacher tts(): launches {}'.format(launches))
+    check(bool(np.isfinite(spoken['audio']).all()), 'teacher tts(): audio not finite')
+    tokens = teacher.encode_text(TRAIN_TEXT)
+    alignment = np.asarray(spoken['attention'][0], np.float32)[:frames, :len(tokens)]
+    durations = durations_from_attention(alignment, n_tokens = len(tokens))
+    check(int(durations.sum()) == alignment.shape[0], 'durations {} for {} frames'.format(
+        int(durations.sum()), alignment.shape[0]))
+    runs['teacher_one_sentence'] = {'frames': frames, 'total_ms': 1e3 * total_s,
+                                    'decode_ms': 1e3 * teacher.last_timings['decode_s'],
+                                    'vocode_ms': 1e3 * teacher.last_timings['vocode_s'],
+                                    'launches': launches, 'tokens': len(tokens),
+                                    'durations': durations.tolist()}
+
+    # 3. SV2TTS at D = 768 ('end'): two train steps, and the card against the CPU
+    sv2tts = SV2TTSTacotron2.create('en', name = 'sv2tts_train', root = root, device = 'cuda',
+                                    seed = 22, embedding_dim = 256)
+    check(sv2tts.arch.encoder_output_dim == 768, 'SV2TTS D = {}'.format(
+        sv2tts.arch.encoder_output_dim))
+    rng = np.random.default_rng(23)
+    spk_rows = [dict(row, embedding = rng.standard_normal(256).astype(np.float32))
+                for row in rows[::4]]
+    sv_items = [sv2tts.prepare_data(row) for row in spk_rows]
+    out['sv2tts'] = {
+        'steps_B4': _train_steps(sv2tts, batch_of(sv2tts, sv_items), n = 2),
+        'card_vs_cpu_B2': _card_vs_cpu(lambda device: rebuild(sv2tts, device, ** taco_no_drop),
+                                       batch_of(sv2tts, sv_items[:2]))}
+    del sv2tts
+
+    # 4. FastSpeech-2 at the JAX package's defaults, distilled from the teacher's alignment
+    student = FastSpeech2.create('en', name = 'student', root = root, device = 'cuda', seed = 24)
+    fs_rows = [dict(row, alignment = alignment) for row in rows]
+    fs_items = [student.prepare_data(row) for row in fs_rows[::4]]
+    fs_fit = _fit_record(student, fs_rows, 3, 'float32', ** fit_kw)
+    check(fs_fit['epoch_losses'][-1] < fs_fit['epoch_losses'][0],
+          'FastSpeech-2 fit: the loss did not fall: {}'.format(fs_fit['epoch_losses']))
+    fs_no_drop = dict(drop_rate = 0., variance_drop_rate = 0., postnet_drop_rate = 0.)
+    out['fastspeech2'] = {
+        'fit': fs_fit,
+        'step_B4': {p: _train_steps(student, batch_of(student, fs_items), p)
+                    for p in ('float32', 'mixed_bfloat16')},
+        'card_vs_cpu_B2': _card_vs_cpu(lambda device: rebuild(student, device, ** fs_no_drop),
+                                       batch_of(student, fs_items[:2]))}
+    min_duration = -(-256 // len(tokens))
+    student_kw = dict(model = student, vocoder = vocoder, min_duration = min_duration,
+                      save = False, display = False)
+    _drive_counted(runs, 'student_one_sentence', TRAIN_TEXT,
+                   dict(wn_block = n_flows, wn_block_int8 = 0, wn_layer = 0, decoder_steps = 0),
+                   ** student_kw)
+    # the (B, T) of the student's WN blocks: its decode buffer padded to the
+    # vocoder's multiple of frames
+    mel = student.compiled_infer(tokens, max_length = 10., min_duration = min_duration).mel
+    buffer = -(-mel.shape[1] // vocoder.serving_pad_multiple) * vocoder.serving_pad_multiple
+    student_shape = (mel.shape[0], buffer * vocoder.upsample_rate // vocoder.arch.hp.n_group)
+    del student, teacher
+
+    # 5. the speaker encoder at its defaults: GE2E, 4 speakers x 4 utterances
+    encoder = SpeakerEncoder.create(name = 'encoder_train', root = root, device = 'cuda',
+                                    seed = 25)
+    t = np.arange(32000) / 16000.
+    enc_rows = [{'speaker': 'spk{}'.format(s), 'rate': 16000,
+                 'audio': (0.4 * np.sin(2 * np.pi * (110. + 45. * s) * t * (1 + 0.05 * u))
+                           + 0.05 * np.random.default_rng(10 * s + u).standard_normal(len(t)))
+                 .astype(np.float32)} for s in range(4) for u in range(4)]
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    start = time.perf_counter()
+    history = encoder.fit(enc_rows, n_speakers = 4, n_utterances = 4, epochs = 1,
+                          device = 'cuda')
+    ge2e_s = time.perf_counter() - start
+    ge2e_loss = history.epoch_logs[-1]['metrics']['loss']
+    check(np.isfinite(ge2e_loss), 'GE2E loss {}'.format(ge2e_loss))
+    ge2e_batch = encoder.collate_ge2e([[encoder.prepare_data(r) for r in enc_rows[4 * s: 4 * s + 2]]
+                                       for s in range(2)])
+    encoder.ge2e_shape = (2, 2)
+    cmp = {}
+    for device in ('cuda', 'cpu'):
+        built = rebuild(encoder, device, drop_rate = 0.)
+        built.ge2e_shape = (2, 2)
+        cmp[device] = built
+    out['speaker_encoder'] = {
+        'fit_s': ge2e_s, 'epoch_loss': ge2e_loss, 'peak_bytes': torch.cuda.max_memory_allocated(),
+        'peak_above_start_bytes': torch.cuda.max_memory_allocated() - before, 'step_4x4': None,
+        'card_vs_cpu_2x2': _card_vs_cpu(lambda device: cmp[device], ge2e_batch)}
+    encoder.ge2e_shape = (4, 4)
+    out['speaker_encoder']['step_4x4'] = _train_steps(
+        encoder, encoder.collate_ge2e([[encoder.prepare_data(r) for r in enc_rows[4 * s: 4 * s + 4]]
+                                       for s in range(4)]))
+    del encoder, cmp
+
+    # 6. the XLA-level int8 WaveGlow path on `vocoder`'s weights: one layer's
+    # int8 conv on the card equal to the CPU's to the bit, and the waveform
+    # against the float32 chain (SNR recorded: the path is EXPERIMENTAL in
+    # the JAX package, no gate)
+    arch = vocoder.arch
+    quantized = arch.quantize_params(vocoder.params)
+    q = quantized['flow_0']['block']['in_conv_1']
+    x = torch.randn((1, 8192, arch.hp.wn_channels), generator = torch.Generator(device = 'cuda')
+                    .manual_seed(26), device = 'cuda')
+    card_y = arch._conv_int8(q, x, dilation = 2)
+    cpu_y = arch._conv_int8(tree_to(q, 'cpu'), x.cpu(), dilation = 2)
+    a_scale = torch.clamp(x.abs().max() / 127., min = 1e-8)
+    x_q = torch.clamp(torch.round(x / a_scale), -127, 127).to(torch.int8)
+    ints_equal = torch.equal(int8_conv1d(x_q, q['weight_q'], dilation = 2).cpu(),
+                             int8_conv1d(x_q.cpu(), q['weight_q'].cpu(), dilation = 2))
+    check(ints_equal and torch.equal(card_y.cpu(), cpu_y),
+          'int8 conv: card vs CPU, max diff {}'.format(float((card_y.cpu() - cpu_y).abs().max())))
+    mel = torch.from_numpy(np.random.default_rng(27).standard_normal((1, 64, 80))
+                           .astype(np.float32) - 5.).cuda()
+    z = torch.randn((1, 64 * arch.hp.upsample_stride // arch.hp.n_group, arch.hp.n_group),
+                    generator = torch.Generator(device = 'cuda').manual_seed(28), device = 'cuda')
+    with torch.no_grad():
+        int8_ms = time_ms(lambda: arch.infer(quantized, mel, z = z), reps = 3, warmup = 1)
+        f32_ms = time_ms(lambda: arch.infer(vocoder.params, mel, z = z), reps = 3, warmup = 1)
+        wave8 = arch.infer(quantized, mel, z = z)
+        wave = arch.infer(vocoder.params, mel, z = z)
+    check(bool(torch.isfinite(wave8).all()), 'int8 XLA path: waveform not finite')
+    snr = 10. * float(torch.log10((wave ** 2).sum() / ((wave - wave8) ** 2).sum()))
+    out['int8_xla'] = {'conv_card_equals_cpu': True, 'conv_shape': list(x.shape),
+                       'waveform_snr_db': snr, 'frames': 64, 'int8_ms': int8_ms,
+                       'float32_ms': f32_ms}
+    del quantized
+    emit({'phase': 'training', ** out, 'runs': runs, 'phase_s': time.perf_counter() - phase_start})
+    return teacher_cases, runs, student_shape
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
@@ -2116,6 +2453,8 @@ def main():
         nvidia_cases, nvidia_runs, nvidia_vocoder = nvidia_import_phase(root('nvidia'))
         fs2_runs, fs2_shapes = fastspeech2_phase(nvidia_vocoder, root('fastspeech2'))
         del nvidia_vocoder
+        teacher_cases, train_runs, student_shape = synthesizer_training_phase(
+            vocoder, root('training'))
     # K1 and K2 at the (B, T) of FastSpeech-2's whole decode buffer: one
     # sentence on the one-launch route and the batch of four
     fs2_shapes = [fs2_shapes['one_sentence'], fs2_shapes['batch_of_4']]
@@ -2123,6 +2462,11 @@ def main():
                             label = 'fused_wn_block_fastspeech2')
     fs2_wn8 = wn_block_int8_phase(fs2_shapes, label = 'fused_wn_block_int8_fastspeech2')
     fs2_case = lambda cases, i: cases['bfloat16_B{}_T{}'.format(* fs2_shapes[i])]
+    # K1 at the trained student's buffer: FastSpeech-2's default widths give
+    # the same (B, T) as the fastspeech2 phase's one sentence, held there
+    student_key = 'bfloat16_B{}_T{}'.format(* student_shape)
+    student_wn = fs2_wn if student_key in fs2_wn else wn_block_phase(
+        [(torch.bfloat16, * student_shape)], label = 'fused_wn_block_student')
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -2231,6 +2575,18 @@ def main():
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block_int8.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:646',
                 launches = fs2_runs['fastspeech2_one_sentence_int8']['launches']['wn_block_int8']),
+        # the trained synthesizers: K3 on the fitted Tacotron-2 teacher's
+        # weights, launches of its `tts()`; K1 at the distilled FastSpeech-2
+        # student's buffer, launches of its `tts()`
+        summary(teacher_cases['float32_B1_S64_dropout'],
+                name = 'decoder_steps (trained Tacotron-2 teacher)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = train_runs['teacher_one_sentence']['launches']['decoder_steps']),
+        summary(student_wn[student_key], name = 'fused_wn_block (distilled FastSpeech-2 student)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = train_runs['student_one_sentence']['launches']['wn_block']),
         # the rate probe: launches in its int8 and its bf16 line
         dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
                      source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',

@@ -158,10 +158,16 @@ def test_embed_by_name_matches_jax(saved):
     labels = ['low', 'mid', 'high', 'wav']
     assert encoder.identify(references[1], batch, labels = labels) \
         == jax_encoder.identify(references[1], batch, labels = labels) == 'mid'
-    with pytest.raises(NotImplementedError, match = 'ROADMAP'):
+    # GE2E training is ported (``test_torch_port_encoder_train.py``): rows
+    # without enough speakers are refused, and a group collates as the JAX
+    # package's does
+    with pytest.raises(ValueError, match = 'speakers'):
         encoder.fit([])
-    with pytest.raises(NotImplementedError, match = 'ROADMAP'):
-        encoder.collate_ge2e([])
+    mel = np.zeros((30, 80), np.float32)
+    (mels, lengths), targets = encoder.collate_ge2e([[mel, mel[:10]]])
+    (ref_mels, ref_lengths), _ = jax_encoder.collate_ge2e([[mel, mel[:10]]])
+    assert targets is None and mels.shape == ref_mels.shape
+    np.testing.assert_array_equal(lengths, ref_lengths)
     with pytest.raises(NotImplementedError):
         encoder.embed(references[0], trim_silence = True)
 

@@ -8,8 +8,12 @@ directory layout, with its own ``mel_fn.json``: TacotronSTFT at 16 kHz),
 `pad_mel_value`, then to a multiple of 64, as the JAX package pads them:
 the convs after the first see the pad frames shifted by batch norm, so the
 padding length reaches the edge frames), `identify` and `embedding_dim`.
-The delegate of SV2TTS's `encoder_name`.  GE2E training (`fit`,
-`collate_ge2e`) is not ported.
+The delegate of SV2TTS's `encoder_name`.  Training: `create` (a new
+encoder with seeded random weights, saved under its name), `prepare_data`
+(a mel cropped at random to `max_mel_frames`), `collate_ge2e` and `fit`,
+which trains with `GE2ELoss` on `train.datasets.GE2EDataset` batches of
+`n_speakers` × `n_utterances` rows; the encoder stays float32 under a mixed
+policy (``mixed_precision_ok = False``, as the JAX package's).
 """
 
 import os
@@ -18,18 +22,22 @@ import numpy as np
 import torch
 
 from ...devices import default_device
+from ...init import init_audio_encoder
 from ...loggers import timer
+from ...ops.stft import MelSTFT
 from ...utils.distances import distance
-from ...train.checkpoint import CheckpointManager
+from ...utils.sequence_utils import pad_batch, pad_to_multiple
 from ...weights import audio_encoder_from_jax, audio_encoder_to_jax, tree_to
 from ..base_audio_model import BaseAudioModel
+from ..base_model import TrainableModel
 from ..encoder_arch import AudioEncoder
-from ..saving import load_model_files, model_dir, write_model_config
-
-_NOT_PORTED = 'GE2E training of the speaker encoder is not ported (ROADMAP.md, queue 1, item 8)'
+from ..saving import load_model_files, model_dir
 
 
-class SpeakerEncoder(BaseAudioModel):
+class SpeakerEncoder(TrainableModel, BaseAudioModel):
+    _default_loss = 'GE2ELoss'
+    mixed_precision_ok = False
+
     def __init__(self, params, state, *, name = 'speaker_encoder', device = None,
                  mel_fn = 'TacotronSTFT', audio_rate = 16000, max_audio_time = 3.0,
                  pad_mel_value = -11., root = None, ** arch_config):
@@ -63,20 +71,36 @@ class SpeakerEncoder(BaseAudioModel):
             max_audio_time = config.get('max_audio_time', 3.0),
             pad_mel_value = config.get('pad_mel_value', -11.), ** arch)
 
-    def save(self):
-        """Write the model's directory in the JAX package's layout (config,
-        architecture, ``mel_fn.json``, a checkpoint of the params and the
-        batch-norm statistics as JAX trees at epoch 0)."""
-        saving = os.path.join(self.folder, 'saving')
-        write_model_config(self.folder, 'SpeakerEncoder',
-                           {** self.get_config_audio(), 'audio_rate': self.rate,
-                            'max_audio_time': self.max_audio_time, 'name': self.name},
-                           'audioencoder', self.arch.get_config())
-        self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
+    @classmethod
+    def create(cls, *, name = 'speaker_encoder', seed = 0, root = None, device = None,
+               mel_fn = 'TacotronSTFT', audio_rate = 16000, max_audio_time = 3.0,
+               pad_mel_value = -11., ** kwargs):
+        """A new encoder with random weights (the JAX package's constructor):
+        the mel front end `mel_fn` at `audio_rate`, the architecture's
+        hparams from `kwargs`, weights from the port's `init` seeded with
+        `seed`; saved under ``<root>/<name>/``."""
+        if isinstance(mel_fn, str):
+            mel_fn = MelSTFT.create(mel_fn, sampling_rate = audio_rate)
+        arch = AudioEncoder(** {'n_mel_channels': mel_fn.n_mel_channels, ** kwargs})
+        params, state = init_audio_encoder(arch.hp, seed = seed)
+        config = {k: v for k, v in arch.get_config().items() if k != 'n_mel_channels'}
+        model = cls.from_jax(params, state, name = name, root = root, device = device,
+                             mel_fn = mel_fn, audio_rate = audio_rate,
+                             max_audio_time = max_audio_time, pad_mel_value = pad_mel_value,
+                             ** config)
+        model.save()
+        return model
+
+    def get_config(self):
+        return {** self.get_config_audio(), 'audio_rate': self.rate,
+                'max_audio_time': self.max_audio_time}
+
+    def get_saving_objects(self):
+        return {'mel_fn.json': self.mel_fn}
+
+    def jax_trees(self):
         params, state = audio_encoder_to_jax(self.params, self.state)
-        CheckpointManager(os.path.join(saving, 'checkpoint')).save(
-            {'params': params, 'state': state}, 0)
-        return self.folder
+        return {'params': params, 'state': state}
 
     @property
     def embedding_dim(self):
@@ -123,10 +147,41 @@ class SpeakerEncoder(BaseAudioModel):
         idx = int(np.argmax(sims)) if method == 'cosine' else int(np.argmin(sims))
         return labels[idx] if labels is not None else idx
 
-    # -- training (not ported) ------------------------------------------------------
+    # -- training -----------------------------------------------------------------
+
+    @property
+    def max_mel_frames(self):
+        return self.mel_fn.get_mel_length(int(self.max_audio_time * self.rate))
+
+    def prepare_data(self, row):
+        """The row's mel (numpy), cropped at a random start (numpy's global
+        generator, as the JAX package draws it) to `max_mel_frames`."""
+        mel = self.get_audio(row).cpu().numpy()
+        if len(mel) > self.max_mel_frames:
+            start = np.random.randint(0, len(mel) - self.max_mel_frames + 1)
+            mel = mel[start: start + self.max_mel_frames]
+        return mel
 
     def collate_ge2e(self, batch):
-        raise NotImplementedError(_NOT_PORTED)
+        """[speakers][utterances] of mels → ((mels (N M, T, n_mel), lengths),
+        None): T is `max_mel_frames` (or the longest) rounded up to a
+        multiple of 32, padded with `pad_mel_value`; the (N, M) grouping is
+        ``ge2e_shape``."""
+        flat = [mel for group in batch for mel in group]
+        lengths = np.asarray([len(m) for m in flat], np.int32)
+        mels = pad_batch(flat, pad_value = self.pad_mel_value, max_length = self.max_mel_frames)
+        mels = pad_to_multiple(mels, 32, axis = 1, constant_values = self.pad_mel_value)
+        return (mels, lengths), None
 
-    def fit(self, data, ** kwargs):
-        raise NotImplementedError(_NOT_PORTED)
+    def fit(self, data, *, n_speakers = 8, n_utterances = 4, speaker_column = 'speaker',
+            ** kwargs):
+        """GE2E training on rows with a `speaker_column`: each batch holds
+        `n_speakers` speakers × `n_utterances` of their rows; no validation
+        split.  `kwargs` go to `train.trainer.fit`."""
+        from ...train.datasets import GE2EDataset
+        from ...train.trainer import fit
+        self.ge2e_shape = (n_speakers, n_utterances)
+        ds = GE2EDataset(data, speaker_column = speaker_column, n_speakers = n_speakers,
+                         n_utterances = n_utterances, map_fn = self.prepare_data,
+                         collate_fn = self.collate_ge2e)
+        return fit(self, ds, valid_size = 0., ** kwargs)

@@ -19,8 +19,9 @@ Dtypes follow the JAX package's promotion: under `dtype` every float32
 leaf of the params and state is cast, the pad masks stay float32 where the
 JAX code builds them so, and a control passed as a tensor (as the task
 model passes them) promotes the prediction it scales as a JAX array does,
-where a Python float keeps its dtype.  The teacher-forced training pass
-and its loss are not ported.
+where a Python float keeps its dtype.  `__call__` is the teacher-forced
+training pass (ground-truth durations, pitch and energy; dropout and the
+postnet's batch norms in train mode), as the JAX package's.
 """
 
 import collections
@@ -132,28 +133,39 @@ class FastSpeech2:
 
     # -- blocks ----------------------------------------------------------------------
 
-    def _fft_block(self, params, x, *, mask = None, pad_mask = None):
+    def _fft_block(self, params, x, *, mask = None, pad_mask = None, train = False,
+                   generator = None):
         """Post-LN feed-forward-transformer block: self-attention, then the
-        conv FFN, each added and normalized; padded rows re-zeroed after each."""
+        conv FFN, each added (after dropout in train mode) and normalized;
+        padded rows re-zeroed after each."""
         hp = self.hp
         h, _ = mha(params['attention'], x, n_heads = hp.n_heads, mask = mask)
+        if train:
+            h = nn.dropout(h, hp.drop_rate, generator = generator)
         x = nn.layer_norm(params['attention_norm'], x + h, hp.epsilon)
         if pad_mask is not None:
             x = x * pad_mask.to(x.dtype)
         h = torch.relu(nn.conv1d(params['conv1'], x))
         h = nn.conv1d(params['conv2'], h)
+        if train:
+            h = nn.dropout(h, hp.drop_rate, generator = generator)
         x = nn.layer_norm(params['ffn_norm'], x + h, hp.epsilon)
         if pad_mask is not None:
             x = x * pad_mask.to(x.dtype)
         return x
 
-    def _variance_predictor(self, params, x, *, pad_mask = None):
-        """2 x [conv → relu → layer norm] → linear → (B, T)."""
+    def _variance_predictor(self, params, x, *, pad_mask = None, train = False,
+                            generator = None):
+        """2 x [conv → relu → layer norm → dropout] → linear → (B, T)."""
         hp = self.hp
         h = torch.relu(nn.conv1d(params['conv1'], x))
         h = nn.layer_norm(params['norm1'], h, hp.epsilon)
+        if train:
+            h = nn.dropout(h, hp.variance_drop_rate, generator = generator)
         h = torch.relu(nn.conv1d(params['conv2'], h))
         h = nn.layer_norm(params['norm2'], h, hp.epsilon)
+        if train:
+            h = nn.dropout(h, hp.variance_drop_rate, generator = generator)
         out = nn.dense(params['proj'], h)[..., 0]
         if pad_mask is not None:
             out = out * pad_mask[..., 0]
@@ -169,28 +181,38 @@ class FastSpeech2:
     def _variance_embedding(self, params, name, values, lo, hi):
         return nn.embedding(params[name + '_embedding'], self._bucketize(values, lo, hi).long())
 
-    def _apply_variances(self, params, x, *, pad_mask, p_control, e_control):
-        """Predict pitch then energy on `x` and add their embeddings.
-        Returns (x, pitch_pred, energy_pred)."""
+    def _apply_variances(self, params, x, *, pad_mask, p_control = 1., e_control = 1.,
+                         pitch_target = None, energy_target = None, train = False,
+                         generator = None):
+        """Predict pitch then energy on `x` and add the embeddings of the
+        targets where given (teacher forcing), else of the predictions
+        scaled by the controls.  Returns (x, pitch_pred, energy_pred)."""
         hp = self.hp
         pitch_pred = energy_pred = None
         if hp.use_pitch:
             pitch_pred = self._variance_predictor(params['pitch_predictor'], x,
-                                                  pad_mask = pad_mask)
-            x = x + self._variance_embedding(params, 'pitch', _scaled(pitch_pred, p_control),
-                                             hp.pitch_min, hp.pitch_max)
+                                                  pad_mask = pad_mask, train = train,
+                                                  generator = generator)
+            pitch = pitch_target if pitch_target is not None \
+                else _scaled(pitch_pred, p_control)
+            x = x + self._variance_embedding(params, 'pitch', pitch, hp.pitch_min,
+                                             hp.pitch_max)
         if hp.use_energy:
             energy_pred = self._variance_predictor(params['energy_predictor'], x,
-                                                   pad_mask = pad_mask)
-            x = x + self._variance_embedding(params, 'energy', _scaled(energy_pred, e_control),
-                                             hp.energy_min, hp.energy_max)
+                                                   pad_mask = pad_mask, train = train,
+                                                   generator = generator)
+            energy = energy_target if energy_target is not None \
+                else _scaled(energy_pred, e_control)
+            x = x + self._variance_embedding(params, 'energy', energy, hp.energy_min,
+                                             hp.energy_max)
         if pad_mask is not None:
             x = x * pad_mask.to(x.dtype)
         return x, pitch_pred, energy_pred
 
     # -- encoder / decoder -------------------------------------------------------------
 
-    def encode(self, params, tokens, *, speaker_embedding = None):
+    def encode(self, params, tokens, *, speaker_embedding = None, train = False,
+               generator = None):
         """tokens (B, L) → (hidden (B, L, D), attention mask (B, 1, 1, L),
         pad mask (B, L, 1) float32)."""
         hp = self.hp
@@ -200,45 +222,100 @@ class FastSpeech2:
         pad_mask = valid[..., None].to(torch.float32)
         x = nn.embedding(params['embedding'], tokens)
         x = x + self._position_table(x.device)[None, :L].to(x.dtype)
+        if train:
+            x = nn.dropout(x, hp.drop_rate, generator = generator)
         for i in range(hp.encoder_layers):
-            x = self._fft_block(params['encoder']['layer_{}'.format(i)], x,
-                                mask = attn_mask, pad_mask = pad_mask)
+            x = self._fft_block(params['encoder']['layer_{}'.format(i)], x, mask = attn_mask,
+                                pad_mask = pad_mask, train = train, generator = generator)
         if speaker_embedding is not None and 'speaker_projection' in params:
             spk = nn.dense(params['speaker_projection'], speaker_embedding)
             x = x + spk[:, None, :] * pad_mask.to(x.dtype)
         return x, attn_mask, pad_mask
 
-    def decode(self, params, x, frame_mask):
+    def decode(self, params, x, frame_mask, *, train = False, generator = None):
         """Frame-rate states (B, T, D) → mel (B, T, n_mel); T <= max_position."""
         hp = self.hp
         T = x.shape[1]
         attn_mask = frame_mask[:, None, None, :]
         pad_mask = frame_mask[..., None].to(torch.float32)
         x = x + self._position_table(x.device)[None, :T].to(x.dtype)
+        if train:
+            x = nn.dropout(x, hp.drop_rate, generator = generator)
         for i in range(hp.decoder_layers):
-            x = self._fft_block(params['decoder']['layer_{}'.format(i)], x,
-                                mask = attn_mask, pad_mask = pad_mask)
+            x = self._fft_block(params['decoder']['layer_{}'.format(i)], x, mask = attn_mask,
+                                pad_mask = pad_mask, train = train, generator = generator)
         return nn.dense(params['mel_linear'], x)
 
-    def postnet(self, params, state, mel, *, frame_mask = None):
-        """The residual conv + batch-norm refiner on running statistics:
-        tanh between the convs, the frames past each row's length zeroed."""
+    def postnet(self, params, state, mel, *, frame_mask = None, train = False,
+                generator = None):
+        """The residual conv + batch-norm refiner → (mel + residual, new
+        state): tanh between the convs, the frames past each row's length
+        zeroed in the result.  In `train` mode the batch norms run on the
+        batch's statistics over the valid frames and move the running ones,
+        and dropout follows every conv."""
         hp = self.hp
         if not hp.use_postnet:
-            return mel
+            return mel, state
         x = mel
+        new_state = {}
         for i in range(hp.postnet_n_conv):
             name = 'conv_{}'.format(i)
-            p = params['postnet'][name]
+            p, bn_state = params['postnet'][name], state['postnet'][name]['bn']
             x = nn.conv1d(p['conv'], x)
-            x = nn.batch_norm(p['bn'], state['postnet'][name]['bn'], x,
-                              epsilon = hp.postnet_epsilon)
+            if train:
+                x, bn_state = nn.batch_norm_train(
+                    p['bn'], bn_state, x, momentum = hp.postnet_momentum,
+                    epsilon = hp.postnet_epsilon, mask = frame_mask)
+            else:
+                x = nn.batch_norm(p['bn'], bn_state, x, epsilon = hp.postnet_epsilon)
+            new_state[name] = {'bn': bn_state}
             if i < hp.postnet_n_conv - 1:
                 x = torch.tanh(x)
+            if train:
+                x = nn.dropout(x, hp.postnet_drop_rate, generator = generator)
         out = mel + x
         if frame_mask is not None:
             out = out * frame_mask[..., None].to(out.dtype)
-        return out
+        return out, {** state, 'postnet': new_state}
+
+    # -- teacher forcing -------------------------------------------------------------
+
+    def __call__(self, params, state, tokens, *, durations, pitch = None, energy = None,
+                 speaker_embedding = None, max_frames = None, train = False,
+                 generator = None):
+        """The teacher-forced training pass: the ground-truth `durations`
+        (B, L) drive the length regulator, the ground-truth `pitch` and
+        `energy` (phoneme-level (B, L) or frame-level (B, T), per
+        `variance_level`) are embedded, the predictors still predict.  In
+        `train` mode dropout draws from `generator` and the postnet's batch
+        norms run on the batch.  Returns ((mel, mel_postnet,
+        log_duration_pred, pitch_pred, energy_pred, frame_mask,
+        token_mask), new_state)."""
+        hp = self.hp
+        if max_frames is None:
+            max_frames = hp.max_frames
+        drop = dict(train = train, generator = generator)
+        enc, _, pad_mask = self.encode(params, tokens, speaker_embedding = speaker_embedding,
+                                       ** drop)
+        log_d_pred = self._variance_predictor(params['duration_predictor'], enc,
+                                              pad_mask = pad_mask, ** drop)
+        pitch_pred = energy_pred = None
+        if hp.variance_level == 'phoneme':
+            enc, pitch_pred, energy_pred = self._apply_variances(
+                params, enc, pad_mask = pad_mask, pitch_target = pitch,
+                energy_target = energy, ** drop)
+        x, frame_mask, _, _ = length_regulator(enc, durations, max_frames)
+        if hp.variance_level == 'frame':
+            fmask = frame_mask[..., None].to(torch.float32)
+            x, pitch_pred, energy_pred = self._apply_variances(
+                params, x, pad_mask = fmask, pitch_target = pitch, energy_target = energy,
+                ** drop)
+        mel = self.decode(params, x, frame_mask, ** drop)
+        mel = mel * frame_mask[..., None].to(mel.dtype)
+        mel_post, new_state = self.postnet(params, state, mel, frame_mask = frame_mask,
+                                           ** drop)
+        return (mel, mel_post, log_d_pred, pitch_pred, energy_pred, frame_mask,
+                pad_mask[..., 0]), new_state
 
     # -- the forward --------------------------------------------------------------------
 
@@ -283,7 +360,7 @@ class FastSpeech2:
 
         mel = self.decode(params, x, frame_mask)
         mel = mel * frame_mask[..., None].to(mel.dtype)
-        mel_post = self.postnet(params, state, mel, frame_mask = frame_mask)
+        mel_post, _ = self.postnet(params, state, mel, frame_mask = frame_mask)
 
         # the hard alignment of the duration map, in the place of attention
         align = F.one_hot(idx.long(), tokens.shape[1]).to(torch.float32)

@@ -1,10 +1,15 @@
-"""Tacotron-2 inference over dictionaries of tensors.
+"""Tacotron-2 over dictionaries of tensors.
 
-Counterpart of ``text_to_speech_tpu/models/tacotron2_arch.py`` (inference):
-`encode`, `prenet`, location-sensitive attention (`process_memory`,
-`attention_step`), `decoder_cell`, `init_cell_state`, `_project`, `postnet`
-and the autoregressive `infer` with the gate stop and the sliding attention
-window.  Parameters are the port's layouts (`weights.tacotron2_from_jax`).
+Counterpart of ``text_to_speech_tpu/models/tacotron2_arch.py``: `encode`
+(`encode_train`, the JAX package's, also returns the moved batch-norm
+state), `prenet`, location-sensitive attention (`process_memory`,
+`attention_step`), `decoder_cell`, `init_cell_state`, `_project`,
+`postnet`, the teacher-forced `__call__` (training: the prenet over the
+whole target sequence, a Python loop of `decoder_cell` steps, the
+projections after it, the r frames of a step unfolded to frame rate, batch
+norms on the batch in train mode) and the autoregressive `infer` with the
+gate stop and the sliding attention window.  Parameters are the port's
+layouts (`weights.tacotron2_from_jax`).
 
 Speaker conditioning (SV2TTS): with `speaker_embedding_dim`, a (B, spk)
 embedding enters where `speaker_concat_pos` (any of 'start', 'end',
@@ -18,6 +23,8 @@ of small library calls.  `infer_fused` runs the same decode on the fused
 decoder-step kernel (`ops.decoder_kernel.decoder_steps`), 64 steps a launch,
 optionally with int8 LSTM weights; `supports_fused_decoder` is its envelope.
 There the prenet concat is folded into the kernel's per-row addend ``extra``.
+The teacher-forced loop runs no kernel of the port: the JAX package's is a
+`lax.scan`, outside Pallas.
 """
 
 import collections
@@ -115,7 +122,18 @@ class Tacotron2:
         return spk.expand(tuple(shape) + (self.spk_dim,))
 
     def encode(self, params, state, tokens, *, speaker_embedding = None):
-        """tokens (B, S) → (encoder_output (B, S, D), mask (B, S))."""
+        """tokens (B, S) → (encoder_output (B, S, D), mask (B, S)) on the
+        running statistics."""
+        x, mask, _ = self.encode_train(params, state, tokens,
+                                       speaker_embedding = speaker_embedding, train = False)
+        return x, mask
+
+    def encode_train(self, params, state, tokens, *, speaker_embedding = None, train = True,
+                     generator = None):
+        """The JAX package's `encode`: tokens → (encoder_output, mask,
+        new_state).  In `train` mode the convs' batch norms run on the batch's statistics
+        over the valid tokens and move the running ones, and dropout draws
+        from `generator`."""
         hp = self.hp
         enc, enc_state = params['encoder'], state['encoder']
         mask = tokens != hp.pad_token
@@ -123,19 +141,29 @@ class Tacotron2:
         if 'start' in self.concat_pos:
             spk = self._speaker(speaker_embedding, x.shape[:2]).to(x.dtype)
             x = nn.dense(enc['speaker_projection'], torch.cat([x, spk], dim = -1))
+        new_state = {}
         for i in range(hp.encoder_n_conv):
             name = 'conv_{}'.format(i)
             x = nn.conv1d(enc[name]['conv'], x, padding = 'SAME')
-            x = nn.batch_norm(enc[name]['bn'], enc_state[name]['bn'], x,
-                              epsilon = hp.encoder_epsilon)
+            if train:
+                x, bn_state = nn.batch_norm_train(
+                    enc[name]['bn'], enc_state[name]['bn'], x, momentum = hp.encoder_momentum,
+                    epsilon = hp.encoder_epsilon, mask = mask)
+            else:
+                x = nn.batch_norm(enc[name]['bn'], enc_state[name]['bn'], x,
+                                  epsilon = hp.encoder_epsilon)
+                bn_state = enc_state[name]['bn']
             x = torch.relu(x)
+            if train:
+                x = nn.dropout(x, hp.encoder_drop_rate, generator = generator)
+            new_state[name] = {'bn': bn_state}
             x = torch.where(mask[..., None], x, torch.zeros_like(x))
         x = nn.bilstm(enc['bilstm'], x, mask = mask)
         if 'end' in self.concat_pos:
             spk = self._speaker(speaker_embedding, x.shape[:2]).to(x.dtype)
             x = torch.cat([x, spk], dim = -1)
             x = torch.where(mask[..., None], x, torch.zeros_like(x))
-        return x, mask
+        return x, mask, {** state, 'encoder': new_state}
 
     # -- prenet ----------------------------------------------------------------
 
@@ -232,21 +260,88 @@ class Tacotron2:
 
     # -- postnet ---------------------------------------------------------------
 
-    def postnet(self, params, state, x, *, mask = None):
-        """Inference postnet; with `mask`, padded frames are zeroed between
-        layers so that a padded batch matches unpadded runs."""
+    def postnet(self, params, state, x, *, mask = None, train = False, generator = None):
+        """The postnet → (residual, new_state).  With `mask`, padded frames
+        are zeroed between layers, so that a padded batch matches unpadded
+        runs.  In `train` mode the batch norms run on the batch's
+        statistics over the masked frames and dropout follows every layer."""
         hp = self.hp
         post, post_state = params['postnet'], state['postnet']
+        new_state = {}
         for i in range(hp.postnet_n_conv):
             name = 'conv_{}'.format(i)
             x = nn.conv1d(post[name]['conv'], x, padding = 'SAME')
-            x = nn.batch_norm(post[name]['bn'], post_state[name]['bn'], x,
-                              epsilon = hp.postnet_epsilon)
+            if train:
+                x, bn_state = nn.batch_norm_train(
+                    post[name]['bn'], post_state[name]['bn'], x, momentum = hp.postnet_momentum,
+                    epsilon = hp.postnet_epsilon, mask = mask)
+            else:
+                x = nn.batch_norm(post[name]['bn'], post_state[name]['bn'], x,
+                                  epsilon = hp.postnet_epsilon)
+                bn_state = post_state[name]['bn']
             if i < hp.postnet_n_conv - 1:
                 x = torch.tanh(x)
+            if train:
+                x = nn.dropout(x, hp.postnet_drop_rate, generator = generator)
             if mask is not None:
                 x = torch.where(mask[..., None], x, torch.zeros_like(x))
-        return x
+            new_state[name] = {'bn': bn_state}
+        return x, {** state, 'postnet': new_state}
+
+    # -- teacher-forced forward (training) ----------------------------------------
+
+    def __call__(self, params, state, tokens, mel_input, *, mel_lengths = None,
+                 speaker_embedding = None, train = False, generator = None):
+        """The teacher-forced forward.  tokens (B, S) int; mel_input (B, T,
+        n_mel), the previous frames (group rate with a reduction factor r:
+        each step emits r frames).  The decoder mask is ``t < mel_lengths``,
+        or the non-zero frames without lengths.  The prenet runs over the
+        whole sequence and drops in train mode whatever
+        `prenet_deterministic` says; the cell loop is `decoder_cell`; the
+        projections run after the loop over the whole sequence.  Returns
+        ((decoder_output (B, T r, n_mel), mel_postnet, gates (B, T r)),
+        new_state)."""
+        hp = self.hp
+        encoder_output, enc_mask, state = self.encode_train(
+            params, state, tokens, speaker_embedding = speaker_embedding, train = train,
+            generator = generator)
+        memory, processed_memory = self.process_memory(
+            params['decoder'], encoder_output, enc_mask)
+
+        steps = mel_input.shape[1]
+        if mel_lengths is not None:
+            dec_mask = torch.arange(steps, device = mel_input.device)[None, :] \
+                < mel_lengths.to(mel_input.device)[:, None]
+        else:
+            dec_mask = torch.any(mel_input != 0., dim = -1)
+
+        prenet_out = self.prenet(params['decoder'], mel_input, generator = generator,
+                                 speaker_embedding = speaker_embedding,
+                                 deterministic = hp.prenet_deterministic and not train)
+        cell_state = self.init_cell_state(tokens.shape[0], tokens.shape[1], mel_input.dtype,
+                                          mel_input.device)
+        cell_outputs = []
+        for t in range(steps):
+            cell_out, _, cell_state = self.decoder_cell(
+                params['decoder'], prenet_out[:, t], memory, processed_memory, enc_mask,
+                cell_state)
+            cell_outputs.append(cell_out)
+        cell_outputs = torch.stack(cell_outputs, dim = 1)
+
+        frames, gates = self._project(params['decoder'], cell_outputs)
+        frames = torch.where(dec_mask[..., None], frames, torch.zeros_like(frames))
+        r = hp.n_frames_per_step
+        if r == 1:
+            gates = gates[..., 0]
+            out_mask = dec_mask
+        else:
+            # each step emitted r frames: unfold to frame rate for the postnet
+            gates = gates.reshape(gates.shape[0], -1)
+            frames = frames.reshape(frames.shape[0], -1, hp.n_mel_channels)
+            out_mask = torch.repeat_interleave(dec_mask, r, dim = 1)
+        postnet_out, state = self.postnet(params, state, frames, mask = out_mask, train = train,
+                                          generator = generator)
+        return (frames, frames + postnet_out, gates), state
 
     # -- autoregressive inference -----------------------------------------------
 
@@ -337,7 +432,7 @@ class Tacotron2:
         else:
             stop_tokens = stop_tokens[..., 0]
 
-        postnet_out = self.postnet(params, state, outputs)
+        postnet_out, _ = self.postnet(params, state, outputs)
         return Tacotron2InferenceOutput(
             mel = (outputs + postnet_out).float(),
             lengths = lengths * r,
@@ -478,7 +573,7 @@ class Tacotron2:
         steps, attention_weights = steps[:, :max_length], attention_weights[:, :max_length]
         outputs = steps[..., :n_mel].contiguous()
 
-        postnet_out = self.postnet(params, state, outputs.to(compute_dtype))
+        postnet_out, _ = self.postnet(params, state, outputs.to(compute_dtype))
         return Tacotron2InferenceOutput(
             mel = outputs + postnet_out.float(),
             # a row that never gates counts every step of every launch: cap

@@ -13,16 +13,26 @@ The ``map.json`` cache is keyed by text alone, so these flows default to
 ``overwrite=True``: a second speaker is never answered with the first
 one's audio.  (The JAX package's `predict` passes its own
 ``overwrite=False`` to `infer`.)
+
+Training: `create` makes a new model (``embedding_dim`` becomes the
+architecture's ``speaker_embedding_dim``); `prepare_data` / `collate` put the
+row's speaker embedding (its ``embedding``, else the resolved
+``embeddings``) second in the inputs, (tokens, embedding, mel_in, steps),
+and the teacher-forced forward takes it at every concat position.
 """
 
 import numpy as np
 
+from ...utils.sequence_utils import pad_batch
+from ..saving import load_model_files
 from .speaker_embedding_mixin import SpeakerEmbeddingMixin
 from .tacotron2 import Tacotron2
-from ..saving import load_model_files
 
 
 class SV2TTSTacotron2(SpeakerEmbeddingMixin, Tacotron2):
+    _task_keys = Tacotron2._task_keys + ('embedding_dim', 'encoder_name',
+                                         'speaker_encoder_name')
+
     def __init__(self, params, state, *, name = 'sv2tts_tacotron2', embedding_dim = 256,
                  encoder_name = None, speaker_encoder_name = None, ** kwargs):
         if speaker_encoder_name: encoder_name = speaker_encoder_name
@@ -40,8 +50,37 @@ class SV2TTSTacotron2(SpeakerEmbeddingMixin, Tacotron2):
             if key in config: kwargs.setdefault(key, config[key])
         return super().from_pretrained(name, root = root, device = device, ** kwargs)
 
+    @classmethod
+    def create(cls, lang = 'en', *, embedding_dim = 256, ** kwargs):
+        """`Tacotron2.create` with the speaker: `embedding_dim` wide,
+        concatenated at ``speaker_concat_pos`` ('end' unless given)."""
+        kwargs.setdefault('speaker_embedding_dim', embedding_dim)
+        kwargs.setdefault('speaker_concat_pos', 'end')
+        return super().create(lang, embedding_dim = embedding_dim, ** kwargs)
+
     def get_config(self):
         return {** super().get_config(), ** self.get_speaker_config()}
+
+    # -- data processing (training) --------------------------------------------
+
+    def prepare_data(self, data):
+        (tokens, mel_in, length), outputs = super().prepare_data(data)
+        embedding = np.asarray(
+            data['embedding'] if isinstance(data, dict) and 'embedding' in data
+            else self.get_speaker_embedding(
+                data.get('embeddings') if isinstance(data, dict) else None), np.float32)
+        return (tokens, embedding, mel_in, length), outputs
+
+    def collate(self, batch):
+        inputs, outputs = zip(* batch)
+        pad_in, pad_out = self.get_padding_values()
+        tokens = pad_batch([i[0] for i in inputs], pad_value = pad_in[0])
+        embeddings = np.stack([i[1] for i in inputs])
+        mel_in = pad_batch([i[2] for i in inputs], pad_value = pad_in[1])
+        lengths = np.asarray([i[3] for i in inputs], np.int32)
+        mel_out = pad_batch([o[0] for o in outputs], pad_value = pad_out[0])
+        gate = pad_batch([o[1] for o in outputs], pad_value = pad_out[1])
+        return (tokens, embeddings, mel_in, lengths), (mel_out, gate)
 
     # -- inference -------------------------------------------------------------
 

@@ -30,6 +30,13 @@ dispatch: `predict`, `inference` (`infer`) with `processing` (cleaning and
 tokenizing), `compiled_tts` (the one-launch path) and `compiled_infer`
 (each other decode).
 
+Training (`models.base_model.TrainableModel`): `create` makes a new model
+as the JAX package's constructor does (a language, the hparams, a seed:
+random weights, saved under ``<root>/<name>/``); `prepare_data`, with the
+group-rate inputs of a reduction factor, `filter_data`,
+`get_padding_values` and `collate` feed `fit` (`train.trainer.fit`:
+`TacotronLoss`, teacher forcing, `mixed_precision_ok`).
+
 `save` writes the JAX package's directory layout, which both packages
 load; `from_nvidia_pretrained` imports an NVIDIA Tacotron-2 checkpoint
 (`models.tts_checkpoints`) and saves it, as the JAX package builds its
@@ -50,20 +57,22 @@ import numpy as np
 import torch
 
 from ...devices import default_device
+from ...init import init_tacotron2
 from ...loggers import Timer, timer
+from ...ops.audio_io import load_mel
 from ...ops.decoder_kernel import kernel_weights_only, pack_decoder_weights
 from ...ops.stft import MelSTFT
-from ...text import Tokenizer, default_english_tokenizer, split_text, split_sentences
-from ...train.checkpoint import CheckpointManager
-from ...train.history import History
+from ...text import (
+    Tokenizer, default_english_tokenizer, get_tokenizer, split_text, split_sentences)
 from ...utils.callbacks import (
     AudioSaver, SpectrogramSaver, JSONSaver, AudioPlayer, FunctionCallback,
     QueueCallback, apply_callbacks,
 )
 from ...utils.file_utils import load_json
+from ...utils.sequence_utils import pad_batch, pad_to_multiple
 from ...weights import cast_tree, tacotron2_from_jax, tree_to, tree_to_jax
-from ..base_model import BaseModel
-from ..saving import load_model_files, model_dir, write_model_config
+from ..base_model import BaseModel, TrainableModel
+from ..saving import load_model_files, model_dir
 from ..tacotron2_arch import Tacotron2 as Tacotron2Arch
 from ..tts_checkpoints import (
     _load_state_dict, convert_nvidia_tacotron2, tacotron2_config_from_state_dict)
@@ -103,25 +112,13 @@ class _Clock:
         return [b - a for a, b in zip(self.marks, self.marks[1:])]
 
 
-def pad_batch(batch, pad_value = 0):
-    """Stack 1-D arrays into one (len(batch), max_len) array."""
-    out = np.full((len(batch), max(len(b) for b in batch)), pad_value,
-                  dtype = np.asarray(batch[0]).dtype)
-    for i, b in enumerate(batch):
-        out[i, :len(b)] = b
-    return out
-
-
-def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
-    rem = data.shape[axis] % multiple
-    if rem == 0: return data
-    pads = [(0, 0)] * data.ndim
-    pads[axis] = (0, multiple - rem)
-    return np.pad(data, pads, mode = 'constant', constant_values = constant_values)
-
-
-class Tacotron2(BaseModel):
+class Tacotron2(TrainableModel, BaseModel):
     arch_class = Tacotron2Arch
+    _default_loss = 'TacotronLoss'
+    mixed_precision_ok = True
+    # constructor options of the task (the rest of `create`'s keywords are
+    # the architecture's)
+    _task_keys = ('pad_mel_value', 'max_input_length', 'max_output_length')
 
     def __init__(self, params, state, *, tokenizer, name = 'tacotron2',
                  device = None, rate = 22050, mel_fn = 'TacotronSTFT', lang = 'en',
@@ -157,9 +154,13 @@ class Tacotron2(BaseModel):
 
     @params.setter
     def params(self, params):
-        """New parameters drop the weights derived from the old ones (the
-        packed decoder, cast copies)."""
         self._params = tree_to(params, self.device)
+        self._weights_changed()
+
+    def _weights_changed(self):
+        """New weights (`params` set, `set_weights`, `to`, each epoch of
+        `fit`) drop those derived from the old ones: the packed decoder,
+        cast copies."""
         self._derived = {}
 
     @classmethod
@@ -209,6 +210,36 @@ class Tacotron2(BaseModel):
         model.save()
         return model
 
+    @classmethod
+    def create(cls, lang = 'en', *, name = None, seed = 0, root = None, device = None,
+               tokenizer = None, mel_fn = 'TacotronSTFT', ** kwargs):
+        """A new model with random weights, the JAX package's constructor
+        (``Tacotron2(lang, name = ..., ** hparams)``): the tokenizer from
+        `tokenizer` or `lang` (`text.get_tokenizer`), the mel front end
+        `mel_fn` (a `MelSTFT`, its config or class name), the architecture
+        from the hparams in `kwargs` (its vocabulary, pad token and mel
+        channels from the tokenizer and the mel front end), the task's own
+        options (``_task_keys``) to the constructor, weights from the port's
+        `init` seeded with `seed`.  The model is saved under
+        ``<root>/<name>/`` (the constructor's default name unless given),
+        where `from_pretrained` finds it."""
+        tokenizer = get_tokenizer(tokenizer, lang = lang)
+        mel_fn = MelSTFT.create(mel_fn)
+        task = {k: kwargs.pop(k) for k in cls._task_keys if k in kwargs}
+        arch = cls.arch_class(** {'pad_token': tokenizer.blank_token_idx,
+                                  'vocab_size': tokenizer.vocab_size,
+                                  'n_mel_channels': mel_fn.n_mel_channels, ** kwargs})
+        params, state = cls._random_trees(arch.hp, seed)
+        if name: task['name'] = name
+        model = cls.from_jax(params, state, tokenizer = tokenizer, lang = lang, root = root,
+                             device = device, mel_fn = mel_fn, ** task, ** arch.get_config())
+        model.save()
+        return model
+
+    @staticmethod
+    def _random_trees(hp, seed):
+        return init_tacotron2(hp, seed = seed)
+
     # -- saving ----------------------------------------------------------------
 
     def get_config(self):
@@ -217,22 +248,13 @@ class Tacotron2(BaseModel):
                 'max_input_length': self.max_input_length,
                 'max_output_length': self.max_output_length}
 
-    def save(self):
-        """Write ``<root>/<name>/`` in the JAX package's layout
-        (``config.json``, ``saving/config_models.json``, ``tokenizer.json``,
-        ``mel_fn.json``, ``history.json`` and a checkpoint of the params and
-        state at the history's epoch), which both packages load."""
-        saving = os.path.join(self.folder, 'saving')
-        write_model_config(self.folder, type(self).__name__, {** self.get_config(), 'name': self.name},
-                           type(self.arch).__name__.lower(), self.arch.get_config())
-        self.tokenizer.save(os.path.join(saving, 'tokenizer.json'))
-        self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
-        history = History.load(os.path.join(saving, 'history.json'))
-        history.save(os.path.join(saving, 'history.json'))
+    def get_saving_objects(self):
+        return {'tokenizer.json': self.tokenizer, 'mel_fn.json': self.mel_fn}
+
+    def jax_trees(self):
         trees = {'params': tree_to_jax(self.params)}
         if self.state: trees['state'] = tree_to_jax(self.state)
-        CheckpointManager(os.path.join(saving, 'checkpoint')).save(trees, history.epochs)
-        return self.folder
+        return trees
 
     # -- text ------------------------------------------------------------------
 
@@ -244,7 +266,65 @@ class Tacotron2(BaseModel):
         return self.tokenizer.clean_text(text, ** kwargs)
 
     def encode_text(self, text, ** kwargs):
+        if isinstance(text, dict):
+            text = text.get('text', text.get('content'))
         return self.tokenizer.encode(text, ** kwargs)
+
+    prepare_input = encode_text
+
+    # -- data processing (training) --------------------------------------------
+
+    def get_audio(self, data):
+        """The mel (frames, n_mel) of a row, filename or array, computed on
+        the model's device, as numpy."""
+        return load_mel(data, self.mel_fn, device = self.device).cpu().numpy()
+
+    def prepare_output(self, data):
+        """mel (T, n_mel) → (the mel after a leading zero frame, the gate:
+        1 at the last frame)."""
+        mel = np.pad(self.get_audio(data), [(1, 0), (0, 0)])
+        gate = np.zeros((mel.shape[0],), np.float32)
+        gate[-1] = 1.
+        return mel, gate
+
+    def prepare_data(self, data):
+        """The teacher-forcing pair ((tokens, mel[:-1], steps), (mel[1:],
+        gate[1:])).  With a reduction factor r > 1 the inputs are at group
+        rate: step g reads ``mel[g r]`` (the frame before its first target)
+        and `steps` counts the groups; the mel and the gate are padded to
+        whole groups (with ``pad_mel_value`` and 1) and the targets stay at
+        frame rate."""
+        tokens = self.prepare_input(data)
+        mel, gate = self.prepare_output(data)
+        r = self.arch.hp.n_frames_per_step
+        if r == 1:
+            return (tokens, mel[:-1], len(mel) - 1), (mel[1:], gate[1:])
+        n_groups = -(-(len(mel) - 1) // r)
+        pad = 1 + n_groups * r - len(mel)
+        if pad > 0:
+            mel = np.pad(mel, ((0, pad), (0, 0)), constant_values = self.pad_mel_value)
+            gate = np.concatenate([gate, np.ones((pad,), gate.dtype)])
+        return (tokens, mel[0: n_groups * r: r], n_groups), (mel[1:], gate[1:])
+
+    def filter_data(self, inputs, outputs):
+        r = self.arch.hp.n_frames_per_step
+        return (len(inputs[0]) <= self.max_input_length
+                and inputs[-1] * r <= self.max_output_length)
+
+    def get_padding_values(self):
+        return ((self.blank_token_idx, self.pad_mel_value, 0), (self.pad_mel_value, 1.))
+
+    def collate(self, batch):
+        """`prepare_data` outputs → the padded numpy batch ((tokens, mel_in,
+        steps), (mel_out, gate))."""
+        inputs, outputs = zip(* batch)
+        pad_in, pad_out = self.get_padding_values()
+        tokens = pad_batch([i[0] for i in inputs], pad_value = pad_in[0])
+        mel_in = pad_batch([i[1] for i in inputs], pad_value = pad_in[1])
+        lengths = np.asarray([i[2] for i in inputs], np.int32)
+        mel_out = pad_batch([o[0] for o in outputs], pad_value = pad_out[0])
+        gate = pad_batch([o[1] for o in outputs], pad_value = pad_out[1])
+        return (tokens, mel_in, lengths), (mel_out, gate)
 
     # -- inference -------------------------------------------------------------
 

@@ -40,11 +40,11 @@ from ...devices import default_device
 from ...loggers import timer
 from ...ops.audio_io import load_audio
 from ...ops.stft import MelSTFT
-from ...train.checkpoint import CheckpointManager
-from ...train.history import History
 from ...utils.file_utils import load_json
+from ...utils.sequence_utils import pad_batch
 from ...weights import tree_to, waveglow_from_jax, waveglow_to_jax
-from ..saving import load_model_files, model_dir, write_model_config
+from ..base_model import TrainableModel
+from ..saving import load_model_files, model_dir
 from ..tts_checkpoints import (
     _load_state_dict, convert_nvidia_waveglow, remove_torch_weight_norm,
     waveglow_config_from_state_dict)
@@ -53,7 +53,7 @@ from ..waveglow_arch import WaveGlow as WaveGlowArch
 logger = logging.getLogger(__name__)
 
 
-class WaveGlow:
+class WaveGlow(TrainableModel):
     serving_pad_multiple = 256   # compiled_infer's mel shape bucket
     _default_loss = 'WaveGlowLoss'
     train_remat = True           # per-flow remat in the train step
@@ -79,8 +79,6 @@ class WaveGlow:
         self.rate = self.mel_fn.rate
         self.folder = model_dir(name, root = root)
         self.max_to_keep = max_to_keep
-        self._history = None
-        self._ckpt_manager = None
         self._packed_params = None        # (params, int8, kernel params)
         self._serve_int8 = False
         self._serve_force_xla = False
@@ -120,39 +118,14 @@ class WaveGlow:
 
     # -- training ----------------------------------------------------------------
 
-    @property
-    def history(self):
-        if self._history is None:
-            self._history = History.load(os.path.join(self.folder, 'saving', 'history.json'))
-        return self._history
-
-    @property
-    def epochs(self):
-        return self.history.epochs
-
-    @property
-    def ckpt_manager(self):
-        """The `CheckpointManager` of ``saving/checkpoint/``, made (with its
-        directory) at first use."""
-        if self._ckpt_manager is None:
-            self._ckpt_manager = CheckpointManager(
-                os.path.join(self.folder, 'saving', 'checkpoint'),
-                max_to_keep = self.max_to_keep)
-        return self._ckpt_manager
-
-    def to(self, device):
-        """Move the params to `device` (a no-op where they are)."""
-        device = torch.device(device)
-        if device != self.device:
-            self.params = tree_to(self.params, device)
-            self.device = device
-            self._packed_params = None
-        return self
-
-    def set_weights(self, params, state = None):
-        self.params = tree_to(_detach(params), self.device)
-        if state is not None: self.state = state
+    def _weights_changed(self):
         self._packed_params = None
+
+    def jax_trees(self):
+        return {'params': waveglow_to_jax(self.params)}
+
+    def get_saving_objects(self):
+        return {'mel_fn.json': self.mel_fn}
 
     def prepare_data(self, data):
         """A row (WAV filename, array or dict) → (mel (F, n_mel), audio (T,)),
@@ -165,8 +138,8 @@ class WaveGlow:
     def collate(self, batch):
         """(mel, audio) pairs → ((mels, audios), audios), padded with
         `pad_mel_value` and zeros."""
-        mels = _pad_batch([b[0] for b in batch], self.pad_mel_value)
-        audios = _pad_batch([b[1] for b in batch], 0.)
+        mels = pad_batch([b[0] for b in batch], self.pad_mel_value)
+        audios = pad_batch([b[1] for b in batch], 0.)
         return (mels, audios), audios
 
     def get_padding_values(self):
@@ -174,27 +147,6 @@ class WaveGlow:
 
     def get_config(self):
         return {'audio_format': 'mel', 'pad_mel_value': self.pad_mel_value}
-
-    def save(self, *, epoch = None, metric = None, extra_trees = None, saver = None):
-        """Write the model's directory in the JAX package's layout, with a
-        checkpoint of the params (JAX tree layout) and of `extra_trees` for
-        `epoch` (default: ``epochs``); through `saver`
-        (`train.checkpoint.AsyncCheckpointSaver`), when given, the checkpoint
-        is written on its thread."""
-        saving = os.path.join(self.folder, 'saving')
-        write_model_config(self.folder, 'WaveGlow', {** self.get_config(), 'name': self.name},
-                           'waveglow', self.arch.get_config())
-        self.mel_fn.save(os.path.join(saving, 'mel_fn.json'))
-        self.history.save(os.path.join(saving, 'history.json'))
-        trees = {'params': waveglow_to_jax(self.params), ** (extra_trees or {})}
-        (saver or self.ckpt_manager).save(trees, epoch if epoch is not None else self.epochs,
-                                          metric = metric)
-        return self.folder
-
-    def fit(self, dataset, ** kwargs):
-        """Train on `dataset` with `train.trainer.fit`."""
-        from ...train.trainer import fit
-        return fit(self, dataset, ** kwargs)
 
     @property
     def upsample_rate(self):
@@ -575,19 +527,3 @@ def _get_steps(length, win_len, hop_len):
     max_start = length - win_len
     actual = max_start / (num_steps - 1)
     return np.round(np.arange(num_steps) * actual).astype(np.int64)
-
-
-def _detach(tree):
-    if isinstance(tree, dict):
-        return {k: _detach(v) for k, v in tree.items()}
-    return tree.detach()
-
-
-def _pad_batch(arrays, pad_value):
-    """Arrays of equal trailing shape → one array padded along axis 1."""
-    arrays = [np.asarray(a) for a in arrays]
-    out = np.full((len(arrays), max(len(a) for a in arrays)) + arrays[0].shape[1:],
-                  pad_value, dtype = arrays[0].dtype)
-    for i, a in enumerate(arrays):
-        out[i, :len(a)] = a
-    return out

@@ -8,7 +8,9 @@ each layer in the `ops.wn_layer` kernel under ``use_pallas``; `infer` with
 the int8 route's mixed-precision contract; and the training direction:
 `forward` (with per-flow remat and the mixed-precision cast), `loss`, and
 `wn_block_train`, the whole-block kernel forward with a recomputed backward
-that ``wn_train_fused`` selects.
+that ``wn_train_fused`` selects; and the XLA-level int8 path
+(`quantize_params`, `_conv_int8`): the per-layer chain on int8 convs whose
+products accumulate in int32 (`int8_conv1d` on `torch._int_mm`).
 Parameters are the port's layouts (`weights.waveglow_from_jax`).  Each
 flow's 1×1 invertible conv is a (c, c) ``weight`` with ``y = audio @ weight.T``.
 """
@@ -139,6 +141,44 @@ class WaveGlow:
             out[name] = {'convinv': value['convinv'], 'block': block}
         return out
 
+    def quantize_params(self, params):
+        """The XLA-level int8 path of the JAX package (its `quantize_params`,
+        EXPERIMENTAL there): every WN conv (``in_conv_*``, ``cond_*``,
+        ``res_skip_conv_*``) becomes ``{'weight_q': (out, in, W) int8,
+        'scale': (out,) float32, 'bias'}``, symmetric with per-output-channel
+        scales, rounded half to even; activations quantize per tensor when
+        the conv runs (`_conv_int8`).  `infer` then runs the per-layer chain
+        on these convs (without ``use_kernel``)."""
+        def quantize_conv(conv):
+            w = conv['weight'].float()
+            scale = torch.clamp(w.abs().amax(dim = (1, 2)) / 127., min = 1e-8)
+            out = {'weight_q': torch.clamp(torch.round(w / scale[:, None, None]), -127, 127)
+                   .to(torch.int8), 'scale': scale}
+            if 'bias' in conv: out['bias'] = conv['bias']
+            return out
+
+        quantized = {}
+        for name, value in params.items():
+            if not name.startswith('flow_'):
+                quantized[name] = value
+                continue
+            block = {key: quantize_conv(conv) if key.startswith(('in_conv', 'cond', 'res_skip'))
+                     else conv for key, conv in value['block'].items()}
+            quantized[name] = {'convinv': value['convinv'], 'block': block}
+        return quantized
+
+    @staticmethod
+    def _conv_int8(q, x, *, dilation = 1):
+        """A conv of `quantize_params` with dynamic per-tensor activation
+        scale: ``y = (x_q ⊛ w_q) · (a_scale · w_scale) + bias``, the int8
+        products accumulated in int32 (`int8_conv1d`), never in float32."""
+        a_scale = torch.clamp(x.abs().max().float() / 127., min = 1e-8)
+        x_q = torch.clamp(torch.round(x.float() / a_scale), -127, 127).to(torch.int8)
+        y = int8_conv1d(x_q, q['weight_q'], dilation = dilation)
+        y = y.float() * (a_scale * q['scale'])
+        if 'bias' in q: y = y + q['bias']
+        return y
+
     # -- WN coupling block -----------------------------------------------------
 
     def wn_block(self, block, audio_half, spect, fused = True):
@@ -164,22 +204,35 @@ class WaveGlow:
         if fused and 'packed' in block:
             return self._fused_block(block, block['packed'], audio_half, spect)
 
+        # the XLA-level int8 path (`quantize_params`): every conv but the
+        # start and end ones in int8 with int32 accumulation
+        int8 = 'weight_q' in block.get('in_conv_0', {})
         layer_kernel = (fused or hp.use_pallas) and n_ch % 128 == 0 \
-            and hp.wn_kernel_size == 3
+            and hp.wn_kernel_size == 3 and not int8
+        conv = self._conv_int8 if int8 else nn.conv1d
         x = nn.conv1d(block['start'], audio_half)
         cond_all = None
         if 'cond_layer' in block:
-            cond_all = nn.conv1d(block['cond_layer'], spect)
+            cond_all = conv(block['cond_layer'], spect)
         output = None
         for i in range(hp.wn_layers):
             if cond_all is not None:
                 cond = cond_all[..., i * 2 * n_ch: (i + 1) * 2 * n_ch]
             else:
-                cond = nn.conv1d(block['cond_conv_{}'.format(i)], spect)
+                cond = conv(block['cond_conv_{}'.format(i)], spect)
             in_conv = block['in_conv_{}'.format(i)]
             rs_conv = block['res_skip_conv_{}'.format(i)]
             last = i == hp.wn_layers - 1
-            if layer_kernel:
+            if int8:
+                acts = self._conv_int8(in_conv, x, dilation = 2 ** i) + cond
+                gated = torch.tanh(acts[..., :n_ch]) * torch.sigmoid(acts[..., n_ch:])
+                res_skip = self._conv_int8(rs_conv, gated)
+                if not last:
+                    x = x + res_skip[..., :n_ch].to(x.dtype)
+                    skip = res_skip[..., n_ch:]
+                else:
+                    skip = res_skip
+            elif layer_kernel:
                 # the in-conv bias folded into the conditioning, as the JAX
                 # package does; conv weights (out, in, W) → taps (W, in, out)
                 if 'bias' in in_conv: cond = cond + in_conv['bias']
@@ -415,6 +468,37 @@ class WaveGlow:
 
     def get_config(self):
         return self.hp.get_config()
+
+
+def _int_mm(a, b):
+    """(M, K) int8 @ (K, N) int8 → (M, N) int32 through `torch._int_mm`,
+    the operands zero-padded to its shape limits (M > 16, K and N multiples
+    of 8), which leaves the sums exact."""
+    m, k = a.shape
+    n = b.shape[1]
+    pad_m, pad_k, pad_n = max(17 - m, 0), -k % 8, -n % 8
+    if pad_m or pad_k:
+        a = torch.nn.functional.pad(a, (0, pad_k, 0, pad_m))
+    if pad_k or pad_n:
+        b = torch.nn.functional.pad(b, (0, pad_n, 0, pad_k))
+    return torch._int_mm(a.contiguous(), b)[:m, :n]
+
+
+def int8_conv1d(x_q, w_q, *, dilation = 1):
+    """x_q (B, T, C) int8 ⊛ w_q (out, C, W) int8 with XLA's SAME padding →
+    (B, T, out) int32: one int8 product a tap over the shifted input, the
+    taps summed in int32."""
+    batch, steps, channels = x_q.shape
+    width = w_q.shape[2]
+    left, right = nn._same_pads(width, dilation)
+    padded = torch.nn.functional.pad(x_q, (0, 0, left, right))
+    out = None
+    for k in range(width):
+        rows = padded[:, k * dilation: k * dilation + steps].reshape(-1, channels)
+        # (C, out) column-major, as cuBLASLt takes the second operand
+        y = _int_mm(rows, w_q[:, :, k].contiguous().t())
+        out = y if out is None else out + y
+    return out.reshape(batch, steps, -1)
 
 
 class _WNBlockTrain(torch.autograd.Function):

@@ -12,6 +12,8 @@ layouts, which `weights.py` produces from the JAX trees:
   - LSTM cell:  ``weight_ih (4U, in)``, ``weight_hh (4U, U)``, one fused
     ``bias (4U,)``; gates ordered i, f, g, o
   - batch norm: params ``weight``/``bias``, state ``running_mean``/``running_var``
+    (`batch_norm` on the running statistics, `batch_norm_train` on the
+    batch's, masked, moving the running ones)
   - layer norm: ``weight``/``bias`` (the JAX package's ``gamma``/``beta``)
 """
 
@@ -66,6 +68,34 @@ def batch_norm(params, state, x, *, epsilon = 1e-5):
     inv = torch.rsqrt(state['running_var'].float() + epsilon) * params['weight'].float()
     y = (x32 - state['running_mean'].float()) * inv + params['bias'].float()
     return y.to(x.dtype)
+
+
+def batch_norm_train(params, state, x, *, momentum = 0.1, epsilon = 1e-5, mask = None):
+    """Training batch norm over the last axis: the batch's statistics
+    normalize `x`, masked to the valid (B, T) frames by `mask`, and the
+    running statistics move as ``new = (1 - momentum) * old + momentum *
+    batch``.  Both use the biased variance, as the JAX package does
+    (`F.batch_norm` would move the running variance by the unbiased one).
+    The statistics are float32, the result in the input's dtype.  Returns
+    (y, new_state); the new state carries no gradient."""
+    x32 = x.float()
+    axes = tuple(range(x.dim() - 1))
+    if mask is not None:
+        m = mask[..., None].float()
+        count = torch.clamp(m.sum(), min = 1.)
+        mean = (x32 * m).sum(dim = axes) / count
+        var = ((x32 - mean) ** 2 * m).sum(dim = axes) / count
+    else:
+        mean = x32.mean(dim = axes)
+        var = x32.var(dim = axes, unbiased = False)
+    with torch.no_grad():
+        new_state = {
+            'running_mean': (1. - momentum) * state['running_mean'].float() + momentum * mean,
+            'running_var': (1. - momentum) * state['running_var'].float() + momentum * var,
+        }
+    inv = torch.rsqrt(var + epsilon) * params['weight'].float()
+    y = (x32 - mean) * inv + params['bias'].float()
+    return y.to(x.dtype), new_state
 
 
 def lstm_cell(params, x, carry):

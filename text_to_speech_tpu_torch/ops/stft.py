@@ -155,6 +155,12 @@ class MelSTFT:
         return torch.where(std > 0, (mel - mean) / torch.clamp(std, min = 1e-12),
                            torch.zeros_like(mel))
 
+    def get_mel_length(self, audio_length):
+        return int(math.ceil(max(self.filter_length, audio_length) / self.hop_length))
+
+    def get_audio_length(self, mel_length):
+        return mel_length * self.hop_length
+
     def get_config(self):
         return {'class_name': self.__class__.__name__,
                 'n_mel_channels': self.n_mel_channels, 'sampling_rate': self.sampling_rate,

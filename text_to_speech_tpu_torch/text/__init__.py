@@ -1,7 +1,11 @@
 """Text front end: symbol sets, the char tokenizer, cleaners, chunking.
 
-The `get_symbols` / `default_english_tokenizer` part of
+The `get_symbols` / `default_english_tokenizer` / `get_tokenizer` part of
 ``text_to_speech_tpu/text/__init__.py``, with the same symbol tables.
+`get_tokenizer` resolves a `Tokenizer`, a saved ``.json``, ``'en'`` or a
+config dict (a bare `lang` gives the JAX package's default for it: the
+language's symbols without ARPAbet and its cleaners); the French symbol
+set and the pretrained subword tokenizers are not ported.
 """
 
 from .cleaners import get_cleaners_fn, clean_text, english_cleaners
@@ -55,5 +59,41 @@ def get_symbols(lang,
     return symbols
 
 
+_default_cleaners = {
+    'en': 'english_cleaners',
+    'fr': 'french_cleaners',
+    'be': 'belgian_cleaners',
+    'multi': 'french_cleaners',
+}
+
+
 def default_english_tokenizer(cleaners = ('english_cleaners',), ** kwargs):
     return Tokenizer(en_symbols, level = 'char', cleaners = list(cleaners), ** kwargs)
+
+
+def get_tokenizer(tokenizer = None, lang = None, ** kwargs):
+    """A `Tokenizer` from a `Tokenizer`, a ``.json`` file, ``'en'``, a config
+    dict, or None with a `lang` (the JAX package's `get_tokenizer`)."""
+    import os
+
+    if tokenizer is None: tokenizer = kwargs or {}
+    if isinstance(tokenizer, Tokenizer):
+        return tokenizer
+    if isinstance(tokenizer, str):
+        if os.path.isfile(tokenizer):
+            return Tokenizer.load_from_file(tokenizer)
+        if tokenizer in ('en', 'english'):
+            return default_english_tokenizer(** kwargs)
+        raise ValueError('tokenizer {!r} is not ported'.format(tokenizer))
+    if isinstance(tokenizer, dict):
+        tokenizer = dict(tokenizer)
+        if 'vocab' not in tokenizer:
+            if not lang:
+                raise ValueError('Provide either `vocab` or `lang`')
+            tokenizer['vocab'] = get_symbols(lang, arpabet = False)
+            tokenizer['level'] = 'char'
+        tokenizer.setdefault('level', 'char')
+        tokenizer.setdefault('use_sos_and_eos', False)
+        tokenizer.setdefault('cleaners', [_default_cleaners.get(lang, 'basic_cleaners')])
+        return Tokenizer(** tokenizer)
+    raise ValueError('Unsupported tokenizer spec: {!r}'.format(tokenizer))

@@ -76,11 +76,14 @@ def compute_dtype(policy):
 
 
 def cast_floating(tree, dtype, exempt = ()):
-    """Cast every floating-point tensor of a tree of dicts to `dtype`; other
-    leaves, and every leaf under a dict key in `exempt`, pass through."""
+    """Cast every floating-point tensor of a tree of dicts, tuples and lists
+    to `dtype`; other leaves (None among them), and every leaf under a dict
+    key in `exempt`, pass through."""
     if isinstance(tree, dict):
         return {k: v if k in exempt else cast_floating(v, dtype, exempt)
                 for k, v in tree.items()}
-    if tree.is_floating_point() and tree.dtype != dtype:
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_floating(v, dtype, exempt) for v in tree)
+    if torch.is_tensor(tree) and tree.is_floating_point() and tree.dtype != dtype:
         return tree.to(dtype)
     return tree

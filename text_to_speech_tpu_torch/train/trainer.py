@@ -1,8 +1,9 @@
 """Training loop: the train and eval steps, and the epoch loop `fit`.
 
-Counterpart of ``text_to_speech_tpu/train/trainer.py`` for the WaveGlow
-task model.  The train step is forward, loss, ``backward`` and the
-optimizer's update; the parameters are leaf tensors that the optimizer
+Counterpart of ``text_to_speech_tpu/train/trainer.py`` for the task
+models the port trains: WaveGlow, Tacotron-2 (and SV2TTS) by teacher
+forcing, FastSpeech-2 and the speaker encoder (GE2E).  The train step is
+forward, loss, ``backward`` and the optimizer's update; the parameters are leaf tensors that the optimizer
 updates in place (where the JAX step returns new arrays), which keeps one
 copy of them and of the Adam moments on the device.  `fit` resumes from
 ``model.epochs`` with the optimizer state checkpointed beside the weights
@@ -20,12 +21,13 @@ import numpy as np
 import torch
 
 from ..devices import default_device
+from ..utils.sequence_utils import pad_to_multiple
 from ..weights import flatten_tree
 from .checkpoint import AsyncCheckpointSaver
-from .datasets import prepare_dataset, train_test_split
+from .datasets import Dataset, GE2EDataset, prepare_dataset, train_test_split
 from .losses import get_loss
 from .optimizers import get_optimizer, global_norm
-from .precision import compute_dtype as policy_dtype, get_policy
+from .precision import cast_floating, compute_dtype as policy_dtype, get_policy
 
 logger = logging.getLogger(__name__)
 
@@ -37,15 +39,60 @@ def _not_ported(mesh, pp_microbatches):
 
 def model_forward(model, params, state, inputs, *, generator = None, train = True,
                   targets = None, compute_dtype = None):
-    """A padded batch through the model's architecture → (y_pred, state).
-    WaveGlow only: its `forward` with per-flow remat (``model.train_remat``,
-    on by default) and the mixed-precision cast."""
+    """A padded batch through the model's architecture → (y_pred, new_state).
+
+    `targets` gives static shapes only (FastSpeech-2's frame buffer is the
+    padded mel target's length).  Under a mixed `compute_dtype`, WaveGlow
+    runs its own float32-island forward (per-flow remat unless
+    ``model.train_remat`` is False); every other family casts its params
+    (but those under ``model.precision_exempt``) and float inputs at this
+    boundary and returns float32 predictions, unless its
+    ``mixed_precision_ok`` is False, which keeps it in float32."""
+    from ..models.encoder.speaker_encoder import SpeakerEncoder
+    from ..models.tts.fastspeech2 import FastSpeech2
+    from ..models.tts.tacotron2 import Tacotron2
     from ..models.tts.waveglow import WaveGlow
+
+    arch = model.arch
+    if compute_dtype is not None and not isinstance(model, WaveGlow):
+        if not getattr(model, 'mixed_precision_ok', True):
+            compute_dtype = None
+        else:
+            params = cast_floating(params, compute_dtype,
+                                   exempt = tuple(getattr(model, 'precision_exempt', ())))
+            inputs = cast_floating(inputs, compute_dtype)
+            preds, new_state = model_forward(model, params, state, inputs,
+                                             generator = generator, train = train,
+                                             targets = targets)
+            return cast_floating(preds, torch.float32), new_state
+    if isinstance(model, FastSpeech2):          # a Tacotron2: dispatch first
+        if len(inputs) == 5:
+            tokens, embeddings, durations, pitch, energy = inputs
+        else:
+            (tokens, durations, pitch, energy), embeddings = inputs, None
+        max_frames = targets[0].shape[1] if targets is not None else None
+        return arch(params, state, tokens, durations = durations, pitch = pitch,
+                    energy = energy, speaker_embedding = embeddings,
+                    max_frames = max_frames, train = train, generator = generator)
     if isinstance(model, WaveGlow):
         mel, audio = inputs
         return model.arch.forward(params, mel, audio,
                                   remat = getattr(model, 'train_remat', True),
                                   compute_dtype = compute_dtype), state
+    if isinstance(model, SpeakerEncoder):
+        mels, lengths = inputs
+        n_speakers, n_utt = model.ge2e_shape
+        emb, new_state = arch.forward(params, state, mels, lengths = lengths, train = train,
+                                      generator = generator)
+        return (emb.reshape(n_speakers, n_utt, -1), params['ge2e']['w'],
+                params['ge2e']['b']), new_state
+    if isinstance(model, Tacotron2):
+        if len(inputs) == 4:
+            tokens, embeddings, mel_in, lengths = inputs
+        else:
+            (tokens, mel_in, lengths), embeddings = inputs, None
+        return arch(params, state, tokens, mel_in, mel_lengths = lengths,
+                    speaker_embedding = embeddings, train = train, generator = generator)
     raise ValueError('No forward dispatch for {}'.format(type(model).__name__))
 
 
@@ -91,34 +138,56 @@ def make_eval_step(model, loss_fn, *, mesh = None, precision = None):
     return eval_step
 
 
-def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
-    rem = data.shape[axis] % multiple
-    if rem == 0: return data
-    pads = [(0, 0)] * data.ndim
-    pads[axis] = (0, multiple - rem)
-    return np.pad(data, pads, mode = 'constant', constant_values = constant_values)
-
-
 def bucket_pad(batch, model, *, token_multiple = 32, frame_multiple = 64):
-    """A collated WaveGlow batch padded into shape buckets: the mel to a
-    multiple of `frame_multiple` frames with ``model.pad_mel_value``, the
-    audio padded or cut to the mel's length in samples.  `token_multiple`
-    is the JAX package's bucket for token inputs; WaveGlow rows have none."""
+    """A collated batch padded into shape buckets.  GE2E batches pass
+    through (they are bucketed when collated); a model's own `bucket_pad`
+    decides for it; WaveGlow pads the mel to a multiple of `frame_multiple`
+    frames with ``pad_mel_value`` and pads or cuts the audio to the mel's
+    samples; otherwise (Tacotron-2, SV2TTS) the tokens pad to
+    `token_multiple` and the decoder inputs to `frame_multiple` steps, and
+    the targets to exactly r × those steps (the reduction factor r)."""
+    from ..models.tts.waveglow import WaveGlow
     inputs, targets = batch
-    mel, audio = inputs
-    mel = pad_to_multiple(np.asarray(mel), frame_multiple, axis = 1,
-                          constant_values = model.pad_mel_value)
-    samples = mel.shape[1] * model.upsample_rate
-    audio = np.asarray(audio)
-    if audio.shape[1] < samples:
-        audio = np.pad(audio, [(0, 0), (0, samples - audio.shape[1])])
-    return (mel, audio[:, :samples]), targets
+    if hasattr(model, 'collate_ge2e'):
+        return inputs, targets
+    if hasattr(model, 'bucket_pad'):
+        return model.bucket_pad(batch, token_multiple = token_multiple,
+                                frame_multiple = frame_multiple)
+    if isinstance(model, WaveGlow):
+        mel, audio = inputs
+        mel = pad_to_multiple(np.asarray(mel), frame_multiple, axis = 1,
+                              constant_values = model.pad_mel_value)
+        samples = mel.shape[1] * model.upsample_rate
+        audio = np.asarray(audio)
+        if audio.shape[1] < samples:
+            audio = np.pad(audio, [(0, 0), (0, samples - audio.shape[1])])
+        return (mel, audio[:, :samples]), targets
+
+    pad_in, pad_out = model.get_padding_values()
+    parts = list(inputs)
+    parts[0] = pad_to_multiple(np.asarray(parts[0]), token_multiple, axis = 1,
+                               constant_values = pad_in[0])
+    mel_idx = len(parts) - 2
+    parts[mel_idx] = pad_to_multiple(np.asarray(parts[mel_idx]), frame_multiple, axis = 1,
+                                     constant_values = pad_in[1])
+    out_len = parts[mel_idx].shape[1] * model.arch.hp.n_frames_per_step
+    mel_out = pad_to_multiple(np.asarray(targets[0]), out_len, axis = 1,
+                              constant_values = pad_out[0])
+    gate = pad_to_multiple(np.asarray(targets[1]), out_len, axis = 1,
+                           constant_values = pad_out[1])
+    return tuple(parts), (mel_out, gate)
 
 
 def _to_device(tree, device):
+    """A batch of numpy arrays → tensors on `device`: floats as float32,
+    integers (tokens, durations, lengths) as int64."""
+    if tree is None:
+        return None
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_device(v, device) for v in tree)
-    return torch.as_tensor(np.asarray(tree, np.float32), device = device)
+    array = np.asarray(tree)
+    array = array.astype(np.int64 if array.dtype.kind in 'iub' else np.float32)
+    return torch.as_tensor(array, device = device)
 
 
 def _trainable(tree):
@@ -139,7 +208,8 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
         early_stopping_patience = None, monitor = 'loss', terminate_on_nan = True,
         token_multiple = 32, frame_multiple = 64, precision = None, seed = 0,
         verbose = True, async_checkpointing = True, device = None, ** kwargs):
-    """Train `model` on `data` (rows that ``model.prepare_data`` reads) on
+    """Train `model` on `data` (rows that ``model.prepare_data`` reads and
+    ``model.filter_data`` keeps, or a prebuilt `Dataset` / `GE2EDataset`) on
     `device`: ``cuda`` unless ``device='cpu'`` is given (the model moves
     there); without a GPU and without a device it raises.
 
@@ -158,16 +228,19 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     model.to(device)
     loss_fn = get_loss(loss or model._default_loss)
     tx = get_optimizer(optimizer, lr = lr, ** kwargs)
-    if valid_data is None and valid_size:
+    prebuilt = isinstance(data, (Dataset, GE2EDataset))
+    if not prebuilt and valid_data is None and valid_size:
         data, valid_data = train_test_split(data, valid_size = valid_size,
                                             random_state = seed)
-    train_ds = prepare_dataset(data, prepare_fn = model.prepare_data,
-                               collate_fn = model.collate, batch_size = batch_size,
-                               shuffle = shuffle, length_bucket_fn = _item_length,
-                               seed = seed)
-    valid_ds = prepare_dataset(valid_data, prepare_fn = model.prepare_data,
-                               collate_fn = model.collate, batch_size = batch_size,
-                               shuffle = False) if valid_data else None
+    filter_fn = getattr(model, 'filter_data', None)
+    train_ds = data if prebuilt else prepare_dataset(
+        data, prepare_fn = model.prepare_data, filter_fn = filter_fn,
+        collate_fn = model.collate, batch_size = batch_size, shuffle = shuffle,
+        length_bucket_fn = _item_length, seed = seed)
+    valid_ds = valid_data if isinstance(valid_data, (Dataset, GE2EDataset)) \
+        else prepare_dataset(valid_data, prepare_fn = model.prepare_data,
+                             filter_fn = filter_fn, collate_fn = model.collate,
+                             batch_size = batch_size, shuffle = False) if valid_data else None
 
     train_step = make_train_step(model, loss_fn, tx, precision = precision)
     eval_step = make_eval_step(model, loss_fn, precision = precision)

@@ -127,7 +127,9 @@ def waveglow_from_jax(params):
 
 
 def _array(tensor):
-    return tensor.detach().cpu().float().numpy()
+    # a copy: a CPU tensor's numpy view would follow the in-place updates of
+    # training into a checkpoint still being written
+    return tensor.detach().cpu().float().numpy().copy()
 
 
 def _conv_to_jax(node):
