@@ -2,9 +2,10 @@
 each against its plain PyTorch version, run `tts()` end to end at the full
 NVIDIA width of Tacotron-2 and WaveGlow with random weights (also imported
 from NVIDIA-layout checkpoints, and with FastSpeech-2 in the Tacotron-2's
-place), train WaveGlow at that width, and train the synthesizers (Tacotron-2
+place), train WaveGlow at that width, train the synthesizers (Tacotron-2
 and SV2TTS by teacher forcing, FastSpeech-2 distilled from the trained
-Tacotron-2, the speaker encoder by GE2E) and serve the trained ones.
+Tacotron-2, the speaker encoder by GE2E) and serve the trained ones, and
+clone a voice from the trained Tacotron-2 and fine-tune it on a corpus.
 
     python3 chip_smoke.py
 
@@ -129,7 +130,11 @@ Phases, one JSON line each:
            `use_pallas` model (K4 in every layer) against the plain chain in
            float32 and mixed_bfloat16, and its train step refused; the eval
            forward of a `use_pallas` model at the train step's shape (B=8 x
-           256 frames, mixed_bfloat16: 96 K4 launches) beside the plain chain.
+           256 frames, mixed_bfloat16: 96 K4 launches) beside the plain chain;
+           the gradients of a step with ``remat='acts'`` (each layer's
+           activations and residual stream kept, the gates recomputed)
+           against per-flow remat at B=8 x 256 frames, mixed_bfloat16 (1e-5
+           of scale), ms of three steps and peak memory of each.
   training the synthesizers at full width, random seeded weights (each
            family's float32 train step without dropout on a batch of 2 rows
            held against the port on the CPU: loss within 1e-4, the
@@ -149,8 +154,26 @@ Phases, one JSON line each:
            utterances, one epoch); the XLA-level int8 WaveGlow path on the
            random vocoder: one layer's int8 conv on the card equal to the
            CPU's to the bit, the waveform's SNR against the float32 chain.
-The files of the sv2tts, nvidia_import, fastspeech2 and training phases go
-in one temporary directory, removed when they end.  Then the kernel summary, the
+  transfer a voice clone from the training phase's fitted teacher, in a
+           root of its own: `SV2TTSTacotron2.from_pretrained('clone',
+           'teacher', embedding_dim = 256)` (every teacher leaf arrives
+           exact, the rows the speaker widens are zero, and the clone
+           decodes on K3 as the teacher within 1e-5 of scale); a VoxForge
+           tree of the four in-repo WAVs (two speakers, 8 rows each, one WAV
+           at 16 kHz) through `get_dataset`, split by speaker, each row
+           embedded by the fitted speaker encoder; `fit` 3 epochs with Lion
+           on a `FileCacheDataset` (every WAV row decoded by the native
+           pool, the later passes read the cache files, the map never
+           called again), the held-out speaker as validation data, two
+           checkpoints kept; the best checkpoint equal to
+           `History.get_best`, kept while three worse epochs saved after
+           the fit rotate out a later one; an Adafactor step card vs CPU;
+           the best epoch's `tts()` with the held-out speaker (K3 >= 1, 12
+           K1), its K3 against the plain version and K1 at the (B, T) its
+           vocoder call got; MCD and mel SNR of its teacher-forced mels.
+The files of the sv2tts, nvidia_import, fastspeech2, training and transfer
+phases go in one temporary directory, removed when they end (the transfer
+phase's own root when it ends).  Then the kernel summary, the
 card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
 It needs a CUDA device and imports neither JAX nor the JAX package.
@@ -755,7 +778,7 @@ def decoder_steps_phase(model, *, speaker = None, shapes = None, name = 'decoder
                         'tolerance_rel': tolerance[mode]}
                 key = '{}_B{}_S{}_{}'.format(mode, B, S, 'dropout' if not deterministic else 'det')
                 cases[key] = case
-                if speaker is not None and deterministic:
+                if speaker is not None and deterministic and 'prenet' in arch.concat_pos:
                     # the addend is in use: the kernel without it misses the limit
                     zero_extra = args[:5] + (torch.zeros_like(args[5]),)
                     case['extra_max_abs'] = float(args[5].abs().max())
@@ -1034,6 +1057,47 @@ def matmul_rate_phase():
     return cases, launches
 
 
+def remat_acts(task, mel, audio, reps = 3):
+    """WaveGlow train steps with ``remat='acts'`` (each layer's activations
+    and residual stream kept, the gates recomputed) against per-flow remat,
+    under mixed_bfloat16, `reps` steps of each in turn: the loss equal, the
+    first steps' gradients within 1e-5 of each leaf's scale; ms of each step
+    and the peak memory above the start of each mode."""
+    from text_to_speech_tpu_torch.train.trainer import _trainable
+    from text_to_speech_tpu_torch.weights import flatten_tree
+    remat = {str(mode): {'ms': [], 'peak_rise_gb': 0.} for mode in (True, 'acts')}
+    grads = {}
+    for rep in range(reps):
+        for mode in (True, 'acts'):
+            p = _trainable(task.params)                 # new leaves, their own grads
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_allocated()
+            start = time.perf_counter()
+            loss = task.arch.loss(p, mel, audio, remat = mode, compute_dtype = torch.bfloat16)
+            loss.backward()
+            torch.cuda.synchronize()
+            entry = remat[str(mode)]
+            entry['ms'].append(1e3 * (time.perf_counter() - start))
+            entry['loss'] = float(loss.detach())
+            entry['peak_rise_gb'] = max(entry['peak_rise_gb'], (
+                torch.cuda.max_memory_allocated() - before) / 2 ** 30)
+            if rep == 0:
+                grads[str(mode)] = {k: t.grad for k, t in flatten_tree(p).items()}
+            del p, loss
+    for entry in remat.values():
+        entry['median_ms'] = statistics.median(entry['ms'])
+    remat['max_grad_rel_err'] = max(
+        float((grads['acts'][k] - g).abs().max()) / max(float(g.abs().max()), 1e-30)
+        for k, g in grads['True'].items())
+    remat['tolerance_rel'] = 1e-5
+    del grads
+    torch.cuda.empty_cache()
+    check(remat['max_grad_rel_err'] <= 1e-5 and remat['acts']['loss'] == remat['True']['loss'],
+          "remat='acts' against remat=True: {}".format(remat))
+    return remat
+
+
 def train_phase():
     """WaveGlow training at NVIDIA width (the `HParamsWaveGlow` defaults),
     random weights from a seed with the `end` convs at scale 1e-2."""
@@ -1118,6 +1182,12 @@ def train_phase():
             fused['first_loss'], default['first_loss']))
         emit({'phase': 'train', 'train_step': steps, 'init_s': init_s,
               'fused_vs_default_first_loss_rel': gap, 'tolerance_rel': 1e-2})
+
+        # 1a. remat='acts' against per-flow remat at the same shape
+        acts_task = new_model('acts')
+        emit({'phase': 'train', 'remat_acts_B8_mixed_bfloat16': remat_acts(acts_task, mel, audio)})
+        del acts_task
+        torch.cuda.empty_cache()
 
         # 1b. the eval forward of a use_pallas model (K4 in all 96 layers) at
         #     the train step's shape and weights under mixed_bfloat16, beside
@@ -2096,15 +2166,17 @@ def fastspeech2_phase(vocoder, root):
 TRAIN_TEXT = 'the birch canoe slid on the smooth planks of the lake.'
 
 
-def _train_steps(model, batch, precision = None, n = 3, device = 'cuda', loss = None):
-    """`n` train steps of `model` on one bucketed batch from fresh Adam
-    moments (the model's own weights stay as they are): losses, gradient
-    norms, host ms of each step (synchronised), peak memory."""
+def _train_steps(model, batch, precision = None, n = 3, device = 'cuda', loss = None,
+                 optimizer = 'adam'):
+    """`n` train steps of `model` on one bucketed batch from a fresh
+    `optimizer` at lr 1e-3 (the model's own weights stay as they are):
+    losses, gradient norms, host ms of each step (synchronised), peak
+    memory."""
     from text_to_speech_tpu_torch.train.losses import get_loss
     from text_to_speech_tpu_torch.train.optimizers import get_optimizer
     from text_to_speech_tpu_torch.train.trainer import _to_device, _trainable, make_train_step
 
-    tx = get_optimizer('adam', lr = 1e-3)
+    tx = get_optimizer(optimizer, lr = 1e-3)
     params = _trainable(_clone(model.params))
     opt = tx.init(params)
     step = make_train_step(model, loss or get_loss(model._default_loss), tx,
@@ -2139,21 +2211,39 @@ def _clone(tree):
     return tree.detach().clone()
 
 
-def _card_vs_cpu(build, batch, loss = None):
-    """One train step (float32, dropout off) of the model `build(device)`
-    makes, on the card and on the CPU from the same weights and batch: loss
-    within 1e-4 and the gradients' global norm within 1e-3, relative."""
-    steps = {device: _train_steps(build(device), batch, n = 1, device = device, loss = loss)
+def _card_vs_cpu(build, batch, loss = None, optimizer = 'adam', n = 1):
+    """`n` train steps (float32, dropout off) of the model `build(device)`
+    makes, on the card and on the CPU from the same weights and batch, with
+    `optimizer`: each step's loss within 1e-4 (from the second on, the loss
+    reads the optimizer's update) and the last gradients' global norm within
+    1e-3, relative."""
+    steps = {device: _train_steps(build(device), batch, n = n, device = device, loss = loss,
+                                  optimizer = optimizer)
              for device in ('cuda', 'cpu')}
     card, cpu = steps['cuda'], steps['cpu']
-    loss_rel = abs(card['losses'][0] - cpu['losses'][0]) / abs(cpu['losses'][0])
-    norm_rel = abs(card['grad_norms'][0] - cpu['grad_norms'][0]) / abs(cpu['grad_norms'][0])
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(card['losses'], cpu['losses']))
+    norm_rel = abs(card['grad_norms'][-1] - cpu['grad_norms'][-1]) / abs(cpu['grad_norms'][-1])
     check(loss_rel <= 1e-4 and norm_rel <= 1e-3,
-          'train step, card vs CPU: loss {} vs {}, grad norm {} vs {}'.format(
-              card['losses'][0], cpu['losses'][0], card['grad_norms'][0], cpu['grad_norms'][0]))
-    return {'loss_card': card['losses'][0], 'loss_cpu': cpu['losses'][0], 'loss_rel': loss_rel,
-            'grad_norm_card': card['grad_norms'][0], 'grad_norm_cpu': cpu['grad_norms'][0],
-            'grad_norm_rel': norm_rel, 'tolerance_rel': {'loss': 1e-4, 'grad_norm': 1e-3}}
+          'train step, card vs CPU: losses {} vs {}, grad norm {} vs {}'.format(
+              card['losses'], cpu['losses'], card['grad_norms'][-1], cpu['grad_norms'][-1]))
+    return {'optimizer': optimizer, 'loss_card': card['losses'], 'loss_cpu': cpu['losses'],
+            'loss_rel': loss_rel, 'grad_norm_card': card['grad_norms'][-1],
+            'grad_norm_cpu': cpu['grad_norms'][-1], 'grad_norm_rel': norm_rel,
+            'tolerance_rel': {'loss': 1e-4, 'grad_norm': 1e-3}}
+
+
+def _rebuild(model, device, root, ** change):
+    """`model`'s weights in a new model on `device` with `change`d hparams."""
+    from text_to_speech_tpu_torch.models.encoder import SpeakerEncoder
+    trees = model.jax_trees()
+    extra = {'tokenizer': model.tokenizer} if hasattr(model, 'tokenizer') else {}
+    if hasattr(model, 'get_speaker_config'):          # SV2TTS: its speaker's width
+        extra['embedding_dim'] = model.embedding_dim
+    config = {k: v for k, v in {** model.arch.get_config(), ** change}.items()
+              if not (isinstance(model, SpeakerEncoder) and k == 'n_mel_channels')}
+    return type(model).from_jax(trees['params'], trees.get('state', {}),
+                                name = model.name + '_' + device, root = root,
+                                device = device, mel_fn = model.mel_fn, ** extra, ** config)
 
 
 def _fit_record(model, rows, epochs, precision, ** kw):
@@ -2211,14 +2301,7 @@ def synthesizer_training_phase(vocoder, root):
                           frame_multiple = 64)
 
     def rebuild(model, device, ** change):
-        """`model`'s weights in a new model on `device` with `change`d hparams."""
-        trees = model.jax_trees()
-        extra = {'tokenizer': model.tokenizer} if hasattr(model, 'tokenizer') else {}
-        config = {k: v for k, v in {** model.arch.get_config(), ** change}.items()
-                  if not (isinstance(model, SpeakerEncoder) and k == 'n_mel_channels')}
-        return type(model).from_jax(trees['params'], trees.get('state', {}),
-                                    name = model.name + '_' + device, root = root,
-                                    device = device, mel_fn = model.mel_fn, ** extra, ** config)
+        return _rebuild(model, device, root, ** change)
 
     taco_no_drop = dict(encoder_drop_rate = 0., prenet_drop_rate = 0., postnet_drop_rate = 0.)
 
@@ -2273,12 +2356,28 @@ def synthesizer_training_phase(vocoder, root):
     kw = dict(model = teacher, vocoder = vocoder, max_length = 320, min_fpt_ratio = 0.,
               max_fpt_ratio = 1e9, fetch_attention = True, save = False, display = False)
     tts(TRAIN_TEXT, ** kw)                                                  # warm-up
-    torch.cuda.synchronize()
-    reset_launches()
-    start = time.perf_counter()
-    spoken = tts(TRAIN_TEXT, ** kw)[0]
-    total_s = time.perf_counter() - start
-    launches = read_launches()
+    # the mel each vocoder call of the counted run gets: K1's (B, T) there
+    vocoded, device_vocoder_fn = [], vocoder.device_vocoder_fn
+
+    def recording_vocoder_fn(** config):
+        fn, params, tag = device_vocoder_fn(** config)
+
+        def recorded(params, mel, generator = None):
+            vocoded.append(tuple(mel.shape))
+            return fn(params, mel, generator)
+        return recorded, params, tag
+    vocoder.device_vocoder_fn = recording_vocoder_fn
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        spoken = tts(TRAIN_TEXT, ** kw)[0]
+        total_s = time.perf_counter() - start
+        launches = read_launches()
+    finally:
+        del vocoder.device_vocoder_fn                   # the class's method again
+    check(len(vocoded) == 1, 'clone tts(): vocoder calls {}'.format(vocoded))
+    wn_shape = (vocoded[0][0], vocoded[0][1] * vocoder.upsample_rate // vocoder.arch.hp.n_group)
     frames = spoken['mel'][0].shape[0]
     n_flows = vocoder.arch.hp.n_flows
     check(launches['decoder_steps'] >= 1 and launches['decoder_steps'] <= 5
@@ -2408,6 +2507,304 @@ def synthesizer_training_phase(vocoder, root):
     return teacher_cases, runs, student_shape
 
 
+def transfer_phase(vocoder, root, source_root):
+    """Cloning a voice from a single-speaker checkpoint at NVIDIA width, in
+    `root`: the Tacotron-2 teacher and the speaker encoder the training
+    phase fitted (linked from `source_root`; seeded `create`s where they are
+    missing) → ``SV2TTSTacotron2.from_pretrained('clone', 'teacher',
+    embedding_dim = 256)`` → `fit` on a two-speaker VoxForge-layout corpus
+    of the in-repo WAVs (the native loader pool, a disk cache, Lion, the
+    held-out speaker as validation data) → the best epoch's `tts()` (K3 at
+    D = 768, K1).  Returns (the clone's K3 cases, runs, the (B, T) that K1
+    gets in its `tts()`)."""
+    import glob
+    from scipy.io import wavfile
+    from scipy.signal import resample
+    from text_to_speech_tpu_torch import tts
+    from text_to_speech_tpu_torch.loggers import reset_timers, timer_report
+    from text_to_speech_tpu_torch.models.encoder import SpeakerEncoder
+    from text_to_speech_tpu_torch.models.tts import SV2TTSTacotron2, Tacotron2
+    from text_to_speech_tpu_torch.native import data_loader
+    from text_to_speech_tpu_torch.train.datasets import FileCacheDataset, train_test_split
+    from text_to_speech_tpu_torch.train.loader import get_dataset
+    from text_to_speech_tpu_torch.train.metrics import get_metric
+    from text_to_speech_tpu_torch.train.trainer import (
+        _item_length, _to_device, bucket_pad, model_forward)
+    from text_to_speech_tpu_torch.weights import flatten_tree, tacotron2_from_jax
+
+    phase_start = time.perf_counter()
+    out, runs, sections = {}, {}, {}
+    n_flows = vocoder.arch.hp.n_flows
+    fit_kw = dict(token_multiple = 32, frame_multiple = 64)
+    mark = [phase_start]
+
+    def section(name):
+        """Seconds since the previous section ended, under `name`."""
+        now = time.perf_counter()
+        sections[name] = now - mark[0]
+        mark[0] = now
+
+    def batch_of(model, items):
+        return bucket_pad(model.collate(items), model, ** fit_kw)
+
+    # 1. the source: the training phase's fitted teacher (NVIDIA width,
+    #    location kernel 31) and its GE2E-fitted speaker encoder
+    for name in ('teacher', 'encoder_train'):
+        if os.path.exists(os.path.join(source_root, name, 'config.json')):
+            os.symlink(os.path.join(source_root, name), os.path.join(root, name))
+    out['source'] = 'fitted' if os.path.exists(os.path.join(root, 'teacher')) else 'seeded'
+    if out['source'] == 'seeded':
+        Tacotron2.create('en', name = 'teacher', root = root, device = 'cuda', seed = 21)
+    if not os.path.exists(os.path.join(root, 'encoder_train')):
+        SpeakerEncoder.create(name = 'encoder_train', root = root, device = 'cuda', seed = 25)
+    teacher = Tacotron2.from_pretrained('teacher', root = root, device = 'cuda')
+    check(teacher.arch.hp.lsa_attention_kernel_size == 31
+          and teacher.arch.encoder_output_dim == 512, 'teacher: {}'.format(teacher.arch.hp))
+    section('source')
+
+    # 2. the corpus: the four in-repo WAVs as two VoxForge sessions, two WAVs
+    #    a speaker, each prompt four times (8 rows a speaker); one WAV at
+    #    16 kHz, which the pool's sinc resamples to the model's rate
+    wavs = sorted(glob.glob(WAVS))
+    check(len(wavs) == 4, 'in-repo WAVs: {}'.format(wavs))
+    corpus = os.path.join(root, 'voxforge')
+    for s, session in enumerate(('alice-20240101-tts', 'bruno-20240102-tts')):
+        os.makedirs(os.path.join(corpus, session, 'etc'))
+        os.makedirs(os.path.join(corpus, session, 'wav'))
+        prompts = []
+        for w, wav in enumerate(wavs[2 * s: 2 * s + 2]):
+            rate, audio = wavfile.read(wav)
+            if (s, w) == (0, 0):
+                audio = resample(audio, int(len(audio) * 16000 / rate)).astype(np.float32)
+                rate = 16000
+            for k in range(4):
+                utt = 'u{}{}'.format(w, k)
+                wavfile.write(os.path.join(corpus, session, 'wav', utt + '.wav'), rate, audio)
+                prompts.append('mfc/{} {}\n'.format(utt, TRAIN_TEXT.upper()))
+        with open(os.path.join(corpus, session, 'etc', 'PROMPTS'), 'w') as f:
+            f.writelines(prompts)
+    rows = get_dataset('voxforge', directory = corpus)
+    check(len(rows) == 16 and sorted({r['speaker'] for r in rows}) == ['alice', 'bruno'],
+          'voxforge rows: {}'.format([(r['id'], r['speaker']) for r in rows]))
+    section('corpus')
+
+    # 3. the transfer: every teacher leaf arrives, exact in its block, and the
+    #    rows the 256-wide speaker adds are zero
+    torch.cuda.synchronize()
+    reset_timers()
+    start = time.perf_counter()
+    clone = SV2TTSTacotron2.from_pretrained('clone', 'teacher', embedding_dim = 256,
+                                            encoder_name = 'encoder_train', root = root,
+                                            device = 'cuda')
+    torch.cuda.synchronize()
+    out['transfer_ms'] = 1e3 * (time.perf_counter() - start)
+    out['transfer_spans'] = timer_report().splitlines()
+    check(clone.arch.encoder_output_dim == 768, 'clone D = {}'.format(
+        clone.arch.encoder_output_dim))
+    widened = []
+    for tree in ('params', 'state'):
+        src = flatten_tree(teacher.jax_trees()[tree])
+        dst = flatten_tree(clone.jax_trees()[tree])
+        check(sorted(src) == sorted(dst), 'clone {}: other leaves'.format(tree))
+        for key, value in src.items():
+            block = tuple(slice(0, n) for n in value.shape)
+            check(np.array_equal(dst[key][block], value), 'clone {}: {} differs'.format(tree, key))
+            if dst[key].shape != value.shape:
+                rest = dst[key].copy()
+                rest[block] = 0.
+                check(not rest.any(), 'clone {}: {} widened with non-zero rows'.format(tree, key))
+                widened.append(key)
+    check(sorted(widened) == ['decoder/attention/memory/kernel', 'decoder/attention_rnn/kernel',
+                              'decoder/decoder_rnn/cell_0/kernel', 'decoder/gate_layer/kernel',
+                              'decoder/linear_projection/kernel'], 'widened: {}'.format(widened))
+    out['widened_leaves'] = widened
+    section('transfer')
+
+    # each row's speaker embedding from the clone's speaker encoder
+    start = time.perf_counter()
+    embeddings = clone.embed_audio([r['filename'] for r in rows])
+    out['embed_rows_ms'] = 1e3 * (time.perf_counter() - start)
+    rows = [dict(r, embedding = e.astype(np.float32)) for r, e in zip(rows, embeddings)]
+
+    # the clone decodes on K3 as its source: the zero rows hide the speaker
+    tokens = teacher.encode_text(TRAIN_TEXT)
+    probe = dict(max_length = 64, deterministic = True, early_stopping = False,
+                 use_fused_decoder = True)
+    reset_launches()
+    ref = teacher.compiled_infer(tokens, ** probe).mel.float()
+    decodes = [clone.compiled_infer(tokens, embeddings = rows[i]['embedding'], ** probe)
+               .mel.float() for i in (0, 15)]
+    launches = read_launches()
+    scale = float(ref.abs().max())
+    errs = [float((d - ref).abs().max()) for d in decodes]
+    out['decode_as_source'] = {'max_abs_err': errs, 'scale': scale, 'tolerance': 1e-5 * scale,
+                               'launches': launches}
+    check(launches['decoder_steps'] == 3 and max(errs) <= 1e-5 * scale,
+          'clone K3 decode against its source: {}'.format(out['decode_as_source']))
+    del teacher
+    section('embed_and_decode_as_source')
+
+    # 4. fine-tune: the speaker held out as validation data, the training rows
+    #    through a disk cache; every WAV row decoded on the native pool
+    train, valid = train_test_split(rows, split_column = 'speaker', valid_size = 0.5)
+    check(len(train) == len(valid) == 8, 'split: {} / {}'.format(len(train), len(valid)))
+    mapped = []
+
+    def prepare(row):
+        mapped.append(row['id'])
+        return clone.prepare_data(row)
+
+    cache_dir = os.path.join(root, 'mel_cache')
+    train_ds = FileCacheDataset(train, cache_dir, map_fn = prepare, filter_fn = clone.filter_data,
+                                collate_fn = clone.collate, batch_size = 4, shuffle = True,
+                                cache = False, length_bucket_fn = _item_length,
+                                native_audio_rate = clone.rate)
+    decoded = []
+    load_audio_batch = data_loader.load_audio_batch
+
+    def timed_decode(paths, ** kw):
+        start = time.perf_counter()
+        batch = load_audio_batch(paths, ** kw)
+        decoded.append({'rows': len(batch), 'native_rows': batch.native_rows,
+                        'ms': 1e3 * (time.perf_counter() - start)})
+        return batch
+
+    start = time.perf_counter()
+    check(data_loader.available(), 'the native loader did not build')       # g++, once
+    out['native_build_ms'] = 1e3 * (time.perf_counter() - start)
+    data_loader.load_audio_batch = timed_decode
+    try:
+        start = time.perf_counter()
+        first = list(train_ds)                    # decode, mels, cache files
+        out['first_epoch_ms'] = 1e3 * (time.perf_counter() - start)
+        start = time.perf_counter()
+        list(train_ds)                            # the cache files
+        out['cached_epoch_ms'] = 1e3 * (time.perf_counter() - start)
+        start = time.perf_counter()
+        clone.ckpt_manager.max_to_keep = 2                  # the 3 epochs rotate
+        history = clone.fit(train_ds, valid_data = valid, epochs = 3, batch_size = 4,
+                            native_audio = True, optimizer = 'lion', lr = 1e-4,
+                            device = 'cuda', ** fit_kw)
+        out['fit_s'] = time.perf_counter() - start
+    finally:
+        data_loader.load_audio_batch = load_audio_batch
+    out['native_decodes'] = decoded
+    out['native_decode_rows_per_s'] = sum(d['rows'] for d in decoded) / (
+        1e-3 * sum(d['ms'] for d in decoded))
+    check(sorted((d['rows'], d['native_rows']) for d in decoded) == [(8, 8), (8, 8)]
+          and train_ds.native_rows == 8,
+          'native pool: {} (train {})'.format(decoded, train_ds.native_rows))
+    n_files = len(os.listdir(cache_dir))
+    check(len(mapped) == len(train) and n_files == len(train) and len(first) == 2,
+          'disk cache: {} maps, {} files, {} batches'.format(len(mapped), n_files, len(first)))
+    logs = history.epoch_logs[-3:]
+    out['epoch_losses'] = [log['metrics']['loss'] for log in logs]
+    out['epoch_val_losses'] = [log['metrics']['val_loss'] for log in logs]
+    out['epoch_s'] = [log['time'] for log in logs]
+    check(len(logs) == 3 and all(np.isfinite(out['epoch_losses'] + out['epoch_val_losses'])),
+          'clone fit: {}'.format(logs))
+    # history counts epochs from 0, the checkpoints from 1 (the JAX numbering)
+    best_value, best_epoch = history.get_best('val_loss')
+    manager = clone.ckpt_manager
+    kept = [c['epoch'] for c in manager.checkpoints]
+    check(manager.best_epoch == best_epoch + 1 and manager.best_epoch in kept
+          and len(kept) == 2 and kept[-1] == 3,
+          'best checkpoint: {} of {} (history epoch {})'.format(
+              manager.best_epoch, kept, best_epoch))
+    # three more epochs, worse than the best, rotate out the epochs after it
+    # and never the best: the last two are kept beside it
+    last = manager.load(trees = ('params', 'state'))
+    for epoch in (4, 5, 6):
+        manager.save(last, epoch, metric = best_value + 1.)
+    after = [c['epoch'] for c in manager.checkpoints]
+    out['best'] = {'checkpoint_epoch': manager.best_epoch, 'history_epoch': best_epoch,
+                   'val_loss': best_value, 'kept_after_fit': kept, 'kept_after_6': after}
+    check(manager.best_epoch == best_epoch + 1
+          and after == sorted({manager.best_epoch, 5, 6})
+          and any(e > manager.best_epoch and e not in after for e in range(1, 7)),
+          'best checkpoint under rotation: {}'.format(out['best']))
+    section('fine_tune')
+
+    # the fine-tune step (Lion, B = 4), and one Adafactor step card vs CPU
+    items = [clone.prepare_data(r) for r in train[:4]]
+    steps = _train_steps(clone, batch_of(clone, items), n = 3, optimizer = 'lion')
+    out['step_ms'] = statistics.median(steps['step_ms'][1:])
+    out['step_B4'] = steps
+    no_drop = dict(encoder_drop_rate = 0., prenet_drop_rate = 0., postnet_drop_rate = 0.)
+    section('step_B4')
+    out['adafactor_card_vs_cpu_B1'] = _card_vs_cpu(
+        lambda device: _rebuild(clone, device, root, ** no_drop), batch_of(clone, items[:1]),
+        optimizer = 'adafactor', n = 2)
+    section('adafactor_card_vs_cpu')
+
+    # 5. the best epoch speaks with the held-out speaker
+    best = manager.load(best = True, trees = ('params', 'state'))
+    clone.set_weights(* tacotron2_from_jax(best['params'], best['state']))
+    held_out = np.mean([r['embedding'] for r in valid], axis = 0).astype(np.float32)
+    kw = dict(model = clone, vocoder = vocoder, embeddings = held_out, max_length = 320,
+              min_fpt_ratio = 0., max_fpt_ratio = 1e9, save = False, display = False)
+    tts(TRAIN_TEXT, ** kw)                                                  # warm-up
+    # the mel each vocoder call of the counted run gets: K1's (B, T) there
+    vocoded, device_vocoder_fn = [], vocoder.device_vocoder_fn
+
+    def recording_vocoder_fn(** config):
+        fn, params, tag = device_vocoder_fn(** config)
+
+        def recorded(params, mel, generator = None):
+            vocoded.append(tuple(mel.shape))
+            return fn(params, mel, generator)
+        return recorded, params, tag
+    vocoder.device_vocoder_fn = recording_vocoder_fn
+    try:
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        spoken = tts(TRAIN_TEXT, ** kw)[0]
+        total_s = time.perf_counter() - start
+        launches = read_launches()
+    finally:
+        del vocoder.device_vocoder_fn                   # the class's method again
+    check(len(vocoded) == 1, 'clone tts(): vocoder calls {}'.format(vocoded))
+    wn_shape = (vocoded[0][0], vocoded[0][1] * vocoder.upsample_rate // vocoder.arch.hp.n_group)
+    check(launches['decoder_steps'] >= 1 and launches['wn_block'] == n_flows
+          and launches['wn_layer'] == 0 and launches['wn_block_int8'] == 0,
+          'clone tts(): launches {}'.format(launches))
+    check(bool(np.isfinite(spoken['audio']).all()) and spoken['audio'].shape
+          == (spoken['mel'][0].shape[0] * vocoder.upsample_rate,), 'clone tts(): output')
+    runs['clone_one_sentence'] = {
+        'frames': spoken['mel'][0].shape[0], 'vocoded_mel': vocoded[0],
+        'wn_block_shape': wn_shape, 'total_ms': 1e3 * total_s,
+        'decode_ms': 1e3 * clone.last_timings['decode_s'],
+        'vocode_ms': 1e3 * clone.last_timings['vocode_s'], 'launches': launches}
+    section('speak')
+    speaker = torch.from_numpy(held_out).cuda()
+    cases = decoder_steps_phase(clone, speaker = lambda B: speaker.expand(B, -1),
+                                shapes = ((1, 64, False),), name = 'decoder_steps_clone')
+    section('k3_against_plain')
+
+    # the teacher-forced mels of the held-out rows against their ground truth
+    v_items = [clone.prepare_data(r) for r in valid[::4]]
+    inputs, _ = batch_of(clone, v_items)
+    with torch.no_grad():
+        (_, mel_post, _), _ = model_forward(clone, clone.params, clone.state,
+                                            _to_device(inputs, 'cuda'), train = False)
+    quality = {'mcd_db': [], 'mel_snr_db': []}
+    for i, (_, (mel_out, gate)) in enumerate(v_items):
+        n = int(len(gate) - 1)                   # the frames before the gated one
+        truth, pred = mel_out[:n], mel_post[i, :n].float().cpu().numpy()
+        quality['mcd_db'].append(get_metric('mcd')(truth, pred))
+        quality['mel_snr_db'].append(get_metric('mel_snr')(truth, pred))
+    check(all(np.isfinite(quality['mcd_db'] + quality['mel_snr_db'])), 'quality: {}'.format(
+        quality))
+    out['teacher_forced_quality'] = quality
+    del clone
+    torch.cuda.empty_cache()
+    section('quality')
+    emit({'phase': 'transfer', ** out, 'runs': runs, 'section_s': sections,
+          'phase_s': time.perf_counter() - phase_start})
+    return cases, runs, wn_shape
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
@@ -2453,8 +2850,12 @@ def main():
         nvidia_cases, nvidia_runs, nvidia_vocoder = nvidia_import_phase(root('nvidia'))
         fs2_runs, fs2_shapes = fastspeech2_phase(nvidia_vocoder, root('fastspeech2'))
         del nvidia_vocoder
+        training_root = root('training')
         teacher_cases, train_runs, student_shape = synthesizer_training_phase(
-            vocoder, root('training'))
+            vocoder, training_root)
+        with tempfile.TemporaryDirectory(prefix = 'transfer_', dir = scratch) as transfer_root:
+            clone_cases, transfer_runs, clone_shape = transfer_phase(
+                vocoder, transfer_root, training_root)
     # K1 and K2 at the (B, T) of FastSpeech-2's whole decode buffer: one
     # sentence on the one-launch route and the batch of four
     fs2_shapes = [fs2_shapes['one_sentence'], fs2_shapes['batch_of_4']]
@@ -2467,6 +2868,11 @@ def main():
     student_key = 'bfloat16_B{}_T{}'.format(* student_shape)
     student_wn = fs2_wn if student_key in fs2_wn else wn_block_phase(
         [(torch.bfloat16, * student_shape)], label = 'fused_wn_block_student')
+    # K1 at the voice clone's vocoder buffer (its decode padded to the
+    # vocoder's multiple of frames)
+    clone_key = 'bfloat16_B{}_T{}'.format(* clone_shape)
+    clone_wn = next((cases for cases in (fs2_wn, student_wn) if clone_key in cases), None) \
+        or wn_block_phase([(torch.bfloat16, * clone_shape)], label = 'fused_wn_block_clone')
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -2587,6 +2993,18 @@ def main():
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
                 launches = train_runs['student_one_sentence']['launches']['wn_block']),
+        # the voice clone: K3 at D = 768 on the best epoch's weights, launches
+        # of its `tts()` with the held-out speaker; K1 at the shape it
+        # vocodes at there
+        summary(clone_cases['float32_B1_S64_dropout'],
+                name = 'decoder_steps (voice clone, D=768)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = transfer_runs['clone_one_sentence']['launches']['decoder_steps']),
+        summary(clone_wn[clone_key], name = 'fused_wn_block (voice clone)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = transfer_runs['clone_one_sentence']['launches']['wn_block']),
         # the rate probe: launches in its int8 and its bf16 line
         dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
                      source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',

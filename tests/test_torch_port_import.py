@@ -34,7 +34,7 @@ def test_port_imports_without_jax():
         print(len(names))
         print(' '.join(names))
     ''')
-    # every module of the slices was imported, the training slice's too
+    # every module of the slices was imported, the training slices' too
     count, names = out.split('\n')[-3:-1]
     assert int(count) >= 30
     for name in ('ops.wn_layer', 'ops.stft', 'ops.audio_io', 'train.trainer',
@@ -47,8 +47,25 @@ def test_port_imports_without_jax():
                  'models.tts.sv2tts_tacotron2', 'models.tts.speaker_embedding_mixin',
                  'utils.embeddings', 'utils.distances', 'models.tts_checkpoints',
                  'models.fastspeech2_arch', 'models.tts.fastspeech2', 'models.transformers',
-                 'models.transformers.attention', 'models.transformers.transformer_arch'):
+                 'models.transformers.attention', 'models.transformers.transformer_arch',
+                 'native', 'native.data_loader', 'models.weights_converter', 'train.metrics',
+                 'train.loader', 'train.audio_datasets'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
+
+
+def test_native_build_imports_no_jax():
+    """Building and loading the native libraries, and a decode on the pool,
+    load no JAX module."""
+    _run('''
+        import sys
+        import numpy as np
+        from text_to_speech_tpu_torch import native
+        from text_to_speech_tpu_torch.native import data_loader
+        assert native.available() and data_loader.available()
+        assert len(native.resample(np.zeros(160, np.float32), 16000, 22050)) == 220
+        assert 'jax' not in sys.modules
+        assert not [m for m in sys.modules if m.startswith('text_to_speech_tpu.')]
+    ''')
 
 
 def test_entry_points_raise_without_device():

@@ -4,8 +4,10 @@ The port runs the text → Tacotron-2 (or FastSpeech-2) → WaveGlow path on
 one NVIDIA H100 (sm_90a), with the WaveGlow WN coupling block and the
 Tacotron-2 decoder steps as hand-written CUDA kernels (`ops.wn_block`,
 `ops.decoder_kernel`), imports NVIDIA's Tacotron-2 and WaveGlow
-checkpoints (`models.tts_checkpoints`), and trains WaveGlow
-(`train.trainer.fit`).  Its
+checkpoints (`models.tts_checkpoints`), trains WaveGlow and the
+synthesizers (`train.trainer.fit`), and clones a voice from a trained
+checkpoint (`from_pretrained(name, pretrained_name)`) on corpora read by
+the native loader pool (`native`, `train.loader`).  Its
 measurement layer is `loggers` (span tree, `torch.profiler` trace),
 `devices` (memory stats) and the rate probe `ops.matmul_rate`.  It imports ``torch`` and never ``jax`` or the JAX
 package, whose modules it mirrors by name: ``models/waveglow_arch.py`` here

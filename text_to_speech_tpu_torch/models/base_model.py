@@ -11,21 +11,27 @@ needs and saving under a name: the model's `history`, `epochs` and
 and `save`, which writes the JAX package's layout (``config.json``,
 ``saving/config_models.json``, the task's saving objects such as
 ``tokenizer.json`` and ``mel_fn.json``, ``history.json`` and a checkpoint
-of the JAX trees), so that either package loads the directory by name.
+of the JAX trees), so that either package loads the directory by name;
+`from_pretrained` loads a saved model, or, given a second name, makes a new
+one from a saved model's weights (`transfer_trees`, the JAX package's
+name-based partial transfer).
 """
 
 import functools
+import logging
 import os
 
 import numpy as np
 import torch
 
-from ..loggers import timer
+from ..loggers import Timer, timer
 from ..train.checkpoint import CheckpointManager
 from ..train.history import History
 from ..utils.stream import Stream
 from ..weights import tree_to
-from .saving import write_model_config
+from .saving import model_dir, write_model_config
+
+logger = logging.getLogger(__name__)
 
 
 class BaseModel:
@@ -80,6 +86,33 @@ class BaseModel:
         return self.predict(stream, ** kwargs)
 
 
+def transfer_trees(pretrained_name, params, state, *, root = None):
+    """The JAX trees (`params`, `state`) of a new model with the weights of
+    the saved model `pretrained_name` under `root` carried across by
+    `weights_converter.name_based_partial_transfer_learning`, as the JAX
+    package's constructor does with ``pretrained_name``: a leaf whose name
+    matches takes the source's (its overlapping block, the rest zeros, when
+    the shapes differ), an unmatched one keeps its fresh value.  The source
+    is read by name (`models.get_pretrained`) and its trees in its
+    checkpoint's order, which is the order the JAX package maps in.  When
+    the state does not transfer, the fresh statistics stay, with the JAX
+    package's warning."""
+    from . import get_pretrained
+    from .weights_converter import name_based_partial_transfer_learning
+    with Timer('read source'):
+        source = get_pretrained(pretrained_name, root = root, device = 'cpu')
+        trees = source.ckpt_manager.load(trees = ('params', 'state'))
+    with Timer('name-based transfer'):
+        params = name_based_partial_transfer_learning(trees['params'], params)
+        if trees.get('state') and state:
+            try:
+                state = name_based_partial_transfer_learning(trees['state'], state)
+            except (ValueError, IndexError, TypeError):
+                logger.warning('state transfer failed; keeping fresh statistics')
+    logger.info('transferred weights from %s', pretrained_name)
+    return params, state
+
+
 def detach_tree(tree):
     if isinstance(tree, dict):
         return {k: detach_tree(v) for k, v in tree.items()}
@@ -98,6 +131,30 @@ class TrainableModel:
 
     def get_saving_objects(self):
         return {}
+
+    @classmethod
+    def from_pretrained(cls, name, pretrained_name = None, *, root = None, device = None,
+                        ** kwargs):
+        """The saved model `name` under `root`, on `device` (`kwargs` go to
+        the constructor).  With `pretrained_name`, the JAX package's
+        ``from_pretrained(name, pretrained_name)``: when `name` is not saved
+        yet, a new model made by `create` from `kwargs` (the language, the
+        hparams, a seed) whose weights come from the saved model
+        `pretrained_name` (`transfer_trees`), saved as `name`; when `name`
+        is saved, that model, and `pretrained_name` and `kwargs` are
+        ignored."""
+        if pretrained_name is not None:
+            if not os.path.exists(model_dir(name, 'config.json', root = root)):
+                return cls.create(name = name, pretrained_name = pretrained_name, root = root,
+                                  device = device, ** kwargs)
+            logger.info('%s is saved: loading it, not transferring %s', name, pretrained_name)
+            kwargs = {}
+        return cls.load_saved(name, root = root, device = device, ** kwargs)
+
+    @classmethod
+    def create(cls, ** kwargs):
+        raise NotImplementedError('{} has no create: a new model of it cannot be made by '
+                                  'transfer'.format(cls.__name__))
 
     def _weights_changed(self):
         """Drop what was derived from the old weights."""

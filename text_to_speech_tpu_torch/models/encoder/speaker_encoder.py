@@ -29,7 +29,7 @@ from ...utils.distances import distance
 from ...utils.sequence_utils import pad_batch, pad_to_multiple
 from ...weights import audio_encoder_from_jax, audio_encoder_to_jax, tree_to
 from ..base_audio_model import BaseAudioModel
-from ..base_model import TrainableModel
+from ..base_model import TrainableModel, transfer_trees
 from ..encoder_arch import AudioEncoder
 from ..saving import load_model_files, model_dir
 
@@ -58,7 +58,7 @@ class SpeakerEncoder(TrainableModel, BaseAudioModel):
         return cls(* audio_encoder_from_jax(params, state), ** kwargs)
 
     @classmethod
-    def from_pretrained(cls, name, *, root = None, device = None):
+    def load_saved(cls, name, *, root = None, device = None):
         """Load a saved speaker encoder (the JAX package's directory layout)."""
         files = load_model_files(name, root = root)
         config = files['config'].get('config', {})
@@ -74,15 +74,19 @@ class SpeakerEncoder(TrainableModel, BaseAudioModel):
     @classmethod
     def create(cls, *, name = 'speaker_encoder', seed = 0, root = None, device = None,
                mel_fn = 'TacotronSTFT', audio_rate = 16000, max_audio_time = 3.0,
-               pad_mel_value = -11., ** kwargs):
+               pad_mel_value = -11., pretrained_name = None, ** kwargs):
         """A new encoder with random weights (the JAX package's constructor):
         the mel front end `mel_fn` at `audio_rate`, the architecture's
         hparams from `kwargs`, weights from the port's `init` seeded with
-        `seed`; saved under ``<root>/<name>/``."""
+        `seed` (with `pretrained_name`, the saved model's transferred onto
+        them, `base_model.transfer_trees`); saved under
+        ``<root>/<name>/``."""
         if isinstance(mel_fn, str):
             mel_fn = MelSTFT.create(mel_fn, sampling_rate = audio_rate)
         arch = AudioEncoder(** {'n_mel_channels': mel_fn.n_mel_channels, ** kwargs})
         params, state = init_audio_encoder(arch.hp, seed = seed)
+        if pretrained_name:
+            params, state = transfer_trees(pretrained_name, params, state, root = root)
         config = {k: v for k, v in arch.get_config().items() if k != 'n_mel_channels'}
         model = cls.from_jax(params, state, name = name, root = root, device = device,
                              mel_fn = mel_fn, audio_rate = audio_rate,

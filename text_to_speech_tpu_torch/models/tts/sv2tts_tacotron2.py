@@ -15,7 +15,10 @@ one's audio.  (The JAX package's `predict` passes its own
 ``overwrite=False`` to `infer`.)
 
 Training: `create` makes a new model (``embedding_dim`` becomes the
-architecture's ``speaker_embedding_dim``); `prepare_data` / `collate` put the
+architecture's ``speaker_embedding_dim``), and
+``from_pretrained(name, pretrained_name, embedding_dim = ...)`` makes one
+from a single-speaker Tacotron-2 (the JAX package's way of starting a voice
+clone: the speaker's new rows start at zero); `prepare_data` / `collate` put the
 row's speaker embedding (its ``embedding``, else the resolved
 ``embeddings``) second in the inputs, (tokens, embedding, mel_in, steps),
 and the teacher-forced forward takes it at every concat position.
@@ -42,18 +45,25 @@ class SV2TTSTacotron2(SpeakerEmbeddingMixin, Tacotron2):
         self._init_speaker_embedding(embedding_dim, encoder_name)
 
     @classmethod
-    def from_pretrained(cls, name, *, root = None, device = None, ** kwargs):
+    def load_saved(cls, name, *, root = None, device = None, ** kwargs):
         """Load a saved SV2TTS Tacotron-2 with its `embedding_dim` and
         `encoder_name` (or `speaker_encoder_name`)."""
         config = load_model_files(name, root = root)['config'].get('config', {})
         for key in ('embedding_dim', 'encoder_name', 'speaker_encoder_name'):
             if key in config: kwargs.setdefault(key, config[key])
-        return super().from_pretrained(name, root = root, device = device, ** kwargs)
+        return super().load_saved(name, root = root, device = device, ** kwargs)
 
     @classmethod
     def create(cls, lang = 'en', *, embedding_dim = 256, ** kwargs):
         """`Tacotron2.create` with the speaker: `embedding_dim` wide,
-        concatenated at ``speaker_concat_pos`` ('end' unless given)."""
+        concatenated at ``speaker_concat_pos`` ('end' unless given).  With
+        ``pretrained_name`` this is the JAX package's way of making a
+        voice-cloning model from a single-speaker Tacotron-2
+        (``from_pretrained(name, pretrained_name, embedding_dim = ...)``):
+        every source weight arrives, and the rows that the speaker widens
+        (with 'end': the attention memory layer, both LSTMs' input kernels,
+        the projections) start at zero, so the clone speaks as its source
+        until it is fine-tuned."""
         kwargs.setdefault('speaker_embedding_dim', embedding_dim)
         kwargs.setdefault('speaker_concat_pos', 'end')
         return super().create(lang, embedding_dim = embedding_dim, ** kwargs)

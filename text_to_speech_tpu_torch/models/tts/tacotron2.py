@@ -32,7 +32,9 @@ tokenizing), `compiled_tts` (the one-launch path) and `compiled_infer`
 
 Training (`models.base_model.TrainableModel`): `create` makes a new model
 as the JAX package's constructor does (a language, the hparams, a seed:
-random weights, saved under ``<root>/<name>/``); `prepare_data`, with the
+random weights, saved under ``<root>/<name>/``; with ``pretrained_name``
+a saved model's weights transferred onto them, which
+``from_pretrained(name, pretrained_name)`` runs); `prepare_data`, with the
 group-rate inputs of a reduction factor, `filter_data`,
 `get_padding_values` and `collate` feed `fit` (`train.trainer.fit`:
 `TacotronLoss`, teacher forcing, `mixed_precision_ok`).
@@ -71,7 +73,7 @@ from ...utils.callbacks import (
 from ...utils.file_utils import load_json
 from ...utils.sequence_utils import pad_batch, pad_to_multiple
 from ...weights import cast_tree, tacotron2_from_jax, tree_to, tree_to_jax
-from ..base_model import BaseModel, TrainableModel
+from ..base_model import BaseModel, TrainableModel, transfer_trees
 from ..saving import load_model_files, model_dir
 from ..tacotron2_arch import Tacotron2 as Tacotron2Arch
 from ..tts_checkpoints import (
@@ -169,7 +171,7 @@ class Tacotron2(TrainableModel, BaseModel):
         return cls(* tacotron2_from_jax(params, state), ** kwargs)
 
     @classmethod
-    def from_pretrained(cls, name, *, root = None, device = None, ** kwargs):
+    def load_saved(cls, name, *, root = None, device = None, ** kwargs):
         """Load a saved model (the JAX package's directory layout);
         `kwargs` go to the constructor."""
         files = load_model_files(name, root = root)
@@ -212,7 +214,7 @@ class Tacotron2(TrainableModel, BaseModel):
 
     @classmethod
     def create(cls, lang = 'en', *, name = None, seed = 0, root = None, device = None,
-               tokenizer = None, mel_fn = 'TacotronSTFT', ** kwargs):
+               tokenizer = None, mel_fn = 'TacotronSTFT', pretrained_name = None, ** kwargs):
         """A new model with random weights, the JAX package's constructor
         (``Tacotron2(lang, name = ..., ** hparams)``): the tokenizer from
         `tokenizer` or `lang` (`text.get_tokenizer`), the mel front end
@@ -220,7 +222,9 @@ class Tacotron2(TrainableModel, BaseModel):
         from the hparams in `kwargs` (its vocabulary, pad token and mel
         channels from the tokenizer and the mel front end), the task's own
         options (``_task_keys``) to the constructor, weights from the port's
-        `init` seeded with `seed`.  The model is saved under
+        `init` seeded with `seed`, or, with `pretrained_name`, those weights
+        with the saved model `pretrained_name`'s transferred onto them
+        (`base_model.transfer_trees`).  The model is saved under
         ``<root>/<name>/`` (the constructor's default name unless given),
         where `from_pretrained` finds it."""
         tokenizer = get_tokenizer(tokenizer, lang = lang)
@@ -229,11 +233,15 @@ class Tacotron2(TrainableModel, BaseModel):
         arch = cls.arch_class(** {'pad_token': tokenizer.blank_token_idx,
                                   'vocab_size': tokenizer.vocab_size,
                                   'n_mel_channels': mel_fn.n_mel_channels, ** kwargs})
-        params, state = cls._random_trees(arch.hp, seed)
+        with Timer('random init'):
+            params, state = cls._random_trees(arch.hp, seed)
+        if pretrained_name:
+            params, state = transfer_trees(pretrained_name, params, state, root = root)
         if name: task['name'] = name
         model = cls.from_jax(params, state, tokenizer = tokenizer, lang = lang, root = root,
                              device = device, mel_fn = mel_fn, ** task, ** arch.get_config())
-        model.save()
+        with Timer('save'):
+            model.save()
         return model
 
     @staticmethod

@@ -89,7 +89,7 @@ class WaveGlow(TrainableModel):
         return cls(waveglow_from_jax(params), ** kwargs)
 
     @classmethod
-    def from_pretrained(cls, name, *, root = None, device = None):
+    def load_saved(cls, name, *, root = None, device = None):
         """Load a saved WaveGlow (the JAX package's directory layout)."""
         files = load_model_files(name, root = root)
         arch = {k: v for k, v in files['architecture'].items() if k != 'architecture'}

@@ -281,6 +281,40 @@ class WaveGlow:
         leaves = [flatten_tree(block)[name] for name in names]
         return _WNBlockTrain.apply(self, tuple(names), audio_half, spect, * leaves)
 
+    def wn_block_acts(self, block, audio_half, spect, spect_cf = None):
+        """`wn_block(fused=False)` for ``remat='acts'``: the start conv, the
+        conditioning convs and the end conv under autograd, the layer stack
+        in `_WNStackActs`, which keeps each layer's input (the residual
+        stream) and activations (in-conv + conditioning, before the gate)
+        and recomputes only the gates in the backward.  The same ops in the
+        same order as the chain, so the gradients are the chain's.  The
+        1-tap conditioning convs read `spect_cf`, the channels-first copy of
+        `spect` that `nn.conv1d` would make for each of them, so that
+        autograd keeps one copy for all of them (`forward` passes one for
+        every flow)."""
+        hp = self.hp
+        L = hp.wn_layers
+        if spect_cf is None:
+            spect_cf = _channels_first(spect)
+
+        def cond_conv(p):
+            if p['weight'].shape[2] != 1:
+                return nn.conv1d(p, spect)
+            return torch.nn.functional.conv1d(spect_cf, p['weight'], p.get('bias')).transpose(1, 2)
+
+        x = nn.conv1d(block['start'], audio_half)
+        if 'cond_layer' in block:
+            cond_all = cond_conv(block['cond_layer'])
+            width = cond_all.shape[-1] // L
+            conds = [cond_all[..., i * width: (i + 1) * width] for i in range(L)]
+        else:
+            conds = [cond_conv(block['cond_conv_{}'.format(i)]) for i in range(L)]
+        convs = [block['{}_{}'.format(kind, i)] for i in range(L)
+                 for kind in ('in_conv', 'res_skip_conv')]
+        leaves = [c.get(key) for c in convs for key in ('weight', 'bias')]
+        output = _WNStackActs.apply(hp.wn_channels, x, * conds, * leaves)
+        return nn.conv1d(block['end'], output.to(block['end']['weight'].dtype))
+
     @staticmethod
     def _end_conv(block, skip_sum):
         """The `end` conv of a fused block: operands in the buffer dtype,
@@ -406,16 +440,17 @@ class WaveGlow:
         ([early outputs, first to last | the final audio]).
 
         ``remat=True`` checkpoints each flow (its activations are recomputed
-        in the backward).  ``compute_dtype`` (e.g. bfloat16) is the
-        mixed-precision path: params (except the 1×1 convs, whose slogdet
-        stays float32) and the mel are cast, the WN blocks and the upsample
+        in the backward); ``remat='acts'`` runs each WN block's layers as
+        `wn_block_acts`, which keeps each layer's activations and residual
+        stream, the tensors the JAX package's 'acts' policy saves by name,
+        and recomputes only the gates in the backward, never a conv.
+        ``compute_dtype`` (e.g. bfloat16) is the mixed-precision path:
+        params (except the 1×1 convs, whose slogdet stays float32) and the
+        mel are cast, the WN blocks and the upsample
         run in that dtype, and the audio stream, the log-determinants and
         every log-likelihood sum stay float32.  Under ``hp.wn_train_fused``
         (with C % 128 == 0 and 3 taps) the blocks run `wn_block_train`."""
         hp = self.hp
-        if remat == 'acts':
-            raise NotImplementedError("remat='acts' (a JAX remat policy) is not ported; "
-                                      'use remat=True')
         if compute_dtype is not None and compute_dtype != torch.float32:
             from ..train.precision import cast_floating
             params = cast_floating(params, compute_dtype, exempt = ('convinv',))
@@ -426,8 +461,12 @@ class WaveGlow:
 
         fused_train = hp.wn_train_fused and hp.wn_channels % 128 == 0 \
             and hp.wn_kernel_size == 3
-        wn_block = self.wn_block_train if fused_train \
-            else functools.partial(self.wn_block, fused = False)
+        if fused_train:
+            wn_block = self.wn_block_train
+        elif remat == 'acts':
+            wn_block = functools.partial(self.wn_block_acts, spect_cf = _channels_first(spect))
+        else:
+            wn_block = functools.partial(self.wn_block, fused = False)
 
         def flow_step(audio, flow, spect):
             w = flow['convinv']['weight']
@@ -448,7 +487,7 @@ class WaveGlow:
                 z_out.append(audio[..., :hp.n_early_size])
                 audio = audio[..., hp.n_early_size:]
             flow = params['flow_{}'.format(k)]
-            if remat:
+            if remat and remat != 'acts':
                 audio, log_s, logdet = torch.utils.checkpoint.checkpoint(
                     flow_step, audio, flow, spect, use_reentrant = False)
             else:
@@ -499,6 +538,81 @@ def int8_conv1d(x_q, w_q, *, dilation = 1):
         y = _int_mm(rows, w_q[:, :, k].contiguous().t())
         out = y if out is None else out + y
     return out.reshape(batch, steps, -1)
+
+
+def _channels_first(x):
+    """(B, T, C) → the (B, C, T) copy that `nn.conv1d` convolves for a 1-tap
+    conv (a transpose padded by nothing)."""
+    return torch.nn.functional.pad(x.transpose(1, 2), nn._same_pads(1, 1, 1, x.shape[1]))
+
+
+def _conv1d_grads(weight, bias, x, grad, dilation):
+    """(grad x, grad weight, grad bias) of ``nn.conv1d({'weight', 'bias'}, x,
+    dilation)`` under the output gradient `grad`, from its input: the
+    convolution's own backward, which autograd would call, with no conv
+    forward."""
+    pads = nn._same_pads(weight.shape[2], dilation, 1, x.shape[1])
+    h = torch.nn.functional.pad(x.transpose(1, 2), pads)
+    g_h, g_w, g_b = torch.ops.aten.convolution_backward(
+        grad.transpose(1, 2), h, weight, None if bias is None else [bias.shape[0]], [1], [0],
+        [dilation], False, [0], 1, [True, True, bias is not None])
+    return g_h[..., pads[0]: pads[0] + x.shape[1]].transpose(1, 2), g_w, g_b
+
+
+class _WNStackActs(torch.autograd.Function):
+    """The layers of a WN block (`WaveGlow.wn_block_acts`): the residual
+    stream x and the conditioning of each layer in, the skip sum out.  The
+    forward saves each layer's x and ``acts = in_conv(x) + cond`` (three
+    channel widths a layer, what the JAX package's policy keeps as
+    'wn_x' and 'wn_acts'); the backward recomputes the gate from `acts` and
+    takes each conv's gradients from its saved input."""
+
+    @staticmethod
+    def forward(ctx, n_ch, x, * args):
+        n_layers = len(args) // 5
+        conds, leaves = args[:n_layers], args[n_layers:]
+        saved, output = [], None
+        for i in range(n_layers):
+            w_in, b_in, w_rs, b_rs = leaves[4 * i: 4 * i + 4]
+            acts = nn.conv1d({'weight': w_in, 'bias': b_in}, x, dilation = 2 ** i) + conds[i]
+            gated = torch.tanh(acts[..., :n_ch]) * torch.sigmoid(acts[..., n_ch:])
+            res_skip = nn.conv1d({'weight': w_rs, 'bias': b_rs}, gated)
+            saved += [x, acts]
+            if i < n_layers - 1:
+                x = x + res_skip[..., :n_ch]
+                skip = res_skip[..., n_ch:]
+            else:
+                skip = res_skip
+            output = skip if output is None else output + skip
+        ctx.n_ch, ctx.n_layers, ctx.biases = n_ch, n_layers, [
+            b is not None for b in leaves[1::2]]
+        ctx.save_for_backward(* saved, * [w for w in leaves if w is not None])
+        return output
+
+    @staticmethod
+    def backward(ctx, grad):
+        n_ch, n_layers = ctx.n_ch, ctx.n_layers
+        saved = ctx.saved_tensors
+        weights = iter(saved[2 * n_layers:])
+        leaves = [next(weights) if k % 2 == 0 or ctx.biases[k // 2] else None
+                  for k in range(4 * n_layers)]
+        g_conds, g_leaves = [None] * n_layers, [None] * len(leaves)
+        g_x = None
+        for i in reversed(range(n_layers)):
+            x, acts = saved[2 * i], saved[2 * i + 1]
+            w_in, b_in, w_rs, b_rs = leaves[4 * i: 4 * i + 4]
+            last = i == n_layers - 1
+            g_rs = grad if last else torch.cat([g_x, grad], dim = -1)
+            # the gate again, from the kept activations
+            t, s = torch.tanh(acts[..., :n_ch]), torch.sigmoid(acts[..., n_ch:])
+            g_gated, g_w_rs, g_b_rs = _conv1d_grads(w_rs, b_rs, t * s, g_rs, 1)
+            g_acts = torch.cat([torch.ops.aten.tanh_backward(g_gated * s, t),
+                                torch.ops.aten.sigmoid_backward(g_gated * t, s)], dim = -1)
+            g_conds[i] = g_acts
+            g_in, g_w_in, g_b_in = _conv1d_grads(w_in, b_in, x, g_acts, 2 ** i)
+            g_x = g_in if last else g_x + g_in
+            g_leaves[4 * i: 4 * i + 4] = [g_w_in, g_b_in, g_w_rs, g_b_rs]
+        return (None, g_x, * g_conds, * g_leaves)
 
 
 class _WNBlockTrain(torch.autograd.Function):

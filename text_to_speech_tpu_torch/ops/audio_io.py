@@ -24,7 +24,7 @@ import subprocess
 import numpy as np
 
 from . import audio_processing
-from .audio_processing import normalize_audio
+from .audio_processing import normalize_audio, resample_audio
 
 logger = logging.getLogger(__name__)
 
@@ -45,16 +45,10 @@ def read_wav(filename):
     return wavfile.read(filename)
 
 
-def resample_audio(audio, rate, target_rate):
-    """FFT resampling to `target_rate` → (audio, target_rate)."""
-    if rate == target_rate: return audio, rate
-    from scipy.signal import resample
-    return resample(audio, int(len(audio) / rate * target_rate)), target_rate
-
-
-def read_audio(data, *, rate = None, target_rate = None):
+def read_audio(data, *, rate = None, target_rate = None, normalize = True):
     """A WAV filename or a raw array (with its `rate`) → (rate, mono audio),
-    resampled to `target_rate` and normalized, float32."""
+    resampled to `target_rate` (FFT) and, with `normalize`, normalized to
+    float32."""
     if isinstance(data, str):
         if not data.lower().endswith('.wav'):
             raise ValueError('only WAV files are read by the port, got {!r}'.format(data))
@@ -67,7 +61,7 @@ def read_audio(data, *, rate = None, target_rate = None):
         audio = audio.mean(axis = 1)
     if target_rate and target_rate != rate:
         audio, rate = resample_audio(audio, rate, target_rate)
-    return rate, normalize_audio(audio)
+    return rate, normalize_audio(audio) if normalize else audio
 
 
 def load_audio(data, rate, ** kwargs):

@@ -1,11 +1,29 @@
-"""Sample formats and normalization.
+"""Resampling, sample formats and normalization.
 
-Counterpart of `convert_audio_dtype` and `normalize_audio` in
-``text_to_speech_tpu/ops/audio_processing.py``.  Silence trimming and noise
-reduction are not ported.
+Counterpart of `resample_audio`, `convert_audio_dtype` and
+`normalize_audio` in ``text_to_speech_tpu/ops/audio_processing.py``.
+Silence trimming and noise reduction are not ported.
 """
 
 import numpy as np
+
+
+def resample_audio(audio, rate, target_rate, method = 'fft'):
+    """`audio` resampled to `target_rate` → (audio, target_rate).
+
+    - ``'fft'`` (default): ``scipy.signal.resample``, the JAX package's
+      default;
+    - ``'sinc'``: the native Kaiser-windowed polyphase resampler
+      (`native.resample`, float32), the data loader pool's.
+    """
+    if rate == target_rate: return audio, rate
+    if method == 'sinc':
+        from .. import native
+        return native.resample(np.asarray(audio, np.float32), rate, target_rate), target_rate
+    if method != 'fft':
+        raise ValueError('Unknown resampling method {!r} (known: fft, sinc)'.format(method))
+    from scipy.signal import resample
+    return resample(audio, int(len(audio) / rate * target_rate)), target_rate
 
 
 def convert_audio_dtype(audio, dtype):

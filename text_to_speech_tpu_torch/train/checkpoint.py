@@ -7,7 +7,8 @@ Counterpart of ``text_to_speech_tpu/train/checkpoint.py``, in its layout::
 
 A tree is nested dicts of arrays or tensors, flattened to ``/``-joined
 paths (`weights.flatten_tree`).  `max_to_keep` checkpoints are kept, and
-the best one (lowest metric) is never deleted.  `AsyncCheckpointSaver`
+the best one (lowest metric, or the one saved with ``is_best``) is never
+deleted; ``load(best = True)`` reads it, or the latest when there is none.  `AsyncCheckpointSaver`
 moves the writes onto one background thread.
 """
 
@@ -46,6 +47,15 @@ class CheckpointManager:
                                    default = {'checkpoints': [], 'best': None})
 
     @property
+    def checkpoints(self):
+        return list(self._manifest['checkpoints'])
+
+    @property
+    def best_epoch(self):
+        best = self._manifest.get('best')
+        return best['epoch'] if best else None
+
+    @property
     def latest_epoch(self):
         cks = self._manifest['checkpoints']
         return cks[-1]['epoch'] if cks else None
@@ -53,18 +63,20 @@ class CheckpointManager:
     def _path(self, epoch, tree_name):
         return os.path.join(self.directory, 'ckpt-{}.{}.npz'.format(epoch, tree_name))
 
-    def save(self, trees, epoch, *, metric = None):
-        """`trees` = {'params': tree, 'opt': tree, ...} for `epoch`; the best
-        is the lowest `metric`; rotates the checkpoints beyond `max_to_keep`,
-        never the best one."""
+    def save(self, trees, epoch, *, metric = None, is_best = None):
+        """`trees` = {'params': tree, 'opt': tree, ...} for `epoch`.  It is
+        the best when `is_best` says so, or, with `is_best` None, when its
+        `metric` is below the best's (or the best has none).  Rotates the
+        checkpoints beyond `max_to_keep`, never the best one."""
         entry = {'epoch': epoch, 'trees': sorted(trees), 'metric': metric}
         for name, tree in trees.items():
             save_tree(self._path(epoch, name), tree)
         self._manifest['checkpoints'] = [
             c for c in self._manifest['checkpoints'] if c['epoch'] != epoch] + [entry]
         best = self._manifest.get('best')
-        if metric is not None and (best is None or best.get('metric') is None
-                                   or metric < best['metric']):
+        if is_best is None and metric is not None:
+            is_best = best is None or best.get('metric') is None or metric < best['metric']
+        if is_best:
             self._manifest['best'] = dict(entry)
         keep = {c['epoch'] for c in self._manifest['checkpoints'][-self.max_to_keep:]}
         if self._manifest.get('best'):
@@ -75,9 +87,12 @@ class CheckpointManager:
         self._save_manifest()
         return entry
 
-    def load(self, epoch = None, *, trees = None):
+    def load(self, epoch = None, *, best = False, trees = None):
         """{'params': tree, ...} of numpy arrays for `epoch` (default: the
-        latest); `trees` restricts which named trees are read."""
+        latest, or with `best` the best, else the latest); `trees` restricts
+        which named trees are read."""
+        if best:
+            epoch = self.best_epoch
         if epoch is None:
             epoch = self.latest_epoch
         if epoch is None:
@@ -121,7 +136,7 @@ class AsyncCheckpointSaver:
             max_workers = 1, thread_name_prefix = 'ckpt-writer')
         self._future = None
 
-    def save(self, trees, epoch, *, metric = None):
+    def save(self, trees, epoch, *, metric = None, is_best = None):
         self.wait_until_finished()
         snapshot, devices = {}, set()
         for name, tree in trees.items():
@@ -141,13 +156,13 @@ class AsyncCheckpointSaver:
             event = torch.cuda.Event()
             event.record(torch.cuda.current_stream(device))
             copied.append(event)
-        self._future = self._pool.submit(self._write, snapshot, epoch, metric, copied)
+        self._future = self._pool.submit(self._write, snapshot, epoch, metric, is_best, copied)
 
-    def _write(self, snapshot, epoch, metric, copied):
+    def _write(self, snapshot, epoch, metric, is_best, copied):
         for event in copied:
             event.synchronize()
         trees = {name: unflatten_tree(leaves) for name, leaves in snapshot.items()}
-        return self.manager.save(trees, epoch, metric = metric)
+        return self.manager.save(trees, epoch, metric = metric, is_best = is_best)
 
     def wait_until_finished(self):
         """Join the save in flight, if any, and raise its error."""

@@ -3,7 +3,8 @@
 Counterpart of ``text_to_speech_tpu/train/history.py``: per-epoch and
 per-batch metric logs, one config record per training run, and the same
 ``history.json`` layout (``{'epoch_logs': [...], 'trainings':
-[...]}``), so either package reads the other's.  Plotting is not ported.
+[...]}``), so either package reads the other's, and `get_best`.  Plotting
+is not ported.
 """
 
 import time
@@ -42,6 +43,16 @@ class History:
     def epochs(self):
         return len(self.epoch_logs)
 
+    @property
+    def steps(self):
+        return sum(t.get('steps', 0) for t in self.trainings)
+
+    def __len__(self):
+        return self.epochs
+
+    def __repr__(self):
+        return 'History(epochs={}, trainings={})'.format(self.epochs, len(self.trainings))
+
     def set_config(self, config):
         """Start a new training run with the given config."""
         self._current_training = {
@@ -74,6 +85,19 @@ class History:
 
     def get_metric(self, name):
         return [e['metrics'].get(name) for e in self.epoch_logs]
+
+    def get_best(self, metric = 'loss', mode = None):
+        """(best value, its epoch) of `metric`, (None, -1) when no epoch has
+        it; `mode` 'max' or 'min', by default 'max' for a name with 'acc',
+        'f1', 'precision' or 'recall' in it, else 'min'.  A tie keeps the
+        first epoch."""
+        values = [(e['metrics'][metric], e['epoch']) for e in self.epoch_logs
+                  if e['metrics'].get(metric) is not None]
+        if not values: return None, -1
+        if mode is None:
+            mode = 'max' if any(tag in metric for tag in ('acc', 'f1', 'precision', 'recall')) \
+                else 'min'
+        return (max if mode == 'max' else min)(values, key = lambda v: v[0])
 
     def get_config(self):
         return {'epoch_logs': self.epoch_logs, 'trainings': self.trainings}

@@ -33,7 +33,18 @@ the classes:
     with the accumulator at 0.1 or more the updates differ in float32 noise
     only.
 
-``adafactor`` and ``lion`` have no `torch.optim` counterpart and raise.  A
+  - ``lion``: optax's `lion` in the port's own `Lion` (``b1`` 0.9, ``b2``
+    0.99, its own ``weight_decay`` 1e-3, which `get_optimizer` cannot
+    change, as in the JAX package); ``mu_dtype`` and ``mask`` only as None;
+  - ``adafactor``: optax's `adafactor` in the port's own `Adafactor`
+    (factored second moments of the dims of 128 and more, ``decay_rate``
+    0.8, ``eps`` 1e-30, block-RMS clipping at 1, the learning rate, the
+    parameter-scale step, optional ``momentum`` and ``weight_decay_rate``),
+    in optax's order; ``dtype_momentum`` is a torch dtype,
+    ``weight_decay_mask`` only None.
+
+`register_optimizer` adds a class, `list_optimizers` and `list_schedulers`
+name what there is.  A
 schedule is evaluated at optax's step count (0 for the first update), and
 ``clip_norm`` clips the global norm of the gradients, as optax's
 `clip_by_global_norm`, before the update.  ``weight_decay`` is taken by
@@ -43,8 +54,10 @@ with the wrong sign (a zero gradient moves a weight of 1.0 to 1.1 at lr 1e-3
 and decay 0.1), so the port refuses it.
 """
 
+import inspect
 import math
 
+import numpy as np
 import torch
 
 _SCHEDULERS = {}
@@ -200,6 +213,125 @@ class RMSprop(torch.optim.Optimizer):
                 p.add_(u)
 
 
+class Lion(torch.optim.Optimizer):
+    """optax's ``lion``, in its order of operations: `scale_by_lion`
+    (``u = sign((1 - b1) * g + b1 * mu)``, then ``mu = (1 - b2) * g + b2 *
+    mu``), plus ``weight_decay * p`` (`add_decayed_weights`), times
+    ``-lr``."""
+
+    def __init__(self, params, lr = 1e-3, b1 = 0.9, b2 = 0.99, weight_decay = 1e-3):
+        super().__init__(params, dict(lr = lr, b1 = b1, b2 = b2, weight_decay = weight_decay))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            b1, b2, lr = group['b1'], group['b2'], group['lr']
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if 'mu' not in state:
+                    state['mu'] = torch.zeros_like(p)
+                g = p.grad
+                u = torch.sign((1. - b1) * g + b1 * state['mu'])
+                state['mu'] = (1 - b2) * g + b2 * state['mu']
+                if group['weight_decay']:
+                    u = u + group['weight_decay'] * p
+                p.add_(u * -lr)
+
+
+def _factored_dims(shape, factored, min_dim_size_to_factor):
+    """optax's choice: the largest dim and the second largest, when the
+    second reaches `min_dim_size_to_factor`, → (d1 second, d0 largest)."""
+    if not factored or len(shape) < 2:
+        return None
+    sorted_dims = np.argsort(shape)
+    if shape[sorted_dims[-2]] < min_dim_size_to_factor:
+        return None
+    return int(sorted_dims[-2]), int(sorted_dims[-1])
+
+
+def _rms(x):
+    return torch.sqrt(torch.mean(x * x))
+
+
+class Adafactor(torch.optim.Optimizer):
+    """optax's ``adafactor``, in its order of operations:
+    `scale_by_factored_rms` (decay ``1 - (step + 1 - decay_offset) **
+    -decay_rate`` in float32; a parameter with two dims of at least
+    `min_dim_size_to_factor` keeps a row and a column mean of ``g**2 +
+    eps``, another the whole ``g**2 + eps``; the update ``g`` over their
+    square root), `clip_by_block_rms` (``u / max(1, rms(u) /
+    clipping_threshold)``), times ``lr``, `scale_by_param_block_rms` (times
+    ``max(rms(p), 1e-3)``) with `multiply_by_parameter_scale`, an `ema` of
+    the updates with `momentum` (not debiased), ``weight_decay_rate * p``,
+    then times -1."""
+
+    def __init__(self, params, lr = 1e-3, min_dim_size_to_factor = 128, decay_rate = 0.8,
+                 decay_offset = 0, multiply_by_parameter_scale = True,
+                 clipping_threshold = 1.0, momentum = None, dtype_momentum = torch.float32,
+                 weight_decay_rate = None, eps = 1e-30, factored = True):
+        super().__init__(params, dict(
+            lr = lr, min_dim_size_to_factor = min_dim_size_to_factor, decay_rate = decay_rate,
+            decay_offset = decay_offset, multiply_by_parameter_scale = multiply_by_parameter_scale,
+            clipping_threshold = clipping_threshold, momentum = momentum,
+            dtype_momentum = dtype_momentum, weight_decay_rate = weight_decay_rate, eps = eps,
+            factored = factored))
+
+    @torch.no_grad()
+    def step(self):
+        for group in self.param_groups:
+            for p in group['params']:
+                if p.grad is None:
+                    continue
+                state = self.state[p]
+                if 'step' not in state:
+                    state['step'] = torch.zeros(())
+                g = p.grad
+                t = (state['step'] - group['decay_offset'] + 1).float()
+                decay = 1. - t ** -group['decay_rate']
+                dims = _factored_dims(tuple(p.shape), group['factored'],
+                                      group['min_dim_size_to_factor'])
+                grad_sqr = g * g + group['eps']
+                if dims is not None:
+                    d1, d0 = dims
+                    row_mean = torch.mean(grad_sqr, dim = d0)
+                    col_mean = torch.mean(grad_sqr, dim = d1)
+                    if 'v_row' not in state:
+                        state['v_row'] = torch.zeros_like(row_mean)
+                        state['v_col'] = torch.zeros_like(col_mean)
+                    v_row = decay * state['v_row'] + (1. - decay) * row_mean
+                    v_col = decay * state['v_col'] + (1. - decay) * col_mean
+                    state['v_row'], state['v_col'] = v_row, v_col
+                    reduced_d1 = d1 - 1 if d1 > d0 else d1
+                    row_col_mean = torch.mean(v_row, dim = reduced_d1, keepdim = True)
+                    row_factor = (v_row / row_col_mean) ** -0.5
+                    col_factor = v_col ** -0.5
+                    u = g * row_factor.unsqueeze(d0) * col_factor.unsqueeze(d1)
+                else:
+                    if 'v' not in state:
+                        state['v'] = torch.zeros_like(p)
+                    v = decay * state['v'] + (1. - decay) * grad_sqr
+                    state['v'] = v
+                    u = g * v ** -0.5
+                state['step'] += 1
+                if group['clipping_threshold'] is not None:
+                    u = u / torch.clamp(_rms(u) / group['clipping_threshold'], min = 1.)
+                u = u * group['lr']
+                if group['multiply_by_parameter_scale']:
+                    rms = _rms(p)
+                    u = u * torch.where(rms <= 1e-3, torch.full_like(rms, 1e-3), rms)
+                if group['momentum'] is not None:
+                    if 'momentum' not in state:
+                        state['momentum'] = torch.zeros_like(p, dtype = group['dtype_momentum'])
+                    u = ((1 - group['momentum']) * u + group['momentum'] * state['momentum']).to(
+                        group['dtype_momentum'])
+                    state['momentum'] = u
+                if group['weight_decay_rate'] is not None:
+                    u = u + group['weight_decay_rate'] * p
+                p.add_(u * -1)
+
+
 # name → (optimizer class, optax's default constants in the class's names)
 _OPTIMIZERS = {
     'adam': (Adam, dict(b1 = 0.9, b2 = 0.999, eps = 1e-8)),
@@ -207,6 +339,8 @@ _OPTIMIZERS = {
     'sgd': (torch.optim.SGD, dict(momentum = 0.)),
     'rmsprop': (RMSprop, dict(decay = 0.9, eps = 1e-8)),
     'adagrad': (torch.optim.Adagrad, dict(initial_accumulator_value = 0.1, eps = 1e-7)),
+    'lion': (Lion, dict(b1 = 0.9, b2 = 0.99, weight_decay = 1e-3)),
+    'adafactor': (Adafactor, {}),
 }
 # optax's keywords that the classes have no counterpart for, and the
 # only value each may take
@@ -215,6 +349,8 @@ _AT_DEFAULT = {
     'adamw': dict(mu_dtype = None, mask = None),
     'sgd': dict(accumulator_dtype = None),
     'rmsprop': {}, 'adagrad': {},
+    'lion': dict(mu_dtype = None, mask = None),
+    'adafactor': dict(weight_decay_mask = None),
 }
 _OPTAX_KEYWORDS = {
     'adam': ('b1', 'b2', 'eps', 'eps_root', 'nesterov'),
@@ -223,7 +359,34 @@ _OPTAX_KEYWORDS = {
     'rmsprop': ('decay', 'eps', 'initial_scale', 'eps_in_sqrt', 'centered', 'momentum',
                 'nesterov', 'bias_correction'),
     'adagrad': ('initial_accumulator_value', 'eps'),
+    'lion': ('b1', 'b2', 'weight_decay'),
+    'adafactor': ('min_dim_size_to_factor', 'decay_rate', 'decay_offset',
+                  'multiply_by_parameter_scale', 'clipping_threshold', 'momentum',
+                  'dtype_momentum', 'weight_decay_rate', 'eps', 'factored'),
 }
+
+
+def register_optimizer(name, ** defaults):
+    """Register an optimizer class under `name`: a `torch.optim.Optimizer`
+    taking ``(params, lr, ** keywords)``; `defaults` are its constants
+    where `get_optimizer` is not given them."""
+    def deco(cls):
+        key = name.lower()
+        _OPTIMIZERS[key] = (cls, defaults)
+        _AT_DEFAULT[key] = {}
+        _OPTAX_KEYWORDS[key] = tuple(
+            k for k in inspect.signature(cls.__init__).parameters
+            if k not in ('self', 'params', 'lr'))
+        return cls
+    return deco
+
+
+def list_optimizers():
+    return sorted(_OPTIMIZERS)
+
+
+def list_schedulers():
+    return sorted(_SCHEDULERS)
 
 
 def _class_keywords(key, kwargs):
@@ -244,9 +407,6 @@ def _class_keywords(key, kwargs):
         else:
             out[name] = value
     return out
-
-
-_NOT_PORTED = ('adafactor', 'lion')
 
 
 def _leaves(tree):
@@ -334,7 +494,9 @@ class Optimizer:
                     index, len(self.tensors)))
             tensor = self.tensors[index]
             value = torch.as_tensor(value)
-            if name != 'step' and tuple(value.shape) != tuple(tensor.shape):
+            # the step count and Adafactor's factored means are not parameter-shaped
+            if name not in ('step', 'v_row', 'v_col') \
+                    and tuple(value.shape) != tuple(tensor.shape):
                 raise ValueError('optimizer state {} has shape {}, the parameter {}'
                                  .format(key, tuple(value.shape), tuple(tensor.shape)))
             state.setdefault(index, {})[name] = value
@@ -362,9 +524,6 @@ def get_optimizer(optimizer = 'adam', *, lr = None, learning_rate = None,
     learning_rate = learning_rate if learning_rate is not None else (lr or 1e-3)
     schedule = get_scheduler(lr_scheduler) if lr_scheduler is not None else None
     key = optimizer.lower()
-    if key in _NOT_PORTED:
-        raise ValueError('optimizer {!r} has no torch.optim counterpart and is not '
-                         'ported (known: {})'.format(optimizer, sorted(_OPTIMIZERS)))
     if key not in _OPTIMIZERS:
         raise ValueError('Unknown optimizer {!r} (known: {})'.format(
             optimizer, sorted(_OPTIMIZERS)))

@@ -220,10 +220,15 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     epoch's checkpoint is written by an `AsyncCheckpointSaver` while the next
     epoch runs, and `fit` waits for the last one before it returns; an error
     on the writer's thread is raised here.  `token_multiple` goes to
-    `bucket_pad`.  ``clip_norm``, ``weight_decay``, ``lr_scheduler`` and
-    optax's keywords for the optimizer go to `get_optimizer`.  Returns
-    ``model.history``."""
+    `bucket_pad`.  With ``native_audio=True`` the datasets `fit` builds
+    decode the rows' WAV files on the native loader pool, resampled to the
+    model's rate (`train.datasets.Dataset`'s `native_audio_rate`), and
+    ``num_parallel_calls`` threads map the rows.  ``clip_norm``,
+    ``weight_decay``, ``lr_scheduler`` and optax's keywords for the
+    optimizer go to `get_optimizer`.  Returns ``model.history``."""
     _not_ported(mesh, kwargs.pop('pp_microbatches', None))
+    native_rate = getattr(model, 'rate', None) if kwargs.pop('native_audio', False) else None
+    num_parallel_calls = kwargs.pop('num_parallel_calls', None)
     device = default_device(device)
     model.to(device)
     loss_fn = get_loss(loss or model._default_loss)
@@ -236,11 +241,13 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     train_ds = data if prebuilt else prepare_dataset(
         data, prepare_fn = model.prepare_data, filter_fn = filter_fn,
         collate_fn = model.collate, batch_size = batch_size, shuffle = shuffle,
-        length_bucket_fn = _item_length, seed = seed)
+        length_bucket_fn = _item_length, seed = seed, num_parallel_calls = num_parallel_calls,
+        native_audio_rate = native_rate)
     valid_ds = valid_data if isinstance(valid_data, (Dataset, GE2EDataset)) \
         else prepare_dataset(valid_data, prepare_fn = model.prepare_data,
                              filter_fn = filter_fn, collate_fn = model.collate,
-                             batch_size = batch_size, shuffle = False) if valid_data else None
+                             batch_size = batch_size, shuffle = False,
+                             native_audio_rate = native_rate) if valid_data else None
 
     train_step = make_train_step(model, loss_fn, tx, precision = precision)
     eval_step = make_eval_step(model, loss_fn, precision = precision)
