@@ -49,7 +49,10 @@ def test_port_imports_without_jax():
                  'models.fastspeech2_arch', 'models.tts.fastspeech2', 'models.transformers',
                  'models.transformers.attention', 'models.transformers.transformer_arch',
                  'native', 'native.data_loader', 'models.weights_converter', 'train.metrics',
-                 'train.loader', 'train.audio_datasets'):
+                 'train.loader', 'train.audio_datasets', 'nn.flows', 'models.registry',
+                 'models.hifigan_arch', 'models.vocos_arch', 'models.vits_arch',
+                 'models.tts.hifigan', 'models.tts.vocos', 'models.tts.vits',
+                 'models.tts.sv2tts_vits'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
@@ -102,6 +105,23 @@ def test_entry_points_raise_without_device():
             attention_dim = 8, location_filters = 2, postnet_filters = 8), root = '/nonexistent'))
         raises(lambda: WaveGlow.from_nvidia_pretrained(nvidia_waveglow_state_dict(
             n_flows = 2, wn_layers = 2, wn_channels = 8), root = '/nonexistent'))
+        from text_to_speech_tpu_torch.models.tts import HiFiGAN, SV2TTSVITS, VITS, Vocos
+        from text_to_speech_tpu_torch.init import (
+            hifigan_state_dict, vits_state_dict, vocos_state_dict)
+        raises(lambda: HiFiGAN({}))
+        raises(lambda: Vocos({}))
+        raises(lambda: VITS({}, tokenizer = default_english_tokenizer()))
+        raises(lambda: SV2TTSVITS({}, tokenizer = default_english_tokenizer()))
+        raises(lambda: HiFiGAN.from_torch_pretrained(hifigan_state_dict(
+            upsample_initial_channel = 8, resblock_kernel_sizes = (3,),
+            resblock_dilation_sizes = ((1,),)), root = '/nonexistent'))
+        raises(lambda: Vocos.from_torch_pretrained(vocos_state_dict(
+            dim = 8, intermediate_dim = 8, n_layers = 1), root = '/nonexistent'))
+        raises(lambda: VITS.from_torch_pretrained(vits_state_dict(
+            inter_channels = 4, hidden_channels = 8, filter_channels = 8, n_layers = 1,
+            posterior_layers = 1, flow_layers = 1, flow_wn_layers = 1, sdp_n_flows = 1,
+            sdp_dds_layers = 1, upsample_initial_channel = 8, resblock_kernel_sizes = (3,),
+            resblock_dilation_sizes = ((1,),)), root = '/nonexistent'))
         from text_to_speech_tpu_torch.train.trainer import fit
         vocoder = WaveGlow({}, device = 'cpu')
         raises(lambda: fit(vocoder, []))

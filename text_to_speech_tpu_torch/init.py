@@ -1,15 +1,22 @@
 """Random parameter trees in the JAX package's layout, made with numpy.
 
-`init_tacotron2`, `init_waveglow`, `init_audio_encoder` and
-`init_fastspeech2` follow the JAX package's ``init`` methods
+`init_tacotron2`, `init_waveglow`, `init_audio_encoder`, `init_fastspeech2`,
+`init_hifigan`, `init_vocos` and `init_vits` follow the JAX package's
+``init`` methods
 (glorot-uniform kernels, orthogonal recurrent and invertible kernels, unit
 forget bias, identity batch and layer norms, the identity 'start' speaker
 projection) but draw from a numpy generator, so that
 NVIDIA-size models can be built without JAX and the same arrays can be
 handed to both packages.  Pass the trees through `weights.tacotron2_from_jax`
 / `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax`, or
-FastSpeech-2's params and state each through `weights.convert_tree`, for the
+FastSpeech-2's params and state each through `weights.convert_tree`, and
+HiFi-GAN's, Vocos's and VITS's through `weights.tree_from_jax`, for the
 port.
+
+`nvidia_tacotron2_state_dict`, `nvidia_waveglow_state_dict`,
+`hifigan_state_dict`, `vocos_state_dict` and `vits_state_dict` make seeded
+state dicts in the published PyTorch layouts (names, shapes, weight norm),
+for the importers of `models.tts_checkpoints`.
 
 WaveGlow's ``end`` convs start at zero in the JAX package, which leaves the
 waveform independent of the WN blocks; here they get small normal weights
@@ -234,6 +241,328 @@ def init_fastspeech2(hp, seed = 0):
         params['postnet'], post_state = _postnet(rng, hp)
         state = {'postnet': post_state}
     return params, state
+
+
+def _conv_transpose(rng, width, n_in, n_out):
+    """A transposed conv in the JAX layout (W, in, out), glorot over in and out."""
+    return {'kernel': _glorot(rng, (width, n_in, n_out), in_axis = 1, out_axis = 2),
+            'bias': np.zeros((n_out,), np.float32)}
+
+
+def init_hifigan(hp, seed = 0):
+    """Params of a HiFi-GAN generator with hparams `hp` (the JAX
+    ``HiFiGAN.init`` tree: `conv_pre`, ``up<i>`` stages of a transposed conv
+    ``up`` and residual blocks ``res<j>/d<k>``, `conv_post`)."""
+    rng = np.random.default_rng(seed)
+    params = {'conv_pre': _conv(rng, 7, hp.n_mel_channels, hp.upsample_initial_channel)}
+    ch = hp.upsample_initial_channel
+    for i, width in enumerate(hp.upsample_kernel_sizes):
+        out_ch = ch // 2
+        stage = {'up': _conv_transpose(rng, width, ch, out_ch)}
+        for j, (k, dils) in enumerate(zip(hp.resblock_kernel_sizes, hp.resblock_dilation_sizes)):
+            stage['res{}'.format(j)] = {
+                'd{}'.format(di): ({'conv1': _conv(rng, k, out_ch, out_ch),
+                                    'conv2': _conv(rng, k, out_ch, out_ch)}
+                                   if hp.resblock_version == 1 else
+                                   {'conv1': _conv(rng, k, out_ch, out_ch)})
+                for di in range(len(dils))}
+        params['up{}'.format(i)] = stage
+        ch = out_ch
+    params['conv_post'] = _conv(rng, 7, ch, 1)
+    return params
+
+
+def init_vocos(hp, seed = 0):
+    """Params of a Vocos generator with hparams `hp` (the JAX ``Vocos.init``
+    tree; the layer scale `gamma` at ``1 / n_layers`` unless `layer_scale`)."""
+    rng = np.random.default_rng(seed)
+    scale = 1. / hp.n_layers if hp.layer_scale is None else float(hp.layer_scale)
+    params = {'embed': _conv(rng, hp.kernel_size, hp.n_mel_channels, hp.dim),
+              'norm_pre': _layer_norm(hp.dim), 'norm_post': _layer_norm(hp.dim)}
+    for i in range(hp.n_layers):
+        params['block_{}'.format(i)] = {
+            'depthwise': _conv(rng, hp.kernel_size, 1, hp.dim),
+            'norm': _layer_norm(hp.dim),
+            'pw1': _dense(rng, hp.dim, hp.intermediate_dim),
+            'pw2': _dense(rng, hp.intermediate_dim, hp.dim),
+            'gamma': np.full((hp.dim,), scale, np.float32)}
+    params['head'] = _dense(rng, hp.dim, hp.n_fft + 2)
+    return params
+
+
+def init_vits(hp, seed = 0):
+    """Params of a `VITS` with hparams `hp`, in the JAX ``VITS.init`` tree
+    (its conditioning heads when it has speakers; the couplings' `post` and
+    the ConvFlows' `proj` at zero, so that every flow starts as the
+    identity, as there)."""
+    rng = np.random.default_rng(seed)
+    cond = bool(hp.n_speakers or hp.speaker_embedding_dim)
+    H, C, half = hp.hidden_channels, hp.inter_channels, hp.inter_channels // 2
+
+    def wn(n_layers, kernel):
+        out = {}
+        for i in range(n_layers):
+            out['in_conv_{}'.format(i)] = _conv(rng, kernel, H, 2 * H)
+            out['res_skip_conv_{}'.format(i)] = _conv(rng, 1, H, 2 * H if i < n_layers - 1 else H)
+        if cond: out['cond'] = _dense(rng, hp.gin_channels, n_layers * 2 * H)
+        return out
+
+    def text_block():
+        block = {'attention': {name: _dense(rng, H, H)
+                               for name in ('query', 'key', 'value', 'output')},
+                 'attention_norm': _layer_norm(H),
+                 'conv1': _conv(rng, hp.text_kernel_size, H, hp.filter_channels),
+                 'conv2': _conv(rng, hp.text_kernel_size, hp.filter_channels, H),
+                 'ffn_norm': _layer_norm(H)}
+        if hp.text_rel_window is not None:
+            head_dim = H // hp.n_heads
+            for name in ('rel_k', 'rel_v'):
+                block[name] = (rng.standard_normal((2 * hp.text_rel_window + 1, head_dim))
+                               * head_dim ** -0.5).astype(np.float32)
+        return block
+
+    def dds(f):
+        return {'layer_{}'.format(i): {'depthwise': _conv(rng, hp.sdp_kernel_size, 1, f),
+                                       'pointwise': _conv(rng, 1, f, f),
+                                       'norm1': _layer_norm(f), 'norm2': _layer_norm(f)}
+                for i in range(hp.sdp_dds_layers)}
+
+    def flow_stack(f):
+        stack = {'affine': {'m': np.zeros((2,), np.float32), 'logs': np.zeros((2,), np.float32)}}
+        n_out = 3 * hp.sdp_n_bins - 1
+        for i in range(hp.sdp_n_flows):
+            stack['conv_flow_{}'.format(i)] = {
+                'pre': _conv(rng, 1, 1, f), 'dds': dds(f),
+                'proj': {'kernel': np.zeros((1, f, n_out), np.float32),
+                         'bias': np.zeros((n_out,), np.float32)}}
+        return stack
+
+    params = {
+        'embedding': {'embeddings': rng.uniform(-0.05, 0.05, (hp.vocab_size, H))
+                      .astype(np.float32)},
+        'text_encoder': {'layer_{}'.format(i): text_block() for i in range(hp.n_text_layers)},
+        'text_proj': _conv(rng, 1, H, 2 * C),
+        'posterior': {'pre': _conv(rng, 1, hp.spec_channels, H),
+                      'wn': wn(hp.posterior_layers, hp.posterior_kernel_size),
+                      'proj': _conv(rng, 1, H, 2 * C)},
+    }
+    if hp.use_sdp:
+        f = hp.sdp_filter_channels
+        dp = {'pre': _conv(rng, 1, H, f), 'dds': dds(f), 'proj': _conv(rng, 1, f, f),
+              'flows': flow_stack(f), 'post_pre': _conv(rng, 1, 1, f), 'post_dds': dds(f),
+              'post_proj': _conv(rng, 1, f, f), 'post_flows': flow_stack(f)}
+        if cond: dp['cond'] = _dense(rng, hp.gin_channels, f)
+    else:
+        k, f = hp.duration_kernel_size, hp.duration_filters
+        dp = {'conv1': _conv(rng, k, H, f), 'norm1': _layer_norm(f),
+              'conv2': _conv(rng, k, f, f), 'norm2': _layer_norm(f), 'proj': _dense(rng, f, 1)}
+    params['duration_predictor'] = dp
+    from .models.vits_arch import VITS
+    params['generator'] = init_hifigan(VITS(** hp.get_config()).generator.hp, seed = seed + 1)
+    for k in range(hp.flow_layers):
+        params['flow_{}'.format(k)] = {
+            'pre': _conv(rng, 1, half, H), 'wn': wn(hp.flow_wn_layers, hp.flow_kernel_size),
+            'post': {'kernel': np.zeros((1, H, half), np.float32),
+                     'bias': np.zeros((half,), np.float32)}}
+    if hp.n_speakers:
+        params['speaker_embedding'] = {'embeddings': rng.uniform(
+            -0.05, 0.05, (hp.n_speakers, hp.gin_channels)).astype(np.float32)}
+    if hp.speaker_embedding_dim:
+        params['speaker_projection'] = _dense(rng, hp.speaker_embedding_dim, hp.gin_channels)
+    if cond:
+        params['generator_cond'] = _dense(rng, hp.gin_channels, hp.upsample_initial_channel)
+        if not hp.use_sdp:
+            params['duration_cond'] = _dense(rng, hp.gin_channels, H)
+    return params
+
+
+class _StateDict(dict):
+    """A seeded state dict in a published layout: `add` draws ``scale *
+    N(0, 1)`` float32 values; `add_normed` draws a weight-normed layer's
+    ``weight_v`` and a positive ``weight_g`` (one per output row, torch's
+    default ``dim=0``)."""
+
+    def __init__(self, seed, scale):
+        super().__init__()
+        self.rng = np.random.default_rng(seed)
+        self.scale = scale
+
+    def add(self, name, * shape, scale = None):
+        self[name] = ((self.scale if scale is None else scale)
+                      * self.rng.standard_normal(shape)).astype(np.float32)
+
+    def add_conv(self, prefix, n_out, n_in, width, *, bias = True, normed = False,
+                 scale = None):
+        if normed:
+            self.add(prefix + '.weight_v', n_out, n_in, width, scale = scale)
+            self[prefix + '.weight_g'] = self.rng.uniform(0.5, 1.5, (n_out, 1, 1))                 .astype(np.float32) * np.float32(self.scale if scale is None else scale)                 * np.float32(np.sqrt(n_in * width))
+        else:
+            self.add(prefix + '.weight', n_out, n_in, width, scale = scale)
+        if bias:
+            self.add(prefix + '.bias', n_out, scale = scale)
+
+
+def _hifigan_generator_sd(sd, prefix, n_mel, upsample_rates, upsample_kernel_sizes,
+                          upsample_initial_channel, resblock_kernel_sizes,
+                          resblock_dilation_sizes, *, pre_normed, post_bias):
+    """The official generator's tensors under `prefix`: `conv_pre`, the
+    weight-normed ``ups`` (ConvTranspose1d, (in, out, k)) and ``resblocks``
+    (``convs1`` / ``convs2``), `conv_post`."""
+    ch = upsample_initial_channel
+    sd.add_conv(prefix + 'conv_pre', ch, n_mel, 7, normed = pre_normed)
+    n_kernels = len(resblock_kernel_sizes)
+    for i, width in enumerate(upsample_kernel_sizes):
+        sd.add(prefix + 'ups.{}.weight_v'.format(i), ch, ch // 2, width)
+        sd[prefix + 'ups.{}.weight_g'.format(i)] = sd.rng.uniform(0.5, 1.5, (ch, 1, 1))             .astype(np.float32) * np.float32(sd.scale * np.sqrt(ch // 2 * width))
+        sd.add(prefix + 'ups.{}.bias'.format(i), ch // 2)
+        ch //= 2
+        for j, (k, dils) in enumerate(zip(resblock_kernel_sizes, resblock_dilation_sizes)):
+            r = i * n_kernels + j
+            for d in range(len(dils)):
+                for conv in ('convs1', 'convs2'):
+                    sd.add_conv(prefix + 'resblocks.{}.{}.{}'.format(r, conv, d), ch, ch, k,
+                                normed = True)
+    sd.add_conv(prefix + 'conv_post', 1, ch, 7, bias = post_bias, normed = pre_normed)
+
+
+def hifigan_state_dict(seed = 0, *, n_mel = 80, upsample_rates = (8, 8, 2, 2),
+                       upsample_kernel_sizes = (16, 16, 4, 4), upsample_initial_channel = 512,
+                       resblock_kernel_sizes = (3, 7, 11),
+                       resblock_dilation_sizes = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                       scale = 0.02):
+    """A seeded HiFi-GAN V1 generator ``state_dict`` (numpy) as the official
+    release ships it (``generator.`` keys dropped): weight norm on every
+    conv, ResBlock1 pairs, at V1's widths unless given; values ``scale *
+    N(0, 1)``, each ``weight_g`` row ``U(0.5, 1.5) * scale * sqrt(fan_in)``
+    (the norm of its ``weight_v`` row, about)."""
+    sd = _StateDict(seed, scale)
+    _hifigan_generator_sd(sd, '', n_mel, upsample_rates, upsample_kernel_sizes,
+                          upsample_initial_channel, resblock_kernel_sizes,
+                          resblock_dilation_sizes, pre_normed = True, post_bias = True)
+    return dict(sd)
+
+
+def vocos_state_dict(seed = 0, *, n_mel = 80, dim = 512, intermediate_dim = 1536,
+                     n_layers = 8, kernel_size = 7, n_fft = 1024, scale = 0.02):
+    """A seeded Vocos ``state_dict`` (numpy) in the published mel release's
+    layout (``backbone.embed``, ``backbone.norm``, ``backbone.convnext.<i>``
+    with ``dwconv``, ``norm``, ``pwconv1``, ``pwconv2`` and ``gamma``,
+    ``backbone.final_layer_norm``, ``head.out``), at `HParamsVocos`' widths
+    unless given: values ``scale * N(0, 1)``, the layer norms near the
+    identity, ``gamma`` at ``1 / n_layers``."""
+    sd = _StateDict(seed, scale)
+
+    def norm(prefix):
+        sd[prefix + '.weight'] = (1. + 0.1 * sd.rng.standard_normal(dim)).astype(np.float32)
+        sd.add(prefix + '.bias', dim)
+
+    sd.add_conv('backbone.embed', dim, n_mel, kernel_size)
+    norm('backbone.norm')
+    for i in range(n_layers):
+        p = 'backbone.convnext.{}'.format(i)
+        sd.add_conv(p + '.dwconv', dim, 1, kernel_size, scale = 0.2)
+        norm(p + '.norm')
+        sd.add(p + '.pwconv1.weight', intermediate_dim, dim)
+        sd.add(p + '.pwconv1.bias', intermediate_dim)
+        sd.add(p + '.pwconv2.weight', dim, intermediate_dim)
+        sd.add(p + '.pwconv2.bias', dim)
+        sd[p + '.gamma'] = np.full((dim,), 1. / n_layers, np.float32)
+    norm('backbone.final_layer_norm')
+    sd.add('head.out.weight', n_fft + 2, dim)
+    sd.add('head.out.bias', n_fft + 2)
+    return dict(sd)
+
+
+def vits_state_dict(seed = 0, *, vocab_size = 148, spec_channels = 513, inter_channels = 192,
+                    hidden_channels = 192, filter_channels = 768, n_heads = 2, n_layers = 6,
+                    kernel_size = 3, window = 4, posterior_layers = 16, flow_layers = 4,
+                    flow_wn_layers = 4, wn_kernel = 5, sdp_n_flows = 4, sdp_dds_layers = 3,
+                    sdp_n_bins = 10, n_speakers = None, gin_channels = 256,
+                    upsample_rates = (8, 8, 2, 2), upsample_kernel_sizes = (16, 16, 4, 4),
+                    upsample_initial_channel = 512, resblock_kernel_sizes = (3, 7, 11),
+                    resblock_dilation_sizes = ((1, 3, 5), (1, 3, 5), (1, 3, 5)),
+                    scale = 0.02):
+    """A seeded VITS ``SynthesizerTrn`` ``state_dict`` (numpy) as the
+    official LJSpeech release ships it, at its widths unless given: the
+    relative-window text encoder (``enc_p``), the WaveNet posterior
+    (``enc_q``), the residual couplings (``flow.flows``, at even indices),
+    the stochastic duration predictor (``dp`` with ``dp.flows``: an
+    ElementwiseAffine, then ConvFlows at odd indices) and the HiFi-GAN
+    decoder (``dec``: plain `conv_pre`, `conv_post` without bias); weight
+    norm on the WaveNet and decoder convs, as there.  `n_speakers` adds
+    ``emb_g`` and the conditioning layers.  Values ``scale * N(0, 1)``, the
+    layer norms near the identity."""
+    sd = _StateDict(seed, scale)
+    H, C, F_, half = hidden_channels, inter_channels, hidden_channels, inter_channels // 2
+    head_dim = H // n_heads
+    gin = gin_channels if n_speakers else None
+
+    def norm(prefix, dim):
+        sd[prefix + '.gamma'] = (1. + 0.1 * sd.rng.standard_normal(dim)).astype(np.float32)
+        sd.add(prefix + '.beta', dim)
+
+    def wn(prefix, n):
+        for i in range(n):
+            sd.add_conv('{}.in_layers.{}'.format(prefix, i), 2 * H, H, wn_kernel, normed = True)
+            sd.add_conv('{}.res_skip_layers.{}'.format(prefix, i),
+                        2 * H if i < n - 1 else H, H, 1, normed = True)
+        if gin:
+            sd.add_conv(prefix + '.cond_layer', 2 * H * n, gin, 1, normed = True)
+
+    def dds(prefix):
+        for i in range(sdp_dds_layers):
+            sd.add_conv('{}.convs_sep.{}'.format(prefix, i), F_, 1, kernel_size, scale = 0.2)
+            sd.add_conv('{}.convs_1x1.{}'.format(prefix, i), F_, F_, 1)
+            norm('{}.norms_1.{}'.format(prefix, i), F_)
+            norm('{}.norms_2.{}'.format(prefix, i), F_)
+
+    def flows(prefix):
+        sd.add(prefix + '.0.m', 2, 1)
+        sd.add(prefix + '.0.logs', 2, 1)
+        for i in range(sdp_n_flows):
+            p = '{}.{}'.format(prefix, 1 + 2 * i)
+            sd.add_conv(p + '.pre', F_, 1, 1)
+            dds(p + '.convs')
+            sd.add_conv(p + '.proj', 3 * sdp_n_bins - 1, F_, 1)
+
+    sd.add('enc_p.emb.weight', vocab_size, H, scale = H ** -0.5)
+    for i in range(n_layers):
+        a = 'enc_p.encoder.attn_layers.{}'.format(i)
+        for name in ('conv_q', 'conv_k', 'conv_v', 'conv_o'):
+            sd.add_conv('{}.{}'.format(a, name), H, H, 1, scale = H ** -0.5)
+        sd.add(a + '.emb_rel_k', 1, 2 * window + 1, head_dim, scale = head_dim ** -0.5)
+        sd.add(a + '.emb_rel_v', 1, 2 * window + 1, head_dim, scale = head_dim ** -0.5)
+        norm('enc_p.encoder.norm_layers_1.{}'.format(i), H)
+        sd.add_conv('enc_p.encoder.ffn_layers.{}.conv_1'.format(i), filter_channels, H,
+                    kernel_size)
+        sd.add_conv('enc_p.encoder.ffn_layers.{}.conv_2'.format(i), H, filter_channels,
+                    kernel_size)
+        norm('enc_p.encoder.norm_layers_2.{}'.format(i), H)
+    sd.add_conv('enc_p.proj', 2 * C, H, 1)
+    sd.add_conv('enc_q.pre', H, spec_channels, 1)
+    wn('enc_q.enc', posterior_layers)
+    sd.add_conv('enc_q.proj', 2 * C, H, 1)
+    for k in range(flow_layers):
+        p = 'flow.flows.{}'.format(2 * k)
+        sd.add_conv(p + '.pre', H, half, 1)
+        wn(p + '.enc', flow_wn_layers)
+        sd.add_conv(p + '.post', half, H, 1)
+    _hifigan_generator_sd(sd, 'dec.', C, upsample_rates, upsample_kernel_sizes,
+                          upsample_initial_channel, resblock_kernel_sizes,
+                          resblock_dilation_sizes, pre_normed = False, post_bias = False)
+    sd.add_conv('dp.pre', F_, H, 1)
+    dds('dp.convs')
+    sd.add_conv('dp.proj', F_, F_, 1)
+    flows('dp.flows')
+    sd.add_conv('dp.post_pre', F_, 1, 1)
+    dds('dp.post_convs')
+    sd.add_conv('dp.post_proj', F_, F_, 1)
+    flows('dp.post_flows')
+    if gin:
+        sd.add('emb_g.weight', n_speakers, gin)
+        sd.add_conv('dp.cond', F_, gin, 1)
+        sd.add_conv('dec.cond', upsample_initial_channel, gin, 1)
+    return dict(sd)
 
 
 def nvidia_tacotron2_state_dict(seed = 0, *, vocab_size = 148, embedding_dim = 512,

@@ -1,5 +1,6 @@
 """Architectures (`tacotron2_arch`, `waveglow_arch`, `encoder_arch`,
-`fastspeech2_arch`), task models (`tts`, `encoder`), the NVIDIA checkpoint
+`fastspeech2_arch`, `hifigan_arch`, `vocos_arch`, `vits_arch`, by name
+through `registry`), task models (`tts`, `encoder`), the checkpoint
 importers (`tts_checkpoints`) and `get_pretrained`.
 
 Counterpart of ``text_to_speech_tpu/models/__init__.py``: `get_pretrained`
@@ -14,9 +15,10 @@ from .saving import model_dir
 
 def _model_classes():
     from .encoder import SpeakerEncoder
-    from .tts import FastSpeech2, SV2TTSTacotron2, Tacotron2, WaveGlow
+    from .tts import (
+        VITS, FastSpeech2, HiFiGAN, SV2TTSTacotron2, SV2TTSVITS, Tacotron2, Vocos, WaveGlow)
     return {cls.__name__: cls for cls in (Tacotron2, SV2TTSTacotron2, FastSpeech2, WaveGlow,
-                                          SpeakerEncoder)}
+                                          HiFiGAN, Vocos, VITS, SV2TTSVITS, SpeakerEncoder)}
 
 
 def get_pretrained(name, *, root = None, device = None):

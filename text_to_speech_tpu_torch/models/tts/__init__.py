@@ -12,14 +12,20 @@ defaults are not in the repo: the `en` one, ``pretrained_tacotron2``, is
 made from NVIDIA's checkpoints by `Tacotron2.from_nvidia_pretrained` (with
 `WaveGlow.from_nvidia_pretrained` for the ``waveglow`` vocoder) into a
 `root`; otherwise loading them raises, and nothing is downloaded.
-`serve()` is not ported.
+The vocoder is a `WaveGlow`, a `HiFiGAN` or a `Vocos` (instances or saved
+names); an end-to-end model (`VITS`, `SV2TTSVITS`: ``is_end_to_end``) is
+its own vocoder unless one is forced.  `serve()` is not ported.
 """
 
 import os
 
 from .fastspeech2 import FastSpeech2
+from .hifigan import HiFiGAN
 from .sv2tts_tacotron2 import SV2TTSTacotron2
+from .sv2tts_vits import SV2TTSVITS
 from .tacotron2 import Tacotron2
+from .vits import VITS
+from .vocos import Vocos
 from .waveglow import WaveGlow
 
 _pretrained = {
@@ -49,7 +55,8 @@ def get_model_lang(lang):
 
 def get_models(model = None, lang = None, vocoder = None, *, device = None, root = None):
     """Resolve (synthesizer, vocoder) from a model name/instance or a lang;
-    names load on `device` (``cuda`` unless the caller passes ``'cpu'``)."""
+    names load on `device` (``cuda`` unless the caller passes ``'cpu'``).
+    An end-to-end model is its own vocoder unless another is forced."""
     if model is None:
         if lang is None:
             raise ValueError('Provide either `model` or `lang`')
@@ -57,6 +64,8 @@ def get_models(model = None, lang = None, vocoder = None, *, device = None, root
     from .. import get_pretrained
     if isinstance(model, str):
         model = get_pretrained(model, root = root, device = device)
+    if getattr(model, 'is_end_to_end', False) and vocoder in (None, _default_vocoder):
+        return model, model
     if vocoder is None:
         vocoder = _default_vocoder
     if isinstance(vocoder, str):
@@ -87,5 +96,6 @@ def stream(stream_input, *, model = None, lang = None, vocoder = None, play = Tr
     return model.stream(stream_input, vocoder = vocoder, play = play, ** kwargs)
 
 
-__all__ = ['FastSpeech2', 'SV2TTSTacotron2', 'Tacotron2', 'WaveGlow', 'get_models', 'get_model_lang',
-           'get_pretrained_model', 'set_pretrained_model', 'stream', 'tts']
+__all__ = ['FastSpeech2', 'HiFiGAN', 'SV2TTSTacotron2', 'SV2TTSVITS', 'Tacotron2', 'VITS', 'Vocos',
+           'WaveGlow', 'get_models', 'get_model_lang', 'get_pretrained_model',
+           'set_pretrained_model', 'stream', 'tts']

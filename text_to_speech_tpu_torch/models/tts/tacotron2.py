@@ -11,7 +11,8 @@ token padding and max-length bucketing, and the two synthesis flows:
     in `_synthesize_and_vocode`, and with a `win_len` the vocoder cuts the
     windows of the decoded mels on the device
     (`WaveGlow.vocode_windowed_from_device`; a `win_len` never takes the
-    one-launch path).  A frames-per-token ratio outside its gates falls to
+    one-launch path, and a vocoder without that method, such as `HiFiGAN`,
+    takes the sequential path, which vocodes each whole mel).  A frames-per-token ratio outside its gates falls to
     `_synthesize_chunks`, which retries the failing chunks with fresh prenet
     dropout, then `_vocode_chunks` (windowed: `vocode_windowed_batch`).
   - `predict_batched` (lists with ``batch_size > 1``): the chunks of several
@@ -621,10 +622,18 @@ class Tacotron2(TrainableModel, BaseModel):
         the vocoder cuts the windows of the decoded mels on the device once
         the gate has read the lengths (`vocode_windowed_from_device`), and a
         single chunk does not take the one-launch path.  Returns (mels,
-        attention, audios), or None on a frames-per-token gate failure: the
-        caller's retry path then decodes again, chunk by chunk."""
+        attention, audios), or None to leave it to the caller's sequential
+        path, which decodes again, chunk by chunk: on a frames-per-token gate
+        failure, with a `win_len` for a vocoder that cannot cut windows on
+        the device (`HiFiGAN`, `Vocos`), or for one without `compiled_infer`,
+        as the JAX package does.  The one-launch path needs the vocoder's
+        `device_vocoder_fn`."""
         win_len = kwargs.pop('win_len', None) or vocoder_config.get('win_len')
-        if len(encoded) == 1 and not win_len:
+        if win_len and not hasattr(vocoder, 'vocode_windowed_from_device'):
+            return None
+        if not hasattr(vocoder, 'compiled_infer'):
+            return None
+        if len(encoded) == 1 and not win_len and hasattr(vocoder, 'device_vocoder_fn'):
             return self._tts_one_launch(
                 encoded, vocoder, max_length = max_length, min_fpt_ratio = min_fpt_ratio,
                 max_fpt_ratio = max_fpt_ratio, vocoder_config = vocoder_config,
@@ -766,20 +775,24 @@ class Tacotron2(TrainableModel, BaseModel):
     def _vocode_chunks(self, vocoder, mels, *, batch_chunks = True, vocoder_batch = None,
                        ** kwargs):
         """Vocode chunk mels: with a `win_len`, every chunk's windows in
-        shared batches (`vocode_windowed_batch`; `vocoder_batch` None: the
-        vocoder's own policy), or chunk by chunk without `batch_chunks`;
-        else in padded sub-batches of `vocoder_batch` when their lengths are
-        close (bounded padding waste), or one by one."""
+        shared batches (`vocode_windowed_batch`, where the vocoder has it;
+        `vocoder_batch` None: the vocoder's own policy), or chunk by chunk
+        without `batch_chunks`; else in padded sub-batches of
+        `vocoder_batch` when their lengths are close (bounded padding
+        waste), or one by one (a vocoder that returns one waveform for a 2-D
+        mel gives it as it is)."""
         for k in _DECODE_ONLY:
             kwargs.pop(k, None)
-        if len(mels) > 1 and batch_chunks and kwargs.get('win_len'):
+        if len(mels) > 1 and batch_chunks and kwargs.get('win_len') \
+                and hasattr(vocoder, 'vocode_windowed_batch'):
             return vocoder.vocode_windowed_batch(
                 mels, pad_value = self.pad_mel_value, vocoder_batch = vocoder_batch, ** kwargs)
         if vocoder_batch is None: vocoder_batch = 8
         use_batch = (len(mels) > 1 and batch_chunks and kwargs.get('win_len') is None
                      and min(m.shape[0] for m in mels) >= max(m.shape[0] for m in mels) // 2)
         if not use_batch:
-            return [vocoder(mel, ** kwargs)[0] for mel in mels]
+            audios = [np.asarray(vocoder(mel, ** kwargs)) for mel in mels]
+            return [audio[0] if audio.ndim == 2 else audio for audio in audios]
         rate = vocoder.upsample_rate
         audios = []
         for start in range(0, len(mels), vocoder_batch):

@@ -40,13 +40,16 @@ def _same_pads(width, dilation, stride = 1, length = 1):
     return total // 2, total - total // 2
 
 
-def conv1d(params, x, *, stride = 1, padding = 'SAME', dilation = 1):
-    """x: (B, T, C_in) → (B, T', C_out); `padding` 'SAME' (XLA's rule) or 'VALID'."""
+def conv1d(params, x, *, stride = 1, padding = 'SAME', dilation = 1, groups = 1):
+    """x: (B, T, C_in) → (B, T', C_out); `padding` 'SAME' (XLA's rule) or
+    'VALID'; ``groups = C_in`` is a depthwise conv (weight (C, 1, W), the JAX
+    ``feature_group_count``)."""
     weight = params['weight']
     h = x.transpose(1, 2)
     if padding.upper() == 'SAME':
         h = F.pad(h, _same_pads(weight.shape[2], dilation, stride, h.shape[2]))
-    y = F.conv1d(h, weight, params.get('bias'), stride = stride, dilation = dilation)
+    y = F.conv1d(h, weight, params.get('bias'), stride = stride, dilation = dilation,
+                 groups = groups)
     return y.transpose(1, 2)
 
 
@@ -160,6 +163,11 @@ def layer_norm(params, x, epsilon = 1e-5):
     var = ((x32 - mean32) ** 2).mean(dim = -1, keepdim = True).to(x.dtype)
     return (x - mean32.to(x.dtype)) * torch.rsqrt(var + epsilon) * params['weight'] \
         + params['bias']
+
+
+def gelu(x):
+    """``jax.nn.gelu``'s default, the tanh approximation."""
+    return F.gelu(x, approximate = 'tanh')
 
 
 def dropout(x, rate, *, generator = None):

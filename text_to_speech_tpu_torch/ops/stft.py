@@ -5,9 +5,23 @@ Counterpart of ``text_to_speech_tpu/ops/stft.py`` (its forward path):
 (reflect-padded frames, a periodic Hann window centred in the frame, rFFT,
 magnitude and phase: ``torch.stft(center=True, pad_mode='reflect')``'s
 magnitudes), `MelSTFT` with its config round trip (``mel_fn.json``) and
-registry, and `TacotronSTFT` (log of the mel magnitudes clamped at 1e-5).
+registry, `TacotronSTFT` (log of the mel magnitudes clamped at 1e-5) and
+`WhisperSTFT` (log10 mel, dynamic range 8, scaled to about [-1, 1]).
 A call computes on the device of the audio tensor it is given (the CPU for
-numpy input).  The inverse (Griffin-Lim) and `WhisperSTFT` are not ported.
+numpy input).
+
+The inverse half follows the JAX formula, not `torch.istft`:
+`STFT._raw_inverse` maps (magnitude, phase) to frames through the
+pseudo-inverse of the windowed Fourier basis (made once, at first use) and
+overlap-adds them, as ``flen / hop`` shifted adds when the hop divides the
+frame and frame by frame otherwise, then crops the centre padding;
+`inverse_transform` divides by the envelope of the inverse of
+``transform(ones)``, floored at 1e-4, which holds the overlap factor and
+the taper at the edges (kept per length and device).  `griffin_lim`,
+`mel_to_linear` and `TacotronSTFT.inverse` build the weights-free
+vocoder on it; the initial phase comes from a `torch.Generator` (or is
+given), not from ``jax.random``.  The mel scale is Slaney's by default,
+HTK's with ``htk=True``.
 """
 
 import json
@@ -19,9 +33,12 @@ import torch
 import torch.nn.functional as F
 
 
-def hz_to_mel(frequencies):
-    """The Slaney mel scale: linear below 1 kHz, logarithmic above."""
+def hz_to_mel(frequencies, htk = False):
+    """The Slaney mel scale (linear below 1 kHz, logarithmic above), or the
+    HTK one."""
     frequencies = np.asanyarray(frequencies, dtype = np.float64)
+    if htk:
+        return 2595.0 * np.log10(1.0 + frequencies / 700.0)
     f_min, f_sp = 0.0, 200.0 / 3
     mels = (frequencies - f_min) / f_sp
     min_log_hz = 1000.0
@@ -35,8 +52,10 @@ def hz_to_mel(frequencies):
     return mels
 
 
-def mel_to_hz(mels):
+def mel_to_hz(mels, htk = False):
     mels = np.asanyarray(mels, dtype = np.float64)
+    if htk:
+        return 700.0 * (10.0 ** (mels / 2595.0) - 1.0)
     f_min, f_sp = 0.0, 200.0 / 3
     freqs = f_min + f_sp * mels
     min_log_hz = 1000.0
@@ -50,18 +69,21 @@ def mel_to_hz(mels):
     return freqs
 
 
-def mel_filterbank(sr, n_fft, n_mels = 80, fmin = 0.0, fmax = None):
-    """Triangular Slaney-normalized mel filterbank, ``(n_mels, 1 + n_fft // 2)``."""
+def mel_filterbank(sr, n_fft, n_mels = 80, fmin = 0.0, fmax = None, htk = False,
+                   norm = 'slaney'):
+    """Triangular mel filterbank, ``(n_mels, 1 + n_fft // 2)``, Slaney-normalized
+    unless `norm` is None."""
     if fmax is None: fmax = sr / 2.0
     fftfreqs = np.linspace(0.0, sr / 2.0, 1 + n_fft // 2)
-    mel_pts = np.linspace(hz_to_mel(fmin), hz_to_mel(fmax), n_mels + 2)
-    hz_pts = mel_to_hz(mel_pts)
+    mel_pts = np.linspace(hz_to_mel(fmin, htk), hz_to_mel(fmax, htk), n_mels + 2)
+    hz_pts = mel_to_hz(mel_pts, htk)
     fdiff = np.diff(hz_pts)
     ramps = hz_pts[:, None] - fftfreqs[None, :]
     lower = -ramps[:-2] / fdiff[:-1, None]
     upper = ramps[2:] / fdiff[1:, None]
     weights = np.maximum(0.0, np.minimum(lower, upper))
-    weights *= (2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels]))[:, None]
+    if norm == 'slaney':
+        weights *= (2.0 / (hz_pts[2: n_mels + 2] - hz_pts[:n_mels]))[:, None]
     return weights.astype(np.float32)
 
 
@@ -72,12 +94,14 @@ def hann_window(win_length, periodic = True):
 
 
 class STFT:
-    """Short-time Fourier transform: reflect-padded windowed frames + rFFT."""
+    """Short-time Fourier transform: reflect-padded windowed frames + rFFT,
+    and its inverse."""
 
     def __init__(self, filter_length = 800, hop_length = 200, win_length = 800,
                  window = 'hann', periodic = True):
         self.filter_length = filter_length
         self.hop_length = hop_length
+        self.cutoff = filter_length // 2 + 1
         if window is not None:
             assert filter_length >= win_length
             if window == 'hann':
@@ -89,7 +113,24 @@ class STFT:
             win = np.pad(win, (pad // 2, pad - pad // 2))
         else:
             win = np.ones((filter_length,), dtype = np.float64)
+        self._window = win
         self.fft_window = win.astype(np.float32)
+        self._inverse_basis = None
+        self._envelopes = {}
+
+    @property
+    def inverse_basis(self):
+        """(filter_length, 2 cutoff) float32: the pseudo-inverse of the
+        scaled [real; imaginary] Fourier basis, windowed, as the JAX
+        package makes it (float64 numpy, once)."""
+        if self._inverse_basis is None:
+            fourier = np.fft.fft(np.eye(self.filter_length))
+            scale = self.filter_length / self.hop_length
+            inv = np.linalg.pinv(scale * np.vstack([np.real(fourier[:self.cutoff]),
+                                                    np.imag(fourier[:self.cutoff])]))
+            inv = inv * self._window[:, None]
+            self._inverse_basis = np.ascontiguousarray(inv.astype(np.float32))
+        return self._inverse_basis
 
     def frame(self, audio):
         """(B, T) float32 → windowed frames (B, n_frames, filter_length)."""
@@ -103,6 +144,72 @@ class STFT:
         spec = torch.fft.rfft(self.frame(audio), dim = -1)
         real, imag = spec.real, spec.imag
         return torch.sqrt(real ** 2 + imag ** 2), torch.atan2(imag, real)
+
+    def _raw_inverse(self, magnitude, phase):
+        """(magnitude, phase) (B, frames, cutoff) → (B, (frames - 1) * hop):
+        frames through the inverse basis, overlap-added, the centre padding
+        cropped."""
+        spec = torch.cat([magnitude * torch.cos(phase), magnitude * torch.sin(phase)], dim = -1)
+        basis = torch.from_numpy(self.inverse_basis).to(spec.device)
+        frames = spec @ basis.T                                  # (B, frames, flen)
+        batch, n_frames, flen = frames.shape
+        hop = self.hop_length
+        out_len = (n_frames - 1) * hop + flen
+        if flen % hop == 0:
+            # k = flen / hop shifted adds: piece j of frame f lands in slot f + j
+            k = flen // hop
+            pieces = frames.reshape(batch, n_frames, k, hop)
+            slots = frames.new_zeros((batch, n_frames + k - 1, hop))
+            for j in range(k):
+                slots[:, j: j + n_frames] += pieces[:, :, j]
+            audio = slots.reshape(batch, out_len)
+        else:
+            audio = frames.new_zeros((batch, out_len))
+            for i in range(n_frames):
+                audio[:, i * hop: i * hop + flen] += frames[:, i]
+        pad = self.filter_length // 2
+        return audio[:, pad: -pad]
+
+    def _envelope(self, n_samples, device):
+        """``_raw_inverse(transform(ones))`` of `n_samples`, kept per length
+        and device."""
+        key = (n_samples, str(device))
+        if key not in self._envelopes:
+            ones = torch.ones((1, n_samples), device = device)
+            self._envelopes[key] = self._raw_inverse(* self.transform(ones))
+        return self._envelopes[key]
+
+    def inverse_transform(self, magnitude, phase):
+        """Overlap-add reconstruction from magnitude and phase, divided by
+        the window envelope (the inverse of the transform of ones) floored
+        at 1e-4."""
+        audio = self._raw_inverse(magnitude, phase)
+        env = self._envelope(audio.shape[1], audio.device)
+        return audio / torch.clamp(torch.abs(env), min = 1e-4)
+
+
+def griffin_lim(magnitudes, stft, *, n_iters = 32, generator = None, phase = None):
+    """Phase reconstruction from STFT `magnitudes` (B, frames, cutoff) →
+    waveform (B, T): from `phase` when given, else a uniform draw in
+    [-pi, pi) from `generator`, then `n_iters` rounds of inverse and forward
+    transform."""
+    if phase is None:
+        phase = (torch.rand(magnitudes.shape, generator = generator,
+                            device = magnitudes.device) * 2. - 1.) * math.pi
+    audio = stft.inverse_transform(magnitudes, phase)
+    for _ in range(n_iters):
+        _, phase = stft.transform(audio)
+        audio = stft.inverse_transform(magnitudes, phase)
+    return audio
+
+
+def mel_to_linear(mel, mel_basis, *, log_compressed = True, clip_val = 1e-5):
+    """Linear magnitudes from a (log-)mel (B, T, n_mels) through the
+    pseudo-inverse of `mel_basis` (cutoff, n_mels), clipped at 0."""
+    if log_compressed:
+        mel = torch.exp(mel)
+    pinv = np.linalg.pinv(np.asarray(mel_basis, np.float64)).astype(np.float32)
+    return torch.clamp(mel @ torch.from_numpy(pinv).to(mel.device), min = 0.)
 
 
 class MelSTFT:
@@ -219,8 +326,38 @@ class TacotronSTFT(MelSTFT):
         mel = magnitudes @ torch.from_numpy(self.mel_basis).to(magnitudes.device)
         return self.normalize(self.spectral_normalize(mel))
 
+    def inverse(self, mel, *, n_iters = 32, generator = None, phase = None):
+        """An approximate waveform from a log-mel (filterbank pseudo-inverse,
+        then Griffin-Lim): the weights-free vocoder."""
+        mel = torch.as_tensor(mel, dtype = torch.float32)
+        if mel.ndim == 2: mel = mel[None]
+        linear = mel_to_linear(mel, self.mel_basis)
+        return griffin_lim(linear, self.stft_fn, n_iters = n_iters, generator = generator,
+                           phase = phase)
+
     def get_config(self):
         return {** super().get_config(), 'window': self.window, 'periodic': self.periodic}
 
 
-_mel_classes = {'MelSTFT': MelSTFT, 'TacotronSTFT': TacotronSTFT}
+class WhisperSTFT(TacotronSTFT):
+    """Whisper's log10-mel (16 kHz, 400/160/400), dynamic-range compressed
+    to about [-1, 1]."""
+
+    def __init__(self, sampling_rate = 16000, n_mel_channels = 80, *, win_length = 400,
+                 hop_length = 160, filter_length = 400, mel_fmin = 0.0, mel_fmax = 8000.0,
+                 ** kwargs):
+        super().__init__(sampling_rate = sampling_rate, n_mel_channels = n_mel_channels,
+                         win_length = win_length, hop_length = hop_length,
+                         filter_length = filter_length, mel_fmin = mel_fmin,
+                         mel_fmax = mel_fmax, ** kwargs)
+
+    def mel_spectrogram(self, audio):
+        magnitudes, _ = self.stft_fn.transform(audio)
+        magnitudes = torch.abs(magnitudes[:, :-1])
+        mel = magnitudes @ torch.from_numpy(self.mel_basis).to(magnitudes.device)
+        mel = torch.log10(torch.clamp(mel, min = 1e-10))
+        mel = torch.maximum(mel, mel.amax(dim = (1, 2), keepdim = True) - 8.0)
+        return (mel + 4.0) / 4.0
+
+
+_mel_classes = {'MelSTFT': MelSTFT, 'TacotronSTFT': TacotronSTFT, 'WhisperSTFT': WhisperSTFT}

@@ -3,10 +3,13 @@
 The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
 flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
 them without JAX.  `convert_tree` (FastSpeech-2's params and state),
-`tacotron2_from_jax`, `waveglow_from_jax` and `audio_encoder_from_jax` turn
-those trees (nested dicts of numpy arrays) into nested dicts of torch
-tensors in the layouts `nn.layers` takes (`tree_to_jax` and the
-``*_to_jax`` functions go back):
+`tree_from_jax` (HiFi-GAN, Vocos and VITS: `convert_tree` with the
+transposed convs under the key ``up``), `tacotron2_from_jax`,
+`waveglow_from_jax` and `audio_encoder_from_jax` turn those trees (nested
+dicts of numpy arrays) into nested dicts of torch tensors in the layouts
+`nn.layers` takes (`tree_to_jax` and the ``*_to_jax`` functions go back;
+a bare array, such as VITS's relative tables or Vocos's layer scale, stays
+an array):
 
   - conv ``kernel (W, in, out)``           → ``weight (out, in, W)``
   - conv-transpose ``kernel (W, in, out)`` → ``weight (in, out, W)``, taps
@@ -108,6 +111,17 @@ def conv_transpose_from_jax(node):
     return out
 
 
+def tree_from_jax(tree, transposed = ('up',)):
+    """`convert_tree`, with the layer dicts under a key in `transposed` taken
+    as transposed convs (`conv_transpose_from_jax`): the trees of HiFi-GAN,
+    Vocos and VITS, whose generator stages hold one under ``up``."""
+    if not isinstance(tree, dict):
+        return _tensor(tree)
+    return {k: conv_transpose_from_jax(v) if k in transposed else tree_from_jax(v, transposed)
+            for k, v in tree.items()} \
+        if any(isinstance(v, dict) for v in tree.values()) else convert_tree(tree)
+
+
 def tacotron2_from_jax(params, state):
     """JAX Tacotron-2 (params, state) trees → the port's (params, state)."""
     return convert_tree(params), convert_tree(state)
@@ -164,12 +178,31 @@ def _node_to_jax(name, node):
     return _conv_to_jax(node)
 
 
-def tree_to_jax(tree, name = ''):
-    """The inverse of `convert_tree` for the layer dicts of Tacotron-2,
-    FastSpeech-2 and WaveGlow's coupling blocks (numpy float32)."""
-    if tree and all(not isinstance(v, dict) for v in tree.values()):
+def _conv_transpose_to_jax(node):
+    """The inverse of `conv_transpose_from_jax`."""
+    weight = _array(node['weight'])                             # (in, out, W)
+    out = {'kernel': np.ascontiguousarray(np.transpose(weight, (2, 0, 1))[::-1])}
+    if 'bias' in node: out['bias'] = _array(node['bias'])
+    return out
+
+
+_LAYER_KEYS = ('weight', 'weight_hh', 'running_mean')
+
+
+def tree_to_jax(tree, name = '', transposed = ()):
+    """The inverse of `convert_tree` (numpy float32) for the trees of
+    Tacotron-2, FastSpeech-2 and WaveGlow's coupling blocks, and, with
+    ``transposed=('up',)``, of `tree_from_jax` (HiFi-GAN, Vocos, VITS): a
+    bare tensor becomes an array, the layer dicts under a key in
+    `transposed` transposed convs."""
+    if torch.is_tensor(tree):
+        return _array(tree)
+    if name in transposed:
+        return _conv_transpose_to_jax(tree)
+    if tree and all(not isinstance(v, dict) for v in tree.values()) \
+            and any(k in tree for k in _LAYER_KEYS):
         return _node_to_jax(name, tree)
-    return {k: tree_to_jax(v, k) for k, v in tree.items()}
+    return {k: tree_to_jax(v, k, transposed) for k, v in tree.items()}
 
 
 def waveglow_to_jax(params):
@@ -180,10 +213,7 @@ def waveglow_to_jax(params):
     out = {}
     for name, value in params.items():
         if name == 'upsample':
-            weight = _array(value['weight'])                   # (in, out, W)
-            node = {'kernel': np.ascontiguousarray(np.transpose(weight, (2, 0, 1))[::-1])}
-            if 'bias' in value: node['bias'] = _array(value['bias'])
-            out[name] = node
+            out[name] = _conv_transpose_to_jax(value)
         else:
             block = {k: v for k, v in value['block'].items()
                      if k not in ('packed', 'packed_q')}
