@@ -4,10 +4,14 @@ NVIDIA width of Tacotron-2 and WaveGlow with random weights (also imported
 from NVIDIA-layout checkpoints, and with FastSpeech-2 in the Tacotron-2's
 place), train WaveGlow at that width, train the synthesizers (Tacotron-2
 and SV2TTS by teacher forcing, FastSpeech-2 distilled from the trained
-Tacotron-2, the speaker encoder by GE2E) and serve the trained ones, and
-clone a voice from the trained Tacotron-2 and fine-tune it on a corpus.
+Tacotron-2, the speaker encoder by GE2E) and serve the trained ones,
+clone a voice from the trained Tacotron-2 and fine-tune it on a corpus, and
+serve the other families (HiFi-GAN and Vocos behind Tacotron-2, VITS and
+SV2TTS-VITS) imported from seeded state dicts in their published layouts.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase families   # the build, the device line and
+                                             # that phase alone, no result line
 
 Phases, one JSON line each:
   device   the card (nvidia-smi), the kernels' build time and ptxas report,
@@ -80,6 +84,25 @@ Phases, one JSON line each:
            from the cache with no kernel launch; `stream()` over a queue of
            three texts into a `QueueCallback`: order and launches (the two
            `precompile_for_stream` texts included);
+  families the other families at their published widths, seeded: HiFi-GAN
+           V1 and Vocos, each imported by `from_torch_pretrained` from a
+           state dict in its official layout (HiFi-GAN weight-normed) and
+           equal to the bit to the same weights made in memory and to the
+           model reloaded by name, behind the NVIDIA-width Tacotron-2: one
+           256-frame sentence through `tts()` (4 K3, no K1 / K2: the
+           one-launch path with the vocoder's `device_vocoder_fn`), for
+           HiFi-GAN also a batch of four and `win_len=128` (the sequential
+           path, each whole mel vocoded): total, decode and vocode ms, RTF;
+           the vocode of a 256-frame mel (CUDA events); a 64-frame mel on
+           the card against the port on the CPU (1e-4 of scale).  VITS at
+           the LJSpeech release's widths (use_sdp), imported from its seeded
+           `SynthesizerTrn` dict: `tts()` of one sentence and of four (no
+           launch), `d_control` scaling the random durations to ~256
+           frames; the forward (CUDA events); at noise 0 the card against
+           the CPU (durations equal or apart by one on a tie, the waveform
+           within 1e-4 of scale on the rows that agree) and bfloat16 against
+           the card's float32 (1e-1); SV2TTS-VITS (`create`, a 256-wide
+           embedding) cloning one sentence from a saved table by label;
   sv2tts   voice cloning at NVIDIA width (random seeded weights, a 256-wide
            speaker embedding): the speaker encoder at its defaults, saved and
            loaded by name, embeds four clips of 1-3 s at 16 kHz and a WAV at
@@ -171,8 +194,8 @@ Phases, one JSON line each:
            the best epoch's `tts()` with the held-out speaker (K3 >= 1, 12
            K1), its K3 against the plain version and K1 at the (B, T) its
            vocoder call got; MCD and mel SNR of its teacher-forced mels.
-The files of the sv2tts, nvidia_import, fastspeech2, training and transfer
-phases go in one temporary directory, removed when they end (the transfer
+The files of the families, sv2tts, nvidia_import, fastspeech2, training and
+transfer phases go in one temporary directory, removed when they end (the transfer
 phase's own root when it ends).  Then the kernel summary, the
 card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
@@ -2162,6 +2185,177 @@ def fastspeech2_phase(vocoder, root):
     return runs, shapes
 
 
+def _card_vs_cpu_rel(card, cpu):
+    """max |card - cpu| / max |cpu| (float32 on both sides, TF32 off)."""
+    card, cpu = card.float().cpu(), cpu.float().cpu()
+    return float((card - cpu).abs().max()) / float(cpu.abs().max())
+
+
+def _vocoder_checks(name, cls, sd, config_fn, convert, root, model, runs):
+    """One of the phase's vocoders: imported from its seeded published-layout
+    dict by `from_torch_pretrained` (saved under `root`), reloaded by name,
+    and the same weights made in memory through the JAX tree; one sentence
+    through `tts()` (4 K3, no WN kernel) after a warm-up; the vocode of a
+    256-frame mel (CUDA events); one 64-frame mel on the card against the
+    port on the CPU.  Returns (vocoder, the `tts()` options, the expected
+    launches, the record)."""
+    from text_to_speech_tpu_torch.models import get_pretrained
+    from text_to_speech_tpu_torch.models.tts_checkpoints import remove_torch_weight_norm
+
+    start = time.perf_counter()
+    vocoder = cls.from_torch_pretrained(sd, name = name, root = root, device = 'cuda')
+    import_ms = 1e3 * (time.perf_counter() - start)
+    folded = remove_torch_weight_norm(sd)
+    seeded = cls.from_jax(convert(folded), device = 'cuda', root = root, ** config_fn(folded))
+    by_name = get_pretrained(name, root = root, device = 'cuda')
+    mel = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 256, 80))
+                           .astype(np.float32) - 5.).cuda()
+    with torch.no_grad():
+        want = seeded.compiled_infer(mel)
+        imported_err = max(float((vocoder.compiled_infer(mel) - want).abs().max()),
+                           float((by_name.compiled_infer(mel) - want).abs().max()))
+    check(imported_err == 0., '{}: the imported vocoder differs from the seeded one by {}'
+          .format(name, imported_err))
+    vocode_ms = time_ms(lambda: vocoder.compiled_infer(mel), reps = 5)
+    cpu = cls.from_jax(convert(folded), device = 'cpu', ** config_fn(folded))
+    with torch.no_grad():
+        card_cpu = _card_vs_cpu_rel(vocoder.compiled_infer(mel[:, :64]),
+                                    cpu.compiled_infer(mel[:, :64].cpu()))
+    check(card_cpu <= 1e-4, '{}: card vs CPU {}'.format(name, card_cpu))
+    one = dict(wn_block = 0, wn_block_int8 = 0, wn_layer = 0, decoder_steps = 256 // 64)
+    kw = dict(model = model, vocoder = vocoder, max_length = 256, min_fpt_ratio = 0.,
+              max_fpt_ratio = 1e9, save = False, display = False)
+    _drive_counted(runs, name + '_one_sentence', SENTENCES[0], one, ** kw)
+    return vocoder, kw, one, {'import_ms': import_ms, 'vocode_ms_256_frames': vocode_ms,
+                              'imported_vs_seeded_max_abs': imported_err,
+                              'card_vs_cpu_rel_64_frames': card_cpu, 'tolerance_rel': 1e-4}
+
+
+def _vits_durations_check(card, cpu, pre):
+    """VITS's durations card against CPU: equal, or apart by one where the
+    value before `ceil` is within 1e-5 of an integer; returns (rows where
+    every duration agrees, the number moved)."""
+    durations, ref = card.durations.cpu(), cpu.durations
+    moved = durations != ref
+    if bool(moved.any()):
+        ties = float((pre[moved] - torch.round(pre[moved])).abs().max())
+        check(ties <= 1e-5 and int((durations - ref).abs().max()) <= 1,
+              'VITS durations differ off a tie: {}'.format(ties))
+    return ~moved.any(dim = 1), int(moved.sum())
+
+
+def families_phase(model, root):
+    """The other families at their published widths, seeded weights: HiFi-GAN
+    V1 and Vocos behind the NVIDIA-width Tacotron-2 (K3 decodes, no WN
+    kernel), VITS (use_sdp, the LJSpeech release's layout) and SV2TTS-VITS
+    (a 256-wide embedding), each imported or made under `root`.  Returns the
+    runs."""
+    from text_to_speech_tpu_torch import tts
+    from text_to_speech_tpu_torch.init import (
+        hifigan_state_dict, vits_state_dict, vocos_state_dict)
+    from text_to_speech_tpu_torch.models.tts import HiFiGAN, SV2TTSVITS, VITS, Vocos
+    from text_to_speech_tpu_torch.models.tts_checkpoints import (
+        convert_hifigan, convert_vocos, hifigan_config_from_state_dict,
+        vocos_config_from_state_dict)
+    from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
+
+    phase_start = time.perf_counter()
+    runs, out = {}, {}
+    # HiFi-GAN V1: one sentence, a batch of four, win_len=128 (the sequential
+    # path, which vocodes each whole mel)
+    hifigan, kw, one, out['hifigan'] = _vocoder_checks(
+        'hifigan', HiFiGAN, hifigan_state_dict(21), hifigan_config_from_state_dict,
+        convert_hifigan, root, model, runs)
+    _drive_counted(runs, 'hifigan_batch_of_4', SENTENCES, one, batch_size = 4, ** kw)
+    _drive_counted(runs, 'hifigan_win_len_128', SENTENCES[0], one, win_len = 128, ** kw)
+    _, _, _, out['vocos'] = _vocoder_checks(
+        'vocos', Vocos, vocos_state_dict(22), vocos_config_from_state_dict, convert_vocos,
+        root, model, runs)
+
+    # VITS at the HParamsVITS widths, the official LJSpeech layout (use_sdp)
+    start = time.perf_counter()
+    vits = VITS.from_torch_pretrained(vits_state_dict(23, vocab_size = len(en_symbols)),
+                                      name = 'vits', root = root, device = 'cuda',
+                                      tokenizer = default_english_tokenizer())
+    import_ms = 1e3 * (time.perf_counter() - start)
+    check(vits.arch.hp.use_sdp and vits.arch.hp.hidden_channels == 192
+          and vits.upsample_rate == 256, 'imported VITS: {}'.format(vits.arch.hp))
+    tokens = vits.encode_text(SENTENCES[0])
+    deterministic = dict(max_length = 10., noise_scale = 0., noise_scale_w = 0.)
+    # d_control scales the random predictor's durations to ~256 frames a sentence
+    base = int(vits.compiled_infer(tokens, ** deterministic).lengths[0])
+    d_control = 256. / max(base, 1)
+    none = dict(wn_block = 0, wn_block_int8 = 0, wn_layer = 0, decoder_steps = 0)
+
+    def drive_vits(name, texts, model, ** extra):
+        kw = dict(model = model, d_control = d_control, save = False, display = False, ** extra)
+        tts(texts, ** kw)
+        torch.cuda.synchronize()
+        reset_launches()
+        start = time.perf_counter()
+        outputs = tts(texts, ** kw)
+        total_s = time.perf_counter() - start
+        launches = read_launches()
+        check(launches == none, '{}: launches {}'.format(name, launches))
+        audio_s = sum(o['time'] for o in outputs)
+        check(all(np.isfinite(o['audio']).all() and o['audio'].size > 0 for o in outputs),
+              '{}: output'.format(name))
+        runs[name] = {'texts': len(outputs), 'samples': [int(o['audio'].size) for o in outputs],
+                      'total_ms': 1e3 * total_s,
+                      'latent_ms': 1e3 * model.last_timings['decode_s'],
+                      'generator_ms': 1e3 * model.last_timings['vocode_s'],
+                      'audio_s': audio_s, 'rtf': audio_s / total_s, 'launches': launches}
+    drive_vits('vits_one_sentence', SENTENCES[0], vits)
+    drive_vits('vits_batch_of_4', SENTENCES, vits, batch_size = 4)
+
+    # deterministic at the phase's d_control, card against CPU; then
+    # bfloat16 against the card's float32
+    deterministic['d_control'] = d_control
+    cpu_vits = VITS.from_jax(vits.jax_trees()['params'], device = 'cpu',
+                             tokenizer = default_english_tokenizer(), ** vits.arch.get_config())
+    card = vits.compiled_infer(tokens, ** deterministic)
+    cpu = cpu_vits.compiled_infer(tokens, ** deterministic)
+    with torch.no_grad():
+        arch, params = cpu_vits.arch, cpu_vits.params
+        tok = torch.full((1, cpu.attention_weights.shape[2]), cpu_vits.blank_token_idx)
+        tok[0, :len(tokens)] = torch.as_tensor(tokens)
+        h, _, _, valid = arch.encode_text(params, tok)
+        pre = torch.exp(arch.sdp_sample(params, h, valid, noise_scale_w = 0.)) * valid \
+            * d_control
+    rows, moved = _vits_durations_check(card, cpu, pre)
+    vits_err = _card_vs_cpu_rel(card.audio[rows.cuda()], cpu.audio[rows]) \
+        if bool(rows.any()) else None
+    check(vits_err is None or vits_err <= 1e-4, 'VITS card vs CPU: {}'.format(vits_err))
+    bf16 = vits.compiled_infer(tokens, dtype = torch.bfloat16, ** deterministic)
+    bf16_rows = (bf16.durations == card.durations).all(dim = 1)
+    bf16_err = _card_vs_cpu_rel(bf16.audio[bf16_rows], card.audio[bf16_rows]) \
+        if bool(bf16_rows.any()) else None
+    check(bool(torch.isfinite(bf16.audio).all()) and (bf16_err is None or bf16_err <= 1e-1),
+          'VITS bfloat16 vs float32: {}'.format(bf16_err))
+    forward_ms = time_ms(lambda: vits.compiled_infer(tokens, d_control = d_control), reps = 5)
+    out['vits'] = {'import_ms': import_ms, 'tokens': len(tokens), 'd_control': d_control,
+                   'frames_at_d_control_1': base, 'forward_ms': forward_ms,
+                   'card_vs_cpu': {'durations_moved': moved, 'rel_err': vits_err,
+                                   'tolerance_rel': 1e-4},
+                   'bfloat16_vs_float32': {'durations_moved': int((bf16.durations
+                                                                   != card.durations).sum()),
+                                           'rel_err': bf16_err, 'tolerance_rel': 1e-1}}
+
+    # SV2TTS-VITS: one sentence cloned from a saved table of 256-wide embeddings
+    config = {k: v for k, v in vits.arch.get_config().items()
+              if k not in ('vocab_size', 'pad_token', 'spec_channels')}
+    clone = SV2TTSVITS.create(name = 'sv2tts_vits', root = root, device = 'cuda', seed = 24,
+                              embedding_dim = 256, ** config)
+    emb = np.random.default_rng(25).standard_normal((4, 256)).astype(np.float32)
+    emb /= np.linalg.norm(emb, axis = 1, keepdims = True)
+    table = clone.save_embeddings('speakers.npz', emb, speaker = ['a', 'b', 'a', 'b'])
+    drive_vits('sv2tts_vits_one_sentence', SENTENCES[0], clone, embeddings = table,
+               mode = 'label', label = 'a')
+    emit({'phase': 'families', ** out, 'runs': runs,
+          'phase_s': time.perf_counter() - phase_start})
+    return runs
+
+
 # the text of the in-repo WAVs (examples/overfit_single_utterance.py)
 TRAIN_TEXT = 'the birch canoe slid on the smooth planks of the lake.'
 
@@ -2809,6 +3003,12 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
         return 1
+    # `--phase families`: the build, the device line and that phase alone
+    # (no kernel summary, no result line)
+    only = sys.argv[sys.argv.index('--phase') + 1] if '--phase' in sys.argv else None
+    if only not in (None, 'families'):
+        print('unknown phase {!r}'.format(only), file = sys.stderr)
+        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from text_to_speech_tpu_torch.init import random_tts_models
@@ -2834,6 +3034,11 @@ def main():
     # `HParamsWaveGlow` defaults), the stop gate biased off
     model, vocoder = random_tts_models('cuda', seed = 1)
     setup_s = time.perf_counter() - start
+    if only == 'families':
+        with tempfile.TemporaryDirectory(prefix = 'chip_smoke_') as scratch:
+            families_phase(model, scratch)
+        print(smi, flush = True)
+        return 0
 
     wn_cases = wn_block_phase()
     wn8_cases = wn_block_int8_phase()
@@ -2846,6 +3051,7 @@ def main():
     # the checkpoints and predictions of these phases go when they end
     with tempfile.TemporaryDirectory(prefix = 'chip_smoke_') as scratch:
         root = lambda name: tempfile.mkdtemp(prefix = name + '_', dir = scratch)
+        family_runs = families_phase(model, root('families'))
         sv2tts_cases, sv2tts_runs = sv2tts_phase(vocoder, root('sv2tts'))
         nvidia_cases, nvidia_runs, nvidia_vocoder = nvidia_import_phase(root('nvidia'))
         fs2_runs, fs2_shapes = fastspeech2_phase(nvidia_vocoder, root('fastspeech2'))
@@ -2919,6 +3125,12 @@ def main():
                 launches = launches('decoder_steps')),
         # SV2TTS: D = 768 and a non-zero prenet addend; launches of one
         # sentence cloned from reference audio
+        # Tacotron-2 + HiFi-GAN V1: K3 at the same widths and shape; launches
+        # of one sentence through `tts()` (the one-launch route, no WN kernel)
+        summary(dec_cases['float32_B1_S64_dropout'], name = 'decoder_steps (Tacotron-2 + HiFi-GAN)',
+                route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = family_runs['hifigan_one_sentence']['launches']['decoder_steps']),
         summary(sv2tts_cases['float32_B1_S64_dropout'], name = 'decoder_steps (SV2TTS, D=768)',
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
                 replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',

@@ -28,7 +28,6 @@ import torch
 from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, module)
 
 import jax
-import jax.numpy as jnp
 from text_to_speech_tpu.models import get_pretrained as jax_get_pretrained, saving
 from text_to_speech_tpu.models import tts_checkpoints as jax_checkpoints
 from text_to_speech_tpu.models.hifigan_arch import HiFiGAN as JaxHiFiGAN
@@ -57,10 +56,6 @@ VITS_BASE = dict(vocab_size = 40, spec_channels = 33, inter_channels = 8, hidden
                  resblock_dilation_sizes = ((1, 3, 5),), max_frames = 64)
 VITS_SDP = dict(VITS_BASE, use_sdp = True, sdp_filter_channels = 16, sdp_n_flows = 2,
                 sdp_dds_layers = 2, sdp_n_bins = 4, n_speakers = 3, gin_channels = 8)
-
-
-def _np(tree):
-    return {k: _np(v) if isinstance(v, dict) else np.asarray(v) for k, v in tree.items()}
 
 
 def _assert_trees_equal(got, want, path = ''):
@@ -289,6 +284,21 @@ def test_init_trees_match_jax(name):
     got = jax.tree_util.tree_map(lambda a: (a.shape, a.dtype), ours)
     want = jax.tree_util.tree_map(lambda a: (a.shape, np.dtype(a.dtype)), shapes)
     assert got == want
+
+
+@pytest.mark.parametrize('name', ['hifigan', 'vocos', 'vits', 'HiFiGAN', 'tacotron2',
+                                  'sv2tts_tacotron2', 'waveglow', 'fastspeech2',
+                                  'audio_encoder'])
+def test_architecture_names_resolve_as_in_jax(name):
+    """`models.registry.get_architecture`: the JAX package's names (case
+    blind), each to the port's class of the same name and hparams."""
+    from text_to_speech_tpu.models.registry import get_architecture as jax_get_architecture
+    from text_to_speech_tpu_torch.models.registry import get_architecture
+    ours, ref = get_architecture(name), jax_get_architecture(name)
+    assert type(ours).__name__ == type(ref).__name__
+    assert json.loads(json.dumps(ours.get_config())) == json.loads(json.dumps(ref.get_config()))
+    with pytest.raises(ValueError, match = 'Unknown architecture'):
+        get_architecture('no_such_architecture')
 
 
 # -- from_torch_pretrained, save, by name ---------------------------------------------------

@@ -3,18 +3,11 @@
 Counterpart of ``text_to_speech_tpu/models/registry.py``: `get_architecture`
 makes an architecture from its case-insensitive name (the ``architecture``
 of a saved model's ``saving/config_models.json``) and its hparams, with the
-JAX package's names; `register_architecture` adds one.
+JAX package's names.
 """
 
-_ARCHITECTURES = {}
 
-
-def register_architecture(name, cls):
-    _ARCHITECTURES[name.lower()] = cls
-    return cls
-
-
-def _register_builtins():
+def _architectures():
     from .encoder_arch import AudioEncoder
     from .fastspeech2_arch import FastSpeech2
     from .hifigan_arch import HiFiGAN
@@ -22,16 +15,9 @@ def _register_builtins():
     from .vits_arch import VITS
     from .vocos_arch import Vocos
     from .waveglow_arch import WaveGlow
-    for name, cls in (('tacotron2', Tacotron2), ('sv2tts_tacotron2', Tacotron2),
-                      ('waveglow', WaveGlow), ('hifigan', HiFiGAN), ('vocos', Vocos),
-                      ('fastspeech2', FastSpeech2), ('vits', VITS),
-                      ('audio_encoder', AudioEncoder), ('audioencoder', AudioEncoder)):
-        _ARCHITECTURES.setdefault(name, cls)
-
-
-def list_architectures():
-    _register_builtins()
-    return sorted(_ARCHITECTURES)
+    return {'tacotron2': Tacotron2, 'sv2tts_tacotron2': Tacotron2, 'waveglow': WaveGlow,
+            'hifigan': HiFiGAN, 'vocos': Vocos, 'fastspeech2': FastSpeech2, 'vits': VITS,
+            'audio_encoder': AudioEncoder, 'audioencoder': AudioEncoder}
 
 
 def get_architecture(architecture, ** kwargs):
@@ -40,9 +26,8 @@ def get_architecture(architecture, ** kwargs):
     if isinstance(architecture, dict):
         kwargs = {** architecture, ** kwargs}
         architecture = kwargs.pop('architecture')
-    _register_builtins()
-    key = architecture.lower()
-    if key not in _ARCHITECTURES:
+    classes = _architectures()
+    if architecture.lower() not in classes:
         raise ValueError('Unknown architecture {!r} (known: {})'.format(
-            architecture, sorted(_ARCHITECTURES)))
-    return _ARCHITECTURES[key](** kwargs)
+            architecture, sorted(classes)))
+    return classes[architecture.lower()](** kwargs)

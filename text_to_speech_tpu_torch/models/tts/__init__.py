@@ -64,8 +64,9 @@ def get_models(model = None, lang = None, vocoder = None, *, device = None, root
     from .. import get_pretrained
     if isinstance(model, str):
         model = get_pretrained(model, root = root, device = device)
-    if getattr(model, 'is_end_to_end', False) and vocoder in (None, _default_vocoder):
-        return model, model
+    if getattr(model, 'is_end_to_end', False):
+        # the model synthesizes waveforms: its own vocoder unless one is forced
+        return model, (vocoder if vocoder not in (None, _default_vocoder) else model)
     if vocoder is None:
         vocoder = _default_vocoder
     if isinstance(vocoder, str):

@@ -128,7 +128,7 @@ class HiFiGAN(TrainableModel):
         self._cast = {}
 
     def jax_trees(self):
-        return {'params': tree_to_jax(self.params, transposed = ('up',))}
+        return {'params': tree_to_jax(self.params)}
 
     def get_saving_objects(self):
         return {'mel_fn.json': self.mel_fn}

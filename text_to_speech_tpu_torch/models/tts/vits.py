@@ -64,7 +64,7 @@ class VITS(Tacotron2):
         return cls(tree_from_jax(params), {}, ** kwargs)
 
     def jax_trees(self):
-        return {'params': tree_to_jax(self.params, transposed = ('up',))}
+        return {'params': tree_to_jax(self.params)}
 
     @staticmethod
     def _random_trees(hp, seed):

@@ -17,7 +17,7 @@ overlap-adds them, as ``flen / hop`` shifted adds when the hop divides the
 frame and frame by frame otherwise, then crops the centre padding;
 `inverse_transform` divides by the envelope of the inverse of
 ``transform(ones)``, floored at 1e-4, which holds the overlap factor and
-the taper at the edges (kept per length and device).  `griffin_lim`,
+the taper at the edges.  `griffin_lim`,
 `mel_to_linear` and `TacotronSTFT.inverse` build the weights-free
 vocoder on it; the initial phase comes from a `torch.Generator` (or is
 given), not from ``jax.random``.  The mel scale is Slaney's by default,
@@ -116,7 +116,6 @@ class STFT:
         self._window = win
         self.fft_window = win.astype(np.float32)
         self._inverse_basis = None
-        self._envelopes = {}
 
     @property
     def inverse_basis(self):
@@ -170,21 +169,13 @@ class STFT:
         pad = self.filter_length // 2
         return audio[:, pad: -pad]
 
-    def _envelope(self, n_samples, device):
-        """``_raw_inverse(transform(ones))`` of `n_samples`, kept per length
-        and device."""
-        key = (n_samples, str(device))
-        if key not in self._envelopes:
-            ones = torch.ones((1, n_samples), device = device)
-            self._envelopes[key] = self._raw_inverse(* self.transform(ones))
-        return self._envelopes[key]
-
     def inverse_transform(self, magnitude, phase):
         """Overlap-add reconstruction from magnitude and phase, divided by
         the window envelope (the inverse of the transform of ones) floored
         at 1e-4."""
         audio = self._raw_inverse(magnitude, phase)
-        env = self._envelope(audio.shape[1], audio.device)
+        env = self._raw_inverse(* self.transform(torch.ones((1, audio.shape[1]),
+                                                            device = audio.device)))
         return audio / torch.clamp(torch.abs(env), min = 1e-4)
 
 

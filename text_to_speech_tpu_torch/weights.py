@@ -111,13 +111,17 @@ def conv_transpose_from_jax(node):
     return out
 
 
-def tree_from_jax(tree, transposed = ('up',)):
-    """`convert_tree`, with the layer dicts under a key in `transposed` taken
-    as transposed convs (`conv_transpose_from_jax`): the trees of HiFi-GAN,
-    Vocos and VITS, whose generator stages hold one under ``up``."""
+# the key of the transposed convs in the HiFi-GAN generator's stages
+_TRANSPOSED = 'up'
+
+
+def tree_from_jax(tree):
+    """`convert_tree`, with the layer dicts under the key ``up`` taken as
+    transposed convs (`conv_transpose_from_jax`): the trees of HiFi-GAN,
+    Vocos and VITS, whose generator stages hold one there."""
     if not isinstance(tree, dict):
         return _tensor(tree)
-    return {k: conv_transpose_from_jax(v) if k in transposed else tree_from_jax(v, transposed)
+    return {k: conv_transpose_from_jax(v) if k == _TRANSPOSED else tree_from_jax(v)
             for k, v in tree.items()} \
         if any(isinstance(v, dict) for v in tree.values()) else convert_tree(tree)
 
@@ -189,20 +193,19 @@ def _conv_transpose_to_jax(node):
 _LAYER_KEYS = ('weight', 'weight_hh', 'running_mean')
 
 
-def tree_to_jax(tree, name = '', transposed = ()):
-    """The inverse of `convert_tree` (numpy float32) for the trees of
-    Tacotron-2, FastSpeech-2 and WaveGlow's coupling blocks, and, with
-    ``transposed=('up',)``, of `tree_from_jax` (HiFi-GAN, Vocos, VITS): a
-    bare tensor becomes an array, the layer dicts under a key in
-    `transposed` transposed convs."""
+def tree_to_jax(tree, name = ''):
+    """The inverse of `convert_tree` and `tree_from_jax` (numpy float32) for
+    the trees of Tacotron-2, FastSpeech-2, WaveGlow's coupling blocks,
+    HiFi-GAN, Vocos and VITS: a bare tensor becomes an array, the layer
+    dict under ``up`` a transposed conv."""
     if torch.is_tensor(tree):
         return _array(tree)
-    if name in transposed:
+    if name == _TRANSPOSED:
         return _conv_transpose_to_jax(tree)
     if tree and all(not isinstance(v, dict) for v in tree.values()) \
             and any(k in tree for k in _LAYER_KEYS):
         return _node_to_jax(name, tree)
-    return {k: tree_to_jax(v, k, transposed) for k, v in tree.items()}
+    return {k: tree_to_jax(v, k) for k, v in tree.items()}
 
 
 def waveglow_to_jax(params):
