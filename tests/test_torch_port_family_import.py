@@ -14,7 +14,9 @@ the JAX package, on the CPU.
     published-layout dicts of `init` (weight norm folded), then `save`,
     then `get_pretrained` by name under a temporary root: the same class
     and hparams, the same output to the bit; the JAX package loads the
-    same directory by name and its output agrees within 1e-5 of scale;
+    HiFi-GAN directory by name and its output agrees within 1e-5 of scale
+    (the Vocos task saves through the same code; the VITS family's
+    directory is loaded by the JAX package below);
   - `SV2TTSVITS.create`, saved and loaded by name in both packages, cloned
     from an external embedding at ``noise_scale = noise_scale_w = 0``.
 """
@@ -353,6 +355,8 @@ def test_from_torch_pretrained_then_by_name(family, tmp_path):
     convert = getattr(tts_checkpoints, 'convert_' + family)
     _assert_trees_equal(model.jax_trees()['params'],
                         convert(tts_checkpoints.remove_torch_weight_norm(sd)))
+    if family != 'hifigan':
+        return          # the VITS family's directory: `test_sv2tts_vits_by_name_matches_jax`
     # the JAX package loads the directory by name
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(saving, '_PRETRAINED_ROOT', root)

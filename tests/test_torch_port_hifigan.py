@@ -14,7 +14,7 @@
     (``batch_size=2``, the vocoder queued on the decoded mels) and
     ``win_len=128`` with one and with two chunks, where HiFi-GAN, which
     cannot cut windows on the device, takes the sequential path and vocodes
-    each whole mel;
+    each whole mel; the tiny Vocos task model through `predict_batched`;
   - the three repairs of the Tacotron-2 flows that those routes need (they
     raised, or returned one sample, with any vocoder but WaveGlow):
     `_synthesize_and_vocode` leaves a `win_len` without
@@ -42,14 +42,16 @@ try:
     from text_to_speech_tpu.models import get_pretrained as jax_get_pretrained, saving
     from text_to_speech_tpu.models.hifigan_arch import HiFiGAN as JaxHiFiGANArch
     from text_to_speech_tpu.models.interfaces import reset_instances
-    from text_to_speech_tpu.models.tts import HiFiGAN as JaxHiFiGAN, tts as jax_tts
+    from text_to_speech_tpu.models.tts import (
+        HiFiGAN as JaxHiFiGAN, Vocos as JaxVocos, tts as jax_tts)
 except ModuleNotFoundError:
     # a machine with a card and without JAX runs the `cuda` case alone
     jnp = None
 from text_to_speech_tpu_torch import tts
-from text_to_speech_tpu_torch.init import init_hifigan
+from text_to_speech_tpu_torch.init import init_hifigan, init_vocos
 from text_to_speech_tpu_torch.models.hifigan_arch import HIFIGAN_V3, HiFiGAN as HiFiGANArch
-from text_to_speech_tpu_torch.models.tts import HiFiGAN, Tacotron2
+from text_to_speech_tpu_torch.models.tts import HiFiGAN, Tacotron2, Vocos
+from text_to_speech_tpu_torch.models.vocos_arch import Vocos as VocosArch
 from text_to_speech_tpu_torch.weights import tree_from_jax, tree_to
 
 #: the JAX package's tiny generator (``tests/test_hifigan.py``), version 1
@@ -62,6 +64,9 @@ TINY_V3 = {** HIFIGAN_V3, 'n_mel_channels': 8, 'upsample_rates': (4, 2, 2),
 #: the vocoder behind ``overfit_demo`` (80 mels)
 VOCODER = dict(TINY, n_mel_channels = 80, upsample_initial_channel = 16,
                resblock_kernel_sizes = (3,), resblock_dilation_sizes = ((1, 3),))
+#: the tiny Vocos of ``tests/test_vocos.py`` at 80 mels
+VOCOS = dict(n_mel_channels = 80, dim = 16, intermediate_dim = 32, n_layers = 2, kernel_size = 3,
+             n_fft = 16, hop_length = 4, win_length = 16)
 ATOL = 1e-4
 TEXTS = ['Hello world!', 'Dr. Smith has 2 cats. They sleep all day.']
 TWO_SENTENCES = 'The birch canoe slid. They sleep all day.'
@@ -118,9 +123,9 @@ def test_bfloat16_matches_jax():
 
 @pytest.fixture(scope = 'module')
 def models(tmp_path_factory):
-    """(root, JAX Tacotron-2, port Tacotron-2, JAX HiFi-GAN, port HiFi-GAN):
-    ``overfit_demo`` read from a copy in a temporary root, and one random
-    vocoder given to both packages."""
+    """(root, JAX Tacotron-2, port Tacotron-2, JAX HiFi-GAN, port HiFi-GAN,
+    JAX Vocos, port Vocos): ``overfit_demo`` read from a copy in a temporary
+    root, and the random vocoders given to both packages."""
     root = str(tmp_path_factory.mktemp('models'))
     shutil.copytree('pretrained_models/overfit_demo', root + '/overfit_demo')
     with pytest.MonkeyPatch.context() as mp:
@@ -131,16 +136,20 @@ def models(tmp_path_factory):
         jax_vocoder.set_weights(_jax(params))
         vocoder = HiFiGAN.from_jax(params, name = 'tiny_hifigan', root = root, device = 'cpu',
                                    ** VOCODER)
+        params = init_vocos(VocosArch(** VOCOS).hp, seed = 7)
+        jax_vocos = JaxVocos(name = 'tiny_vocos', ** VOCOS)
+        jax_vocos.set_weights(_jax(params))
+        vocos = Vocos.from_jax(params, name = 'tiny_vocos', root = root, device = 'cpu', ** VOCOS)
         yield (root, jax_get_pretrained('overfit_demo'),
                Tacotron2.from_pretrained('overfit_demo', root = root, device = 'cpu'),
-               jax_vocoder, vocoder)
+               jax_vocoder, vocoder, jax_vocos, vocos)
         reset_instances()
 
 
 def test_task_infer_matches_jax(models):
     """`infer` pads to the 64-frame bucket with -11, crops to T * rate and
     squeezes a 2-D mel; `compiled_infer` returns the whole bucket."""
-    * _, jax_vocoder, vocoder = models
+    jax_vocoder, vocoder = models[3:5]
     assert vocoder.serving_pad_multiple == 64 and vocoder.pad_mel_value == -11.
     assert vocoder.upsample_rate == jax_vocoder.upsample_rate == 16
     mel = np.random.default_rng(2).standard_normal((50, 80)).astype(np.float32)
@@ -159,7 +168,7 @@ def test_task_infer_matches_jax(models):
     np.testing.assert_array_equal(vocoder.compiled_infer(padded).numpy(), full)
 
 
-def _check_outputs(out, ref, one_launch = False):
+def _check_outputs(out, ref, one_launch = False, rate = 16):
     assert len(out) == len(ref)
     for o, r in zip(out, ref):
         assert o['cleaned'] == r['cleaned'] and o['splitted'] == r['splitted']
@@ -168,7 +177,7 @@ def _check_outputs(out, ref, one_launch = False):
             np.testing.assert_allclose(m_o, np.asarray(m_r), atol = ATOL, rtol = 0)
         audio, ref_audio = o['audio'], np.asarray(r['audio'])
         assert audio.ndim == 1 and audio.shape == ref_audio.shape
-        assert audio.shape[0] == sum(m.shape[0] for m in o['mel']) * 16
+        assert audio.shape[0] == sum(m.shape[0] for m in o['mel']) * rate
         if one_launch:
             # both on the int16 grid: a float32 difference may move a sample by one step
             np.testing.assert_allclose(audio * 32767., np.round(audio * 32767.), atol = 1e-3)
@@ -180,7 +189,7 @@ def _check_outputs(out, ref, one_launch = False):
 def test_tts_one_launch_matches_jax(models, monkeypatch):
     """One sentence: decode → HiFi-GAN → int16 in one call (`compiled_tts`,
     the vocoder's `device_vocoder_fn` behind the decoder)."""
-    root, jax_model, model, jax_vocoder, vocoder = models
+    root, jax_model, model, jax_vocoder, vocoder = models[:5]
 
     def sequential(* args, ** kwargs):
         raise AssertionError('the sequential path ran')
@@ -195,12 +204,26 @@ def test_tts_one_launch_matches_jax(models, monkeypatch):
 def test_tts_batched_matches_jax(models):
     """Two texts through `predict_batched`: one decode batch, HiFi-GAN
     queued on the decoded mels (`compiled_infer`)."""
-    root, jax_model, model, jax_vocoder, vocoder = models
+    root, jax_model, model, jax_vocoder, vocoder = models[:5]
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(saving, '_PRETRAINED_ROOT', root)
         ref = jax_tts(TEXTS, model = jax_model, vocoder = jax_vocoder, batch_size = 2, ** GATES)
     out = tts(TEXTS, model = model, vocoder = vocoder, batch_size = 2, ** GATES)
     _check_outputs(out, ref)
+
+
+def test_tts_with_vocos_matches_jax(models):
+    """Two texts through `predict_batched` with the Vocos task model: the
+    JAX decode program of `test_tts_batched_matches_jax` serves it."""
+    root, jax_model, model = models[:3]
+    jax_vocos, vocos = models[5:]
+    assert vocos.upsample_rate == jax_vocos.upsample_rate == 4
+    assert vocos.serving_pad_multiple == 64
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(saving, '_PRETRAINED_ROOT', root)
+        ref = jax_tts(TEXTS, model = jax_model, vocoder = jax_vocos, batch_size = 2, ** GATES)
+    out = tts(TEXTS, model = model, vocoder = vocos, batch_size = 2, ** GATES)
+    _check_outputs(out, ref, rate = 4)
 
 
 @pytest.mark.parametrize('max_text_length', [-1, -2], ids = ['one_chunk', 'two_chunks'])
@@ -209,7 +232,7 @@ def test_tts_win_len_matches_jax(models, max_text_length):
     it to the sequential path, which vocodes each whole mel; the port raised
     `AttributeError` there (no `vocode_windowed_from_device` /
     `vocode_windowed_batch`) or kept one sample of a 1-D waveform."""
-    root, jax_model, model, jax_vocoder, vocoder = models
+    root, jax_model, model, jax_vocoder, vocoder = models[:5]
     kw = dict(GATES, win_len = 128, max_text_length = max_text_length)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(saving, '_PRETRAINED_ROOT', root)
@@ -221,7 +244,7 @@ def test_tts_win_len_matches_jax(models, max_text_length):
 
 def test_repairs_route_like_jax(models):
     """The three repairs, on the flows themselves, beside the JAX ones."""
-    root, jax_model, model, jax_vocoder, vocoder = models
+    root, jax_model, model, jax_vocoder, vocoder = models[:5]
     encoded = [model.encode_text(t) for t in TEXTS]
     kw = dict(max_length = 64, min_fpt_ratio = -1., max_fpt_ratio = float('inf'))
     # 1. a win_len without `vocode_windowed_from_device`, or a vocoder

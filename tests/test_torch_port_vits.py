@@ -133,7 +133,8 @@ def test_spline_matches_jax(inverse):
     w, h = (rng.standard_normal((64, 10)).astype(np.float32) for _ in range(2))
     d = rng.standard_normal((64, 9)).astype(np.float32)
     y, ld = rational_quadratic_spline(* map(torch.from_numpy, (x, w, h, d)), inverse = inverse)
-    ref_y, ref_ld = jax_spline(* map(jnp.asarray, (x, w, h, d)), inverse = inverse)
+    ref_y, ref_ld = jax.jit(lambda * a: jax_spline(* a, inverse = inverse))(
+        * map(jnp.asarray, (x, w, h, d)))
     np.testing.assert_allclose(y.numpy(), np.asarray(ref_y), atol = 1e-5, rtol = 0)
     # the log-determinant within 1e-5 of its scale: a sum of float32 logs of
     # products, which both packages compute up to 1.2e-5 off its float64

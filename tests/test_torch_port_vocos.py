@@ -11,12 +11,10 @@
   - the HTK mel scale and the unnormalized filterbank, and `WhisperSTFT`
     (also made by name through `MelSTFT.create`);
   - the Vocos generator (`spectral_head`, `apply`) within 1e-5 of scale,
-    with and without `cond`, and the task model through `tts()` behind the
-    trained ``overfit_demo`` Tacotron-2 (one sentence on the one-launch
-    path: within one step of the int16 grid).
+    with and without `cond`.  The task model goes through `tts()` behind
+    Tacotron-2 in ``test_torch_port_hifigan.py``, beside HiFi-GAN (one JAX
+    decode program serves both vocoders there).
 """
-
-import shutil
 
 import numpy as np
 import pytest
@@ -26,14 +24,9 @@ from test_torch_port_threads import one_torch_thread  # noqa: F401  (autouse, mo
 
 import jax
 import jax.numpy as jnp
-from text_to_speech_tpu.models import get_pretrained as jax_get_pretrained, saving
-from text_to_speech_tpu.models.interfaces import reset_instances
-from text_to_speech_tpu.models.tts import Vocos as JaxVocos, tts as jax_tts
 from text_to_speech_tpu.models.vocos_arch import Vocos as JaxVocosArch
 from text_to_speech_tpu.ops import stft as jax_stft
-from text_to_speech_tpu_torch import tts
 from text_to_speech_tpu_torch.init import init_vocos
-from text_to_speech_tpu_torch.models.tts import Tacotron2, Vocos
 from text_to_speech_tpu_torch.models.vocos_arch import Vocos as VocosArch
 from text_to_speech_tpu_torch.ops import stft
 from text_to_speech_tpu_torch.weights import tree_from_jax
@@ -159,34 +152,3 @@ def test_generator_matches_jax(with_cond):
     assert _scale_err(mag, ref_mag) <= SCALE and _scale_err(phase, ref_phase) <= SCALE
     assert audio.shape == want.shape == (2, 12 * 4) and audio.dtype == torch.float32
     assert _scale_err(audio, want) <= SCALE
-
-
-def test_tts_with_vocos_matches_jax(tmp_path):
-    """`tts(text, model = tacotron2, vocoder = vocos)`: the one-launch path
-    in both packages, the vocoder at 80 mels."""
-    root = str(tmp_path)
-    shutil.copytree('pretrained_models/overfit_demo', root + '/overfit_demo')
-    config = dict(TINY, n_mel_channels = 80)
-    params = init_vocos(VocosArch(** config).hp, seed = 7)
-    gates = dict(deterministic = True, max_length = 64, min_fpt_ratio = -1.,
-                 max_fpt_ratio = float('inf'), max_trial = 1, save = False, display = False)
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(saving, '_PRETRAINED_ROOT', root)
-        reset_instances()
-        try:
-            jax_vocoder = JaxVocos(name = 'tiny_vocos', ** config)
-            jax_vocoder.set_weights(_jax(params))
-            ref = jax_tts('Hello world!', model = jax_get_pretrained('overfit_demo'),
-                          vocoder = jax_vocoder, ** gates)
-        finally:
-            reset_instances()
-    vocoder = Vocos.from_jax(params, name = 'tiny_vocos', root = root, device = 'cpu', ** config)
-    assert vocoder.upsample_rate == 4 and vocoder.serving_pad_multiple == 64
-    model = Tacotron2.from_pretrained('overfit_demo', root = root, device = 'cpu')
-    out = tts('Hello world!', model = model, vocoder = vocoder, ** gates)
-    np.testing.assert_allclose(out[0]['mel'][0], np.asarray(ref[0]['mel'][0]), atol = 1e-4,
-                               rtol = 0)
-    audio, want = out[0]['audio'], np.asarray(ref[0]['audio'])
-    assert audio.shape == want.shape == (out[0]['mel'][0].shape[0] * 4,)
-    assert np.abs(audio - want).max() <= 1. / 32767. + 1e-7
-    np.testing.assert_allclose(audio * 32767., np.round(audio * 32767.), atol = 1e-3)
