@@ -1,10 +1,11 @@
 """PyTorch/CUDA port of ``text_to_speech_tpu``.
 
-The port runs the text → Tacotron-2 (or FastSpeech-2) → WaveGlow path on
-one NVIDIA H100 (sm_90a), with the WaveGlow WN coupling block and the
-Tacotron-2 decoder steps as hand-written CUDA kernels (`ops.wn_block`,
-`ops.decoder_kernel`), imports NVIDIA's Tacotron-2 and WaveGlow
-checkpoints (`models.tts_checkpoints`), trains WaveGlow and the
+The port runs the text → Tacotron-2 (or FastSpeech-2) → WaveGlow (or
+HiFi-GAN, or Vocos) path and the end-to-end VITS on one NVIDIA H100
+(sm_90a), with the WaveGlow WN coupling block and the Tacotron-2 decoder
+steps as hand-written CUDA kernels (`ops.wn_block`, `ops.decoder_kernel`),
+imports NVIDIA's Tacotron-2 and WaveGlow checkpoints and the official
+HiFi-GAN, Vocos and VITS ones (`models.tts_checkpoints`), trains WaveGlow and the
 synthesizers (`train.trainer.fit`), and clones a voice from a trained
 checkpoint (`from_pretrained(name, pretrained_name)`) on corpora read by
 the native loader pool (`native`, `train.loader`).  Its
