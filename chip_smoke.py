@@ -10,8 +10,6 @@ serve the other families (HiFi-GAN and Vocos behind Tacotron-2, VITS and
 SV2TTS-VITS) imported from seeded state dicts in their published layouts.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --phase families   # the build, the device line and
-                                             # that phase alone, no result line
 
 Phases, one JSON line each:
   device   the card (nvidia-smi), the kernels' build time and ptxas report,
@@ -98,11 +96,14 @@ Phases, one JSON line each:
            the LJSpeech release's widths (use_sdp), imported from its seeded
            `SynthesizerTrn` dict: `tts()` of one sentence and of four (no
            launch), `d_control` scaling the random durations to ~256
-           frames; the forward (CUDA events); at noise 0 the card against
-           the CPU (durations equal or apart by one on a tie, the waveform
-           within 1e-4 of scale on the rows that agree) and bfloat16 against
-           the card's float32 (1e-1); SV2TTS-VITS (`create`, a 256-wide
-           embedding) cloning one sentence from a saved table by label;
+           frames; the forward (CUDA events); at noise 0 on the four
+           sentences the card against the CPU (durations equal or apart by
+           one on a tie, the waveform within 1e-4 of scale on the rows that
+           agree, at least one) and bfloat16 against the card's float32 (the
+           whole pass finite, log-durations within 1e-1, the waveform from
+           float32's durations within 1e-1 of scale); SV2TTS-VITS (`create`,
+           a 256-wide embedding) cloning one sentence from a saved table by
+           label;
   sv2tts   voice cloning at NVIDIA width (random seeded weights, a 256-wide
            speaker embedding): the speaker encoder at its defaults, saved and
            loaded by name, embeds four clips of 1-3 s at 16 kHz and a WAV at
@@ -2244,6 +2245,29 @@ def _vits_durations_check(card, cpu, pre):
     return ~moved.any(dim = 1), int(moved.sum())
 
 
+def _vits_bfloat16_on(vits, tokens, durations, max_frames):
+    """VITS in bfloat16 at noise 0 on the given durations: the text encoder,
+    the reverse flow and the generator in bfloat16 (the path of
+    `infer_latent` after `ceil`).  Returns (max |log-durations - float32's|
+    over the tokens, the audio in float32)."""
+    from text_to_speech_tpu_torch.models.fastspeech2_arch import length_regulator
+
+    arch = vits.arch
+    params = vits._cast_params(torch.bfloat16)
+    with torch.no_grad():
+        h, _, _, valid = arch.encode_text(vits.params, tokens)
+        want = arch.sdp_sample(vits.params, h, valid, noise_scale_w = 0.)
+        h, m_p, logs_p, valid = arch.encode_text(params, tokens)
+        logw = arch.sdp_sample(params, h, valid, noise_scale_w = 0.)
+        logw_err = float(((logw.float() - want.float()) * valid).abs().max())
+        stats, frame_mask, _, _ = length_regulator(torch.cat([m_p, logs_p], dim = -1),
+                                                   durations, max_frames)
+        mask = frame_mask[..., None].to(stats.dtype)
+        z = arch.flow(params, stats.chunk(2, dim = -1)[0] * mask, frame_mask, reverse = True)
+        audio = arch.decode_frames(params, z * mask, dtype = torch.bfloat16)
+    return logw_err, audio.float()
+
+
 def families_phase(model, root):
     """The other families at their published widths, seeded weights: HiFi-GAN
     V1 and Vocos behind the NVIDIA-width Tacotron-2 (K3 decodes, no WN
@@ -2258,6 +2282,7 @@ def families_phase(model, root):
         convert_hifigan, convert_vocos, hifigan_config_from_state_dict,
         vocos_config_from_state_dict)
     from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
+    from text_to_speech_tpu_torch.utils.sequence_utils import pad_batch, pad_to_multiple
 
     phase_start = time.perf_counter()
     runs, out = {}, {}
@@ -2308,38 +2333,47 @@ def families_phase(model, root):
     drive_vits('vits_one_sentence', SENTENCES[0], vits)
     drive_vits('vits_batch_of_4', SENTENCES, vits, batch_size = 4)
 
-    # deterministic at the phase's d_control, card against CPU; then
-    # bfloat16 against the card's float32
+    # deterministic at the phase's d_control on the batch of four, card
+    # against CPU; then bfloat16 against the card's float32
     deterministic['d_control'] = d_control
     cpu_vits = VITS.from_jax(vits.jax_trees()['params'], device = 'cpu',
                              tokenizer = default_english_tokenizer(), ** vits.arch.get_config())
-    card = vits.compiled_infer(tokens, ** deterministic)
-    cpu = cpu_vits.compiled_infer(tokens, ** deterministic)
+    batch = pad_batch([vits.encode_text(text) for text in SENTENCES],
+                      pad_value = vits.blank_token_idx)
+    card = vits.compiled_infer(batch, ** deterministic)
+    cpu = cpu_vits.compiled_infer(batch, ** deterministic)
+    tok = torch.as_tensor(pad_to_multiple(batch, 64, axis = 1,
+                                          constant_values = vits.blank_token_idx))
     with torch.no_grad():
         arch, params = cpu_vits.arch, cpu_vits.params
-        tok = torch.full((1, cpu.attention_weights.shape[2]), cpu_vits.blank_token_idx)
-        tok[0, :len(tokens)] = torch.as_tensor(tokens)
         h, _, _, valid = arch.encode_text(params, tok)
         pre = torch.exp(arch.sdp_sample(params, h, valid, noise_scale_w = 0.)) * valid \
             * d_control
     rows, moved = _vits_durations_check(card, cpu, pre)
-    vits_err = _card_vs_cpu_rel(card.audio[rows.cuda()], cpu.audio[rows]) \
-        if bool(rows.any()) else None
-    check(vits_err is None or vits_err <= 1e-4, 'VITS card vs CPU: {}'.format(vits_err))
-    bf16 = vits.compiled_infer(tokens, dtype = torch.bfloat16, ** deterministic)
-    bf16_rows = (bf16.durations == card.durations).all(dim = 1)
-    bf16_err = _card_vs_cpu_rel(bf16.audio[bf16_rows], card.audio[bf16_rows]) \
-        if bool(bf16_rows.any()) else None
-    check(bool(torch.isfinite(bf16.audio).all()) and (bf16_err is None or bf16_err <= 1e-1),
-          'VITS bfloat16 vs float32: {}'.format(bf16_err))
+    check(bool(rows.any()), 'VITS card vs CPU: no row with every duration equal '
+          '({} moved)'.format(moved))
+    vits_err = _card_vs_cpu_rel(card.audio[rows.cuda()], cpu.audio[rows])
+    check(vits_err <= 1e-4, 'VITS card vs CPU: {}'.format(vits_err))
+    # bfloat16: the entry point's whole pass finite; its log-durations
+    # within 1e-1 of float32's; its audio from float32's durations
+    bf16 = vits.compiled_infer(batch, dtype = torch.bfloat16, ** deterministic)
+    logw_err, bf16_audio = _vits_bfloat16_on(vits, tok.cuda(), card.durations,
+                                             card.audio.shape[1] // vits.upsample_rate)
+    bf16_err = _card_vs_cpu_rel(bf16_audio, card.audio)
+    check(bool(torch.isfinite(bf16.audio).all()) and logw_err <= 1e-1 and bf16_err <= 1e-1,
+          'VITS bfloat16 vs float32: log-durations {}, audio {}'.format(logw_err, bf16_err))
     forward_ms = time_ms(lambda: vits.compiled_infer(tokens, d_control = d_control), reps = 5)
     out['vits'] = {'import_ms': import_ms, 'tokens': len(tokens), 'd_control': d_control,
                    'frames_at_d_control_1': base, 'forward_ms': forward_ms,
-                   'card_vs_cpu': {'durations_moved': moved, 'rel_err': vits_err,
+                   'card_vs_cpu': {'texts': len(SENTENCES), 'durations_moved': moved,
+                                   'rows_compared': int(rows.sum()), 'rel_err': vits_err,
                                    'tolerance_rel': 1e-4},
                    'bfloat16_vs_float32': {'durations_moved': int((bf16.durations
                                                                    != card.durations).sum()),
-                                           'rel_err': bf16_err, 'tolerance_rel': 1e-1}}
+                                           'log_durations_max_abs': logw_err,
+                                           'tolerance_log_durations': 1e-1,
+                                           'rel_err_on_float32_durations': bf16_err,
+                                           'tolerance_rel': 1e-1}}
 
     # SV2TTS-VITS: one sentence cloned from a saved table of 256-wide embeddings
     config = {k: v for k, v in vits.arch.get_config().items()
@@ -3003,12 +3037,6 @@ def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
         return 1
-    # `--phase families`: the build, the device line and that phase alone
-    # (no kernel summary, no result line)
-    only = sys.argv[sys.argv.index('--phase') + 1] if '--phase' in sys.argv else None
-    if only not in (None, 'families'):
-        print('unknown phase {!r}'.format(only), file = sys.stderr)
-        return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     from text_to_speech_tpu_torch.init import random_tts_models
@@ -3034,12 +3062,6 @@ def main():
     # `HParamsWaveGlow` defaults), the stop gate biased off
     model, vocoder = random_tts_models('cuda', seed = 1)
     setup_s = time.perf_counter() - start
-    if only == 'families':
-        with tempfile.TemporaryDirectory(prefix = 'chip_smoke_') as scratch:
-            families_phase(model, scratch)
-        print(smi, flush = True)
-        return 0
-
     wn_cases = wn_block_phase()
     wn8_cases = wn_block_int8_phase()
     layer_cases = wn_layer_phase()

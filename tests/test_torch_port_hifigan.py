@@ -23,7 +23,7 @@
     only where the vocoder has it; and keeps a 1-D waveform whole.
 
 The Tacotron-2 and the vocoder are the same weights in both packages (the
-JAX trees through `weights.tree_from_jax`); mel within 1e-4 absolute,
+JAX trees through `weights.hifigan_from_jax`); mel within 1e-4 absolute,
 audio within 1e-4 absolute (float32 on both sides).  The `cuda` case holds
 the forward on the card against the port on the CPU.
 """
@@ -52,7 +52,7 @@ from text_to_speech_tpu_torch.init import init_hifigan, init_vocos
 from text_to_speech_tpu_torch.models.hifigan_arch import HIFIGAN_V3, HiFiGAN as HiFiGANArch
 from text_to_speech_tpu_torch.models.tts import HiFiGAN, Tacotron2, Vocos
 from text_to_speech_tpu_torch.models.vocos_arch import Vocos as VocosArch
-from text_to_speech_tpu_torch.weights import tree_from_jax, tree_to
+from text_to_speech_tpu_torch.weights import hifigan_from_jax, tree_to
 
 #: the JAX package's tiny generator (``tests/test_hifigan.py``), version 1
 TINY = dict(n_mel_channels = 8, upsample_rates = (4, 2, 2), upsample_kernel_sizes = (8, 4, 4),
@@ -98,7 +98,7 @@ def test_apply_matches_jax(config, with_cond):
     ref = np.asarray(apply(_jax(params), jnp.asarray(mel),
                            None if cond is None else jnp.asarray(cond)))
     with torch.no_grad():
-        out = arch.apply(tree_from_jax(params), torch.from_numpy(mel),
+        out = arch.apply(hifigan_from_jax(params), torch.from_numpy(mel),
                          cond = None if cond is None else torch.from_numpy(cond))
     assert out.dtype == torch.float32 and out.shape == ref.shape == (2, 13 * 16)
     assert arch.total_upsampling == jax_arch.total_upsampling == 16
@@ -112,8 +112,8 @@ def test_bfloat16_matches_jax():
     apply = jax.jit(lambda p, m: jax_arch.apply(p, m, dtype = jnp.bfloat16))
     ref = np.asarray(apply(_jax(params), jnp.asarray(mel)))
     with torch.no_grad():
-        out = arch.apply(tree_from_jax(params), torch.from_numpy(mel), dtype = torch.bfloat16)
-        f32 = arch.apply(tree_from_jax(params), torch.from_numpy(mel))
+        out = arch.apply(hifigan_from_jax(params), torch.from_numpy(mel), dtype = torch.bfloat16)
+        f32 = arch.apply(hifigan_from_jax(params), torch.from_numpy(mel))
     assert out.dtype == torch.float32
     assert _scale_err(out, ref) <= 5e-2
     assert _scale_err(out, f32) <= 5e-2
@@ -274,7 +274,7 @@ def test_forward_on_the_card_matches_the_cpu():
     if not torch.cuda.is_available():
         pytest.skip('CUDA device unavailable')
     arch = HiFiGANArch()
-    params = tree_from_jax(init_hifigan(arch.hp, seed = 0))
+    params = hifigan_from_jax(init_hifigan(arch.hp, seed = 0))
     mel = torch.from_numpy(np.random.default_rng(0).standard_normal((1, 32, 80))
                            .astype(np.float32))
     with torch.no_grad():

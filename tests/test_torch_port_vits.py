@@ -1,7 +1,7 @@
 """VITS and SV2TTS-VITS inference: the port against the JAX package, on the CPU.
 
 The same seeded parameters go to both packages (the JAX tree through
-`weights.tree_from_jax`), with the couplings' `post`, the ConvFlows'
+`weights.vits_from_jax`), with the couplings' `post`, the ConvFlows'
 `proj` and the affine flows drawn away from their zero init, so that no
 flow is the identity:
 
@@ -49,7 +49,7 @@ from text_to_speech_tpu_torch.models import get_pretrained
 from text_to_speech_tpu_torch.models.tts import VITS as VITSModel
 from text_to_speech_tpu_torch.models.vits_arch import VITS
 from text_to_speech_tpu_torch.nn.flows import rational_quadratic_spline
-from text_to_speech_tpu_torch.weights import tree_from_jax
+from text_to_speech_tpu_torch.weights import vits_from_jax
 
 #: the JAX package's tiny architecture (``tests/test_vits.py`` `make_arch`)
 BASE = dict(vocab_size = 40, spec_channels = 33, inter_channels = 8, hidden_channels = 16,
@@ -103,7 +103,7 @@ def archs():
         jax_arch = JaxVITS(** config)
         params = _np(jax_arch.init(jax.random.PRNGKey(i))[0])
         _draw_zero_inits(params, np.random.default_rng(i))
-        out[name] = (jax_arch, VITS(** config), _jax(params), tree_from_jax(params))
+        out[name] = (jax_arch, VITS(** config), _jax(params), vits_from_jax(params))
     return out
 
 

@@ -29,7 +29,7 @@ from text_to_speech_tpu.ops import stft as jax_stft
 from text_to_speech_tpu_torch.init import init_vocos
 from text_to_speech_tpu_torch.models.vocos_arch import Vocos as VocosArch
 from text_to_speech_tpu_torch.ops import stft
-from text_to_speech_tpu_torch.weights import tree_from_jax
+from text_to_speech_tpu_torch.weights import hifigan_from_jax
 
 #: the JAX package's tiny Vocos (``tests/test_vocos.py``)
 TINY = dict(n_mel_channels = 9, dim = 16, intermediate_dim = 32, n_layers = 2, kernel_size = 3,
@@ -140,9 +140,9 @@ def test_generator_matches_jax(with_cond):
     mel = rng.standard_normal((2, 12, 9)).astype(np.float32)
     cond = rng.standard_normal((2, 16)).astype(np.float32) if with_cond else None
     with torch.no_grad():
-        mag, phase = arch.spectral_head(tree_from_jax(params), torch.from_numpy(mel),
+        mag, phase = arch.spectral_head(hifigan_from_jax(params), torch.from_numpy(mel),
                                         cond = None if cond is None else torch.from_numpy(cond))
-        audio = arch.apply(tree_from_jax(params), torch.from_numpy(mel),
+        audio = arch.apply(hifigan_from_jax(params), torch.from_numpy(mel),
                            cond = None if cond is None else torch.from_numpy(cond))
     jcond = None if cond is None else jnp.asarray(cond)
     (ref_mag, ref_phase), want = jax.jit(lambda p, m, c: (ref.spectral_head(p, m, cond = c),

@@ -9,9 +9,9 @@ projection) but draw from a numpy generator, so that
 NVIDIA-size models can be built without JAX and the same arrays can be
 handed to both packages.  Pass the trees through `weights.tacotron2_from_jax`
 / `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax`, or
-FastSpeech-2's params and state each through `weights.convert_tree`, and
-HiFi-GAN's, Vocos's and VITS's through `weights.tree_from_jax`, for the
-port.
+FastSpeech-2's params and state each through `weights.convert_tree`,
+HiFi-GAN's and Vocos's through `weights.hifigan_from_jax` and VITS's
+through `weights.vits_from_jax`, for the port.
 
 `nvidia_tacotron2_state_dict`, `nvidia_waveglow_state_dict`,
 `hifigan_state_dict`, `vocos_state_dict` and `vits_state_dict` make seeded

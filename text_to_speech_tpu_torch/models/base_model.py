@@ -28,7 +28,7 @@ from ..loggers import Timer, timer
 from ..train.checkpoint import CheckpointManager
 from ..train.history import History
 from ..utils.stream import Stream
-from ..weights import tree_to
+from ..weights import cast_tree, tree_to
 from .saving import model_dir, write_model_config
 
 logger = logging.getLogger(__name__)
@@ -157,7 +157,20 @@ class TrainableModel:
                                   'transfer'.format(cls.__name__))
 
     def _weights_changed(self):
-        """Drop what was derived from the old weights."""
+        """New weights (`params` set, `set_weights`, `to`, each epoch of
+        `fit`) drop those derived from the old ones in `_derived`: cast
+        copies, a packed decoder."""
+        self._derived = {}
+
+    def _cast_params(self, dtype):
+        """The params cast to `dtype` (as they are for None), once per dtype
+        and set of weights."""
+        if dtype is None:
+            return self.params
+        key = ('cast', dtype)
+        if key not in self._derived:
+            self._derived[key] = cast_tree(self.params, dtype)
+        return self._derived[key]
 
     @property
     def history(self):

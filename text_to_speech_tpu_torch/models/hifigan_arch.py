@@ -9,9 +9,9 @@ size: version 1 pairs a dilated conv with a plain one, version 2 has the
 dilated conv alone), then a leaky ReLU of slope 0.01 (the published
 generator's last activation), `conv_post` and tanh.  `cond` (B,
 upsample_initial_channel) is the global conditioning bias that VITS adds
-after `conv_pre`.  Parameters are the port's layouts (`weights.tree_from_jax`
-of the JAX tree, whose transposed convs sit under the key ``up``); random
-ones come from `init.init_hifigan`.
+after `conv_pre`.  Parameters are the port's layouts (`weights.hifigan_from_jax`
+of the JAX tree, whose transposed convs sit under the key ``up`` of each
+stage); random ones come from `init.init_hifigan`.
 
 The JAX package computes the generator in XLA, outside any Pallas kernel:
 the port runs its convs as cuDNN calls through `nn.layers`, with no

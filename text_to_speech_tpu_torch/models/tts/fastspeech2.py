@@ -70,29 +70,10 @@ class FastSpeech2(Tacotron2):
         return self.arch.hp.variance_level
 
     def _weights(self, dtype):
-        """(params, state) cast to `dtype`, once per dtype and set of params."""
-        if dtype is None:
-            return self.params, self.state
-        key = ('cast', dtype)
-        if key not in self._derived:
-            self._derived[key] = cast_tree(self.params, dtype)
-        return self._derived[key], cast_tree(self.state, dtype)
-
-    def _max_frames(self, n_tokens, max_length, padding_multiple):
-        """The frame buffer: `max_length` (a float: a multiple of the padded
-        token count) clamped to `max_output_length` and `max_position`,
-        rounded up to `padding_multiple`, and clamped below `max_position`
-        again, where the positional table ends."""
-        hp = self.arch.hp
-        if max_length is None:
-            max_length = hp.max_frames
-        elif isinstance(max_length, float):
-            max_length = int(n_tokens * max_length)
-        max_frames = int(min(max_length, self.max_output_length, hp.max_position))
-        max_frames = -(-max_frames // padding_multiple) * padding_multiple
-        if max_frames > hp.max_position:
-            max_frames = (hp.max_position // padding_multiple) * padding_multiple
-        return max_frames
+        """(params, state) cast to `dtype`, the params once per dtype and set
+        of weights."""
+        return self._cast_params(dtype), \
+            self.state if dtype is None else cast_tree(self.state, dtype)
 
     def compiled_infer(self,
                        tokens,

@@ -34,7 +34,7 @@ from ...init import init_hifigan
 from ...loggers import timer
 from ...ops.stft import MelSTFT
 from ...utils.file_utils import load_json
-from ...weights import cast_tree, tree_from_jax, tree_to, tree_to_jax
+from ...weights import hifigan_from_jax, hifigan_to_jax, tree_to
 from ..base_model import TrainableModel
 from ..registry import get_architecture
 from ..saving import load_model_files, model_dir
@@ -52,7 +52,7 @@ class HiFiGAN(TrainableModel):
     def __init__(self, params, *, name = 'hifigan', device = None, pad_mel_value = -11.,
                  rate = 22050, mel_fn = 'TacotronSTFT', root = None, architecture = None,
                  ** arch_config):
-        """`params`: the port's parameter tree (`weights.tree_from_jax`).
+        """`params`: the port's parameter tree (`weights.hifigan_from_jax`).
         `mel_fn`: a `MelSTFT`, its config or class name (made at `rate` with
         the model's mel channels).  `root`: the directory holding
         ``<name>/`` (the pretrained-models root by default)."""
@@ -69,12 +69,12 @@ class HiFiGAN(TrainableModel):
         self.mel_fn = MelSTFT.create(mel_fn)
         self.rate = self.mel_fn.rate
         self.folder = model_dir(name, root = root)
-        self._cast = {}
+        self._weights_changed()
 
     @classmethod
     def from_jax(cls, params, ** kwargs):
         """From the JAX package's params tree (numpy arrays)."""
-        return cls(tree_from_jax(params), ** kwargs)
+        return cls(hifigan_from_jax(params), ** kwargs)
 
     @classmethod
     def load_saved(cls, name, *, root = None, device = None, ** kwargs):
@@ -124,11 +124,8 @@ class HiFiGAN(TrainableModel):
 
     # -- saving --------------------------------------------------------------------
 
-    def _weights_changed(self):
-        self._cast = {}
-
     def jax_trees(self):
-        return {'params': tree_to_jax(self.params)}
+        return {'params': hifigan_to_jax(self.params)}
 
     def get_saving_objects(self):
         return {'mel_fn.json': self.mel_fn}
@@ -142,14 +139,6 @@ class HiFiGAN(TrainableModel):
     def upsample_rate(self):
         return self.arch.total_upsampling
 
-    def _params(self, dtype):
-        """The params cast to `dtype`, once per dtype and set of params."""
-        if dtype is None:
-            return self.params
-        if dtype not in self._cast:
-            self._cast[dtype] = cast_tree(self.params, dtype)
-        return self._cast[dtype]
-
     def device_vocoder_fn(self, *, dtype = None, ** _):
         """(fn, params, tag): the forward as a function of device tensors,
         ``fn(params, mel, generator) → float32 waveform (B, F * rate)`` (the
@@ -158,7 +147,7 @@ class HiFiGAN(TrainableModel):
         def fn(params, mel, generator = None):
             with torch.no_grad():
                 return self.arch.apply(params, mel, dtype = dtype)
-        return fn, self._params(dtype), (self.name, dtype)
+        return fn, self._cast_params(dtype), (self.name, dtype)
 
     def compiled_infer(self, mel, *, padding_multiple = 64, dtype = None, ** _):
         """mel (B, F, n_mel) or (F, n_mel), numpy or tensor → float32

@@ -160,12 +160,6 @@ class Tacotron2(TrainableModel, BaseModel):
         self._params = tree_to(params, self.device)
         self._weights_changed()
 
-    def _weights_changed(self):
-        """New weights (`params` set, `set_weights`, `to`, each epoch of
-        `fit`) drop those derived from the old ones: the packed decoder,
-        cast copies."""
-        self._derived = {}
-
     @classmethod
     def from_jax(cls, params, state, ** kwargs):
         """From the JAX package's (params, state) trees (numpy arrays)."""
@@ -379,6 +373,23 @@ class Tacotron2(TrainableModel, BaseModel):
                 packed = kernel_weights_only(packed)
             self._derived[dtype] = packed
         return self._derived[dtype]
+
+    def _max_frames(self, n_tokens, max_length, padding_multiple, *, within_position = True):
+        """The frame buffer of a parallel subclass (FastSpeech-2, VITS):
+        `max_length` (a float: a multiple of the padded token count) clamped
+        to `max_output_length` and `max_position`, rounded up to
+        `padding_multiple`, and, `within_position`, clamped below
+        `max_position` again, where a positional table over the frames ends."""
+        hp = self.arch.hp
+        if max_length is None:
+            max_length = hp.max_frames
+        elif isinstance(max_length, float):
+            max_length = int(n_tokens * max_length)
+        max_frames = int(min(max_length, self.max_output_length, hp.max_position))
+        max_frames = -(-max_frames // padding_multiple) * padding_multiple
+        if within_position and max_frames > hp.max_position:
+            max_frames = (hp.max_position // padding_multiple) * padding_multiple
+        return max_frames
 
     @staticmethod
     def _speaker_rows(embeddings, n):

@@ -37,7 +37,7 @@ from ...loggers import Timer, timer
 from ...ops.stft import MelSTFT
 from ...text import get_tokenizer
 from ...utils.sequence_utils import pad_batch, pad_to_multiple
-from ...weights import cast_tree, tree_from_jax, tree_to_jax
+from ...weights import vits_from_jax, vits_to_jax
 from ..tts_checkpoints import (
     _load_state_dict, convert_vits, remove_torch_weight_norm, vits_config_from_state_dict)
 from ..vits_arch import VITS as VITSArch, VITSInferenceOutput
@@ -61,10 +61,10 @@ class VITS(Tacotron2):
     @classmethod
     def from_jax(cls, params, state = None, ** kwargs):
         """From the JAX package's params tree (numpy arrays); VITS has no state."""
-        return cls(tree_from_jax(params), {}, ** kwargs)
+        return cls(vits_from_jax(params), {}, ** kwargs)
 
     def jax_trees(self):
-        return {'params': tree_to_jax(self.params)}
+        return {'params': vits_to_jax(self.params)}
 
     @staticmethod
     def _random_trees(hp, seed):
@@ -107,24 +107,6 @@ class VITS(Tacotron2):
 
     # -- inference ---------------------------------------------------------------------
 
-    def _weights(self, dtype):
-        """The params cast to `dtype`, once per dtype and set of params."""
-        if dtype is None:
-            return self.params
-        key = ('cast', dtype)
-        if key not in self._derived:
-            self._derived[key] = cast_tree(self.params, dtype)
-        return self._derived[key]
-
-    def _max_frames(self, n_tokens, max_length, padding_multiple):
-        hp = self.arch.hp
-        if max_length is None:
-            max_length = hp.max_frames
-        elif isinstance(max_length, float):
-            max_length = int(n_tokens * max_length)
-        max_frames = int(min(max_length, self.max_output_length, hp.max_position))
-        return -(-max_frames // padding_multiple) * padding_multiple
-
     def compiled_infer(self,
                        tokens,
                        *,
@@ -148,11 +130,13 @@ class VITS(Tacotron2):
         if tokens.ndim == 1: tokens = tokens[None]
         tokens = pad_to_multiple(tokens, padding_multiple, axis = 1,
                                  constant_values = self.blank_token_idx)
-        max_frames = self._max_frames(tokens.shape[1], max_length, padding_multiple)
+        # no positional table over the frames: the buffer may round past max_position
+        max_frames = self._max_frames(tokens.shape[1], max_length, padding_multiple,
+                                      within_position = False)
         spk = self._speaker_rows(embeddings, tokens.shape[0])
         controls = torch.tensor([noise_scale, d_control, noise_scale_w], dtype = torch.float32,
                                 device = self.device)
-        params = self._weights(dtype)
+        params = self._cast_params(dtype)
         arch = self.arch
         with torch.no_grad():
             if clock is not None: clock.mark()

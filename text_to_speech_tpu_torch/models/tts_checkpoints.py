@@ -10,7 +10,8 @@ layers), each with the architecture sizes read from the tensors' shapes
 (``*_config_from_state_dict``).  The converters rebuild the JAX package's
 numpy parameter trees from the PyTorch ``state_dict`` layouts;
 `weights.tacotron2_from_jax` / `weights.waveglow_from_jax` /
-`weights.tree_from_jax` then turn those trees into the port's, so that both
+`weights.hifigan_from_jax` / `weights.vits_from_jax` then turn those trees
+into the port's, so that both
 packages share one definition of every layout:
 
   - Linear (out, in) → kernel (in, out): ``.T``

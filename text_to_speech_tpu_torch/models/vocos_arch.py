@@ -9,7 +9,7 @@ one inverse STFT (`ops.stft.STFT.inverse_transform`) gives the waveform.
 One frame is reflected at the end of the mel, so the inverse covers
 ``T * hop`` samples; the waveform is cropped or zero-padded to exactly that.
 GELU is ``jax.nn.gelu``'s default, the tanh approximation.  Parameters are
-the port's layouts (`weights.tree_from_jax`); random ones come from
+the port's layouts (`weights.hifigan_from_jax`); random ones come from
 `init.init_vocos`.
 
 The JAX package computes it in XLA, outside any Pallas kernel: the port

@@ -3,13 +3,12 @@
 The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
 flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
 them without JAX.  `convert_tree` (FastSpeech-2's params and state),
-`tree_from_jax` (HiFi-GAN, Vocos and VITS: `convert_tree` with the
-transposed convs under the key ``up``), `tacotron2_from_jax`,
-`waveglow_from_jax` and `audio_encoder_from_jax` turn those trees (nested
-dicts of numpy arrays) into nested dicts of torch tensors in the layouts
-`nn.layers` takes (`tree_to_jax` and the ``*_to_jax`` functions go back;
-a bare array, such as VITS's relative tables or Vocos's layer scale, stays
-an array):
+`tacotron2_from_jax`, `waveglow_from_jax`, `hifigan_from_jax` (HiFi-GAN's
+and Vocos's params), `vits_from_jax` and
+`audio_encoder_from_jax` turn those trees (nested dicts of numpy arrays)
+into nested dicts of torch tensors in the layouts `nn.layers` takes
+(`tree_to_jax` and the ``*_to_jax`` functions go back; a bare array, such
+as VITS's relative tables or Vocos's layer scale, stays an array):
 
   - conv ``kernel (W, in, out)``           → ``weight (out, in, W)``
   - conv-transpose ``kernel (W, in, out)`` → ``weight (in, out, W)``, taps
@@ -23,6 +22,8 @@ an array):
     (a separate state tree, as in the JAX package)
   - embedding ``embeddings`` → ``weight``
 """
+
+import re
 
 import numpy as np
 import torch
@@ -111,21 +112,6 @@ def conv_transpose_from_jax(node):
     return out
 
 
-# the key of the transposed convs in the HiFi-GAN generator's stages
-_TRANSPOSED = 'up'
-
-
-def tree_from_jax(tree):
-    """`convert_tree`, with the layer dicts under the key ``up`` taken as
-    transposed convs (`conv_transpose_from_jax`): the trees of HiFi-GAN,
-    Vocos and VITS, whose generator stages hold one there."""
-    if not isinstance(tree, dict):
-        return _tensor(tree)
-    return {k: conv_transpose_from_jax(v) if k == _TRANSPOSED else tree_from_jax(v)
-            for k, v in tree.items()} \
-        if any(isinstance(v, dict) for v in tree.values()) else convert_tree(tree)
-
-
 def tacotron2_from_jax(params, state):
     """JAX Tacotron-2 (params, state) trees → the port's (params, state)."""
     return convert_tree(params), convert_tree(state)
@@ -141,6 +127,29 @@ def waveglow_from_jax(params):
     """JAX WaveGlow params tree → the port's params."""
     out = {k: convert_tree(v) for k, v in params.items() if k != 'upsample'}
     out['upsample'] = conv_transpose_from_jax(params['upsample'])
+    return out
+
+
+# a stage of the HiFi-GAN generator: ``up{i}``, its transposed conv ``up``
+# beside the resblocks
+_HIFIGAN_STAGE = re.compile(r'up\d+')
+
+
+def hifigan_from_jax(params):
+    """JAX HiFi-GAN generator params → the port's: each stage's transposed
+    conv ``up`` through `conv_transpose_from_jax`, the rest `convert_tree`
+    (all of a Vocos tree, which has no stage)."""
+    return {k: {n: conv_transpose_from_jax(v) if n == 'up' else convert_tree(v)
+                for n, v in node.items()}
+            if _HIFIGAN_STAGE.fullmatch(k) else convert_tree(node)
+            for k, node in params.items()}
+
+
+def vits_from_jax(params):
+    """JAX VITS params → the port's: the generator through
+    `hifigan_from_jax`, the rest `convert_tree`."""
+    out = convert_tree({k: v for k, v in params.items() if k != 'generator'})
+    out['generator'] = hifigan_from_jax(params['generator'])
     return out
 
 
@@ -194,14 +203,11 @@ _LAYER_KEYS = ('weight', 'weight_hh', 'running_mean')
 
 
 def tree_to_jax(tree, name = ''):
-    """The inverse of `convert_tree` and `tree_from_jax` (numpy float32) for
-    the trees of Tacotron-2, FastSpeech-2, WaveGlow's coupling blocks,
-    HiFi-GAN, Vocos and VITS: a bare tensor becomes an array, the layer
-    dict under ``up`` a transposed conv."""
+    """The inverse of `convert_tree` (numpy float32) for the trees of
+    Tacotron-2, FastSpeech-2, WaveGlow's coupling blocks, Vocos and VITS
+    but its generator: a bare tensor becomes an array."""
     if torch.is_tensor(tree):
         return _array(tree)
-    if name == _TRANSPOSED:
-        return _conv_transpose_to_jax(tree)
     if tree and all(not isinstance(v, dict) for v in tree.values()) \
             and any(k in tree for k in _LAYER_KEYS):
         return _node_to_jax(name, tree)
@@ -222,6 +228,22 @@ def waveglow_to_jax(params):
                      if k not in ('packed', 'packed_q')}
             out[name] = {'convinv': {'kernel': _conv_to_jax(value['convinv'])['kernel']},
                          'block': tree_to_jax(block)}
+    return out
+
+
+def hifigan_to_jax(params):
+    """The port's HiFi-GAN generator params → the JAX package's tree (numpy
+    float32), the inverse of `hifigan_from_jax`."""
+    return {k: {n: _conv_transpose_to_jax(v) if n == 'up' else tree_to_jax(v, n)
+                for n, v in node.items()}
+            if _HIFIGAN_STAGE.fullmatch(k) else tree_to_jax(node, k)
+            for k, node in params.items()}
+
+
+def vits_to_jax(params):
+    """The inverse of `vits_from_jax` (numpy float32)."""
+    out = tree_to_jax({k: v for k, v in params.items() if k != 'generator'})
+    out['generator'] = hifigan_to_jax(params['generator'])
     return out
 
 
