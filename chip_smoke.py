@@ -7,7 +7,8 @@ and SV2TTS by teacher forcing, FastSpeech-2 distilled from the trained
 Tacotron-2, the speaker encoder by GE2E) and serve the trained ones,
 clone a voice from the trained Tacotron-2 and fine-tune it on a corpus, and
 serve the other families (HiFi-GAN and Vocos behind Tacotron-2, VITS and
-SV2TTS-VITS) imported from seeded state dicts in their published layouts.
+SV2TTS-VITS) imported from seeded state dicts in their published layouts,
+and serve Tacotron-2 + WaveGlow and VITS over HTTP with continuous batching.
 
     python3 chip_smoke.py
 
@@ -104,6 +105,25 @@ Phases, one JSON line each:
            float32's durations within 1e-1 of scale); SV2TTS-VITS (`create`,
            a 256-wide embedding) cloning one sentence from a saved table by
            label;
+  serving  serving over HTTP with continuous batching at NVIDIA width: K3's
+           `decode_chunk` against the plain route at B = 1, 4, 8 and 16 (two
+           row groups of 8): a chunk at S = 64, the batch re-bucketed to 128,
+           a second chunk (1e-4 of scale), and the wall ms of a K3 chunk; K3
+           against its plain version at a row group (B = 8, S = 64, timed);
+           `serve()` on Tacotron-2 + WaveGlow (sigma 0, deterministic prenet,
+           256 frames a request, stream_context 192) on the native scheduler
+           after its warm-up: 16 requests over HTTP from threads, 8 at once
+           and 8 after the first chunk, half streamed (`?stream=1`), four in
+           the next token bucket; each mel against `infer_fused` on its
+           padded tokens (1e-4 of scale), each WAV body the request's audio,
+           each stream's last emission against the offline vocode (2e-2 of
+           scale); K3 launches (one a chunk for each group of <= 8 rows) and
+           K1 launches (12 a vocoder call) counted; time to first audio,
+           latency, audio seconds per second, ms per chunk by row bucket;
+           then `serve()` on the families phase's VITS (int16 chunks, noise
+           0) answering 4 requests, against one-shot `compiled_infer`
+           (1/32767 + 1e-4), no launch.  K1 is held against its plain
+           version at the emissions' (B, T) after the transfer phase;
   sv2tts   voice cloning at NVIDIA width (random seeded weights, a 256-wide
            speaker embedding): the speaker encoder at its defaults, saved and
            loaded by name, embeds four clips of 1-3 s at 16 kHz and a WAV at
@@ -195,8 +215,8 @@ Phases, one JSON line each:
            the best epoch's `tts()` with the held-out speaker (K3 >= 1, 12
            K1), its K3 against the plain version and K1 at the (B, T) its
            vocoder call got; MCD and mel SNR of its teacher-forced mels.
-The files of the families, sv2tts, nvidia_import, fastspeech2, training and
-transfer phases go in one temporary directory, removed when they end (the transfer
+The files of the families, serving, sv2tts, nvidia_import, fastspeech2,
+training and transfer phases go in one temporary directory, removed when they end (the transfer
 phase's own root when it ends).  Then the kernel summary, the
 card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
@@ -359,9 +379,10 @@ def sass_check():
     return report
 
 
-def wn_block_phase(shapes = None, label = 'fused_wn_block'):
+def wn_block_phase(shapes = None, label = 'fused_wn_block', clocks = True):
     """K1 against its plain version: by default at the Tacotron-2 cells'
-    shapes (below), else at `shapes`, ((dtype, B, T), ...), each timed.
+    shapes (below), else at `shapes`, ((dtype, B, T), ...), each timed
+    (with `clocks`, nvidia-smi's readings under the bf16 cases too).
     Emits the cases under `label` and returns them."""
     from text_to_speech_tpu_torch.ops.wn_block import (
         fused_wn_block, grid_tiles, l2_bytes, pack_wn_weights, wn_block_plain)
@@ -423,8 +444,9 @@ def wn_block_phase(shapes = None, label = 'fused_wn_block'):
         if dtype == torch.bfloat16 and timed(T):
             # the wgmma kernels: L2 bytes by their tiling, waves on the SMs
             case.update(l2_bytes = l2_bytes(B, T, C, S, L),
-                        waves = waves(grid_tiles(B, T, C)),
-                        clocks = clocks_under(lambda: fused_wn_block(* args)))
+                        waves = waves(grid_tiles(B, T, C)))
+            if clocks:
+                case['clocks'] = clocks_under(lambda: fused_wn_block(* args))
             case['l2_bytes_per_s'] = case['l2_bytes'] / (case['kernel_ms'] * 1e-3)
         cases['{}_B{}_T{}'.format(name, B, T)] = case
         check(err <= rel_tol * scale,
@@ -2273,7 +2295,8 @@ def families_phase(model, root):
     V1 and Vocos behind the NVIDIA-width Tacotron-2 (K3 decodes, no WN
     kernel), VITS (use_sdp, the LJSpeech release's layout) and SV2TTS-VITS
     (a 256-wide embedding), each imported or made under `root`.  Returns the
-    runs."""
+    runs, the VITS model and the `d_control` that gives it ~256 frames a
+    sentence."""
     from text_to_speech_tpu_torch import tts
     from text_to_speech_tpu_torch.init import (
         hifigan_state_dict, vits_state_dict, vocos_state_dict)
@@ -2387,7 +2410,435 @@ def families_phase(model, root):
                mode = 'label', label = 'a')
     emit({'phase': 'families', ** out, 'runs': runs,
           'phase_s': time.perf_counter() - phase_start})
-    return runs
+    return runs, vits, d_control
+
+
+# the serving phase's requests: twelve sentences of one token bucket (64) and
+# four of the next (128), so that a later admission re-buckets the batch
+SERVING_TEXTS = SENTENCES + [
+    'The birch canoe slid on the smooth planks.',
+    'Glue the sheet to the dark blue background.',
+    'It is easy to tell the depth of a well.',
+    'These days a chicken leg is a rare dish.',
+    'Rice is often served in round bowls.',
+    'The juice of lemons makes fine punch.',
+    'The box was thrown beside the parked truck.',
+    'The hogs were fed chopped corn and garbage.',
+    'Four hours of steady work faced us, and the night was long and cold, '
+    'but nobody spoke of it.',
+    'A large size in stockings is hard to sell, said the clerk, and he put '
+    'the box back on the shelf.',
+    'The boy was there when the sun rose, and he stayed on the hill until '
+    'the last light went out.',
+    'A rod is used to catch pink salmon, and the best of them are caught in '
+    'the early morning hours.']
+
+
+def _rebucket(carry, s_new, memory, pm, mask):
+    """A decode carry and its memory at S tokens re-bucketed to `s_new`,
+    as the stepper does when a longer request joins: zero padding."""
+    frame, (att, (dec,), ctx, (prev, cum)) = carry
+    pad = lambda t: torch.nn.functional.pad(t, (0, 0) * (t.ndim - 2) + (0, s_new - t.shape[1]))
+    return ((frame, (att, (dec,), ctx, (pad(prev), pad(cum)))),
+            pad(memory), pad(pm), pad(mask))
+
+
+def _decode_chunk_routes(model, B):
+    """`decode_chunk` on K3 (one launch a group of <= 8 rows) against the
+    plain route at B rows: a chunk of 64 steps at S = 64, the batch
+    re-bucketed to S = 128, a second chunk.  Relative errors to each
+    compared tensor's scale, K3 launches, and the wall ms of a K3 chunk."""
+    from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps
+
+    arch, hp = model.arch, model.arch.hp
+    rng = np.random.default_rng(30 + B)
+    tokens = np.zeros((B, 64), np.int64)
+    for i in range(B):
+        n = 64 - (7 * i) % 40
+        tokens[i, :n] = rng.integers(1, hp.vocab_size, n)
+    weights = model._decoder_weights(None)
+    with torch.no_grad():
+        enc, mask = arch.encode(model.params, model.state, torch.from_numpy(tokens).cuda())
+        memory, pm = arch.process_memory(model.params['decoder'], enc, mask)
+    zero = (torch.zeros((B, hp.n_mel_channels), device = 'cuda'),
+            arch.init_cell_state(B, 64, device = 'cuda'))
+
+    def run(fused):
+        kw = dict(weights = weights) if fused else {}
+        carry, mem, p, m, out = zero, memory, pm, mask, []
+        with torch.no_grad():
+            for off in (0, 64):
+                if off:
+                    carry, mem, p, m = _rebucket(carry, 128, mem, p, m)
+                frames, gates, carry = arch.decode_chunk(
+                    model.params, * carry, mem, p, m, n_steps = 64, step_offset = off,
+                    deterministic = True, ** kw)
+                out += [frames, gates]
+        leaves = lambda t: [x for y in t for x in leaves(y)] if isinstance(t, tuple) else [t]
+        return out + leaves(carry)
+
+    decoder_steps.launches = 0
+    fused = run(True)
+    launches = decoder_steps.launches
+    plain = run(False)
+    rel = [float((a.float() - b.float()).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(fused, plain)]
+    # the wall time of one K3 chunk (64 steps) at this batch, synchronised
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        with torch.no_grad():
+            arch.decode_chunk(model.params, * zero, memory, pm, mask, n_steps = 64,
+                              deterministic = True, weights = weights)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - start))
+    return {'B': B, 'launches_two_chunks': launches, 'max_rel_err': max(rel),
+            'rel_err_frames': max(rel[0], rel[2]), 'rel_err_gates': max(rel[1], rel[3]),
+            'tolerance_rel': 1e-4, 'chunk_ms': statistics.median(times)}
+
+
+def _k3_serving_case(model):
+    """K3 against its plain version at a serving row group (B = 8, S = 64,
+    64 steps, float32, deterministic prenet): error, ms, plain ms, bound."""
+    from text_to_speech_tpu_torch.ops.decoder_kernel import (
+        decoder_steps, decoder_steps_plain, init_decoder_state, pack_decoder_weights)
+
+    arch, hp, B, S, K = model.arch, model.arch.hp, 8, 64, 64
+    weights = pack_decoder_weights(model.params['decoder'], n_mel = hp.n_mel_channels)
+    tokens = torch.from_numpy(np.random.default_rng(40).integers(
+        1, hp.vocab_size, (B, S))).cuda()
+    with torch.no_grad():
+        enc, mask = arch.encode(model.params, model.state, tokens)
+        mem, pm = arch.process_memory(model.params['decoder'], enc, mask)
+    args = (weights, mem.contiguous(), pm.contiguous(), mask.float(),
+            mask.sum(dim = 1).to(torch.int32), torch.zeros((B, hp.prenet_sizes[0]), device = 'cuda'))
+    fresh = lambda: init_decoder_state(B, S, mem.shape[-1], hp.attention_rnn_dim,
+                                       hp.n_mel_channels, device = 'cuda')
+    seed = torch.zeros((1,), dtype = torch.int64, device = 'cuda')
+    kw = dict(n_steps = K, deterministic = True)
+    steps = decoder_steps(* args, fresh(), seed, ** kw)[0]
+    ref = decoder_steps_plain(* args, fresh(), seed, ** kw)[0]
+    err = float((steps - ref).abs().max())
+    scale = float(ref.abs().max())
+    check(err <= 1e-4 * scale, 'K3 at the serving row group: {} > 1e-4 x {}'.format(err, scale))
+    ops_s, nbytes, _ = decoder_steps_work(weights, B, S, K, 4, PEAK_F32_FLOPS)
+    st = fresh()
+    return {'B': B, 'S': S, 'K': K, 'max_abs_err': err, 'max_rel_err': err / scale,
+            'tolerance_rel': 1e-4,
+            'kernel_ms': time_ms(lambda: decoder_steps(* args, st, seed, ** kw)),
+            'plain_ms': time_ms(lambda: decoder_steps_plain(* args, st, seed, ** kw),
+                                reps = 3, warmup = 1),
+            'bound_ms': 1e3 * max(ops_s, nbytes / PEAK_BYTES),
+            'bound_by': 'operations' if ops_s > nbytes / PEAK_BYTES else 'bytes'}
+
+
+def _http_clients(server, jobs, engine = None):
+    """POST each (text, stream) job from a thread of its own: the first half
+    at once, the second once `engine` has stepped a chunk more (at once
+    when `engine` is None).  Returns,
+    per job, the status, the request id, the WAV body, and seconds to the
+    first audio bytes (streamed) or to the whole body, and to the end; and
+    the wall seconds of all."""
+    import http.client
+    host, port = server._httpd.server_address[:2]
+    results = [None] * len(jobs)
+
+    def client(i, text, stream):
+        conn = http.client.HTTPConnection(host, port, timeout = 300)
+        try:
+            start = time.perf_counter()
+            conn.request('POST', '/tts?stream=1' if stream else '/tts',
+                         body = json.dumps({'text': text}),
+                         headers = {'Content-Type': 'application/json'})
+            resp = conn.getresponse()
+            if stream:
+                head = resp.read(46)            # the WAV header, then the first sample
+                first = time.perf_counter() - start
+                body = head + resp.read()
+            else:
+                body = resp.read()
+                first = time.perf_counter() - start
+            results[i] = {'status': resp.status, 'id': resp.getheader('X-Request-Id'),
+                          'body': body, 'first_s': first,
+                          'total_s': time.perf_counter() - start, 'stream': stream}
+        except Exception as e:                  # reported by the check below
+            results[i] = {'status': None, 'error': repr(e)}
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target = client, args = (i, * job), daemon = True)
+               for i, job in enumerate(jobs)]
+    half = len(jobs) // 2
+    chunks = engine.stats['chunks'] if engine is not None else 0
+    start = time.perf_counter()
+    for t in threads[:half]:
+        t.start()
+    if engine is not None:
+        deadline = time.perf_counter() + 120
+        while engine.stats['chunks'] <= chunks and time.perf_counter() < deadline:
+            time.sleep(0.001)
+    for t in threads[half:]:
+        t.start()
+    for t in threads:
+        t.join(timeout = 300)
+    wall_s = time.perf_counter() - start
+    check(all(r is not None and r['status'] == 200 for r in results),
+          'HTTP requests: {}'.format([None if r is None else {k: v for k, v in r.items()
+                                                              if k != 'body'} for r in results]))
+    return results, wall_s
+
+
+def _pcm(body):
+    return np.frombuffer(body[44:], '<i2')
+
+
+def _latency_summary(results, outputs, engine):
+    """Time to first audio (the streamed requests, at the client) and
+    latency (all, at the client); the engine's own first-audio seconds
+    (from admission) and its loop's split (admission, steps, finishes)."""
+    first = [r['first_s'] for r in results if r['stream']]
+    total = [r['total_s'] for r in results]
+    engine_first = [o['first_audio_s'] for o in outputs if 'first_audio_s' in o]
+    return {'first_audio_ms_median': 1e3 * statistics.median(first),
+            'first_audio_ms_max': 1e3 * max(first),
+            'latency_ms_median': 1e3 * statistics.median(total),
+            'latency_ms_max': 1e3 * max(total),
+            'engine_first_audio_ms_median': 1e3 * statistics.median(engine_first),
+            'engine': {k: engine.stats[k] for k in ('chunks', 'rows_stepped', 'step_s',
+                                                     'admit_s', 'finish_s')},
+            'chunks_by_rows': {b: {'chunks': n, 'ms_per_chunk': 1e3 * s / n}
+                               for b, (n, s) in sorted(engine.stats.get(
+                                   'chunk_s_by_rows', {}).items())}}
+
+
+def _synced_ms(fn):
+    """(result, wall ms) of `fn()` between two synchronisations."""
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - start)
+
+
+def _device_busy(fn):
+    """`fn()` under `torch.profiler` (host and CUDA): its wall ms, the
+    device's busy ms (the union of its kernels' intervals), the busy share
+    and the kernel launches."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities = [torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA]) as prof:
+        start = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - start)
+    kernels = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    busy_us, end = 0., float('-inf')
+    for start_us, stop_us in kernels:
+        busy_us += max(0., stop_us - max(start_us, end))
+        end = max(end, stop_us)
+    return {'wall_ms': wall_ms, 'device_busy_ms': busy_us / 1e3,
+            'device_busy_share': busy_us / 1e3 / wall_ms, 'kernel_launches': len(kernels)}
+
+
+def _stepper_alone(engine, texts, max_chunks = 16):
+    """A served stepper driven alone on this thread, the engine idle: wall
+    ms of the admission of one text and of `texts` in one burst, then of
+    each chunk (`step_fn`: decode, reads, emissions) of the burst's rows
+    and of the one row, until each is done."""
+    record = {}
+    for label, batch in (('one', texts[:1]), ('burst', texts)):
+        if len(batch) == 1:
+            states, ms = _synced_ms(lambda: [engine.start_fn(batch[0])])
+        else:
+            states, ms = _synced_ms(lambda: engine.start_fn.start_many(
+                batch, [{}] * len(batch)))
+        chunks = []
+        for _ in range(max_chunks):
+            (states, done), step_ms = _synced_ms(lambda: engine.step_fn(states))
+            chunks.append(step_ms)
+            if all(done):
+                break
+        _, finish_ms = _synced_ms(lambda: engine.finish_fn.finish_many(states))
+        record[label] = {'rows': len(batch), 'admit_ms': ms, 'chunk_ms': chunks,
+                         'finish_ms': finish_ms}
+    return record
+
+
+def serving_phase(model, vocoder, vits, d_control):
+    """Serving over HTTP with continuous batching at NVIDIA width: K3's
+    `decode_chunk` against the plain route (B = 1, 4, 16, re-bucketed),
+    `serve()` on Tacotron-2 + WaveGlow (``sigma=0``) answering 16 requests
+    (8 at once, 8 after the first chunk; half streamed), each mel against
+    `infer_fused`, the streams' tails against the offline vocode, launches
+    counted, K1 at the emission shapes; then `serve()` on the families
+    phase's VITS with 4 requests.  Returns (K3 case, K1 cases, runs)."""
+    from text_to_speech_tpu_torch.models.tts import serve
+    from text_to_speech_tpu_torch.runtimes.http_server import pcm16
+    from text_to_speech_tpu_torch.utils.sequence_utils import pad_to_multiple
+
+    phase_start = time.perf_counter()
+    out = {'decode_chunk': {}}
+    for B in (1, 4, 8, 16):
+        case = _decode_chunk_routes(model, B)
+        out['decode_chunk']['B{}'.format(B)] = case
+        check(case['max_rel_err'] <= 1e-4 and case['launches_two_chunks'] == 2 * -(-B // 8),
+              'decode_chunk K3 against plain: {}'.format(case))
+    k3_case = _k3_serving_case(model)
+    out['decoder_steps_B8_S64'] = k3_case
+
+    # the streamed WaveGlow at sigma = 0, so that a window vocodes as the
+    # whole mel does
+    sigma, vocoder.arch.hp.sigma = vocoder.arch.hp.sigma, 0.
+    vocoded, device_vocoder_fn = [], vocoder.device_vocoder_fn
+
+    def recording_vocoder_fn(** config):
+        fn, params, tag = device_vocoder_fn(** config)
+
+        def recorded(params, mel, generator = None):
+            vocoded.append(tuple(mel.shape))
+            return fn(params, mel, generator)
+        return recorded, params, tag
+
+    n_flows = vocoder.arch.hp.n_flows
+    server = vits_server = None
+    try:
+        start = time.perf_counter()
+        # 256 frames a request (the gate is biased off); the vocoder pads
+        # every emission window to 256 frames, so a context of 192 frames
+        # costs no more than the default 32 here and gives each emission of
+        # a 256-frame request its whole left context (12 flows of random
+        # weights reach far beyond 32 frames)
+        server = serve(model = model, vocoder = vocoder, port = 0, block = False,
+                       max_batch_size = 16, max_steps = 256, deterministic = True,
+                       stream_context = 192, warmup = SERVING_TEXTS[0])
+        engine = server.engine
+        setup_s = time.perf_counter() - start
+        check(engine.native_scheduler, 'serve(): the engine is not on the native scheduler')
+        check(engine.step_fn.fused, 'serve(): the Tacotron-2 stepper is not on K3')
+        vocoder.device_vocoder_fn = recording_vocoder_fn
+        torch.cuda.synchronize()
+        for key in ('chunks', 'rows_stepped', 'step_s', 'admit_s', 'finish_s'):
+            engine.stats[key] = 0
+        engine.stats['chunk_s_by_rows'] = {}
+        reset_launches()
+        jobs = [(text, i % 2 == 1) for i, text in enumerate(SERVING_TEXTS)]
+        results, wall_s = _http_clients(server, jobs, engine)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        del vocoder.device_vocoder_fn                   # the class's method again
+        chunk_by_rows = dict(engine.stats['chunk_s_by_rows'])
+        outputs = [server._requests[r['id']].result.get(timeout = 60) for r in results]
+        timings = _latency_summary(results, outputs, engine)
+        timings['scheduler'] = engine.scheduler_stats
+        # the same 16 requests again under the profiler: the device's busy share
+        timings['profiled_run'] = _device_busy(lambda: _http_clients(server, jobs, engine))
+        # where a request's time goes without concurrency: the stepper alone
+        timings['stepper_alone'] = _stepper_alone(engine, SERVING_TEXTS)
+        server.stop()
+        server = None
+
+        # launches: K3 one a chunk for each group of <= 8 rows, 12 K1 a vocode
+        expected_k3 = sum(n * -(-bucket // 8) for bucket, (n, _) in chunk_by_rows.items())
+        check(launches['decoder_steps'] == expected_k3 and launches['decoder_steps'] > 0
+              and 16 in chunk_by_rows, 'serving: K3 launches {} for chunks {}'.format(
+                  launches, chunk_by_rows))
+        check(launches['wn_block'] == n_flows * len(vocoded) and launches['wn_block'] > 0
+              and launches['wn_block_int8'] == 0 and launches['wn_layer'] == 0,
+              'serving: K1 launches {} for {} vocoder calls'.format(launches, vocoded))
+        # every mel against infer_fused on its own padded tokens; the frame
+        # where a stream's final emission starts: the emissions at the chunk
+        # boundaries hold the postnet's lookahead back
+        hp = model.arch.hp
+        last_emitted = 0
+        for steps in (64, 128, 192):
+            hi = steps - hp.postnet_n_conv * (hp.postnet_kernel_size // 2)
+            if hi - last_emitted >= 64:
+                last_emitted = hi
+        mel_err, tail_err = 0., 0.
+        for (text, stream), res, output in zip(jobs, results, outputs):
+            tokens = pad_to_multiple(np.asarray(model.encode_text(text))[None], 64, axis = 1,
+                                     constant_values = model.blank_token_idx)
+            with torch.no_grad():
+                ref = model.arch.infer_fused(
+                    model.params, model.state, torch.from_numpy(tokens).cuda(),
+                    deterministic = True, max_length = 256,
+                    weights = model._decoder_weights(None)).mel[0].cpu().numpy()
+            check(output['mel'].shape == ref.shape == (256, 80) and output['steps'] == 256,
+                  'serving: mel {} steps {}'.format(output['mel'].shape, output['steps']))
+            err = float(np.abs(output['mel'] - ref).max()) / float(np.abs(ref).max())
+            mel_err = max(mel_err, err)
+            audio = output['audio']
+            check(audio.shape == (256 * vocoder.upsample_rate,) and np.isfinite(audio).all(),
+                  'serving: audio {}'.format(audio.shape))
+            check(np.array_equal(_pcm(res['body']), np.frombuffer(pcm16(audio), '<i2')),
+                  'serving: the WAV body is not the request\'s audio')
+            if stream:
+                # the final emission vocodes the whole mel as the offline call does
+                offline = vocoder(output['mel'])[0]
+                tail = slice(last_emitted * vocoder.upsample_rate, 256 * vocoder.upsample_rate)
+                err = float(np.abs(audio[tail] - offline[tail]).max()) \
+                    / float(np.abs(offline).max())
+                tail_err = max(tail_err, err)
+        check(mel_err <= 1e-4, 'serving: mel against infer_fused {} > 1e-4'.format(mel_err))
+        check(tail_err <= 2e-2, 'serving: streamed tail against the offline vocode {} > '
+              '2e-2'.format(tail_err))
+        audio_s = sum(len(o['audio']) for o in outputs) / model.rate
+        out['tacotron2_waveglow'] = dict(
+            requests = len(jobs), streamed = sum(s for _, s in jobs), setup_s = setup_s,
+            wall_s = wall_s, audio_s = audio_s, audio_s_per_s = audio_s / wall_s,
+            ** timings,
+            launches = launches, launches_per_request = {k: v / len(jobs)
+                                                         for k, v in launches.items()},
+            vocoder_calls = len(vocoded), emission_shapes = sorted(set(vocoded)),
+            mel_rel_err = mel_err, mel_tolerance_rel = 1e-4,
+            stream_tail_rel_err = tail_err, stream_tail_tolerance_rel = 2e-2)
+
+        # VITS (the families phase's, at d_control): 4 requests, int16 chunks
+        start = time.perf_counter()
+        vits_server = serve(model = vits, port = 0, block = False, max_batch_size = 4,
+                            noise_scale = 0., noise_scale_w = 0., d_control = d_control,
+                            warmup = SENTENCES[0])
+        vits_setup_s = time.perf_counter() - start
+        check(vits_server.engine.native_scheduler, 'VITS serve(): not on the native scheduler')
+        reset_launches()
+        vjobs = [(text, i % 2 == 1) for i, text in enumerate(SENTENCES)]
+        vresults, vwall_s = _http_clients(vits_server, vjobs)
+        vlaunches = read_launches()
+        voutputs = [vits_server._requests[r['id']].result.get(timeout = 60) for r in vresults]
+        vtimings = _latency_summary(vresults, voutputs, vits_server.engine)
+        vtimings['stepper'] = dict(vits_server.engine.step_fn.stats)
+        vtimings['scheduler'] = vits_server.engine.scheduler_stats
+        vtimings['stepper_alone'] = _stepper_alone(vits_server.engine, SENTENCES)
+        vits_server.stop()
+        vits_server = None
+        check(sum(vlaunches.values()) == 0, 'VITS serving launches {}'.format(vlaunches))
+        verr = 0.
+        for (text, _), res, output in zip(vjobs, vresults, voutputs):
+            one = vits.compiled_infer(vits.encode_text(text), noise_scale = 0.,
+                                      noise_scale_w = 0., d_control = d_control)
+            n = int(one.lengths[0]) * vits.upsample_rate
+            ref = one.audio[0, :n].cpu().numpy()
+            check(output['audio'].shape == ref.shape and np.isfinite(output['audio']).all(),
+                  'VITS serving: {} samples, one-shot {}'.format(output['audio'].shape,
+                                                                   ref.shape))
+            verr = max(verr, float(np.abs(output['audio'] - np.clip(ref, -1., 1.)).max()))
+        check(verr <= 1. / 32767. + 1e-4, 'VITS serving against one-shot: {}'.format(verr))
+        vaudio_s = sum(len(o['audio']) for o in voutputs) / vits.rate
+        out['vits'] = dict(requests = len(vjobs), setup_s = vits_setup_s, wall_s = vwall_s,
+                           audio_s = vaudio_s, audio_s_per_s = vaudio_s / vwall_s,
+                           ** vtimings, launches = vlaunches,
+                           max_abs_err_vs_one_shot = verr,
+                           tolerance_abs = 1. / 32767. + 1e-4)
+    finally:
+        vocoder.__dict__.pop('device_vocoder_fn', None)
+        vocoder.arch.hp.sigma = sigma
+        for srv in (server, vits_server):
+            if srv is not None:
+                srv.stop()
+    emit({'phase': 'serving', ** out, 'phase_s': time.perf_counter() - phase_start})
+    return k3_case, sorted(set(vocoded)), out
 
 
 # the text of the in-repo WAVs (examples/overfit_single_utterance.py)
@@ -3073,7 +3524,9 @@ def main():
     # the checkpoints and predictions of these phases go when they end
     with tempfile.TemporaryDirectory(prefix = 'chip_smoke_') as scratch:
         root = lambda name: tempfile.mkdtemp(prefix = name + '_', dir = scratch)
-        family_runs = families_phase(model, root('families'))
+        family_runs, vits, d_control = families_phase(model, root('families'))
+        serving_k3, serving_shapes, serving = serving_phase(model, vocoder, vits, d_control)
+        del vits
         sv2tts_cases, sv2tts_runs = sv2tts_phase(vocoder, root('sv2tts'))
         nvidia_cases, nvidia_runs, nvidia_vocoder = nvidia_import_phase(root('nvidia'))
         fs2_runs, fs2_shapes = fastspeech2_phase(nvidia_vocoder, root('fastspeech2'))
@@ -3101,6 +3554,11 @@ def main():
     clone_key = 'bfloat16_B{}_T{}'.format(* clone_shape)
     clone_wn = next((cases for cases in (fs2_wn, student_wn) if clone_key in cases), None) \
         or wn_block_phase([(torch.bfloat16, * clone_shape)], label = 'fused_wn_block_clone')
+    # K1 at the (B, T) of each vocoder call of the served requests' emissions
+    hop = vocoder.upsample_rate // vocoder.arch.hp.n_group
+    serving_k1 = sorted({(B, F * hop) for B, F, _ in serving_shapes})
+    serving_wn = wn_block_phase([(torch.bfloat16, B, T) for B, T in serving_k1],
+                                label = 'fused_wn_block_serving', clocks = False)
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -3239,6 +3697,18 @@ def main():
                 route = 'cuda', source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
                 launches = transfer_runs['clone_one_sentence']['launches']['wn_block']),
+        # serving over HTTP (16 requests, continuous batching): K3 at a row
+        # group of the decode chunks (B = 8), K1 at the largest emission
+        # batch; launches of the 16 requests
+        summary(serving_k3, name = 'decoder_steps (serving, row group of 8)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = serving['tacotron2_waveglow']['launches']['decoder_steps']),
+        summary(serving_wn['bfloat16_B{}_T{}'.format(* serving_k1[-1])],
+                name = 'fused_wn_block (serving emissions)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = serving['tacotron2_waveglow']['launches']['wn_block']),
         # the rate probe: launches in its int8 and its bf16 line
         dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
                      source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',

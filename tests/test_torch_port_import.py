@@ -52,20 +52,24 @@ def test_port_imports_without_jax():
                  'train.loader', 'train.audio_datasets', 'nn.flows', 'models.registry',
                  'models.hifigan_arch', 'models.vocos_arch', 'models.vits_arch',
                  'models.tts.hifigan', 'models.tts.vocos', 'models.tts.vits',
-                 'models.tts.sv2tts_vits'):
+                 'models.tts.sv2tts_vits', 'native.scheduler', 'runtimes',
+                 'runtimes.serving', 'runtimes.http_server'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
 def test_native_build_imports_no_jax():
-    """Building and loading the native libraries, and a decode on the pool,
-    load no JAX module."""
+    """Building and loading the native libraries, a decode on the pool and the
+    serving scheduler load no JAX module."""
     _run('''
         import sys
         import numpy as np
         from text_to_speech_tpu_torch import native
-        from text_to_speech_tpu_torch.native import data_loader
-        assert native.available() and data_loader.available()
+        from text_to_speech_tpu_torch.native import data_loader, scheduler
+        assert native.available() and data_loader.available() and scheduler.available()
         assert len(native.resample(np.zeros(160, np.float32), 16000, 22050)) == 220
+        sched = scheduler.RequestScheduler()
+        assert sched.native and sched.collect(2, 0.1, 0.) == []
+        assert [sched.submit(p) for p in (0, 3)] == [0, 1] and sched.collect_nowait(4) == [1, 0]
         assert 'jax' not in sys.modules
         assert not [m for m in sys.modules if m.startswith('text_to_speech_tpu.')]
     ''')

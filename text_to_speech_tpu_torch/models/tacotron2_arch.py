@@ -23,7 +23,10 @@ of small library calls.  `infer_fused` runs the same decode on the fused
 decoder-step kernel (`ops.decoder_kernel.decoder_steps`), 64 steps a launch,
 optionally with int8 LSTM weights; `supports_fused_decoder` is its envelope.
 There the prenet concat is folded into the kernel's per-row addend ``extra``.
-The teacher-forced loop runs no kernel of the port: the JAX package's is a
+`decode_chunk` runs a chunk of steps from an explicit carry for the serving
+stepper (`runtimes.serving.make_tacotron_stepper`), on the plain loop or on
+the kernel, one launch for each group of at most 8 rows.  The
+teacher-forced loop runs no kernel of the port: the JAX package's is a
 `lax.scan`, outside Pallas.
 """
 
@@ -287,6 +290,90 @@ class Tacotron2:
                 x = torch.where(mask[..., None], x, torch.zeros_like(x))
             new_state[name] = {'bn': bn_state}
         return x, {** state, 'postnet': new_state}
+
+    # -- chunked decoding (continuous-batching serving) --------------------------
+
+    def decode_chunk(self, params, frame, cell_state, memory, processed_memory, enc_mask, *,
+                     n_steps, generator = None, deterministic = None,
+                     speaker_embedding = None, step_offset = 0, weights = None, seed = None):
+        """Decode ``n_steps`` autoregressive steps from an explicit carry: the
+        serving engine calls this once per chunk and may admit new requests
+        into free batch rows between calls.
+
+        Without `weights` (the plain route) the steps are a loop of
+        `prenet` / `decoder_cell` / `_project`, the prenet's dropout drawn
+        from `generator`.  With `weights` (the decoder packed for the fused
+        kernel, `ops.decoder_kernel.pack_decoder_weights`) the chunk runs on
+        `decoder_steps`: one launch of ``n_steps`` steps for each group of at
+        most 8 rows, each on its own contiguous slice of the state (rows do
+        not interact, so this is exact); the cell-state tuple maps to the
+        kernel's state dict and back.  The dropout is then the kernel's own,
+        keyed by `seed` ((1,) int64, zero when None; each row group adds its
+        index) at the absolute step ``step_offset + t``, so a caller passes a
+        monotonically advancing `step_offset` and no row re-draws a mask of
+        an earlier chunk.  The 'prenet' speaker concat enters as the kernel's
+        addend (`prenet_addend`).  Outside `supports_fused_decoder` that
+        route raises; on CUDA tensors a failed build or launch raises too.
+
+        Returns (frames (B, K, n_mel * r), gates (B, K) after the sigmoid,
+        the group's last subframe, (frame, cell_state))."""
+        hp = self.hp
+        if deterministic is None: deterministic = hp.prenet_deterministic
+        if weights is not None:
+            return self._decode_chunk_fused(
+                params, frame, cell_state, memory, processed_memory, enc_mask,
+                n_steps = n_steps, deterministic = deterministic,
+                speaker_embedding = speaker_embedding, step_offset = step_offset,
+                weights = weights, seed = seed)
+        frames, gates = [], []
+        for _ in range(n_steps):
+            pre = self.prenet(params['decoder'], frame[:, -hp.n_mel_channels:],
+                              generator = generator, deterministic = deterministic,
+                              speaker_embedding = speaker_embedding)
+            cell_out, _, cell_state = self.decoder_cell(
+                params['decoder'], pre, memory, processed_memory, enc_mask, cell_state)
+            frame, gate = self._project(params['decoder'], cell_out)
+            frames.append(frame)
+            gates.append(gate[..., -1])
+        return torch.stack(frames, dim = 1), torch.stack(gates, dim = 1), (frame, cell_state)
+
+    def _decode_chunk_fused(self, params, frame, cell_state, memory, pm, enc_mask, *,
+                            n_steps, deterministic, speaker_embedding, step_offset, weights,
+                            seed):
+        hp = self.hp
+        B, S = enc_mask.shape
+        if not self.supports_fused_decoder(min(B, MAX_ROWS), S):
+            raise ValueError('the fused decoder does not support this configuration or '
+                             'shape ({} tokens)'.format(S))
+        device, dt = memory.device, memory.dtype
+        (h_att, c_att), ((h_dec, c_dec),), ctx, (prev, cum) = cell_state
+        copy = lambda t, dtype: t.to(dtype).clone(memory_format = torch.contiguous_format)
+        f32 = torch.float32
+        # a copy: the kernel updates its state in place, the carry stays the caller's
+        state = dict(frame = copy(frame, f32), h_att = copy(h_att, dt), c_att = copy(c_att, f32),
+                     h_dec = copy(h_dec, dt), c_dec = copy(c_dec, f32), ctx = copy(ctx, dt),
+                     prev = copy(prev, f32), cum = copy(cum, f32),
+                     main = torch.argmax(prev, dim = 1).to(torch.int32))
+        memory, pm = memory.contiguous(), pm.contiguous()
+        mask = enc_mask.float()
+        enc_len = enc_mask.sum(dim = 1).to(torch.int32)
+        extra = self.prenet_addend(params, speaker_embedding, B, device)
+        if seed is None:
+            seed = torch.zeros((1,), dtype = torch.int64, device = device)
+        steps = []
+        for g, lo in enumerate(range(0, B, MAX_ROWS)):
+            rows = slice(lo, min(B, lo + MAX_ROWS))
+            out, _, _ = decoder_steps(
+                weights, memory[rows], pm[rows], mask[rows], enc_len[rows], extra[rows],
+                {k: v[rows] for k, v in state.items()}, seed + g if g else seed,
+                n_steps = n_steps, step0 = int(step_offset),
+                deterministic = bool(deterministic), drop_rate = float(hp.prenet_drop_rate))
+            steps.append(out)
+        steps = torch.cat(steps, dim = 1).transpose(0, 1)              # (B, K, n_mel + 1)
+        n_mel = hp.n_mel_channels
+        cell_state = ((state['h_att'], state['c_att']), ((state['h_dec'], state['c_dec']),),
+                      state['ctx'], (state['prev'], state['cum']))
+        return steps[..., :n_mel], steps[..., n_mel], (state['frame'], cell_state)
 
     # -- teacher-forced forward (training) ----------------------------------------
 

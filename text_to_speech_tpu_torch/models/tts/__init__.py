@@ -14,9 +14,11 @@ made from NVIDIA's checkpoints by `Tacotron2.from_nvidia_pretrained` (with
 `root`; otherwise loading them raises, and nothing is downloaded.
 The vocoder is a `WaveGlow`, a `HiFiGAN` or a `Vocos` (instances or saved
 names); an end-to-end model (`VITS`, `SV2TTSVITS`: ``is_end_to_end``) is
-its own vocoder unless one is forced.  `serve()` is not ported.
+its own vocoder unless one is forced.  `serve()` puts a model behind HTTP
+with continuous batching (`runtimes.serving`, `runtimes.http_server`).
 """
 
+import logging
 import os
 
 from .fastspeech2 import FastSpeech2
@@ -27,6 +29,8 @@ from .tacotron2 import Tacotron2
 from .vits import VITS
 from .vocos import Vocos
 from .waveglow import WaveGlow
+
+logger = logging.getLogger(__name__)
 
 _pretrained = {
     'en': 'pretrained_tacotron2',
@@ -97,6 +101,59 @@ def stream(stream_input, *, model = None, lang = None, vocoder = None, play = Tr
     return model.stream(stream_input, vocoder = vocoder, play = play, ** kwargs)
 
 
+def serve(*, model = None, lang = None, vocoder = None, host = '127.0.0.1', port = 8700,
+          max_batch_size = 16, block = True, window = 96, chunk = 64, warmup = None,
+          device = None, root = None, ** stepper_kwargs):
+    """Serve a model over HTTP with continuous (in-flight) batching.
+
+    Resolves (synthesizer, vocoder) like `tts()` (names load on `device`,
+    ``cuda`` unless the caller passes ``'cpu'``), builds the matching
+    stepper (`make_vits_stepper` for end-to-end models, with int16 chunk
+    transfer by default and the window shrunk to fit a small model's frame
+    buffer; `make_tacotron_stepper(stream_audio=True)` otherwise: K3 decode
+    chunks on a card, streamed audio through the vocoder), runs the
+    engine's `warmup` on ``warmup`` (a text or a list of texts covering the
+    expected token buckets) at every batch bucket before the server accepts
+    traffic, and starts `runtimes.http_server.TTSServer` (``port=0``: an
+    ephemeral port, read from ``server.address``).  ``block=False`` returns
+    the started server (daemon threads) for programmatic use; `stop()` it.
+    ``mesh=`` raises `NotImplementedError` (not ported)."""
+    from ...runtimes.http_server import TTSServer
+    from ...runtimes.serving import (
+        ContinuousServingEngine, make_tacotron_stepper, make_vits_stepper)
+
+    model, vocoder = get_models(model = model, lang = lang, vocoder = vocoder,
+                                device = device, root = root)
+    if getattr(model, 'is_end_to_end', False):
+        # int16 chunk transfer by default: the HTTP layer re-encodes to
+        # 16-bit PCM anyway
+        stepper_kwargs.setdefault('transfer_dtype', 'int16')
+        # a small model's latent buffer may not fit the default window +
+        # context span: shrink the window, never crash
+        context = stepper_kwargs.get('context', 16)
+        max_frames = getattr(model.arch.hp, 'max_frames', None)
+        if max_frames and window + 2 * context > max_frames:
+            window = max(1, max_frames - 2 * context)
+        stepper = make_vits_stepper(model, window = window, ** stepper_kwargs)
+    else:
+        stepper = make_tacotron_stepper(model, chunk = chunk, vocoder = vocoder,
+                                        stream_audio = True, ** stepper_kwargs)
+    engine = ContinuousServingEngine(* stepper, max_batch_size = max_batch_size)
+    if warmup is not None:
+        elapsed = engine.warmup(warmup)
+        logger.info('engine warmup took %.1fs', elapsed)
+    server = TTSServer(engine, rate = model.rate, host = host, port = port, name = model.name)
+    if not block:
+        return server.start()
+    logger.info('serving %s on %s', model.name, server.address)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        pass
+    finally:
+        server.stop()
+
+
 __all__ = ['FastSpeech2', 'HiFiGAN', 'SV2TTSTacotron2', 'SV2TTSVITS', 'Tacotron2', 'VITS', 'Vocos',
            'WaveGlow', 'get_models', 'get_model_lang', 'get_pretrained_model',
-           'set_pretrained_model', 'stream', 'tts']
+           'serve', 'set_pretrained_model', 'stream', 'tts']
