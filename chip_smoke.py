@@ -8,7 +8,8 @@ Tacotron-2, the speaker encoder by GE2E) and serve the trained ones,
 clone a voice from the trained Tacotron-2 and fine-tune it on a corpus, and
 serve the other families (HiFi-GAN and Vocos behind Tacotron-2, VITS and
 SV2TTS-VITS) imported from seeded state dicts in their published layouts,
-and serve Tacotron-2 + WaveGlow and VITS over HTTP with continuous batching.
+and serve Tacotron-2 + WaveGlow and VITS over HTTP with continuous batching,
+and train HiFi-GAN, Vocos, VITS and SV2TTS-VITS adversarially.
 
     python3 chip_smoke.py
 
@@ -167,7 +168,8 @@ Phases, one JSON line each:
            random seeded weights: the train step (B=8 x 256 frames, per-flow
            remat, Adam at 1e-4) on the default route in float32 and under
            mixed_bfloat16 and on `wn_train_fused` (K1 forward) under
-           mixed_bfloat16: ms per step, audio seconds per second, peak
+           mixed_bfloat16 (5 steps, the loss falling; the median of the last
+           3): ms per step, audio seconds per second, peak
            memory, K1 launches per step; `fit` on the four in-repo WAVs for 3
            epochs on K1 (the loss falls, a checkpoint is written) and one
            more that resumes the optimizer state; the eval step of a
@@ -184,7 +186,7 @@ Phases, one JSON line each:
            held against the port on the CPU: loss within 1e-4, the
            gradients' global norm within 1e-3, relative): Tacotron-2 at
            NVIDIA width made by `Tacotron2.create`, decoded once on K3,
-           `fit` for 3 epochs on the four in-repo WAVs (each 4 times, their
+           `fit` for 2 epochs on the four in-repo WAVs (each 4 times, their
            text, batch 4, 320 teacher-forced steps) in float32 and in
            mixed_bfloat16 (the loss must fall), ms per step and peak memory;
            the fitted teacher's K3 decode equal, within 1e-5 of its scale,
@@ -192,7 +194,7 @@ Phases, one JSON line each:
            K3 decodes (held against its plain version on the fitted
            weights, as in the kernels phase), K1 vocodes, launches counted,
            the attention turned into durations; SV2TTS at D = 768 ('end'),
-           two steps; FastSpeech-2 at the JAX defaults fitted for 3 epochs
+           two steps; FastSpeech-2 at the JAX defaults fitted for 2 epochs
            on the teacher's alignment (the loss must fall), then its
            `tts()` (12 K1); the speaker encoder by GE2E (4 speakers × 4
            utterances, one epoch); the XLA-level int8 WaveGlow path on the
@@ -215,8 +217,21 @@ Phases, one JSON line each:
            the best epoch's `tts()` with the held-out speaker (K3 >= 1, 12
            K1), its K3 against the plain version and K1 at the (B, T) its
            vocoder call got; MCD and mel SNR of its teacher-forced mels.
+  gan      the adversarial training at the published widths, seeded weights:
+           HiFi-GAN V1 (MPD 2/3/5/7/11, 3 MSD scales) and Vocos on 16 × 8,192
+           samples of the in-repo WAVs with the L1 mel term, VITS (use_sdp,
+           the LJSpeech widths) and SV2TTS-VITS (256-wide) on 16 of their
+           utterances with seeded texts and 32-frame windows: ms a step
+           (median of 5 after 2 warm-ups; VITS and SV2TTS-VITS 3 after 1) and peak
+           memory in float32 and mixed_bfloat16, the disc loss falling on the
+           fixed batch; VITS's step in parts (CUDA events) and the monotonic
+           alignment alone; one step on the card against the CPU from the
+           same weights, batch and draws (each loss 1e-4, both gradient norms
+           1e-3, relative; VITS's alignment equal); `fit` of HiFi-GAN and VITS
+           for 2 epochs and 1 resumed from `gan_state.npz`.  No kernel of the
+           port runs in it.
 The files of the families, serving, sv2tts, nvidia_import, fastspeech2,
-training and transfer phases go in one temporary directory, removed when they end (the transfer
+training, transfer and gan phases go in one temporary directory, removed when they end (the transfer
 phase's own root when it ends).  Then the kernel summary, the
 card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
@@ -244,8 +259,27 @@ SMEM_BYTES_PER_CLOCK = 128    # shared memory read per SM and clock (Hopper)
 BOOST_HZ = 1.98e9             # H100 SXM maximum SM clock
 
 
+_START = time.perf_counter()
+
+
 def emit(record):
+    """Print `record` as a JSON line; a phase's record gains ``t_s``, the
+    seconds since the script started."""
+    if 'phase' in record:
+        record = dict(record, t_s = time.perf_counter() - _START)
     print(json.dumps(record), flush = True)
+
+
+def section_clock(sections):
+    """``section(name)``: the seconds since the previous call (the first:
+    since this one) into ``sections[name]``."""
+    mark = [time.perf_counter()]
+
+    def section(name):
+        now = time.perf_counter()
+        sections[name] = now - mark[0]
+        mark[0] = now
+    return section
 
 
 def check(condition, message):
@@ -882,8 +916,9 @@ def decoder_steps_phase(model, *, speaker = None, shapes = None, name = 'decoder
                         args[0], B, S, K, args[1].element_size(), peak)
                     st = fresh()
                     kernel_ms = time_ms(lambda: decoder_steps(* args, st, seed, ** kw))
+                    # the plain loop is host-bound (~0.4 s a launch's worth): one call
                     plain_ms = time_ms(lambda: decoder_steps_plain(* args, st, seed, ** kw),
-                                       reps = 3, warmup = 1)
+                                       reps = 1, warmup = 1)
                     # where a step's time goes: the kernel's own clock stamps
                     stamps = torch.zeros((stamps_size(K),), dtype = torch.int64, device = 'cuda')
                     decoder_steps(* args, st, seed, stamps = stamps, ** kw)
@@ -1188,8 +1223,8 @@ def train_phase():
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
             times, losses = [], []
-            for i in range(7):
-                if i == 2:        # the launches of the 5 timed steps
+            for i in range(5):
+                if i == 2:        # the launches of the 3 timed steps
                     fused_wn_block.launches = fused_wn_layer.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1205,16 +1240,16 @@ def train_phase():
                 # the peak, and its rise over what the earlier phases hold
                 'peak_memory_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
                 'peak_rise_gb': (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
-                'wn_block_launches_per_step': fused_wn_block.launches / 5,
-                'wn_layer_launches_per_step': fused_wn_layer.launches / 5,
+                'wn_block_launches_per_step': fused_wn_block.launches / 3,
+                'wn_layer_launches_per_step': fused_wn_layer.launches / 3,
                 'first_loss': losses[0], 'losses': losses,
                 'grad_norm': float(metrics['grad_norm'])}
             check(all(np.isfinite(losses)), '{}: loss not finite: {}'.format(key, losses))
-            # on the one repeated batch the loss falls for 6 steps; Adam's 7th
-            # step overshoots the noise's optimum (as in the JAX package:
+            # on the one repeated batch the loss falls for 6 steps (Adam's 7th
+            # step overshoots the noise's optimum, as in the JAX package:
             # tests/test_torch_port_train.py::test_repeated_batch_spike_matches_jax)
-            check(all(b < a for a, b in zip(losses[:5], losses[1:6])),
-                  '{}: the loss did not fall over the first 6 steps: {}'.format(key, losses))
+            check(all(b < a for a, b in zip(losses[:4], losses[1:5])),
+                  '{}: the loss did not fall over the 5 steps: {}'.format(key, losses))
             expected = 2 * hp.n_flows if route == 'wn_train_fused' else 0
             check(steps[key]['wn_block_launches_per_step'] == expected
                   and fused_wn_layer.launches == 0,
@@ -2969,7 +3004,8 @@ def synthesizer_training_phase(vocoder, root):
     from text_to_speech_tpu_torch.weights import tree_to
 
     phase_start = time.perf_counter()
-    out, runs = {}, {}
+    out, runs, sections = {}, {}, {}
+    section = section_clock(sections)
     wavs = sorted(glob.glob(WAVS))
     check(len(wavs) == 4, 'in-repo WAVs: {}'.format(wavs))
     rows = [{'text': TRAIN_TEXT, 'filename': wav} for wav in wavs for _ in range(4)]
@@ -3005,7 +3041,8 @@ def synthesizer_training_phase(vocoder, root):
 
     before_fit = probe(teacher)
     check(bool(teacher._derived), 'teacher: no packed decoder cached by the K3 decode')
-    fits = {'float32': _fit_record(teacher, rows, 3, 'float32', ** fit_kw)}
+    fits = {'float32': _fit_record(teacher, rows, 2, 'float32', ** fit_kw)}
+    section('tacotron2_fit_float32')
     after_fit, rebuilt = probe(teacher), probe(rebuild(teacher, 'cuda'))
     scale = float(np.abs(rebuilt).max())
     refit = {'max_abs_err_vs_rebuilt': float(np.abs(after_fit - rebuilt).max()),
@@ -3016,8 +3053,9 @@ def synthesizer_training_phase(vocoder, root):
           'teacher K3 decode after fit against a rebuilt model: {}'.format(refit))
     teacher_bf16 = Tacotron2.create('en', name = 'teacher_bf16', root = root,
                                     device = 'cuda', seed = 21)
-    fits['mixed_bfloat16'] = _fit_record(teacher_bf16, rows, 3, 'mixed_bfloat16', ** fit_kw)
+    fits['mixed_bfloat16'] = _fit_record(teacher_bf16, rows, 2, 'mixed_bfloat16', ** fit_kw)
     del teacher_bf16
+    section('tacotron2_fit_mixed_bfloat16')
     for precision, record in fits.items():
         check(record['epoch_losses'][-1] < record['epoch_losses'][0],
               'Tacotron-2 fit ({}): the loss did not fall: {}'.format(
@@ -3028,6 +3066,7 @@ def synthesizer_training_phase(vocoder, root):
         'step_B4': {p: _train_steps(teacher, batch, p) for p in ('float32', 'mixed_bfloat16')},
         'card_vs_cpu_B2': _card_vs_cpu(
             lambda device: rebuild(teacher, device, ** taco_no_drop), batch_of(teacher, items[:2]))}
+    section('tacotron2_steps_and_card_vs_cpu')
 
     # 2. the fitted teacher's `tts()`: K3 decodes (float32, dropout on), K1 vocodes
     teacher_cases = decoder_steps_phase(teacher, shapes = ((1, 64, False),),
@@ -3073,6 +3112,7 @@ def synthesizer_training_phase(vocoder, root):
                                     'vocode_ms': 1e3 * teacher.last_timings['vocode_s'],
                                     'launches': launches, 'tokens': len(tokens),
                                     'durations': durations.tolist()}
+    section('teacher_tts')
 
     # 3. SV2TTS at D = 768 ('end'): two train steps, and the card against the CPU
     sv2tts = SV2TTSTacotron2.create('en', name = 'sv2tts_train', root = root, device = 'cuda',
@@ -3088,12 +3128,13 @@ def synthesizer_training_phase(vocoder, root):
         'card_vs_cpu_B2': _card_vs_cpu(lambda device: rebuild(sv2tts, device, ** taco_no_drop),
                                        batch_of(sv2tts, sv_items[:2]))}
     del sv2tts
+    section('sv2tts')
 
     # 4. FastSpeech-2 at the JAX package's defaults, distilled from the teacher's alignment
     student = FastSpeech2.create('en', name = 'student', root = root, device = 'cuda', seed = 24)
     fs_rows = [dict(row, alignment = alignment) for row in rows]
     fs_items = [student.prepare_data(row) for row in fs_rows[::4]]
-    fs_fit = _fit_record(student, fs_rows, 3, 'float32', ** fit_kw)
+    fs_fit = _fit_record(student, fs_rows, 2, 'float32', ** fit_kw)
     check(fs_fit['epoch_losses'][-1] < fs_fit['epoch_losses'][0],
           'FastSpeech-2 fit: the loss did not fall: {}'.format(fs_fit['epoch_losses']))
     fs_no_drop = dict(drop_rate = 0., variance_drop_rate = 0., postnet_drop_rate = 0.)
@@ -3115,6 +3156,7 @@ def synthesizer_training_phase(vocoder, root):
     buffer = -(-mel.shape[1] // vocoder.serving_pad_multiple) * vocoder.serving_pad_multiple
     student_shape = (mel.shape[0], buffer * vocoder.upsample_rate // vocoder.arch.hp.n_group)
     del student, teacher
+    section('fastspeech2')
 
     # 5. the speaker encoder at its defaults: GE2E, 4 speakers x 4 utterances
     encoder = SpeakerEncoder.create(name = 'encoder_train', root = root, device = 'cuda',
@@ -3149,6 +3191,7 @@ def synthesizer_training_phase(vocoder, root):
         encoder, encoder.collate_ge2e([[encoder.prepare_data(r) for r in enc_rows[4 * s: 4 * s + 4]]
                                        for s in range(4)]))
     del encoder, cmp
+    section('speaker_encoder')
 
     # 6. the XLA-level int8 WaveGlow path on `vocoder`'s weights: one layer's
     # int8 conv on the card equal to the CPU's to the bit, and the waveform
@@ -3182,7 +3225,9 @@ def synthesizer_training_phase(vocoder, root):
                        'waveform_snr_db': snr, 'frames': 64, 'int8_ms': int8_ms,
                        'float32_ms': f32_ms}
     del quantized
-    emit({'phase': 'training', ** out, 'runs': runs, 'phase_s': time.perf_counter() - phase_start})
+    section('int8_xla')
+    emit({'phase': 'training', ** out, 'runs': runs, 'section_s': sections,
+          'phase_s': time.perf_counter() - phase_start})
     return teacher_cases, runs, student_shape
 
 
@@ -3213,15 +3258,9 @@ def transfer_phase(vocoder, root, source_root):
 
     phase_start = time.perf_counter()
     out, runs, sections = {}, {}, {}
+    section = section_clock(sections)
     n_flows = vocoder.arch.hp.n_flows
     fit_kw = dict(token_multiple = 32, frame_multiple = 64)
-    mark = [phase_start]
-
-    def section(name):
-        """Seconds since the previous section ended, under `name`."""
-        now = time.perf_counter()
-        sections[name] = now - mark[0]
-        mark[0] = now
 
     def batch_of(model, items):
         return bucket_pad(model.collate(items), model, ** fit_kw)
@@ -3484,6 +3523,275 @@ def transfer_phase(vocoder, root, source_root):
     return cases, runs, wn_shape
 
 
+# the VITS rows' texts, drawn for each WAV by a seeded generator (the WAVs
+# say TRAIN_TEXT; the GAN step does not read the match)
+GAN_TEXTS = SENTENCES + [TRAIN_TEXT]
+
+
+def _gan_state(gen, disc, device, lr = 2e-4):
+    """A train state of copies of the `gen` and `disc` trees on `device`,
+    with `fit_gan`'s optimizers (Adam, b1 0.8, b2 0.99)."""
+    from text_to_speech_tpu_torch.train import gan
+    from text_to_speech_tpu_torch.train.optimizers import get_optimizer
+    from text_to_speech_tpu_torch.weights import tree_to
+
+    tx_g, tx_d = (get_optimizer('adam', lr = lr, b1 = 0.8, b2 = 0.99) for _ in range(2))
+    state = {'gen': gan._trainable(_clone(tree_to(gen, device))),
+             'disc': gan._trainable(_clone(tree_to(disc, device)))}
+    state['gen_opt'], state['disc_opt'] = tx_g.init(state['gen']), tx_d.init(state['disc'])
+    return state, tx_g, tx_d
+
+
+def _gan_steps(run, state, warmup = 2, timed = 5):
+    """`warmup` + `timed` steps ``run(state) → (state, metrics)``, each
+    synchronised: the median ms of the timed ones, every step's losses, the
+    peak memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    ms, logs = [], []
+    for _ in range(warmup + timed):
+        start = time.perf_counter()
+        state, metrics = run(state)
+        logs.append({k: float(v) for k, v in metrics.items()})
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - start))
+    check(all(np.isfinite(list(m.values())).all() for m in logs),
+          'GAN step: non-finite metrics {}'.format(logs))
+    return state, {'step_ms': statistics.median(ms[warmup:]), 'step_ms_each': ms,
+                   'disc_loss': [m['disc_loss'] for m in logs],
+                   'gen_loss': [m['gen_loss'] for m in logs], 'last': logs[-1],
+                   'peak_bytes': torch.cuda.max_memory_allocated(),
+                   'peak_above_start_bytes': torch.cuda.max_memory_allocated() - before}
+
+
+def _gan_card_vs_cpu(make_step, gen, disc, batches):
+    """One step from the same trees and batch on the card and on the CPU:
+    every loss within 1e-4 and both gradient norms within 1e-3, relative."""
+    metrics = {}
+    for device in ('cuda', 'cpu'):
+        state, tx_g, tx_d = _gan_state(gen, disc, device)
+        _, m = make_step(tx_g, tx_d)(state, batches[device])
+        metrics[device] = {k: float(v) for k, v in m.items()}
+    card, cpu = metrics['cuda'], metrics['cpu']
+    rel = {k: abs(card[k] - v) / max(abs(v), 1e-30) for k, v in cpu.items()}
+    losses = max(v for k, v in rel.items() if not k.endswith('grad_norm'))
+    norms = max(v for k, v in rel.items() if k.endswith('grad_norm'))
+    check(losses <= 1e-4 and norms <= 1e-3, 'GAN step card vs CPU: {} vs {}'.format(card, cpu))
+    return {'card': card, 'cpu': cpu, 'loss_rel': losses, 'grad_norm_rel': norms,
+            'tolerance_rel': {'loss': 1e-4, 'grad_norm': 1e-3}}
+
+
+def _gan_fit(model, rows, ** kw):
+    """`fit` for 2 epochs, then 1 resumed from the checkpoint and
+    ``gan_state.npz``: epochs, seconds, the last epoch's metrics."""
+    out = {}
+    for name, epochs in (('first', 2), ('resumed', 1)):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        history = model.fit(rows, epochs = epochs, device = 'cuda', verbose = False, ** kw)
+        out[name] = {'epochs': model.epochs, 's': time.perf_counter() - start,
+                     'metrics': history.epoch_logs[-1]['metrics']}
+    gan_state = os.path.join(model.folder, 'saving', 'gan_state.npz')
+    check(model.epochs == 3 and os.path.exists(gan_state) and len(model.history.trainings) == 2
+          and all(np.isfinite(v) for v in out['resumed']['metrics'].values()),
+          '{} fit: {}'.format(type(model).__name__, out))
+    out['gan_state_bytes'] = os.path.getsize(gan_state)
+    return out
+
+
+def gan_phase(root):
+    """Adversarial training at the published widths, seeded weights, in
+    `root`: HiFi-GAN V1 and Vocos on a batch of 16 × 8,192 samples of the
+    in-repo WAVs (the L1 mel term on `TacotronSTFT`), VITS (use_sdp, the
+    LJSpeech widths) and SV2TTS-VITS (a 256-wide embedding) on 16 of their
+    utterances with seeded texts, 32-frame windows; step ms and peak memory
+    in float32 and mixed_bfloat16; VITS's step in parts and the share of the
+    monotonic alignment; the card against the CPU; `fit` with a resume.
+    No kernel of the port runs here (none of these modules has a Pallas
+    kernel in the JAX package)."""
+    import glob
+    from text_to_speech_tpu_torch.models.tts import HiFiGAN, SV2TTSVITS, VITS, Vocos
+    from text_to_speech_tpu_torch.models.tts.tacotron2 import _Clock
+    from text_to_speech_tpu_torch.models.vits_arch import maximum_path, neg_cross_entropy
+    from text_to_speech_tpu_torch.ops.audio_io import load_audio
+    from text_to_speech_tpu_torch.train import gan
+    from text_to_speech_tpu_torch.utils.sequence_utils import pad_to_multiple
+
+    phase_start = time.perf_counter()
+    out, sections = {}, {}
+    section = section_clock(sections)
+
+    wavs = sorted(glob.glob(WAVS))
+    check(len(wavs) == 4, 'in-repo WAVs: {}'.format(wavs))
+    waves = [np.asarray(load_audio(w, 22050), np.float32) for w in wavs]
+    # config_v1.json's batch: 16 segments of 8,192 samples (32 frames)
+    audio = torch.from_numpy(np.stack([w[i * 8192: (i + 1) * 8192] for w in waves
+                                       for i in range(4)])).cuda()
+
+    hifigan = HiFiGAN.create(name = 'gan_hifigan', root = root, device = 'cuda', seed = 31)
+    hp = hifigan.arch.hp
+    check(hp.upsample_initial_channel == 512 and tuple(hp.upsample_rates) == (8, 8, 2, 2)
+          and tuple(hp.mpd_periods) == (2, 3, 5, 7, 11) and hp.msd_scales == 3,
+          'HiFi-GAN V1: {}'.format(hp))
+    with torch.no_grad():
+        mel = hifigan.mel_fn(audio)[:, :32]
+    disc = {'mpd': hifigan.arch.init_mpd(32), 'msd': hifigan.arch.init_msd(33)}
+    mel_fn = gan.mel_fn_from_stft(hifigan.mel_fn)
+    section('setup')
+
+    def vocoder_steps(name, model):
+        rec = {}
+        for precision in (None, 'mixed_bfloat16'):
+            state, tx_g, tx_d = _gan_state(model.params, disc, 'cuda')
+            step = gan.make_hifigan_train_step(model.arch, tx_g, tx_d, mel_fn,
+                                               precision = precision)
+            _, rec[precision or 'float32'] = _gan_steps(lambda s: step(s, mel, audio), state)
+            del state
+        losses = rec['float32']['disc_loss']
+        check(losses[-1] < losses[0], '{}: the disc loss does not fall on a fixed batch: {}'
+              .format(name, losses))
+        make = lambda tx_g, tx_d: lambda state, batch: gan.make_hifigan_train_step(
+            model.arch, tx_g, tx_d, mel_fn)(state, * batch)
+        # one row of 16 frames: the CPU's step at full width takes seconds
+        rec['card_vs_cpu_B1'] = _gan_card_vs_cpu(
+            make, model.params, disc, {'cuda': (mel[:1, :16], audio[:1, :4096]),
+                                       'cpu': (mel[:1, :16].cpu(), audio[:1, :4096].cpu())})
+        rec['batch'] = list(audio.shape)
+        out[name] = rec
+        section(name)
+
+    vocoder_steps('hifigan_v1', hifigan)
+    vocos = Vocos.create(name = 'gan_vocos', root = root, device = 'cuda', seed = 34)
+    check(vocos.arch.hp.dim == 512 and vocos.arch.hp.intermediate_dim == 1536
+          and vocos.arch.hp.n_layers == 8, 'Vocos: {}'.format(vocos.arch.hp))
+    vocoder_steps('vocos', vocos)
+    del vocos
+
+    # VITS: 16 rows of the WAVs' utterances, the frames and samples padded
+    # to multiples of 32 frames as `fit_gan` pads them
+    vits = VITS.create('en', name = 'gan_vits', root = root, device = 'cuda', seed = 35,
+                       use_sdp = True)
+    check(vits.arch.hp.hidden_channels == 192 and vits.upsample_rate == 256
+          and vits.arch.hp.segment_frames == 32, 'VITS: {}'.format(vits.arch.hp))
+    rng = np.random.default_rng(37)
+    rows = [{'text': GAN_TEXTS[rng.integers(len(GAN_TEXTS))], 'audio': w, 'rate': 22050}
+            for w in waves for _ in range(4)]
+    speakers = rng.standard_normal((16, 256)).astype(np.float32)
+    speakers /= np.linalg.norm(speakers, axis = 1, keepdims = True)
+
+    def vits_batch(model, rows):
+        """Collated, the tokens padded to a multiple of 16, the frames of 32
+        (SV2TTS-VITS: the embeddings in the speaker slot)."""
+        tokens, spec, lengths, wave, * speaker = model.collate(
+            [model.prepare_data(r) for r in rows])
+        batch = [pad_to_multiple(tokens, 16, axis = 1, constant_values = model.blank_token_idx),
+                 pad_to_multiple(spec, 32, axis = 1), lengths,
+                 pad_to_multiple(wave, 32 * 256, axis = 1)] + speaker
+        return [torch.as_tensor(b.astype(np.int64 if b.dtype.kind in 'iu' else np.float32))
+                for b in map(np.asarray, batch)]
+
+    batch = [t.cuda() for t in vits_batch(vits, rows)]
+    section('vits_setup')
+    rec = {'batch': {'rows': 16, 'tokens': int(batch[0].shape[1]),
+                     'frames': int(batch[1].shape[1]), 'samples': int(batch[3].shape[1])}}
+    generator = torch.Generator(device = 'cuda').manual_seed(0)
+    for precision in (None, 'mixed_bfloat16'):
+        state, tx_g, tx_d = _gan_state(vits.params, disc, 'cuda')
+        step = gan.make_vits_train_step(vits.arch, tx_g, tx_d, gan.mel_fn_from_stft(vits.mel_fn),
+                                        precision = precision)
+        # a step of ~0.7 s: 3 timed after 1
+        state, rec[precision or 'float32'] = _gan_steps(
+            lambda s: step(s, batch, generator), state, warmup = 1, timed = 3)
+        if precision is None:
+            # the step in parts (CUDA events: the training forward with the
+            # alignment in it, the discriminators' update, the generator's)
+            parts = []
+            for _ in range(2):
+                clock = _Clock(torch.device('cuda'))
+                step(state, batch, generator, clock = clock)
+                torch.cuda.synchronize()
+                parts.append(clock.seconds())
+            rec['parts_ms'] = {name: 1e3 * statistics.median(p[i] for p in parts)
+                               for i, name in enumerate(('train_forward', 'discriminators',
+                                                         'generator'))}
+        del state
+    # the monotonic alignment alone on this batch's prior and latent
+    arch, params = vits.arch, vits.params
+    with torch.no_grad():
+        tokens, spec, lengths = batch[:3]
+        _, m_p, logs_p, tmask = arch.encode_text(params, tokens)
+        fmask = torch.arange(spec.shape[1], device = 'cuda')[None] < lengths[:, None]
+        z, _, _ = arch.posterior(params, spec, fmask, eps = 0.)
+        nc = neg_cross_entropy(arch.flow(params, z, fmask), m_p, logs_p, tmask)
+        mas = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            start = time.perf_counter()
+            maximum_path(nc, fmask, tmask)
+            torch.cuda.synchronize()
+            mas.append(1e3 * (time.perf_counter() - start))
+    rec['mas_ms'] = statistics.median(mas)
+    rec['mas_share_of_step'] = rec['mas_ms'] / rec['float32']['step_ms']
+    section('vits_steps')
+
+    # the card against the CPU at B = 2, dropout off, the same draws
+    short = [{'text': 'the birch canoe slid on the smooth planks.', 'audio': w[:22016],
+              'rate': 22050} for w in waves[:2]]
+    cfg = dict(vits.arch.get_config(), drop_rate = 0., duration_drop_rate = 0., sdp_drop_rate = 0.)
+    trees = vits.jax_trees()['params']
+    models = {d: VITS.from_jax(trees, device = d, tokenizer = vits.tokenizer,
+                               mel_fn = vits.mel_fn, ** cfg) for d in ('cuda', 'cpu')}
+    cpu_batch = vits_batch(models['cpu'], short)
+    B, T, L = 2, cpu_batch[1].shape[1], cpu_batch[0].shape[1]
+    draw = np.random.default_rng(38)
+    draws = {'eps': torch.from_numpy(draw.standard_normal((B, T, 192)).astype(np.float32)),
+             'e_q': torch.from_numpy(draw.standard_normal((B, L, 2)).astype(np.float32)),
+             'starts': torch.from_numpy(draw.integers(0, 8, B))}
+    on = lambda device: ([t.to(device) for t in cpu_batch],
+                         {k: v.to(device) for k, v in draws.items()})
+    make = lambda tx_g, tx_d: lambda state, args: gan.make_vits_train_step(
+        models['cuda'].arch, tx_g, tx_d, gan.mel_fn_from_stft(vits.mel_fn))(
+        state, args[0], draws = args[1])
+    rec['card_vs_cpu_B2'] = _gan_card_vs_cpu(make, models['cpu'].params, disc,
+                                             {d: on(d) for d in ('cuda', 'cpu')})
+    paths = {}
+    for d, model in models.items():
+        b, dr = on(d)
+        with torch.no_grad():
+            paths[d] = model.arch.train_forward(model.params, * b, ** dr)['path'].cpu()
+    check(torch.equal(paths['cuda'], paths['cpu']), 'VITS card vs CPU: the alignment differs')
+    rec['card_vs_cpu_B2']['mas_path_equal'] = True
+    del models
+    out['vits'] = rec
+    section('vits_card_vs_cpu')
+
+    clone = SV2TTSVITS.create('en', name = 'gan_sv2tts_vits', root = root, device = 'cuda',
+                              seed = 36, embedding_dim = 256, use_sdp = True)
+    clone_batch = [t.cuda() for t in vits_batch(
+        clone, [dict(r, embedding = e) for r, e in zip(rows, speakers)])]
+    check(clone_batch[4].shape == (16, 256), 'SV2TTS-VITS batch: {}'.format(
+        [t.shape for t in clone_batch]))
+    state, tx_g, tx_d = _gan_state(clone.params, disc, 'cuda')
+    step = gan.make_vits_train_step(clone.arch, tx_g, tx_d, gan.mel_fn_from_stft(clone.mel_fn))
+    # VITS's step with a speaker projection: 3 timed steps after 1 suffice
+    _, out['sv2tts_vits'] = _gan_steps(lambda s: step(s, clone_batch, generator), state,
+                                       warmup = 1, timed = 3)
+    del state, clone
+    section('sv2tts_vits_steps')
+
+    # fit with a resume on the four WAVs (batch 4)
+    out['hifigan_fit'] = _gan_fit(hifigan, [{'filename': w} for w in wavs], batch_size = 4)
+    section('hifigan_fit')
+    out['vits_fit'] = _gan_fit(vits, [{'text': TRAIN_TEXT, 'filename': w} for w in wavs],
+                               batch_size = 4)
+    section('vits_fit')
+    del hifigan, vits
+    torch.cuda.empty_cache()
+    emit({'phase': 'gan', ** out, 'section_s': sections,
+          'phase_s': time.perf_counter() - phase_start})
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
@@ -3537,6 +3845,7 @@ def main():
         with tempfile.TemporaryDirectory(prefix = 'transfer_', dir = scratch) as transfer_root:
             clone_cases, transfer_runs, clone_shape = transfer_phase(
                 vocoder, transfer_root, training_root)
+        gan_phase(root('gan'))
     # K1 and K2 at the (B, T) of FastSpeech-2's whole decode buffer: one
     # sentence on the one-launch route and the batch of four
     fs2_shapes = [fs2_shapes['one_sentence'], fs2_shapes['batch_of_4']]

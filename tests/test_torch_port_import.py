@@ -53,7 +53,7 @@ def test_port_imports_without_jax():
                  'models.hifigan_arch', 'models.vocos_arch', 'models.vits_arch',
                  'models.tts.hifigan', 'models.tts.vocos', 'models.tts.vits',
                  'models.tts.sv2tts_vits', 'native.scheduler', 'runtimes',
-                 'runtimes.serving', 'runtimes.http_server'):
+                 'runtimes.serving', 'runtimes.http_server', 'train.gan'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 

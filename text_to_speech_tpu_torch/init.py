@@ -1,8 +1,8 @@
 """Random parameter trees in the JAX package's layout, made with numpy.
 
 `init_tacotron2`, `init_waveglow`, `init_audio_encoder`, `init_fastspeech2`,
-`init_hifigan`, `init_vocos` and `init_vits` follow the JAX package's
-``init`` methods
+`init_hifigan`, `init_mpd`, `init_msd`, `init_vocos` and `init_vits`
+follow the JAX package's ``init`` methods
 (glorot-uniform kernels, orthogonal recurrent and invertible kernels, unit
 forget bias, identity batch and layer norms, the identity 'start' speaker
 projection) but draw from a numpy generator, so that
@@ -10,8 +10,9 @@ NVIDIA-size models can be built without JAX and the same arrays can be
 handed to both packages.  Pass the trees through `weights.tacotron2_from_jax`
 / `weights.waveglow_from_jax` / `weights.audio_encoder_from_jax`, or
 FastSpeech-2's params and state each through `weights.convert_tree`,
-HiFi-GAN's and Vocos's through `weights.hifigan_from_jax` and VITS's
-through `weights.vits_from_jax`, for the port.
+HiFi-GAN's and Vocos's through `weights.hifigan_from_jax`, the
+discriminators' through `weights.convert_tree` and VITS's through
+`weights.vits_from_jax`, for the port.
 
 `nvidia_tacotron2_state_dict`, `nvidia_waveglow_state_dict`,
 `hifigan_state_dict`, `vocos_state_dict` and `vits_state_dict` make seeded
@@ -270,6 +271,41 @@ def init_hifigan(hp, seed = 0):
         ch = out_ch
     params['conv_post'] = _conv(rng, 7, ch, 1)
     return params
+
+
+def init_mpd(hp, seed = 0):
+    """Params of HiFi-GAN's multi-period discriminator for hparams `hp`
+    (its `mpd_periods`), the JAX ``HiFiGAN.init_mpd`` tree: per period
+    ``p<i>`` the width-5 convs ``convs/c<k>`` at the published channels,
+    `conv5` and `post` (width 3)."""
+    from .models.hifigan_arch import MPD_CHANNELS
+    rng = np.random.default_rng(seed)
+
+    def period():
+        convs, n_in = {}, 1
+        for ci, n_out in enumerate(MPD_CHANNELS):
+            convs['c{}'.format(ci)] = _conv(rng, 5, n_in, n_out)
+            n_in = n_out
+        return {'convs': convs, 'conv5': _conv(rng, 3, n_in, 1024),
+                'post': _conv(rng, 3, 1024, 1)}
+    return {'p{}'.format(i): period() for i in range(len(hp.mpd_periods))}
+
+
+def init_msd(hp, seed = 0):
+    """Params of HiFi-GAN's multi-scale discriminator for hparams `hp` (its
+    `msd_scales`), the JAX ``HiFiGAN.init_msd`` tree: per scale ``s<i>`` the
+    convs ``convs/c<k>`` of `MSD_SPECS`, grouped kernels (W, in / groups,
+    out), and `post` (width 3)."""
+    from .models.hifigan_arch import MSD_SPECS
+    rng = np.random.default_rng(seed)
+    scales = {}
+    for si in range(hp.msd_scales):
+        convs, n_in = {}, 1
+        for ci, (width, _, groups, n_out) in enumerate(MSD_SPECS):
+            convs['c{}'.format(ci)] = _conv(rng, width, n_in // groups, n_out)
+            n_in = n_out
+        scales['s{}'.format(si)] = {'convs': convs, 'post': _conv(rng, 3, n_in, 1)}
+    return scales
 
 
 def init_vocos(hp, seed = 0):

@@ -19,8 +19,9 @@ JAX tree), which `load_saved` and `models.get_pretrained` read; `create`
 makes a new model with seeded random weights (`init.init_hifigan`);
 `from_torch_pretrained` imports an official generator checkpoint
 (`models.tts_checkpoints.convert_hifigan`, the sizes from its shapes) and
-saves it.  The GAN training (`prepare_data`, `collate`, `fit`) is not
-ported.
+saves it.  `fit` trains it adversarially (`train.gan.fit_gan`, with the
+discriminators of `hifigan_arch`) on the pairs `prepare_data` makes: the
+mel of a row's audio and that audio cut to the mel's frames.
 """
 
 import logging
@@ -33,7 +34,9 @@ from ...devices import default_device
 from ...init import init_hifigan
 from ...loggers import timer
 from ...ops.stft import MelSTFT
+from ...ops.audio_io import load_audio
 from ...utils.file_utils import load_json
+from ...utils.sequence_utils import pad_batch
 from ...weights import hifigan_from_jax, hifigan_to_jax, tree_to
 from ..base_model import TrainableModel
 from ..registry import get_architecture
@@ -174,3 +177,31 @@ class HiFiGAN(TrainableModel):
         return audio[0] if squeeze else audio
 
     __call__ = infer
+
+    # -- training (adversarial: `train.gan.fit_gan`) ---------------------------------
+
+    def prepare_data(self, data):
+        """A row (a WAV filename, an array or a dict) → (mel (F, n_mel),
+        waveform (F * hop,)), numpy; the mel computed on the model's device."""
+        audio = np.asarray(load_audio(data, self.rate), np.float32)
+        with torch.no_grad():
+            mel = self.mel_fn(torch.as_tensor(audio, device = self.device))[0].cpu().numpy()
+        hop = self.mel_fn.hop_length
+        n = min(mel.shape[0], len(audio) // hop)
+        return mel[:n], audio[: n * hop]
+
+    def filter_data(self, * args):
+        """Enough frames for the training windows (8)."""
+        if len(args) == 1: args = args[0]
+        return args[0].shape[0] >= 8
+
+    def collate(self, batch):
+        """(mel, waveform) pairs → (mels, waveforms), padded with
+        `pad_mel_value` and zeros."""
+        return (pad_batch([b[0] for b in batch], pad_value = self.pad_mel_value),
+                pad_batch([b[1] for b in batch], pad_value = 0.))
+
+    def fit(self, data, ** kwargs):
+        """Adversarial training: `train.gan.fit_gan`."""
+        from ...train.gan import fit_gan
+        return fit_gan(self, data, ** kwargs)

@@ -10,7 +10,10 @@ embedding machinery of `SpeakerEmbeddingMixin`: `infer`, `predict` and
 its file, with `mode` and `label`), as reference `audio` (through the
 `encoder_name` speaker encoder), or from the stored default.  As for
 `SV2TTSTacotron2`, these flows default to ``overwrite=True``: the
-``map.json`` cache is keyed by text alone.
+``map.json`` cache is keyed by text alone.  In training (`fit`) the
+speaker embedding rides the batch's speaker slot: a row's 'embedding', or
+the one `get_speaker_embedding` gives for its 'embeddings' (the stored
+default without).
 """
 
 import numpy as np
@@ -66,3 +69,21 @@ class SV2TTSVITS(SpeakerEmbeddingMixin, VITS):
 
     def predict(self, inputs, *, overwrite = True, ** kwargs):
         return super().predict(inputs, overwrite = overwrite, ** kwargs)
+
+    # -- training -----------------------------------------------------------------------
+
+    def prepare_data(self, data):
+        """`VITS.prepare_data` and the row's speaker embedding (float32)."""
+        tokens, spec, n_frames, audio = super().prepare_data(data)
+        if isinstance(data, dict) and 'embedding' in data:
+            embedding = data['embedding']
+        else:
+            embedding = self.get_speaker_embedding(
+                data.get('embeddings') if isinstance(data, dict) else None)
+        return tokens, spec, n_frames, audio, np.asarray(embedding, np.float32)
+
+    def get_padding_values(self):
+        return super().get_padding_values() + (0.,)
+
+    def collate(self, batch):
+        return super().collate([b[:4] for b in batch]) + (np.stack([b[4] for b in batch]),)

@@ -24,7 +24,9 @@ and the generator (``vocode_s``).
 `create` seeds `init.init_vits`; `from_torch_pretrained` imports an
 official ``SynthesizerTrn`` checkpoint (`models.tts_checkpoints.convert_vits`,
 the sizes from its shapes; the tokenizer must reproduce its symbol table)
-and saves it.  Training is not ported.
+and saves it.  `fit` trains it adversarially, its only objective
+(`train.gan.fit_gan`), on (tokens, linear spectrogram, frames, waveform)
+rows from `prepare_data`.
 """
 
 import logging
@@ -34,6 +36,7 @@ import torch
 
 from ...init import init_vits
 from ...loggers import Timer, timer
+from ...ops.audio_io import load_audio
 from ...ops.stft import MelSTFT
 from ...text import get_tokenizer
 from ...utils.sequence_utils import pad_batch, pad_to_multiple
@@ -198,3 +201,44 @@ class VITS(Tacotron2):
             attn.append(attn_host[i, :out_len] if attn_host is not None else None)
             audios.append(audio_host[i, : out_len * rate])
         return mels, attn, audios
+
+    # -- training (adversarial: `train.gan.fit_gan`) ---------------------------------
+
+    def fit(self, data, ** kwargs):
+        """Adversarial training: `train.gan.fit_gan` (History, checkpoints,
+        the discriminators' and optimizers' state resumed)."""
+        from ...train.gan import fit_gan
+        return fit_gan(self, data, ** kwargs)
+
+    def prepare_data(self, data):
+        """A row (its text, and its audio as a WAV filename, an array or a
+        dict) → (tokens, linear magnitude (F, n_fft // 2 + 1), F, waveform
+        (F * hop,)), numpy; the magnitude from the mel front end's STFT on
+        the model's device."""
+        tokens = self.prepare_input(data)
+        audio = np.asarray(load_audio(data, self.rate), np.float32)
+        with torch.no_grad():
+            magnitude, _ = self.mel_fn.stft_fn.transform(
+                torch.as_tensor(audio[None], device = self.device))
+        spec = magnitude[0].cpu().numpy()
+        n_frames = min(spec.shape[0], len(audio) // self.mel_fn.hop_length)
+        return tokens, spec[:n_frames], n_frames, audio[: n_frames * self.mel_fn.hop_length]
+
+    def filter_data(self, * args):
+        """Within the length limits, and no more tokens than frames (the
+        monotonic alignment needs T >= L)."""
+        if len(args) == 1: args = args[0]
+        tokens, spec = args[0], args[1]
+        return (len(tokens) <= self.max_input_length and len(tokens) <= spec.shape[0]
+                and spec.shape[0] <= self.max_output_length)
+
+    def get_padding_values(self):
+        return (self.blank_token_idx, 0., 0, 0.)
+
+    def collate(self, batch):
+        """`prepare_data` rows → (tokens, spec, lengths, waveforms), padded
+        with the blank token and zeros."""
+        return (pad_batch([b[0] for b in batch], pad_value = self.blank_token_idx),
+                pad_batch([b[1] for b in batch], pad_value = 0.),
+                np.asarray([b[2] for b in batch], np.int32),
+                pad_batch([b[3] for b in batch], pad_value = 0.))

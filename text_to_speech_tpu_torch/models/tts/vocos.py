@@ -7,6 +7,8 @@ hop``, saving by name) over the ConvNeXt + inverse-STFT generator
 (`models.vocos_arch`).  `create` seeds `init.init_vocos`;
 `from_torch_pretrained` imports an official Vocos checkpoint
 (``backbone.convnext`` layout, `models.tts_checkpoints.convert_vocos`).
+It trains as `HiFiGAN` does (`prepare_data`, `collate`, `fit` through
+`train.gan.fit_gan`), against the HiFi-GAN discriminators.
 """
 
 from ...init import init_vocos

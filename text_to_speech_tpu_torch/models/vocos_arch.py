@@ -12,8 +12,12 @@ GELU is ``jax.nn.gelu``'s default, the tanh approximation.  Parameters are
 the port's layouts (`weights.hifigan_from_jax`); random ones come from
 `init.init_vocos`.
 
+It trains by the HiFi-GAN recipe (`train.gan.make_hifigan_train_step`):
+the discriminators and the GAN losses are HiFi-GAN's
+(`hifigan_arch.GANDiscriminators`, a base of both), as in the JAX package.
+
 The JAX package computes it in XLA, outside any Pallas kernel: the port
-runs it as plain tensor code.  The discriminators are not ported.
+runs it as plain tensor code.
 """
 
 import torch
@@ -23,6 +27,7 @@ from ..hparams import HParams
 from ..nn import layers as nn
 from ..ops.stft import STFT
 from ..weights import cast_tree
+from .hifigan_arch import GANDiscriminators
 
 HParamsVocos = HParams(
     n_mel_channels = 80,
@@ -37,14 +42,14 @@ HParamsVocos = HParams(
     hop_length = 256,
     win_length = 1024,
     mag_clip = 1e2,
-    # discriminators (kept in the config; not ported)
+    # the discriminators (HiFi-GAN's, by composition)
     mpd_periods = (2, 3, 5, 7, 11),
     msd_scales = 3,
     leaky_slope = 0.1,
 )
 
 
-class Vocos:
+class Vocos(GANDiscriminators):
     """Static hyper-parameters and the generator."""
 
     def __init__(self, ** kwargs):
@@ -100,3 +105,4 @@ class Vocos:
         return audio[:, :want].float()
 
     infer = apply
+

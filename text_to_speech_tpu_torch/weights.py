@@ -2,7 +2,9 @@
 
 The JAX package stores parameter trees as ``.npz`` files of ``/``-joined
 flat paths (``text_to_speech_tpu/train/checkpoint.py``).  `load_tree` reads
-them without JAX.  `convert_tree` (FastSpeech-2's params and state),
+them without JAX.  `convert_tree` (FastSpeech-2's params and state, the
+HiFi-GAN discriminators: a grouped conv's kernel (W, in / groups, out)
+becomes (out, in / groups, W) as any conv's),
 `tacotron2_from_jax`, `waveglow_from_jax`, `hifigan_from_jax` (HiFi-GAN's
 and Vocos's params), `vits_from_jax` and
 `audio_encoder_from_jax` turn those trees (nested dicts of numpy arrays)
@@ -204,8 +206,9 @@ _LAYER_KEYS = ('weight', 'weight_hh', 'running_mean')
 
 def tree_to_jax(tree, name = ''):
     """The inverse of `convert_tree` (numpy float32) for the trees of
-    Tacotron-2, FastSpeech-2, WaveGlow's coupling blocks, Vocos and VITS
-    but its generator: a bare tensor becomes an array."""
+    Tacotron-2, FastSpeech-2, WaveGlow's coupling blocks, Vocos, VITS but
+    its generator, and the HiFi-GAN discriminators: a bare tensor becomes
+    an array."""
     if torch.is_tensor(tree):
         return _array(tree)
     if tree and all(not isinstance(v, dict) for v in tree.values()) \
