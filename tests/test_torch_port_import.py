@@ -53,7 +53,9 @@ def test_port_imports_without_jax():
                  'models.hifigan_arch', 'models.vocos_arch', 'models.vits_arch',
                  'models.tts.hifigan', 'models.tts.vocos', 'models.tts.vits',
                  'models.tts.sv2tts_vits', 'native.scheduler', 'runtimes',
-                 'runtimes.serving', 'runtimes.http_server', 'train.gan'):
+                 'runtimes.serving', 'runtimes.http_server', 'train.gan', 'nn.activations',
+                 'models.transformers.generation_utils', 'models.transformers.families',
+                 'models.transformers.heads', 'runtimes.llm_serving', 'text.tokens'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
@@ -134,5 +136,22 @@ def test_entry_points_raise_without_device():
         from text_to_speech_tpu_torch.ops.matmul_rate import main
         raises(get_memory_stats)
         raises(main)
+        from text_to_speech_tpu_torch.models.transformers import (
+            Transformer, from_hf_pretrained, generate)
+        from text_to_speech_tpu_torch.models.transformers.families import EncoderDecoder
+        from text_to_speech_tpu_torch.runtimes.llm_serving import (
+            make_llm_engine, make_transformer_stepper)
+        lm = Transformer(vocab_size = 8, dim = 8, n_layers = 1, n_heads = 2, ffn_dim = 8)
+        raises(lambda: lm.init(0))
+        raises(lambda: EncoderDecoder(lm, lm).init(0))
+        raises(lambda: lm.init_caches(1, 4))
+        params = lm.init(0, device = 'cpu')
+        raises(lambda: generate(lm, params, np.ones((1, 2), np.int64), max_new_tokens = 2))
+        raises(lambda: generate(lm, params, np.ones((1, 2), np.int64), method = 'beam'))
+        raises(lambda: make_transformer_stepper(lm, params))
+        raises(lambda: make_llm_engine(lm, params))
+        raises(lambda: from_hf_pretrained(object(), family = 'gpt2'))
+        assert generate(lm, params, np.ones((1, 2), np.int64), max_new_tokens = 2,
+                        device = 'cpu').tokens.shape == (1, 4)
         assert default_device('cpu') == torch.device('cpu')
     ''')

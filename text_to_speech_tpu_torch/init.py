@@ -17,7 +17,10 @@ discriminators' through `weights.convert_tree` and VITS's through
 `nvidia_tacotron2_state_dict`, `nvidia_waveglow_state_dict`,
 `hifigan_state_dict`, `vocos_state_dict` and `vits_state_dict` make seeded
 state dicts in the published PyTorch layouts (names, shapes, weight norm),
-for the importers of `models.tts_checkpoints`.
+for the importers of `models.tts_checkpoints`; `gpt2_state_dict`,
+`mistral_state_dict` (Mixtral with experts), `bert_mlm_state_dict`,
+`t5_state_dict`, `bart_state_dict` and `whisper_state_dict` in HF's layouts,
+for the converters of `models.transformers.families` and `heads`.
 
 WaveGlow's ``end`` convs start at zero in the JAX package, which leaves the
 waveform independent of the WN blocks; here they get small normal weights
@@ -598,6 +601,196 @@ def vits_state_dict(seed = 0, *, vocab_size = 148, spec_channels = 513, inter_ch
         sd.add('emb_g.weight', n_speakers, gin)
         sd.add_conv('dp.cond', F_, gin, 1)
         sd.add_conv('dec.cond', upsample_initial_channel, gin, 1)
+    return dict(sd)
+
+
+def _hf_norm(sd, prefix, dim, bias = True):
+    """A norm's ``weight`` around 1 (``U(0.8, 1.2)``) and a small bias."""
+    sd[prefix + '.weight'] = sd.rng.uniform(0.8, 1.2, (dim,)).astype(np.float32)
+    if bias:
+        sd.add(prefix + '.bias', dim)
+
+
+def _hf_linear(sd, prefix, n_out, n_in, bias = True, scale = None):
+    sd.add(prefix + '.weight', n_out, n_in, scale = scale)
+    if bias:
+        sd.add(prefix + '.bias', n_out)
+
+
+def gpt2_state_dict(seed = 0, *, vocab_size = 50257, n_positions = 1024, n_embd = 768,
+                    n_layer = 12, scale = 0.02):
+    """A seeded ``GPT2LMHeadModel`` state dict (numpy) in HF's layout
+    (``transformer.*``; `Conv1D` weights (in, out); ``lm_head`` tied to
+    ``wte``), GPT-2 small's widths unless given: values ``scale * N(0, 1)``,
+    the residual projections ``scale / sqrt(2 n_layer)`` as GPT-2 draws
+    them, norms around 1."""
+    sd = _StateDict(seed, scale)
+    d = n_embd
+    sd.add('transformer.wte.weight', vocab_size, d)
+    sd.add('transformer.wpe.weight', n_positions, d, scale = scale / 2)
+    residual = scale / np.sqrt(2 * n_layer)
+    for i in range(n_layer):
+        p = 'transformer.h.{}.'.format(i)
+        _hf_norm(sd, p + 'ln_1', d)
+        sd.add(p + 'attn.c_attn.weight', d, 3 * d)
+        sd.add(p + 'attn.c_attn.bias', 3 * d)
+        sd.add(p + 'attn.c_proj.weight', d, d, scale = residual)
+        sd.add(p + 'attn.c_proj.bias', d)
+        _hf_norm(sd, p + 'ln_2', d)
+        sd.add(p + 'mlp.c_fc.weight', d, 4 * d)
+        sd.add(p + 'mlp.c_fc.bias', 4 * d)
+        sd.add(p + 'mlp.c_proj.weight', 4 * d, d, scale = residual)
+        sd.add(p + 'mlp.c_proj.bias', d)
+    _hf_norm(sd, 'transformer.ln_f', d)
+    sd['lm_head.weight'] = sd['transformer.wte.weight']
+    return dict(sd)
+
+
+def mistral_state_dict(seed = 0, *, vocab_size = 32000, hidden_size = 4096,
+                       intermediate_size = 14336, num_hidden_layers = 32,
+                       num_attention_heads = 32, num_key_value_heads = 8,
+                       num_local_experts = 0, scale = 0.02):
+    """A seeded ``MistralForCausalLM`` (or, with `num_local_experts`,
+    ``MixtralForCausalLM``: ``block_sparse_moe`` with experts w1 / w2 / w3)
+    state dict (numpy) in HF's layout; RMS norm weights around 1."""
+    sd = _StateDict(seed, scale)
+    d, f = hidden_size, intermediate_size
+    hd = d // num_attention_heads
+    sd.add('model.embed_tokens.weight', vocab_size, d)
+    for i in range(num_hidden_layers):
+        p = 'model.layers.{}.'.format(i)
+        for name, n_out in (('q', num_attention_heads * hd), ('k', num_key_value_heads * hd),
+                            ('v', num_key_value_heads * hd)):
+            sd.add(p + 'self_attn.{}_proj.weight'.format(name), n_out, d)
+        sd.add(p + 'self_attn.o_proj.weight', d, num_attention_heads * hd)
+        if num_local_experts:
+            moe = p + 'block_sparse_moe.'
+            sd.add(moe + 'gate.weight', num_local_experts, d)
+            for e in range(num_local_experts):
+                sd.add(moe + 'experts.{}.w1.weight'.format(e), f, d)
+                sd.add(moe + 'experts.{}.w2.weight'.format(e), d, f)
+                sd.add(moe + 'experts.{}.w3.weight'.format(e), f, d)
+        else:
+            sd.add(p + 'mlp.gate_proj.weight', f, d)
+            sd.add(p + 'mlp.up_proj.weight', f, d)
+            sd.add(p + 'mlp.down_proj.weight', d, f)
+        _hf_norm(sd, p + 'input_layernorm', d, bias = False)
+        _hf_norm(sd, p + 'post_attention_layernorm', d, bias = False)
+    _hf_norm(sd, 'model.norm', d, bias = False)
+    sd.add('lm_head.weight', vocab_size, d)
+    return dict(sd)
+
+
+def bert_mlm_state_dict(seed = 0, *, vocab_size = 30522, hidden_size = 768,
+                        num_hidden_layers = 12, intermediate_size = 3072,
+                        max_position_embeddings = 512, scale = 0.02):
+    """A seeded ``BertForMaskedLM`` state dict (numpy) in HF's layout (the
+    decoder tied to the word embeddings)."""
+    sd = _StateDict(seed, scale)
+    d = hidden_size
+    e = 'bert.embeddings.'
+    sd.add(e + 'word_embeddings.weight', vocab_size, d)
+    sd.add(e + 'position_embeddings.weight', max_position_embeddings, d)
+    sd.add(e + 'token_type_embeddings.weight', 2, d)
+    _hf_norm(sd, e + 'LayerNorm', d)
+    for i in range(num_hidden_layers):
+        p = 'bert.encoder.layer.{}.'.format(i)
+        for name in ('query', 'key', 'value'):
+            _hf_linear(sd, p + 'attention.self.' + name, d, d)
+        _hf_linear(sd, p + 'attention.output.dense', d, d)
+        _hf_norm(sd, p + 'attention.output.LayerNorm', d)
+        _hf_linear(sd, p + 'intermediate.dense', intermediate_size, d)
+        _hf_linear(sd, p + 'output.dense', d, intermediate_size)
+        _hf_norm(sd, p + 'output.LayerNorm', d)
+    sd.add('cls.predictions.bias', vocab_size)
+    _hf_linear(sd, 'cls.predictions.transform.dense', d, d)
+    _hf_norm(sd, 'cls.predictions.transform.LayerNorm', d)
+    sd['cls.predictions.decoder.weight'] = sd[e + 'word_embeddings.weight']
+    sd['cls.predictions.decoder.bias'] = sd['cls.predictions.bias']
+    return dict(sd)
+
+
+def t5_state_dict(seed = 0, *, vocab_size = 32128, d_model = 512, d_kv = 64, d_ff = 2048,
+                  num_layers = 6, num_heads = 8, relative_attention_num_buckets = 32,
+                  scale = 0.05):
+    """A seeded ``T5Model`` state dict (numpy) in HF's layout (no biases,
+    RMS norms, the relative bias on block 0 of each stack, the token
+    embedding shared)."""
+    sd = _StateDict(seed, scale)
+    d, inner = d_model, num_heads * d_kv
+    sd.add('shared.weight', vocab_size, d, scale = 1.)
+    for side in ('encoder', 'decoder'):
+        sd[side + '.embed_tokens.weight'] = sd['shared.weight']
+        for i in range(num_layers):
+            b = '{}.block.{}.layer.'.format(side, i)
+            attn = [('0.SelfAttention', '0.layer_norm')]
+            if side == 'decoder':
+                attn.append(('1.EncDecAttention', '1.layer_norm'))
+            for name, norm in attn:
+                for w in ('q', 'k', 'v'):
+                    sd.add(b + name + '.' + w + '.weight', inner, d)
+                sd.add(b + name + '.o.weight', d, inner)
+                _hf_norm(sd, b + norm, d, bias = False)
+            if i == 0:
+                sd.add(b + '0.SelfAttention.relative_attention_bias.weight',
+                       relative_attention_num_buckets, num_heads, scale = 1.)
+            ffn = '2' if side == 'decoder' else '1'
+            sd.add(b + ffn + '.DenseReluDense.wi.weight', d_ff, d)
+            sd.add(b + ffn + '.DenseReluDense.wo.weight', d, d_ff)
+            _hf_norm(sd, b + ffn + '.layer_norm', d, bias = False)
+        _hf_norm(sd, side + '.final_layer_norm', d, bias = False)
+    return dict(sd)
+
+
+def _bart_layer(sd, p, d, ffn, cross, k_bias = True):
+    attns = ['self_attn'] + (['encoder_attn'] if cross else [])
+    for name in attns:
+        _hf_linear(sd, p + name + '.k_proj', d, d, bias = k_bias)
+        _hf_linear(sd, p + name + '.v_proj', d, d)
+        _hf_linear(sd, p + name + '.q_proj', d, d)
+        _hf_linear(sd, p + name + '.out_proj', d, d)
+        _hf_norm(sd, p + name + '_layer_norm', d)
+    _hf_linear(sd, p + 'fc1', ffn, d)
+    _hf_linear(sd, p + 'fc2', d, ffn)
+    _hf_norm(sd, p + 'final_layer_norm', d)
+
+
+def bart_state_dict(seed = 0, *, vocab_size = 50265, d_model = 768, encoder_layers = 6,
+                    decoder_layers = 6, ffn_dim = 3072, max_position_embeddings = 1024,
+                    scale = 0.02):
+    """A seeded ``BartModel`` state dict (numpy) in HF's layout (positions
+    stored 2 rows ahead, an embedding norm a stack, post-norm layers)."""
+    sd = _StateDict(seed, scale)
+    d = d_model
+    sd.add('shared.weight', vocab_size, d)
+    for side, n in (('encoder', encoder_layers), ('decoder', decoder_layers)):
+        sd[side + '.embed_tokens.weight'] = sd['shared.weight']
+        sd.add(side + '.embed_positions.weight', max_position_embeddings + 2, d)
+        for i in range(n):
+            _bart_layer(sd, '{}.layers.{}.'.format(side, i), d, ffn_dim, side == 'decoder')
+        _hf_norm(sd, side + '.layernorm_embedding', d)
+    return dict(sd)
+
+
+def whisper_state_dict(seed = 0, *, vocab_size = 51865, d_model = 512, encoder_layers = 6,
+                       decoder_layers = 6, ffn_dim = 2048, num_mel_bins = 80,
+                       max_source_positions = 1500, max_target_positions = 448,
+                       scale = 0.02):
+    """A seeded ``WhisperModel`` state dict (numpy) in HF's layout (the conv
+    stem, key projections without bias, pre-norm layers, a final norm a
+    stack)."""
+    sd = _StateDict(seed, scale)
+    d = d_model
+    sd.add_conv('encoder.conv1', d, num_mel_bins, 3)
+    sd.add_conv('encoder.conv2', d, d, 3)
+    sd.add('encoder.embed_positions.weight', max_source_positions, d)
+    sd.add('decoder.embed_tokens.weight', vocab_size, d)
+    sd.add('decoder.embed_positions.weight', max_target_positions, d)
+    for side, n in (('encoder', encoder_layers), ('decoder', decoder_layers)):
+        for i in range(n):
+            _bart_layer(sd, '{}.layers.{}.'.format(side, i), d, ffn_dim, side == 'decoder',
+                        k_bias = False)
+        _hf_norm(sd, side + '.layer_norm', d)
     return dict(sd)
 
 

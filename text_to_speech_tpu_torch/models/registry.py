@@ -15,9 +15,11 @@ def _architectures():
     from .vits_arch import VITS
     from .vocos_arch import Vocos
     from .waveglow_arch import WaveGlow
+    from .transformers.transformer_arch import Transformer
     return {'tacotron2': Tacotron2, 'sv2tts_tacotron2': Tacotron2, 'waveglow': WaveGlow,
             'hifigan': HiFiGAN, 'vocos': Vocos, 'fastspeech2': FastSpeech2, 'vits': VITS,
-            'audio_encoder': AudioEncoder, 'audioencoder': AudioEncoder}
+            'audio_encoder': AudioEncoder, 'audioencoder': AudioEncoder,
+            'transformer': Transformer}
 
 
 def get_architecture(architecture, ** kwargs):

@@ -15,10 +15,55 @@ layouts, which `weights.py` produces from the JAX trees:
     (`batch_norm` on the running statistics, `batch_norm_train` on the
     batch's, masked, moving the running ones)
   - layer norm: ``weight``/``bias`` (the JAX package's ``gamma``/``beta``)
+  - rms norm: ``gamma`` alone, as in the JAX package
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
+
+
+def generator(seed, device):
+    """A `torch.Generator` on `device` seeded with `seed`; a generator
+    passes through.  Every random init and draw of the port takes one."""
+    if isinstance(seed, torch.Generator):
+        return seed
+    return torch.Generator(device = device).manual_seed(int(seed))
+
+
+def _uniform(gen, shape, limit, device):
+    return (torch.rand(shape, generator = gen, device = device) * 2. - 1.) * limit
+
+
+def init_dense(gen, in_dim, out_dim, use_bias = True, device = None):
+    """A dense layer ``weight (out, in)``, glorot-uniform as the JAX
+    `init_dense` draws it, and a zero bias."""
+    limit = math.sqrt(6. / (in_dim + out_dim))
+    params = {'weight': _uniform(gen, (out_dim, in_dim), limit, device)}
+    if use_bias: params['bias'] = torch.zeros((out_dim,), device = device)
+    return params
+
+
+def init_embedding(gen, vocab_size, dim, scale = 0.05, device = None):
+    return {'weight': _uniform(gen, (vocab_size, dim), scale, device)}
+
+
+def init_conv1d(gen, width, in_ch, out_ch, use_bias = True, device = None):
+    """A conv ``weight (out, in, width)``, glorot-uniform over its fans."""
+    limit = math.sqrt(6. / ((in_ch + out_ch) * width))
+    params = {'weight': _uniform(gen, (out_ch, in_ch, width), limit, device)}
+    if use_bias: params['bias'] = torch.zeros((out_ch,), device = device)
+    return params
+
+
+def init_layer_norm(dim, device = None):
+    return {'weight': torch.ones((dim,), device = device),
+            'bias': torch.zeros((dim,), device = device)}
+
+
+def init_rms_norm(dim, device = None):
+    return {'gamma': torch.ones((dim,), device = device)}
 
 
 def dense(params, x):
@@ -41,12 +86,16 @@ def _same_pads(width, dilation, stride = 1, length = 1):
 
 
 def conv1d(params, x, *, stride = 1, padding = 'SAME', dilation = 1, groups = 1):
-    """x: (B, T, C_in) → (B, T', C_out); `padding` 'SAME' (XLA's rule) or
-    'VALID'; ``groups = C_in`` is a depthwise conv (weight (C, 1, W), the JAX
+    """x: (B, T, C_in) → (B, T', C_out); `padding` 'SAME' (XLA's rule),
+    'VALID' or explicit ``[(front, back)]`` (the JAX `conv1d`'s list form);
+    ``groups = C_in`` is a depthwise conv (weight (C, 1, W), the JAX
     ``feature_group_count``)."""
     weight = params['weight']
     h = x.transpose(1, 2)
-    if padding.upper() == 'SAME':
+    if not isinstance(padding, str):
+        (front, back), = padding
+        h = F.pad(h, (front, back))
+    elif padding.upper() == 'SAME':
         h = F.pad(h, _same_pads(weight.shape[2], dilation, stride, h.shape[2]))
     y = F.conv1d(h, weight, params.get('bias'), stride = stride, dilation = dilation,
                  groups = groups)
@@ -163,6 +212,13 @@ def layer_norm(params, x, epsilon = 1e-5):
     var = ((x32 - mean32) ** 2).mean(dim = -1, keepdim = True).to(x.dtype)
     return (x - mean32.to(x.dtype)) * torch.rsqrt(var + epsilon) * params['weight'] \
         + params['bias']
+
+
+def rms_norm(params, x, epsilon = 1e-6):
+    """``x * rsqrt(mean(x ** 2) + epsilon) * gamma`` over the last axis; its
+    one parameter keeps the JAX name ``gamma``."""
+    var = torch.mean(torch.square(x), dim = -1, keepdim = True)
+    return x * torch.rsqrt(var + epsilon) * params['gamma']
 
 
 def gelu(x):

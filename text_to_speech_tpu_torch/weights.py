@@ -6,8 +6,9 @@ them without JAX.  `convert_tree` (FastSpeech-2's params and state, the
 HiFi-GAN discriminators: a grouped conv's kernel (W, in / groups, out)
 becomes (out, in / groups, W) as any conv's),
 `tacotron2_from_jax`, `waveglow_from_jax`, `hifigan_from_jax` (HiFi-GAN's
-and Vocos's params), `vits_from_jax` and
-`audio_encoder_from_jax` turn those trees (nested dicts of numpy arrays)
+and Vocos's params), `vits_from_jax`, `transformer_from_jax` (the
+transformer zoo and its heads: MoE experts stacked as ``weight (E, out,
+in)``) and `audio_encoder_from_jax` turn those trees (nested dicts of numpy arrays)
 into nested dicts of torch tensors in the layouts `nn.layers` takes
 (`tree_to_jax` and the ``*_to_jax`` functions go back; a bare array, such
 as VITS's relative tables or Vocos's layer scale, stays an array):
@@ -155,6 +156,26 @@ def vits_from_jax(params):
     return out
 
 
+def _experts_from_jax(node):
+    """Stacked expert kernels (E, in, out) → ``weight (E, out, in)``, each
+    expert's in `nn.dense`'s layout (`convert_tree` would take a 3-D kernel
+    for a conv)."""
+    return {name: {'weight': _tensor(np.transpose(np.asarray(leaf['kernel']), (0, 2, 1)))}
+            for name, leaf in node.items()}
+
+
+def transformer_from_jax(params):
+    """A JAX `Transformer` tree (one stack, an encoder-decoder's
+    ``{'encoder', 'decoder'}`` or a task head) → the port's: `convert_tree`
+    for every layer, an rms norm's ``{'gamma'}`` kept as it is, a relative
+    bias table ``{'embeddings'}`` → ``{'weight'}`` as any embedding, and the
+    stacked experts ``(E, in, out)`` → ``weight (E, out, in)``."""
+    if not isinstance(params, dict) or all(not isinstance(v, dict) for v in params.values()):
+        return convert_tree(params)
+    return {k: _experts_from_jax(v) if k == 'experts' else transformer_from_jax(v)
+            for k, v in params.items()}
+
+
 def _array(tensor):
     # a copy: a CPU tensor's numpy view would follow the in-place updates of
     # training into a checkpoint still being written
@@ -267,6 +288,23 @@ def audio_encoder_to_jax(params, state):
                                'moving_var': _array(node['bn']['running_var'])}}
                  for name, node in state.items()}
     return out, jax_state
+
+
+def transformer_to_jax(params):
+    """The inverse of `transformer_from_jax` (numpy float32):
+    ``transformer_to_jax(transformer_from_jax(p))`` equals ``p``."""
+    out = {}
+    for name, node in params.items():
+        if name == 'experts':
+            out[name] = {k: {'kernel': np.ascontiguousarray(
+                np.transpose(_array(leaf['weight']), (0, 2, 1)))} for k, leaf in node.items()}
+        elif name == 'relative_bias':
+            out[name] = {'embeddings': _array(node['weight'])}
+        elif isinstance(node, dict) and any(isinstance(v, dict) for v in node.values()):
+            out[name] = transformer_to_jax(node)
+        else:
+            out[name] = tree_to_jax(node, name)
+    return out
 
 
 def tree_to(tree, device):
