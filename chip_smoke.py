@@ -10,7 +10,9 @@ serve the other families (HiFi-GAN and Vocos behind Tacotron-2, VITS and
 SV2TTS-VITS) imported from seeded state dicts in their published layouts,
 and serve Tacotron-2 + WaveGlow and VITS over HTTP with continuous batching,
 and train HiFi-GAN, Vocos, VITS and SV2TTS-VITS adversarially, and serve
-GPT-2 small token by token with continuous batching.
+GPT-2 small token by token with continuous batching, and run the parallel
+axes (data-parallel serving and training, the GPipe pipeline, expert
+parallelism) across two ranks on the card.
 
     python3 chip_smoke.py
 
@@ -169,8 +171,8 @@ Phases, one JSON line each:
            random seeded weights: the train step (B=8 x 256 frames, per-flow
            remat, Adam at 1e-4) on the default route in float32 and under
            mixed_bfloat16 and on `wn_train_fused` (K1 forward) under
-           mixed_bfloat16 (3 steps, the loss falling; the median of the last
-           2): ms per step, audio seconds per second, peak
+           mixed_bfloat16 (2 steps, the loss falling; the second timed):
+           ms per step, audio seconds per second, peak
            memory, K1 launches per step; `fit` on the four in-repo WAVs for 2
            epochs on K1 (the loss falls, a checkpoint is written) and one
            more that resumes the optimizer state; the eval step of a
@@ -231,6 +233,32 @@ Phases, one JSON line each:
            1e-3, relative; VITS's alignment equal); `fit` of HiFi-GAN and VITS
            for 1 epoch and 1 resumed from `gan_state.npz`.  No kernel of the
            port runs in it.
+  mesh     the parallel axes on torch.distributed: two gloo ranks spawned
+           on the one card (`parallel.spawn`; NCCL takes one rank a card;
+           send / recv stage CUDA tensors through host memory, the other
+           collectives take them as they are): (a) Tacotron-2 + WaveGlow at
+           NVIDIA width, deterministic, 8 requests of 256 frames over
+           {'dp': 2} with streamed audio, each mel (1e-4) and audio (2e-2,
+           relative) against the one-rank stepper, K3 and K1 launches, row
+           groups and emission shapes per rank; (b) two data-parallel SGD
+           `mixed_bfloat16` WaveGlow steps (8 × 256 frames, 4 rows a rank):
+           each step's reduced gradients within 1e-2 (relative, L2 over
+           every leaf) of one process's on the whole batch, the losses (1e-5,
+           then 1e-4), bit-equal weights on both ranks, and two controls
+           that must miss the bound (the second rank's own rows' gradient
+           without the reduce; the reduce summed, not averaged); (c) two
+           GPipe steps over {'pp': 2} (2 × 64 frames, float32) against
+           `arch.loss` (loss 1e-5, gradients 1e-4 relative); (d) Mixtral
+           8x7B's widths at 2 layers in bfloat16 over {'ep': 2}, its logits
+           (2e-2 of scale) and 8 greedy tokens (the tie rule, at twice the
+           logits' gap) against one rank holding every expert; then one NCCL
+           rank in this process calling each collective on the card.  The
+           one-process references of (a) and (b) run in this process while
+           the ranks start.  Both ranks share one card: its times are not
+           two cards'.  K3 at each rank's row groups and K1 at its emission
+           shapes are held against their plain versions after the `llm`
+           phase.  (``--probe-gloo-p2p`` runs instead of the script: whether
+           gloo's send / recv take a CUDA tensor as it is.)
   llm      token-level LLM serving and the transformer zoo: GPT-2 small at
            its published widths (124,439,808 parameters), a seeded state dict
            in HF's layout through `convert_gpt2_state_dict`; the prefill of 4
@@ -249,7 +277,7 @@ Phases, one JSON line each:
            load-balancing loss, BERT with the MLM head, T5, BART, Whisper:
            1e-4 of scale, 8 greedy tokens by the tie rule); no K1-K5 launch.
 The files of the families, serving, sv2tts, nvidia_import, fastspeech2,
-training, transfer and gan phases go in one temporary directory, removed when they end (the transfer
+training, transfer, gan and mesh phases go in one temporary directory, removed when they end (the transfer
 phase's own root when it ends).  Then the kernel summary, the
 card's name and power limit, and the result.
 Any failure raises: the script then exits non-zero without a result line.
@@ -1241,8 +1269,8 @@ def train_phase():
             torch.cuda.reset_peak_memory_stats()
             before = torch.cuda.memory_allocated()
             times, losses = [], []
-            for i in range(3):
-                if i == 1:        # the launches of the 2 timed steps
+            for i in range(2):
+                if i == 1:        # the launches of the timed step
                     fused_wn_block.launches = fused_wn_layer.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1258,16 +1286,16 @@ def train_phase():
                 # the peak, and its rise over what the earlier phases hold
                 'peak_memory_gb': torch.cuda.max_memory_allocated() / 2 ** 30,
                 'peak_rise_gb': (torch.cuda.max_memory_allocated() - before) / 2 ** 30,
-                'wn_block_launches_per_step': fused_wn_block.launches / 2,
-                'wn_layer_launches_per_step': fused_wn_layer.launches / 2,
+                'wn_block_launches_per_step': fused_wn_block.launches,
+                'wn_layer_launches_per_step': fused_wn_layer.launches,
                 'first_loss': losses[0], 'losses': losses,
                 'grad_norm': float(metrics['grad_norm'])}
             check(all(np.isfinite(losses)), '{}: loss not finite: {}'.format(key, losses))
             # on the one repeated batch the loss falls for 6 steps (Adam's 7th
             # step overshoots the noise's optimum, as in the JAX package:
             # tests/test_torch_port_train.py::test_repeated_batch_spike_matches_jax)
-            check(all(b < a for a, b in zip(losses[:2], losses[1:3])),
-                  '{}: the loss did not fall over the 3 steps: {}'.format(key, losses))
+            check(losses[1] < losses[0],
+                  '{}: the loss did not fall over the 2 steps: {}'.format(key, losses))
             expected = 2 * hp.n_flows if route == 'wn_train_fused' else 0
             check(steps[key]['wn_block_launches_per_step'] == expected
                   and fused_wn_layer.launches == 0,
@@ -1284,7 +1312,8 @@ def train_phase():
 
         # 1a. remat='acts' against per-flow remat at the same shape
         acts_task = new_model('acts')
-        emit({'phase': 'train', 'remat_acts_B8_mixed_bfloat16': remat_acts(acts_task, mel, audio)})
+        emit({'phase': 'train', 'remat_acts_B8_mixed_bfloat16': remat_acts(acts_task, mel, audio,
+                                                                           reps = 1)})
         del acts_task
         torch.cuda.empty_cache()
 
@@ -2551,13 +2580,14 @@ def _decode_chunk_routes(model, B):
             'tolerance_rel': 1e-4, 'chunk_ms': statistics.median(times)}
 
 
-def _k3_serving_case(model):
-    """K3 against its plain version at a serving row group (B = 8, S = 64,
-    64 steps, float32, deterministic prenet): error, ms, plain ms, bound."""
+def _k3_serving_case(model, B = 8, S = 64):
+    """K3 against its plain version at a serving row group (by default B = 8,
+    S = 64; 64 steps, float32, deterministic prenet): error, ms, plain ms,
+    bound."""
     from text_to_speech_tpu_torch.ops.decoder_kernel import (
         decoder_steps, decoder_steps_plain, init_decoder_state, pack_decoder_weights)
 
-    arch, hp, B, S, K = model.arch, model.arch.hp, 8, 64, 64
+    arch, hp, K = model.arch, model.arch.hp, 64
     weights = pack_decoder_weights(model.params['decoder'], n_mel = hp.n_mel_channels)
     tokens = torch.from_numpy(np.random.default_rng(40).integers(
         1, hp.vocab_size, (B, S))).cuda()
@@ -3562,7 +3592,7 @@ def _gan_state(gen, disc, device, lr = 2e-4):
     return state, tx_g, tx_d
 
 
-def _gan_steps(run, state, warmup = 2, timed = 5):
+def _gan_steps(run, state, warmup = 2, timed = 3):
     """`warmup` + `timed` steps ``run(state) → (state, metrics)``, each
     synchronised: the median ms of the timed ones, every step's losses, the
     peak memory."""
@@ -3815,12 +3845,13 @@ def gan_phase(root):
 LLM_TIE = 1e-4              # a top-two (or kept / dropped) margin below this is a tie
 
 
-def _tie_rule(card, cpu, margins, start):
+def _tie_rule(card, cpu, margins, start, tie = None):
     """Rows of generated tokens (B, T) on the card against the CPU's, from
     column `start`: equal, or apart only after a step whose margin on the
     CPU (`margins`: one (B,) tensor a step, and for a beam search a last one
-    for the choice of beam) fell below `LLM_TIE`.  Returns (rows equal, rows
-    apart after a tie)."""
+    for the choice of beam) fell below `tie` (`LLM_TIE` by default).
+    Returns (rows equal, rows apart after a tie)."""
+    tie = LLM_TIE if tie is None else tie
     card, cpu = card.cpu(), cpu.cpu()
     margins = torch.stack([m.float().cpu() for m in margins], dim = 1)   # (B, steps)
     equal = tied = 0
@@ -3832,7 +3863,7 @@ def _tie_rule(card, cpu, margins, start):
         first = int(apart[0])
         near = margins[b] if margins.shape[1] > card.shape[1] - start \
             else margins[b, : first + 1]
-        check(float(near.min()) < LLM_TIE,
+        check(float(near.min()) < tie,
               'row {}: card and CPU apart at step {} with no tie (margins {})'.format(
                   b, first, margins[b].tolist()))
         tied += 1
@@ -3932,6 +3963,534 @@ def _llm_families(rng):
         out[name] = entry
     check(out['whisper']['encoded_shape'] == [2, 50, 256], 'Whisper: {}'.format(out['whisper']))
     return out
+
+
+#: the mesh phase: 8 requests over two ranks on the one card
+MESH_TEXTS = SERVING_TEXTS[:8]
+#: the WaveGlow batch (rows, frames) of the data-parallel steps and their
+#: SGD rate, the pipeline's batch (its stages keep every activation: no
+#: remat), Mixtral-8x7B's widths at 2 layers, and the frames a served
+#: request runs
+MESH_CASE = {'dp_batch': (8, 256), 'dp_precision': 'mixed_bfloat16', 'dp_lr': 1e-4,
+             'pp_batch': (2, 64), 'mixtral': {'num_hidden_layers': 2}, 'max_steps': 256}
+#: (b)'s bound on the reduced gradients' distance from one process's on the
+#: whole batch, relative, in the L2 norm over every leaf
+DP_GRAD_TOLERANCE = 1e-2
+
+
+def _sync(device):
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _mesh_models(case, weights, device):
+    """Tacotron-2 and WaveGlow (sigma 0 for serving) from the phase's
+    weights, as every rank and the references build them."""
+    from text_to_speech_tpu_torch.models.tts import Tacotron2, WaveGlow
+    from text_to_speech_tpu_torch.text import default_english_tokenizer
+    model = Tacotron2(weights['tacotron2_params'], weights['tacotron2_state'],
+                      tokenizer = default_english_tokenizer(), device = device,
+                      ** case['tacotron2'])
+    vocoder = WaveGlow(weights['waveglow'], device = device, ** case['waveglow'])
+    vocoder.arch.hp.sigma = 0.
+    # remat='acts': the faster of the two remat modes (PERF.md §5)
+    vocoder.train_remat = 'acts'
+    return model, vocoder
+
+
+def _mesh_serving_kw(vocoder, case):
+    return dict(vocoder = vocoder, stream_audio = True, max_steps = case['max_steps'],
+                deterministic = True, stream_context = 192)
+
+
+def _mesh_drive(stepper):
+    """`MESH_TEXTS` through an engine on `stepper` → (results, streamed parts)."""
+    from text_to_speech_tpu_torch.runtimes.serving import ContinuousServingEngine
+    parts = [[] for _ in MESH_TEXTS]
+    with ContinuousServingEngine(* stepper, max_batch_size = 8) as engine:
+        requests = [engine.submit(t, on_audio = parts[i].append)
+                    for i, t in enumerate(MESH_TEXTS)]
+        return [r.result.get(timeout = 300) for r in requests], parts
+
+
+def _dp_batch(case, vocoder, device):
+    """(b)'s WaveGlow batch, seeded: mel (B, F, n_mel) and audio."""
+    rng = np.random.default_rng(51)
+    B, F = case['dp_batch']
+    mel = rng.standard_normal((B, F, vocoder.arch.hp.n_mel_channels)) - 5.
+    audio = 0.3 * rng.standard_normal((B, F * vocoder.upsample_rate))
+    return (torch.from_numpy(mel.astype(np.float32)).to(device),
+            torch.from_numpy(audio.astype(np.float32)).to(device))
+
+
+def _dp_steps(vocoder, case, mesh, mel, audio, local = None):
+    """Two SGD WaveGlow steps from the vocoder's weights → (params, losses,
+    each step's gradients by leaf: on a `mesh` those reduced over the data
+    group).  `local`, a dict, receives the first step's gradients of this
+    rank's own rows, before the reduce."""
+    from text_to_speech_tpu_torch.parallel import collectives
+    from text_to_speech_tpu_torch.train import trainer
+    from text_to_speech_tpu_torch.train.losses import WaveGlowLoss
+    from text_to_speech_tpu_torch.train.optimizers import get_optimizer
+    from text_to_speech_tpu_torch.weights import flatten_tree, unflatten_tree
+    tree = unflatten_tree(trainer._trainable({k: v.clone() for k, v in
+                                              flatten_tree(vocoder.params).items()}))
+    tx = get_optimizer('sgd', lr = case['dp_lr'])
+    opt = tx.init(tree)
+    step = trainer.make_train_step(vocoder, WaveGlowLoss(sigma = 1.), tx, mesh = mesh,
+                                   precision = case['dp_precision'])
+    reduce = collectives.average_gradients
+
+    def recording(tensors, * args, ** kwargs):
+        if local is not None and not local:
+            local.update({id(t): t.grad.clone() for t in tensors})
+        return reduce(tensors, * args, ** kwargs)
+    collectives.average_gradients = recording
+    losses, grads = [], []
+    try:
+        for _ in range(2):
+            tree, _, opt, metrics = step(tree, None, opt, None, (mel, audio), None)
+            losses.append(float(metrics['loss']))
+            grads.append({k: v.grad.clone() for k, v in flatten_tree(tree).items()})
+    finally:
+        collectives.average_gradients = reduce
+    if local:
+        by_id = {id(v): k for k, v in flatten_tree(tree).items()}
+        named = {by_id[i]: g for i, g in local.items()}
+        local.clear()
+        local.update(named)
+    _sync(mel.device)
+    return tree, losses, grads
+
+
+def _grad_rel(grads, ref):
+    """(‖grads − ref‖ / ‖ref‖ over every leaf together, its largest value
+    over the leaves one by one whose reference is not 0), in float64."""
+    num = {k: float((grads[k].double() - ref[k].double()).pow(2).sum()) for k in ref}
+    den = {k: float(ref[k].double().pow(2).sum()) for k in ref}
+    return ((sum(num.values()) / sum(den.values())) ** 0.5,
+            max((num[k] / den[k]) ** 0.5 for k in ref if den[k] > 0))
+
+
+def _mesh_references(case, weights):
+    """The one-process references of (a) and (b), in this process while the
+    ranks start: the one-rank stepper's 8 requests, and two SGD steps on the
+    whole batch with their gradients.  Written to ``case['refs']``."""
+    from text_to_speech_tpu_torch.runtimes.serving import make_tacotron_stepper
+    sections = {}
+    clock = section_clock(sections)
+    device = case.get('device', 'cuda')
+    model, vocoder = _mesh_models(case, weights, device)
+    results, _ = _mesh_drive(make_tacotron_stepper(model, ** _mesh_serving_kw(vocoder, case)))
+    _sync(device)
+    clock('serving_one_rank')
+    mel, audio = _dp_batch(case, vocoder, device)
+    tree, losses, grads = _dp_steps(vocoder, case, None, mel, audio)
+    clock('dp_one_process')
+    refs = {'serving': [{k: torch.from_numpy(np.asarray(r[k])) for k in ('mel', 'audio')}
+                        for r in results],
+            'dp_losses': losses, 'dp_grads': grads}
+    torch.save(refs, case['refs'] + '.part')
+    os.replace(case['refs'] + '.part', case['refs'])
+    clock('save')
+    return sections
+
+
+def _await_refs(case, timeout = 300.):
+    """The references once this process's parent has written them."""
+    start = time.perf_counter()
+    while not os.path.exists(case['refs']):
+        if os.path.exists(case['refs'] + '.failed'):
+            raise RuntimeError('the mesh references failed in the parent')
+        if time.perf_counter() - start > timeout:
+            raise TimeoutError('no mesh references after {} s'.format(timeout))
+        time.sleep(0.1)
+    return torch.load(case['refs'], map_location = case.get('device', 'cuda'))
+
+
+def _mesh_worker(case):
+    """One rank of the mesh phase (two gloo ranks on the one card): its
+    records of parts (a) to (d), numbers only, and its checks' failures
+    raised (the parent's `parallel.spawn` raises them)."""
+    import torch.distributed as dist
+    from text_to_speech_tpu_torch import parallel
+    from text_to_speech_tpu_torch.init import mixtral_state_dict
+    from text_to_speech_tpu_torch.models import tacotron2_arch
+    from text_to_speech_tpu_torch.models.transformers import Transformer, families, generate
+    from text_to_speech_tpu_torch.parallel.pipeline import WaveGlowPipeline
+    from text_to_speech_tpu_torch.runtimes.serving import make_tacotron_stepper
+    from text_to_speech_tpu_torch.train import trainer
+    from text_to_speech_tpu_torch.train.optimizers import get_optimizer
+    from text_to_speech_tpu_torch.weights import flatten_tree, unflatten_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # 'cpu' with small sizes in `case`: the CPU rehearsal of the phase
+    on_card = case.get('device', 'cuda') == 'cuda'
+    rank = dist.get_rank()
+    mesh = parallel.create_mesh({'dp': 2})
+    out, sections = {'rank': rank, 'device': str(mesh.device)}, {}
+    # gloo's send / recv abort on a CUDA tensor (``--probe-gloo-p2p``): the
+    # port's stage it through host memory; the other collectives take it
+    out['send_recv_staged_through_host'] = parallel.collectives.stages_through_host(
+        torch.ones(1, device = mesh.device), mesh.group('dp'))
+    clock = section_clock(sections)
+
+    def section(name):
+        clock(name)
+        print('mesh rank {}: {} {:.1f} s'.format(rank, name, sections[name]), file = sys.stderr,
+              flush = True)
+
+    # the first rank loads the weights, every rank receives them
+    weights = torch.load(case['weights'], map_location = mesh.device) if rank == 0 else None
+    model, vocoder = _mesh_models(case, parallel.shard_params(weights, mesh), mesh.device)
+    del weights
+    section('weights')
+
+    # (a) serving over {'dp': 2}; the emission windows and K3's row groups
+    # recorded
+    vocoded, k3_shapes = [], []
+    device_vocoder_fn = vocoder.device_vocoder_fn
+
+    def recording_vocoder_fn(** config):
+        fn, params, tag = device_vocoder_fn(** config)
+
+        def recorded(params, mel, generator = None):
+            vocoded.append(tuple(mel.shape[:2]))
+            return fn(params, mel, generator)
+        return recorded, params, tag
+
+    real_k3 = tacotron2_arch.decoder_steps
+
+    def recording_k3(weights, mem, * args, ** kwargs):
+        k3_shapes.append(tuple(mem.shape[:2]))
+        return real_k3(weights, mem, * args, ** kwargs)
+
+    stepper = make_tacotron_stepper(model, mesh = mesh, ** _mesh_serving_kw(vocoder, case))
+    check(stepper[1].fused or not on_card, 'mesh serving: the stepper is not on K3')
+    _sync(mesh.device)
+    reset_launches()
+    vocoder.device_vocoder_fn = recording_vocoder_fn
+    tacotron2_arch.decoder_steps = recording_k3
+    start = time.perf_counter()
+    try:
+        if stepper[1].controller:
+            results, parts = _mesh_drive(stepper)
+        else:
+            stepper[1].follow()
+        _sync(mesh.device)
+    finally:
+        tacotron2_arch.decoder_steps = real_k3
+        del vocoder.device_vocoder_fn
+    serving = {'wall_s': time.perf_counter() - start, 'launches': read_launches(),
+               'stepper': dict(stepper[1].stats), 'k3_shapes': sorted(set(k3_shapes)),
+               'k3_calls': len(k3_shapes), 'vocoder_calls': len(vocoded),
+               'emission_shapes': sorted(set(vocoded))}
+    check(not on_card or serving['launches']['decoder_steps'] == sum(-(-B // 8) for B, _ in k3_shapes) > 0
+          and serving['launches']['wn_block'] == vocoder.arch.hp.n_flows * len(vocoded) > 0,
+          'mesh serving rank {}: launches {} for K3 calls {} and {} vocoder calls'.format(
+              rank, serving['launches'], k3_shapes, len(vocoded)))
+    del stepper
+    section('serving_mesh')
+    refs = _await_refs(case)
+    section('await_references')
+    if rank == 0:
+        mel_err = audio_err = 0.
+        for res, ref_res, streamed in zip(results, refs['serving'], parts):
+            ref_res = {k: v.cpu().numpy() for k, v in ref_res.items()}
+            check(res['mel'].shape == ref_res['mel'].shape
+                  == (case['max_steps'], model.arch.hp.n_mel_channels)
+                  and res['steps'] == case['max_steps'],
+                  'mesh serving: mel {}'.format(res['mel'].shape))
+            check(np.array_equal(np.concatenate(streamed), res['audio']),
+                  'mesh serving: the streamed parts are not the audio')
+            mel_err = max(mel_err, float(np.abs(res['mel'] - ref_res['mel']).max())
+                          / float(np.abs(ref_res['mel']).max()))
+            audio_err = max(audio_err, float(np.abs(res['audio'] - ref_res['audio']).max())
+                            / float(np.abs(ref_res['audio']).max()))
+        check(mel_err <= 1e-4 and audio_err <= 2e-2,
+              'mesh serving against one rank: mel {} audio {}'.format(mel_err, audio_err))
+        serving.update(requests = len(MESH_TEXTS), mel_rel_err = mel_err,
+                       mel_tolerance_rel = 1e-4, audio_rel_err = audio_err,
+                       audio_tolerance_rel = 2e-2)
+    out['serving'] = serving
+
+    # (b) two SGD steps on the ranks, 4 rows each: the reduced gradients
+    # against one process's on the whole batch; the second rank's own rows'
+    # gradient (a step without the reduce) and the reduce summed, not
+    # averaged, must miss the same bound
+    mel, audio = _dp_batch(case, vocoder, mesh.device)
+    B, F = case['dp_batch']
+    rows = slice(rank * B // 2, (rank + 1) * B // 2)
+    local = {}
+    start = time.perf_counter()
+    tree, losses, grads = _dp_steps(vocoder, case, mesh, mel[rows], audio[rows], local)
+    dp = {'batch': [B, F], 'rows_a_rank': B // 2, 'steps': 2, 'optimizer': 'sgd',
+          'lr': case['dp_lr'], 'precision': case['dp_precision'],
+          'wall_s': time.perf_counter() - start, 'losses': losses}
+    flat = flatten_tree(tree)
+    digest = float(sum(float(v.detach().double().sum()) for v in flat.values()))
+    digests = parallel.collectives.all_gather_objects(digest, mesh.group('dp'))
+    check(digests[0] == digests[1], "dp: the ranks' parameters differ: {}".format(digests))
+    ref_losses, ref_grads = refs['dp_losses'], refs['dp_grads']
+    tol = DP_GRAD_TOLERANCE
+    # held leaf by leaf: the whole tree's norm is led by the flows' log-det
+    # gradients, which no row's data moves
+    errs = [_grad_rel(g, r) for g, r in zip(grads, ref_grads)]
+    controls = {'own_rows_unreduced': _grad_rel(local, ref_grads[0]),
+                'reduce_summed': _grad_rel({k: 2 * v for k, v in grads[0].items()},
+                                           ref_grads[0])}
+    loss_errs = [abs(a - b) / abs(b) for a, b in zip(losses, ref_losses)]
+    dp.update(ref_losses = ref_losses, grad_rel_err_all_leaves = [e[0] for e in errs],
+              grad_rel_err_worst_leaf = [e[1] for e in errs], grad_tolerance_rel = tol,
+              controls_grad_rel_err = controls, loss_rel_err = loss_errs,
+              loss_tolerance_rel = [1e-5, 1e-4])
+    check(max(e[1] for e in errs) <= tol and loss_errs[0] <= 1e-5 and loss_errs[1] <= 1e-4,
+          'dp steps against one process: {}'.format(dp))
+    check(min(c[1] for c in controls.values()) > tol,
+          'dp: a control meets the bound: {}'.format(dp))
+    out['dp_training'] = dp
+    del tree, flat, grads, local, refs, ref_grads
+    section('dp_mesh')
+
+    # (c) two GPipe steps over {'pp': 2} against arch.loss on one process
+    # (sigma 1: the stream above ran the vocoder at sigma 0)
+    B, F = case['pp_batch']
+    mel, audio = mel[:B, :F].contiguous(), audio[:B, :F * vocoder.upsample_rate].contiguous()
+    pp_mesh = parallel.create_mesh({'pp': 2})
+    pipe = WaveGlowPipeline(vocoder.arch, pp_mesh, n_micro = 2)
+    tree = unflatten_tree(trainer._trainable({k: v.clone() for k, v in
+                                              flatten_tree(vocoder.params).items()}))
+    sgd = get_optimizer('sgd', lr = 1e-4).init(tree)
+    pp = {'batch': [B, F], 'n_micro': 2, 'stages': 2, 'bounds': pipe.bounds, 'steps': []}
+    for _ in range(2):
+        sgd.zero_grad()
+        start = time.perf_counter()
+        loss = pipe.value_and_grad(tree, mel, audio, 1.)
+        _sync(mesh.device)
+        record = {'loss': float(loss), 'wall_s': time.perf_counter() - start}
+        grads = {k: v.grad.clone() for k, v in flatten_tree(tree).items()}
+        if rank == 0:
+            ref_leaves = {k: v.detach().clone().requires_grad_(True)
+                          for k, v in flatten_tree(tree).items()}
+            ref_loss = vocoder.arch.loss(unflatten_tree(ref_leaves), mel, audio, 1., remat = True)
+            ref_loss.backward()
+            grad_err = max(float((grads[k] - ref_leaves[k].grad).abs().max())
+                           / max(float(ref_leaves[k].grad.abs().max()), 1e-30) for k in grads)
+            loss_err = abs(record['loss'] - float(ref_loss)) / abs(float(ref_loss))
+            check(loss_err <= 1e-5 and grad_err <= 1e-4,
+                  'pp step against arch.loss: loss {} grads {}'.format(loss_err, grad_err))
+            record.update(ref_loss = float(ref_loss), loss_rel_err = loss_err,
+                          grad_rel_err = grad_err, tolerance = {'loss_rel': 1e-5,
+                                                                'grad_rel': 1e-4})
+            del ref_leaves, ref_loss
+        pp['steps'].append(record)
+        sgd.step()
+        dist.barrier()
+    out['pipeline'] = pp
+    del tree, grads, sgd, model, vocoder
+    if on_card:
+        torch.cuda.empty_cache()
+    section('pipeline')
+
+    # (d) Mixtral-8x7B's widths at 2 layers in bfloat16 over {'ep': 2}
+    widths = case['mixtral']
+    config = families.mixtral_config(
+        vocab_size = widths.get('vocab_size', 32000), dim = widths.get('hidden_size', 4096),
+        ffn_dim = widths.get('intermediate_size', 14336), n_layers = widths['num_hidden_layers'],
+        n_heads = widths.get('num_attention_heads', 32),
+        n_kv_heads = widths.get('num_key_value_heads', 8))
+    ep_mesh = parallel.create_mesh({'ep': 2})
+    tokens = torch.from_numpy(np.random.default_rng(52).integers(
+        1, config['vocab_size'], (2, 16))).to(mesh.device)
+    moe = {'config': {k: config[k] for k in ('dim', 'n_heads', 'n_kv_heads', 'n_experts',
+                                             'n_experts_per_token', 'ffn_dim', 'n_layers')}}
+    params = None
+    if rank == 0:
+        sd = mixtral_state_dict(7, device = mesh.device, dtype = torch.bfloat16, ** widths)
+        params = families.mixtral_from_state_dict(sd, config['n_heads'], config['n_kv_heads'])
+        del sd
+        one = Transformer(** config)
+        margins = []
+        with torch.no_grad():
+            ref_logits = one.decode(params, tokens)[0].float()
+            ref_tokens = generate(one, params, tokens, max_new_tokens = 8,
+                                  device = mesh.device, trace = margins).tokens
+        _sync(mesh.device)
+    section('mixtral_build')
+    start = time.perf_counter()
+    local = parallel.shard_params(params, ep_mesh, parallel.moe_param_specs)
+    _sync(mesh.device)
+    moe['shard_s'] = time.perf_counter() - start
+    del params
+    moe['local_experts'] = int(local['layer_0']['ffn']['experts']['gate']['weight'].shape[0])
+    model = Transformer(mesh = ep_mesh, ** config)
+    with torch.no_grad():
+        start = time.perf_counter()
+        logits = model.decode(local, tokens)[0].float()
+        _sync(mesh.device)
+        moe['logits_s'] = time.perf_counter() - start
+        start = time.perf_counter()
+        greedy = generate(model, local, tokens, max_new_tokens = 8, device = mesh.device)
+        _sync(mesh.device)
+        moe['greedy_s'] = time.perf_counter() - start
+    if rank == 0:
+        err = float((logits - ref_logits).abs().max())
+        rel = err / float(ref_logits.abs().max())
+        # a token may flip where two logits lie within the two runs' difference
+        tie = max(LLM_TIE, 2 * err)
+        equal, tied = _tie_rule(greedy.tokens, ref_tokens, margins, tokens.shape[1], tie = tie)
+        check(rel <= 2e-2, 'ep logits against one rank: {}'.format(rel))
+        moe.update(logits_rel_err = rel, logits_tolerance_rel = 2e-2, tie_margin = tie,
+                   rows_equal = equal, rows_apart_after_a_tie = tied)
+    out['mixtral_ep'] = moe
+    section('mixtral_ep')
+    out['section_s'] = sections
+    return out
+
+
+def _nccl_one_rank():
+    """One NCCL rank in this process: the NCCL path initialised and its
+    collectives called on the card."""
+    import torch.distributed as dist
+    from text_to_speech_tpu_torch import parallel
+    from text_to_speech_tpu_torch.parallel import collectives
+    start = time.perf_counter()
+    store = tempfile.mkdtemp(prefix = 'nccl_')
+    dist.init_process_group('nccl', init_method = 'file://' + os.path.join(store, 'store'),
+                            world_size = 1, rank = 0)
+    try:
+        mesh = parallel.create_mesh({'dp': 1}, platform = 'gpu')
+        group = mesh.group('dp')
+        t = torch.arange(4., device = 'cuda')
+        collectives.all_reduce_(t, group)
+        collectives.broadcast_(t, 0, group)
+        gathered = collectives.all_gather(t, group)
+        obj = collectives.broadcast_object({'x': 1}, 0, group)
+        objs = collectives.all_gather_objects(3, group)
+        params = parallel.shard_params({'w': torch.ones(3, device = 'cuda')}, mesh)
+        torch.cuda.synchronize()
+        out = {'backend': dist.get_backend(), 'device': str(mesh.device),
+               'ok': bool(torch.equal(gathered[0], torch.arange(4., device = 'cuda'))
+                          and obj == {'x': 1} and objs == [3]
+                          and float(params['w'].sum()) == 3.)}
+    finally:
+        dist.destroy_process_group()
+    out['s'] = time.perf_counter() - start
+    check(out['ok'] and out['backend'] == 'nccl', 'NCCL one-rank mesh: {}'.format(out))
+    return out
+
+
+def mesh_phase(model, vocoder, root, ** overrides):
+    """The parallel axes on torch.distributed: two ranks spawned on the one
+    card (`parallel.spawn`, gloo: NCCL takes one rank a card) run (a)
+    Tacotron-2 + WaveGlow at NVIDIA width serving 8 requests of 256 frames
+    over {'dp': 2} with streamed audio, K3 and K1 on each rank, against the
+    one-rank stepper; (b) two data-parallel SGD WaveGlow steps (8 × 256
+    frames, 4 rows a rank), their reduced gradients against one process's;
+    (c) two GPipe steps over {'pp': 2} against `arch.loss`; (d) a
+    Mixtral-8x7B-width transformer (2 layers, bfloat16) over {'ep': 2}
+    against one rank; then one NCCL rank in this process.  The one-process
+    references of (a) and (b) run here while the ranks start.  Returns the
+    per-rank K3 row groups and K1 emission shapes and the launches."""
+    from text_to_speech_tpu_torch import parallel
+    from text_to_speech_tpu_torch.weights import tree_to
+
+    phase_start = time.perf_counter()
+    weights = os.path.join(root, 'mesh_weights.pt')
+    trees = {'tacotron2_params': tree_to(model.params, 'cpu'),
+             'tacotron2_state': tree_to(model.state, 'cpu'),
+             'waveglow': tree_to(vocoder.params, 'cpu')}
+    torch.save(trees, weights)
+    case = dict(MESH_CASE, weights = weights, refs = os.path.join(root, 'mesh_refs.pt'),
+                tacotron2 = model.arch.hp.get_config(), waveglow = vocoder.arch.hp.get_config(),
+                ** overrides)
+    box = {}
+
+    def run():
+        start = time.perf_counter()
+        try:
+            box['ranks'] = parallel.spawn(_mesh_worker, 2, backend = 'gloo',
+                                          device = case.get('device', 'cuda'),
+                                          args = (case,), timeout = 300.)
+        except BaseException as e:          # raised below, after the references
+            box['error'] = e
+        box['spawn_s'] = time.perf_counter() - start
+    thread = threading.Thread(target = run)
+    thread.start()
+    try:
+        ref_sections = _mesh_references(case, trees)
+    except BaseException:
+        open(case['refs'] + '.failed', 'w').close()
+        raise
+    finally:
+        thread.join()
+    if 'error' in box:
+        raise box['error']
+    ranks = box['ranks']
+    for path in (weights, case['refs']):
+        os.remove(path)
+    nccl = _nccl_one_rank() if case.get('device', 'cuda') == 'cuda' else None
+    launches = {k: [r['serving']['launches'][k] for r in ranks]
+                for k in ('decoder_steps', 'wn_block')}
+    emit({'phase': 'mesh', 'ranks': ranks, 'references_s': ref_sections,
+          'nccl_one_rank': nccl, 'spawn_s': box['spawn_s'], 'launches_per_rank': launches,
+          'backend': 'gloo', 'note': "both ranks share one card: its times are not two cards'",
+          'phase_s': time.perf_counter() - phase_start})
+    k3_shapes = sorted({tuple(s) for r in ranks for s in r['serving']['k3_shapes']})
+    k1_shapes = sorted({tuple(s) for r in ranks for s in r['serving']['emission_shapes']})
+    return {'k3_shapes': k3_shapes, 'k1_shapes': k1_shapes,
+            'launches': {k: sum(v) for k, v in launches.items()}}
+
+
+def _gloo_p2p_worker():
+    """One of two gloo ranks: `dist.send` / `dist.recv` called on a CUDA
+    tensor as it is, then through `collectives.send` / `recv`."""
+    import torch.distributed as dist
+    rank = dist.get_rank()
+    sent = torch.arange(1024, dtype = torch.float32, device = 'cuda')
+    out = {'rank': rank}
+    try:
+        if rank == 0:
+            dist.send(sent, 1)
+        else:
+            got = torch.zeros_like(sent)
+            dist.recv(got, 0)
+            torch.cuda.synchronize()
+            out['direct_equal'] = bool(torch.equal(got, sent))
+        out['direct'] = 'returned'
+    except Exception as e:                  # the outcome is the probe's reading
+        out['direct'] = '{}: {}'.format(type(e).__name__, str(e).splitlines()[0][:200])
+    return out
+
+
+def _gloo_p2p_staged():
+    import torch.distributed as dist
+    from text_to_speech_tpu_torch.parallel import collectives
+    rank = dist.get_rank()
+    sent = torch.arange(1024, dtype = torch.float32, device = 'cuda')
+    if rank == 0:
+        collectives.send(sent, 1)
+        return {'rank': rank}
+    got = collectives.recv(sent.shape, sent.dtype, 'cuda', 0)
+    return {'rank': rank, 'staged_equal': bool(torch.equal(got, sent))}
+
+
+def probe_gloo_p2p():
+    """``--probe-gloo-p2p``: whether gloo's send / recv take a CUDA tensor
+    as it is (two ranks on the card, 20 s gloo timeout; a rank that dies
+    or hangs is the reading), and the port's staged send / recv."""
+    from text_to_speech_tpu_torch import parallel
+    out = {}
+    try:
+        out['direct'] = parallel.spawn(_gloo_p2p_worker, 2, backend = 'gloo', device = 'cuda',
+                                       timeout = 20.)
+    except Exception as e:
+        out['direct'] = '{}: {}'.format(type(e).__name__, str(e).splitlines()[0][:300])
+    out['staged'] = parallel.spawn(_gloo_p2p_staged, 2, backend = 'gloo', device = 'cuda',
+                                   timeout = 20.)
+    print(json.dumps({'probe': 'gloo_p2p', 'torch': torch.__version__, ** out}))
+    return 0
 
 
 def llm_phase():
@@ -4161,6 +4720,9 @@ def main():
             clone_cases, transfer_runs, clone_shape = transfer_phase(
                 vocoder, transfer_root, training_root)
         gan_phase(root('gan'))
+        # the parallel axes: two ranks on the card, then one NCCL rank here
+        torch.cuda.empty_cache()
+        mesh = mesh_phase(model, vocoder, root('mesh'))
     llm_phase()
     # K1 and K2 at the (B, T) of FastSpeech-2's whole decode buffer: one
     # sentence on the one-launch route and the batch of four
@@ -4184,6 +4746,16 @@ def main():
     serving_k1 = sorted({(B, F * hop) for B, F, _ in serving_shapes})
     serving_wn = wn_block_phase([(torch.bfloat16, B, T) for B, T in serving_k1],
                                 label = 'fused_wn_block_serving', clocks = False)
+    # K3 at each rank's row groups of the mesh serving run, K1 at its
+    # emission shapes (those the serving phase timed are not run again)
+    mesh_k3 = {'B{}_S{}'.format(B, S): _k3_serving_case(model, B, S)
+               for B, S in mesh['k3_shapes']}
+    emit({'phase': 'kernels', 'decoder_steps_mesh': mesh_k3})
+    mesh_k1 = sorted({(B, F * hop) for B, F in mesh['k1_shapes']})
+    mesh_wn = dict(serving_wn, ** wn_block_phase(
+        [(torch.bfloat16, B, T) for B, T in mesh_k1 if (B, T) not in serving_k1],
+        label = 'fused_wn_block_mesh', clocks = False)) \
+        if set(mesh_k1) - set(serving_k1) else serving_wn
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -4334,6 +4906,19 @@ def main():
                 source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
                 launches = serving['tacotron2_waveglow']['launches']['wn_block']),
+        # mesh serving over {'dp': 2} (two ranks on the card): K3 at the
+        # largest row group of a rank, K1 at the largest emission batch of a
+        # rank; launches summed over the ranks (each rank's in the mesh record)
+        summary(mesh_k3['B{}_S{}'.format(* mesh['k3_shapes'][-1])],
+                name = 'decoder_steps (mesh serving, each rank)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/decoder_steps.cu',
+                replaces = 'text_to_speech_tpu/ops/decoder_kernel.py:313',
+                launches = mesh['launches']['decoder_steps']),
+        summary(mesh_wn['bfloat16_B{}_T{}'.format(* mesh_k1[-1])],
+                name = 'fused_wn_block (mesh serving emissions, each rank)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = mesh['launches']['wn_block']),
         # the rate probe: launches in its int8 and its bf16 line
         dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
                      source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',
@@ -4354,4 +4939,6 @@ def main():
 
 
 if __name__ == '__main__':
+    if sys.argv[1:] == ['--probe-gloo-p2p']:
+        sys.exit(probe_gloo_p2p() if torch.cuda.is_available() else 1)
     sys.exit(main())

@@ -26,7 +26,8 @@ the tiny architecture, so each JAX program is compiled once for the file
     narrowed (`narrow_discriminators`): 2 epochs, 1 resumed,
     `gan_state.npz`, a file that does not fit warned about, the data
     pipeline against the JAX package's audio and mel; `fit` reaches `train.gan.fit_gan` (a History with
-    ``disc_loss``), not the likelihood trainer; `mesh` raises.
+    ``disc_loss``), not the likelihood trainer; a mesh without a process
+    group raises.
 """
 
 import logging
@@ -403,5 +404,8 @@ def test_fit_reaches_the_adversarial_loop(tmp_path, monkeypatch, family):
 
 def test_mesh_raises(tmp_path):
     model = _fit_model('hifigan', str(tmp_path), 'mesh')
-    with pytest.raises(NotImplementedError, match = 'parallel/'):
-        model.fit(_rows(), mesh = object(), device = 'cpu')
+    # a mesh trains only across the ranks of a process group (parallel.spawn)
+    from text_to_speech_tpu_torch.parallel import create_mesh
+    with pytest.raises(RuntimeError, match = 'process group'):
+        model.fit(_rows(), mesh = create_mesh({'dp': 2}, devices = [0, 1], platform = 'cpu'),
+                  device = 'cpu')

@@ -55,8 +55,28 @@ def test_port_imports_without_jax():
                  'models.tts.sv2tts_vits', 'native.scheduler', 'runtimes',
                  'runtimes.serving', 'runtimes.http_server', 'train.gan', 'nn.activations',
                  'models.transformers.generation_utils', 'models.transformers.families',
-                 'models.transformers.heads', 'runtimes.llm_serving', 'text.tokens'):
+                 'models.transformers.heads', 'runtimes.llm_serving', 'text.tokens',
+                 'parallel', 'parallel.collectives', 'parallel.pipeline'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
+
+
+def test_spawned_ranks_load_no_jax():
+    """A rank that `parallel.spawn` starts runs its function in a fresh
+    interpreter: one torch thread, its rank of the gloo group, no JAX
+    module."""
+    out = _run('''
+        import sys
+        sys.path.insert(0, 'tests')
+        from text_to_speech_tpu_torch import parallel
+        import torch_port_mesh_workers as workers
+        ranks = parallel.spawn(workers.spawned_child_modules, 2, backend = 'gloo',
+                               device = 'cpu')
+        assert [r['rank'] for r in ranks] == [0, 1], ranks
+        assert all(r['world'] == 2 and r['threads'] == 1 for r in ranks), ranks
+        assert all(r['modules'] == [] for r in ranks), ranks
+        print('ok')
+    ''')
+    assert out.strip().endswith('ok')
 
 
 def test_native_build_imports_no_jax():

@@ -198,8 +198,16 @@ def test_make_llm_engine_warmup_and_validation(lm, stepper):
 
 def test_mesh_device_and_warm_thread(lm, stepper):
     model, params, _, _ = lm
-    with pytest.raises(NotImplementedError, match = 'mesh'):
-        make_transformer_stepper(model, params, mesh = object(), device = 'cpu')
+    # a mesh serves only across the ranks of a process group (parallel.spawn),
+    # and its slots divide over the data shards, as in the JAX package
+    from text_to_speech_tpu_torch.parallel import create_mesh
+    with pytest.raises(RuntimeError, match = 'process group'):
+        make_transformer_stepper(model, params, max_batch = 4,
+                                 mesh = create_mesh({'dp': 2}, devices = [0, 1], platform = 'cpu'))
+    with pytest.raises(ValueError, match = 'divide'):
+        make_transformer_stepper(model, params, max_batch = 4,
+                                 mesh = create_mesh({'dp': 3}, devices = [0, 1, 2],
+                                                    platform = 'cpu'))
     stepper[1].warm_thread()                         # nothing to warm on the CPU
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match = 'device'):

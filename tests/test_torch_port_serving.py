@@ -825,8 +825,10 @@ def test_decode_chunk_fused_route_refuses_outside_envelope(models):
         _two_chunks(model.arch, model.params, encoded, weights = weights)
     with pytest.raises(ValueError, match = 'envelope'):
         make_tacotron_stepper(model, use_fused_decoder = True)
-    with pytest.raises(NotImplementedError, match = 'queue 4'):
-        make_tacotron_stepper(model, mesh = object())
+    # a mesh serves only across the ranks of a process group (parallel.spawn)
+    from text_to_speech_tpu_torch.parallel import create_mesh
+    with pytest.raises(RuntimeError, match = 'process group'):
+        make_tacotron_stepper(model, mesh = create_mesh({'dp': 2}, devices = [0, 1]))
 
 
 def _drive(start_fn, step_fn, finish_fn):

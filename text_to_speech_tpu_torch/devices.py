@@ -18,11 +18,14 @@ _MATMUL_PRECISION = {'bfloat16': 'medium', 'default': 'medium', 'tensorfloat32':
                      'high': 'high', 'float32': 'highest', 'highest': 'highest'}
 
 
-def default_device(device = None):
-    """`device` as a `torch.device`; ``None`` means ``cuda`` and raises when
-    no CUDA device is present."""
+def default_device(device = None, mesh = None):
+    """`device` as a `torch.device`; ``None`` means this rank's device on a
+    `parallel.Mesh` given as `mesh`, else ``cuda``, and raises when no CUDA
+    device is present."""
     if device is not None:
         return torch.device(device)
+    if mesh is not None:
+        return torch.device(mesh.device)
     if not torch.cuda.is_available():
         raise RuntimeError(
             'no CUDA device available: pass device="cpu" to run the port on '

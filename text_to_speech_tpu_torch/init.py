@@ -681,6 +681,58 @@ def mistral_state_dict(seed = 0, *, vocab_size = 32000, hidden_size = 4096,
     return dict(sd)
 
 
+def mixtral_state_dict(seed = 0, *, vocab_size = 32000, hidden_size = 4096,
+                       intermediate_size = 14336, num_hidden_layers = 32,
+                       num_attention_heads = 32, num_key_value_heads = 8,
+                       num_local_experts = 8, scale = 0.02, device = None, dtype = None):
+    """A seeded ``MixtralForCausalLM`` state dict in HF's layout, at
+    Mixtral-8x7B's widths unless given (8 experts a layer).  Without
+    `device`: numpy, `mistral_state_dict` with `num_local_experts`.  With
+    `device`: torch tensors drawn there by a `torch.Generator` seeded `seed`
+    (the same names, shapes and distributions, other values), in `dtype`
+    (float32 by default): the card's route at full width, where the host
+    would draw ~3 G values a layer pair for minutes.  The port's params:
+    `models.transformers.families.mixtral_from_state_dict`."""
+    if device is None:
+        return mistral_state_dict(seed, vocab_size = vocab_size, hidden_size = hidden_size,
+                                  intermediate_size = intermediate_size,
+                                  num_hidden_layers = num_hidden_layers,
+                                  num_attention_heads = num_attention_heads,
+                                  num_key_value_heads = num_key_value_heads,
+                                  num_local_experts = num_local_experts, scale = scale)
+    import torch
+    dtype = dtype or torch.float32
+    gen = torch.Generator(device = device).manual_seed(seed)
+    d, f = hidden_size, intermediate_size
+    hd = d // num_attention_heads
+    sd = {}
+
+    def add(name, * shape):
+        sd[name] = (torch.randn(shape, generator = gen, device = device) * scale).to(dtype)
+
+    def norm(name):
+        sd[name] = (0.8 + 0.4 * torch.rand((d,), generator = gen, device = device)).to(dtype)
+
+    add('model.embed_tokens.weight', vocab_size, d)
+    for i in range(num_hidden_layers):
+        p = 'model.layers.{}.'.format(i)
+        for name, n_out in (('q', num_attention_heads * hd), ('k', num_key_value_heads * hd),
+                            ('v', num_key_value_heads * hd)):
+            add(p + 'self_attn.{}_proj.weight'.format(name), n_out, d)
+        add(p + 'self_attn.o_proj.weight', d, num_attention_heads * hd)
+        moe = p + 'block_sparse_moe.'
+        add(moe + 'gate.weight', num_local_experts, d)
+        for e in range(num_local_experts):
+            add(moe + 'experts.{}.w1.weight'.format(e), f, d)
+            add(moe + 'experts.{}.w2.weight'.format(e), d, f)
+            add(moe + 'experts.{}.w3.weight'.format(e), f, d)
+        norm(p + 'input_layernorm.weight')
+        norm(p + 'post_attention_layernorm.weight')
+    norm('model.norm.weight')
+    add('lm_head.weight', vocab_size, d)
+    return sd
+
+
 def bert_mlm_state_dict(seed = 0, *, vocab_size = 30522, hidden_size = 768,
                         num_hidden_layers = 12, intermediate_size = 3072,
                         max_position_embeddings = 512, scale = 0.02):

@@ -48,7 +48,10 @@ def init_mha(generator, dim, n_heads, *, kv_dim = None, n_kv_heads = None,
 def rope(x, positions, *, base = 10000.0):
     """Rotary position embedding of x (B, T, H, D) at positions (B, T): the
     interleaved pairs ``(x[2i], x[2i+1])`` rotate (not HF's rotate_half;
-    the importers permute the q/k columns to match)."""
+    the importers permute the q/k columns to match).  The angles are
+    float32 and the result is in x's dtype: a bfloat16 stack stays
+    bfloat16 (the JAX package's promotes it to float32 here, and torch's
+    matmuls do not promote a mixed pair)."""
     d = x.shape[-1]
     inv_freq = 1.0 / torch.pow(torch.tensor(base, dtype = torch.float32, device = x.device),
                                torch.arange(0, d, 2, device = x.device, dtype = torch.float32) / d)
@@ -57,7 +60,7 @@ def rope(x, positions, *, base = 10000.0):
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = x[..., ::2], x[..., 1::2]
     rotated = torch.stack([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim = -1)
-    return rotated.reshape(x.shape)
+    return rotated.reshape(x.shape).to(x.dtype)
 
 
 def init_kv_cache(batch, max_length, n_kv_heads, head_dim, dtype = torch.float32,

@@ -14,6 +14,7 @@ per head so that the port's interleaved `rope` equals HF's rotate_half.
 import inspect
 
 import numpy as np
+import torch
 
 from ...devices import default_device
 from ...nn import layers as nn
@@ -315,6 +316,52 @@ def convert_mixtral_state_dict(sd, n_heads = None, n_kv_heads = None):
                     'gate': stack('w1'), 'up': stack('w3'), 'down': stack('w2'),
                 },
             },
+        }
+        i += 1
+    return params
+
+
+def _interleave_rope_rows(weight, n_heads):
+    """`_interleave_rope_columns` on a torch (out, in) projection: the same
+    permutation of its output rows, on its device."""
+    d_out, d_in = weight.shape
+    head_dim = d_out // n_heads
+    return weight.reshape(n_heads, 2, head_dim // 2, d_in).transpose(1, 2).reshape(d_out, d_in)
+
+
+def mixtral_from_state_dict(sd, n_heads, n_kv_heads = None):
+    """A Mixtral state dict of torch tensors in HF's layout → the port's
+    params, on the tensors' device and in their dtype (HF's (out, in)
+    projections are `nn.layers`' dense layout; no copy through the host):
+    ``transformer_from_jax(convert_mixtral_state_dict(sd))`` for tensors."""
+    sd = {k.replace('model.', ''): v for k, v in sd.items()}
+    n_kv_heads = n_kv_heads or n_heads
+    params = {'embedding': {'weight': sd['embed_tokens.weight']},
+              'final_norm': {'gamma': sd['norm.weight']}}
+    if 'lm_head.weight' in sd:
+        params['lm_head'] = {'weight': sd['lm_head.weight']}
+    i = 0
+    while 'layers.{}.input_layernorm.weight'.format(i) in sd:
+        p = 'layers.{}.'.format(i)
+        moe = p + 'block_sparse_moe.'
+        n_experts = 0
+        while moe + 'experts.{}.w1.weight'.format(n_experts) in sd:
+            n_experts += 1
+        stack = lambda w: {'weight': torch.stack([
+            sd[moe + 'experts.{}.{}.weight'.format(m, w)] for m in range(n_experts)])}
+        params['layer_{}'.format(i)] = {
+            'attention_norm': {'gamma': sd[p + 'input_layernorm.weight']},
+            'attention': {
+                'query': {'weight': _interleave_rope_rows(
+                    sd[p + 'self_attn.q_proj.weight'], n_heads)},
+                'key': {'weight': _interleave_rope_rows(
+                    sd[p + 'self_attn.k_proj.weight'], n_kv_heads)},
+                'value': {'weight': sd[p + 'self_attn.v_proj.weight']},
+                'output': {'weight': sd[p + 'self_attn.o_proj.weight']},
+            },
+            'ffn_norm': {'gamma': sd[p + 'post_attention_layernorm.weight']},
+            'ffn': {'router': {'weight': sd[moe + 'gate.weight']},
+                    'experts': {'gate': stack('w1'), 'up': stack('w3'), 'down': stack('w2')}},
         }
         i += 1
     return params

@@ -20,7 +20,12 @@ table, as XLA's gather does.
 
 A mixture-of-experts FFN (`n_experts` > 0) keeps each projection's experts
 stacked in one ``weight (E, out, in)``, evaluated densely over experts, as
-the JAX stack is; expert parallelism waits for the port's mesh.
+the JAX stack is.  Expert parallelism: a `Transformer` given a
+`parallel.Mesh` with an ``ep`` axis and params from
+``shard_params(params, mesh, moe_param_specs(params))`` holds E / ep of
+each layer's experts on each rank; it evaluates them against its columns
+of the dense router weights and all-reduces the combine over ``ep`` (the
+router, its logits and the load-balancing loss stay replicated).
 """
 
 import numpy as np
@@ -31,6 +36,7 @@ from ...devices import default_device
 from ...hparams import HParams
 from ...nn import layers as nn
 from ...nn.activations import get_activation
+from ...parallel.collectives import all_reduce_sum
 from .attention import (
     init_mha, mha, init_kv_cache, build_padding_mask, build_look_ahead_mask,
     combine_masks, cache_positions,
@@ -135,9 +141,10 @@ class Transformer:
     """Encoder-only / decoder-only / encoder-decoder depending on hparams and
     which apply methods are used."""
 
-    def __init__(self, ** kwargs):
+    def __init__(self, *, mesh = None, ** kwargs):
         self.hp = HParamsTransformer.extract(kwargs)
         self._tables = {}
+        self.mesh = mesh
 
     def get_config(self):
         return self.hp.get_config()
@@ -238,10 +245,22 @@ class Transformer:
         top_w = top_w / top_w.sum(dim = -1, keepdim = True)
         w_full = torch.zeros_like(probs).scatter(-1, top_i, top_w).to(x.dtype)
         we = params['experts']
+        n_local = we['gate']['weight'].shape[0]
+        sharded = n_local != hp.n_experts
+        if sharded:
+            mesh = self.mesh
+            if mesh is None or 'ep' not in mesh.shape:
+                raise ValueError('{} of {} experts a layer, and no mesh with an ep axis'
+                                 .format(n_local, hp.n_experts))
+            lo = mesh.coords['ep'] * n_local
+            w_full = w_full[..., lo: lo + n_local]
         g = torch.einsum('btd,efd->ebtf', x, we['gate']['weight'])
         u = torch.einsum('btd,efd->ebtf', x, we['up']['weight'])
         y = torch.einsum('ebtf,edf->ebtd', act(g) * u, we['down']['weight'])
-        return torch.einsum('ebtd,bte->btd', y, w_full)
+        out = torch.einsum('ebtd,bte->btd', y, w_full)
+        if sharded:
+            out = all_reduce_sum(out, self.mesh.group('ep'))
+        return out
 
     def _relative_bias(self, params, q_len, k_len, *, bidirectional, offset = 0):
         """The additive attention bias of T5: (1, H, Tq, Tk), or (B, H, Tq,

@@ -103,7 +103,7 @@ def stream(stream_input, *, model = None, lang = None, vocoder = None, play = Tr
 
 def serve(*, model = None, lang = None, vocoder = None, host = '127.0.0.1', port = 8700,
           max_batch_size = 16, block = True, window = 96, chunk = 64, warmup = None,
-          device = None, root = None, ** stepper_kwargs):
+          device = None, root = None, mesh = None, ** stepper_kwargs):
     """Serve a model over HTTP with continuous (in-flight) batching.
 
     Resolves (synthesizer, vocoder) like `tts()` (names load on `device`,
@@ -117,11 +117,19 @@ def serve(*, model = None, lang = None, vocoder = None, host = '127.0.0.1', port
     traffic, and starts `runtimes.http_server.TTSServer` (``port=0``: an
     ephemeral port, read from ``server.address``).  ``block=False`` returns
     the started server (daemon threads) for programmatic use; `stop()` it.
-    ``mesh=`` raises `NotImplementedError` (not ported)."""
+
+    ``mesh=`` (a `parallel.Mesh`; every rank calls `serve` with the same
+    arguments) serves across its data shards (`runtimes.serving.
+    mesh_stepper`): names load on each rank's device, the first rank runs
+    the engine, its warmup and the server, and every other rank follows the
+    stepper until that server stops, then returns None."""
     from ...runtimes.http_server import TTSServer
     from ...runtimes.serving import (
         ContinuousServingEngine, make_tacotron_stepper, make_vits_stepper)
 
+    if mesh is not None:
+        device = device if device is not None else mesh.device
+        stepper_kwargs['mesh'] = mesh
     model, vocoder = get_models(model = model, lang = lang, vocoder = vocoder,
                                 device = device, root = root)
     if getattr(model, 'is_end_to_end', False):
@@ -138,9 +146,16 @@ def serve(*, model = None, lang = None, vocoder = None, host = '127.0.0.1', port
     else:
         stepper = make_tacotron_stepper(model, chunk = chunk, vocoder = vocoder,
                                         stream_audio = True, ** stepper_kwargs)
+    if mesh is not None and not stepper[1].controller:
+        stepper[1].follow()
+        return None
     engine = ContinuousServingEngine(* stepper, max_batch_size = max_batch_size)
     if warmup is not None:
-        elapsed = engine.warmup(warmup)
+        try:
+            elapsed = engine.warmup(warmup)
+        except Exception:
+            engine.stop()               # a mesh's followers leave with it
+            raise
         logger.info('engine warmup took %.1fs', elapsed)
     server = TTSServer(engine, rate = model.rate, host = host, port = port, name = model.name)
     if not block:

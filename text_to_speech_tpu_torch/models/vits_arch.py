@@ -60,6 +60,7 @@ import torch.nn.functional as F
 from ..hparams import HParams
 from ..nn import layers as nn
 from ..nn.flows import rational_quadratic_spline
+from ..parallel.collectives import batch_draw, batch_sum
 from ..weights import cast_tree
 from .fastspeech2_arch import length_regulator
 from .hifigan_arch import HParamsHiFiGAN, HiFiGAN
@@ -362,7 +363,8 @@ class VITS:
         h_w = self._dds(p['post_dds'], h_w, mask, train = train, generator = generator)
         h_w = nn.conv1d(p['post_proj'], h_w) * mask
         if e_q is None:
-            e_q = torch.randn(w.shape[:2] + (2,), generator = generator, device = w.device)
+            e_q = batch_draw(torch.randn, w.shape[:2] + (2,), generator = generator,
+                             device = w.device)
         e_q = e_q.float() * mask
         z_q, logdet_q = self._flow_stack(p['post_flows'], e_q, mask, x + h_w, train = train,
                                          generator = generator)
@@ -380,7 +382,8 @@ class VITS:
                                  train = train, generator = generator)
         logdet = logdet + ld
         nll = torch.sum(0.5 * (_LOG_2PI + z ** 2) * mask, dim = (1, 2)) - logdet
-        return torch.sum(nll + logq) / torch.clamp(token_mask.float().sum(), min = 1.)
+        return batch_sum(torch.sum(nll + logq)) / torch.clamp(
+            batch_sum(token_mask.float().sum()), min = 1.)
 
     # -- the prior (text) side -----------------------------------------------------
 
@@ -483,7 +486,7 @@ class VITS:
         x = self._wn(p['wn'], x, mask, g, self.hp.posterior_layers)
         m_q, logs_q = (nn.conv1d(p['proj'], x) * mask).chunk(2, dim = -1)
         if eps is None:
-            eps = torch.randn(m_q.shape, generator = generator, device = m_q.device)
+            eps = batch_draw(torch.randn, m_q.shape, generator = generator, device = m_q.device)
         if torch.is_tensor(eps):
             eps = eps.to(m_q.dtype)
         return (m_q + eps * torch.exp(logs_q)) * mask, m_q, logs_q
@@ -553,7 +556,7 @@ class VITS:
         seg, hop = hp.segment_frames, self.upsample_rate
         if starts is None:
             max_start = torch.clamp(spec_lengths - seg, min = 0)
-            u = torch.rand((z.shape[0],), generator = generator, device = z.device)
+            u = batch_draw(torch.rand, (z.shape[0],), generator = generator, device = z.device)
             starts = torch.floor(u * (max_start + 1).float()).long()
         starts = torch.as_tensor(starts, device = z.device).long()
         z_seg = _gather_window(z, starts, seg)
@@ -574,7 +577,7 @@ class VITS:
         kl = logs_p - logs_q.float() - 0.5
         kl = kl + 0.5 * (z_p - m_p.float()) ** 2 * torch.exp(-2. * logs_p)
         mask = frame_mask[..., None].float()
-        return torch.sum(kl * mask) / (torch.sum(mask) * z_p.shape[-1])
+        return batch_sum(torch.sum(kl * mask)) / (batch_sum(torch.sum(mask)) * z_p.shape[-1])
 
     @staticmethod
     def duration_loss(log_durations_hat, durations, token_mask):
@@ -582,7 +585,7 @@ class VITS:
         mask = token_mask.float()
         target = torch.log(durations.float() + 1e-6) * mask
         err = (log_durations_hat.float() - target) ** 2 * mask
-        return torch.sum(err) / torch.clamp(torch.sum(mask), min = 1.)
+        return batch_sum(torch.sum(err)) / torch.clamp(batch_sum(torch.sum(mask)), min = 1.)
 
     # -- inference ---------------------------------------------------------------------
 

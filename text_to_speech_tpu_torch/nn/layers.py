@@ -23,6 +23,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..parallel.collectives import batch_draw, batch_sum, current_shard
+
 
 def generator(seed, device):
     """A `torch.Generator` on `device` seeded with `seed`; a generator
@@ -128,15 +130,17 @@ def batch_norm_train(params, state, x, *, momentum = 0.1, epsilon = 1e-5, mask =
     running statistics move as ``new = (1 - momentum) * old + momentum *
     batch``.  Both use the biased variance, as the JAX package does
     (`F.batch_norm` would move the running variance by the unbiased one).
-    The statistics are float32, the result in the input's dtype.  Returns
-    (y, new_state); the new state carries no gradient."""
+    The statistics are float32, the result in the input's dtype.  Inside a
+    `parallel.collectives.batch_shard` the sums and counts are the whole
+    batch's (all-reduced over the shards).  Returns (y, new_state); the new
+    state carries no gradient."""
     x32 = x.float()
     axes = tuple(range(x.dim() - 1))
-    if mask is not None:
-        m = mask[..., None].float()
-        count = torch.clamp(m.sum(), min = 1.)
-        mean = (x32 * m).sum(dim = axes) / count
-        var = ((x32 - mean) ** 2 * m).sum(dim = axes) / count
+    if mask is not None or current_shard() is not None:
+        m = mask[..., None].float() if mask is not None else torch.ones_like(x32[..., :1])
+        count = torch.clamp(batch_sum(m.sum()), min = 1.)
+        mean = batch_sum((x32 * m).sum(dim = axes)) / count
+        var = batch_sum(((x32 - mean) ** 2 * m).sum(dim = axes)) / count
     else:
         mean = x32.mean(dim = axes)
         var = x32.var(dim = axes, unbiased = False)
@@ -227,7 +231,9 @@ def gelu(x):
 
 
 def dropout(x, rate, *, generator = None):
-    """Inverted dropout drawing its mask from `generator` (on x's device)."""
+    """Inverted dropout drawing its mask from `generator` (on x's device);
+    `x` is batch-leading: inside a `parallel.collectives.batch_shard` its
+    mask is its rows of the whole batch's."""
     if rate <= 0.: return x
-    keep = torch.rand(x.shape, generator = generator, device = x.device) < 1. - rate
+    keep = batch_draw(torch.rand, x.shape, generator = generator, device = x.device) < 1. - rate
     return torch.where(keep, x / (1. - rate), torch.zeros_like(x))

@@ -31,7 +31,14 @@ module's:
 Each chunk's random draws come from a `torch.Generator` seeded ``seed +``
 the chunk counter (the JAX stepper splits ``PRNGKey(seed + counter)``), so
 sampled rows are reproducible in the port but not equal to the JAX
-stepper's.  ``mesh=`` raises `NotImplementedError`.
+stepper's.
+
+``mesh=`` (a `parallel.Mesh`) serves across its data shards through
+`runtimes.serving.mesh_stepper`: every rank holds ``max_batch / n_data``
+slots (``max_batch % n_data`` raises, as in the JAX package) on its device
+with the first rank's weights, and a request's prefill, slot and chunks
+stay on the rank that admitted it.  Greedy rows equal the single-device
+stepper's; a sampled row draws from its own rank's chunk seeds.
 """
 
 import itertools
@@ -46,7 +53,8 @@ import torch
 from ..devices import default_device
 from ..models.transformers.generation_utils import gumbel_argmax
 from ..weights import tree_to
-from .serving import _MESH_UNSUPPORTED, ContinuousServingEngine, warm_thread
+from ..parallel import data_size, shard_params
+from .serving import ContinuousServingEngine, mesh_stepper, warm_thread
 
 logger = logging.getLogger(__name__)
 
@@ -89,7 +97,19 @@ def make_transformer_stepper(model, params, tokenizer = None, *,
     `top_k`/`top_p` are stepper-level; temperature and greedy/sample are
     per row."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_UNSUPPORTED)
+        n_data = data_size(mesh)
+        if max_batch % n_data:
+            raise ValueError('max_batch (%d) must divide over the %d-device data axis'
+                             % (max_batch, n_data))
+        local = make_transformer_stepper(
+            model, shard_params(None if params is None else tree_to(params, mesh.device), mesh),
+            tokenizer,
+            max_batch = max_batch // n_data, max_length = max_length, chunk = chunk,
+            prompt_multiple = prompt_multiple, eos_token = eos_token, pad_token = pad_token,
+            temperature = temperature, top_k = top_k, top_p = top_p,
+            max_new_tokens = max_new_tokens, cache_dtype = cache_dtype, seed = seed,
+            device = mesh.device)
+        return mesh_stepper(mesh, local, capacity = max_batch // n_data)
     if chunk < 1:
         raise ValueError('chunk must be >= 1')
     device = default_device(device)
@@ -382,7 +402,9 @@ def make_transformer_stepper(model, params, tokenizer = None, *,
 
 def make_llm_engine(model, params, tokenizer = None, *, max_batch = 8,
                     engine_name = 'llm-serving', ** stepper_kwargs):
-    """`ContinuousServingEngine` wired with `make_transformer_stepper`."""
+    """`ContinuousServingEngine` wired with `make_transformer_stepper`.
+    With ``mesh=``, every rank builds it; the first rank runs the engine,
+    the others ``engine.step_fn.follow()`` until it stops."""
     start_fn, step_fn, finish_fn = make_transformer_stepper(
         model, params, tokenizer, max_batch = max_batch, ** stepper_kwargs)
     return ContinuousServingEngine(start_fn, step_fn, finish_fn,

@@ -27,8 +27,16 @@ C++ core; `native_scheduler=False` selects its Python twin).  The device
 work is the models' own: on a card the Tacotron-2 stepper decodes on the
 fused decoder kernel (`ops.decoder_kernel.decoder_steps`, one launch a
 chunk for each group of at most 8 rows) wherever its envelope holds, and
-its streamed audio goes through the vocoder's WN-block kernel.  ``mesh=``
-(multi-device serving) is not ported and raises.
+its streamed audio goes through the vocoder's WN-block kernel.
+
+``mesh=`` (a `parallel.Mesh`, one process per device) serves across
+devices through `mesh_stepper`: a controller and its followers.  The mesh's
+first rank runs the engine (and the HTTP server); its start / step / finish
+calls broadcast their host arguments over the mesh, every rank runs the
+single-device stepper on the rows it owns (a request's row stays on the
+rank that admitted it, its encode and device state included), and the
+per-row results and callbacks gather back to the controller.  The other
+ranks run `step_fn.follow()` until the controller's engine stops.
 """
 
 import collections
@@ -36,19 +44,19 @@ import itertools
 import logging
 import threading
 import time
+import traceback
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..native.scheduler import RequestScheduler
+from ..parallel import collectives, data_axes, shard_params
 from ..utils.sequence_utils import pad_batch
 from ..utils.stream import AsyncResult
 
 logger = logging.getLogger(__name__)
 
-_MESH_UNSUPPORTED = ('mesh= (serving across devices) is not ported yet; it waits for '
-                     'parallel/ on torch.distributed (ROADMAP §1, queue 4)')
 
 
 class InferenceRequest:
@@ -196,6 +204,15 @@ class ServingEngine(_SchedulerMixin):
     def stop(self):
         self._running.clear()
         self._sched.wake()
+        try:
+            self._stop_loop()
+        finally:
+            # a mesh stepper's followers leave their loop with the engine
+            close = getattr(getattr(self, 'step_fn', None), 'close', None)
+            if close is not None:
+                close()
+
+    def _stop_loop(self):
         if self._thread:
             self._thread.join(timeout = 10)
 
@@ -317,7 +334,7 @@ class ContinuousServingEngine(_SchedulerMixin):
         # the still-queued tail: bounded priority inversion, the standard
         # continuous-batching trade.  0 disables.
         if admit_ahead is None:
-            admit_ahead = max(1, max_batch_size // 2)
+            admit_ahead = getattr(start_fn, 'admit_ahead', max(1, max_batch_size // 2))
         self._admit_ahead = int(admit_ahead)
         # pacing: once the ready pool is non-empty and the batch can stay
         # full, top up only in bursts of >= half the prefetch depth: each
@@ -388,6 +405,15 @@ class ContinuousServingEngine(_SchedulerMixin):
     def stop(self):
         self._running.clear()
         self._sched.wake()
+        try:
+            self._stop_loop()
+        finally:
+            # a mesh stepper's followers leave their loop with the engine
+            close = getattr(getattr(self, 'step_fn', None), 'close', None)
+            if close is not None:
+                close()
+
+    def _stop_loop(self):
         if self._thread:
             self._thread.join(timeout = 10)
             if self._thread.is_alive():
@@ -567,8 +593,11 @@ class ContinuousServingEngine(_SchedulerMixin):
                         slots.append(ready.pop(0))
                 continue
             live = [(r, s) for r, s in slots if not r.aborted.is_set()]
-            for request, _ in slots:
+            discard = getattr(self.finish_fn, 'discard', None)
+            for request, state in slots:
                 if request.aborted.is_set():
+                    if discard is not None:
+                        discard(state)
                     self._count('aborted')
                     self._finish(request, error = RuntimeError(
                         'request {} aborted'.format(request.request_id)))
@@ -585,6 +614,12 @@ class ContinuousServingEngine(_SchedulerMixin):
                 for request, _ in live:
                     self._finish(request, error = e)
                 slots = []
+                if getattr(e, 'fatal', False):
+                    # the stepper cannot serve again (a mesh rank failed):
+                    # stop, and fail what is queued rather than leave it
+                    self._running.clear()
+                    for request in self._resolve(self._sched.collect_nowait(1 << 30)):
+                        self._finish(request, error = e)
                 continue
             finally:
                 dt = time.perf_counter() - t0
@@ -692,7 +727,8 @@ def _pow2_buckets(max_batch_size):
 def _bucket(n, n_data = 1):
     """Padded ACTIVE-BATCH size for `n` rows over `n_data` data shards:
     ``n_data * pow2(ceil(n / n_data))``, always divisible by `n_data`; with
-    one shard (the only case the port serves) plain pow2 bucketing."""
+    one shard plain pow2 bucketing (each rank of a `mesh_stepper` pads its
+    own rows so)."""
     return n_data * _pow2(max(1, -(-n // n_data)))
 
 
@@ -732,6 +768,277 @@ def _pad_rows_pow2(tokens):
         tokens = np.concatenate([tokens, np.broadcast_to(tokens[:1],
                                                          (bucket - n,) + tokens.shape[1:])])
     return tokens
+
+
+class MeshStepperError(RuntimeError):
+    """A rank of a mesh stepper failed: the mesh cannot serve again
+    (``fatal``: the engine stops)."""
+    fatal = True
+
+
+#: the per-request callbacks a stepper calls; on a mesh they run on the
+#: controller, replayed from the owner's calls
+_CALLBACKS = ('on_audio', 'on_token')
+
+
+def sync_weights(mesh, * models):
+    """Every rank's `models` (task models with ``params`` / ``state``) set
+    to the weights of the mesh's first rank (`parallel.shard_params`)."""
+    for m in models:
+        if m is None or not hasattr(m, 'set_weights'):
+            continue
+        state = getattr(m, 'state', None)
+        m.set_weights(shard_params(m.params, mesh),
+                      shard_params(state, mesh) if state else None)
+
+
+def mesh_stepper(mesh, local, *, capacity = None):
+    """(start_fn, step_fn, finish_fn) serving across the ranks of `mesh`
+    (a controller and its followers) with `local`, this rank's
+    single-device (start_fn, step_fn, finish_fn), built on its device.
+
+    The mesh's first rank is the controller: its functions, called by the
+    engine (on any of its threads; the calls are serialized), broadcast
+    their host arguments over the mesh, run the local stepper on the rows
+    this rank owns, and gather every rank's per-row results.  Every other
+    rank calls ``step_fn.follow()``, which runs the same operations until
+    the controller's ``step_fn.close()`` (the engine's `stop`).  A request's
+    row is owned by the data shard with the fewest live rows when it is
+    admitted (at most `capacity` each) and stays there: its admission
+    (encode, prefill) runs on that rank and its device state never moves.
+    Ranks that differ only along non-data axes are replicas.  Callbacks
+    (``on_audio``, ``on_token``) run on the controller, in the owner's
+    order; other keywords must pickle.  A rank without rows in a chunk
+    skips it.  An exception on any rank fails the operation on every rank:
+    the controller raises `MeshStepperError` (the engine stops) and the
+    followers leave their loop with it; a request that a stepper refuses at
+    admission fails alone."""
+    start_local, step_local, finish_local = local
+    group = mesh.group(mesh.axis_names)
+    src = mesh.first_rank
+    controller = mesh.rank == src
+    axes = data_axes(mesh)
+    n_data = mesh.axis_size(axes)
+    me = mesh.axis_index(axes)
+    lock = threading.Lock()
+    seq = itertools.count()
+    chan = {'error': None, 'closed': False}
+    owner = {}                  # seq -> data shard (every rank)
+    rows = {}                   # seq -> local state (the owner's ranks)
+    load = [0] * n_data         # live rows a shard (controller)
+    live = {}                   # seq -> proxy state (controller)
+    outbox = []                 # (seq, callback, args) of this rank's calls
+    stats = {'admitted': 0, 'chunks': 0, 'rows_stepped': 0}     # this rank's rows
+
+    def recorder(sid, name):
+        return lambda * args: outbox.append((sid, name, args))
+
+    def handle(op, payload):
+        del outbox[:]
+        out = {}
+        if op == 'start':
+            mine = []
+            for sid, shard, inputs, kwargs, names in payload:
+                owner[sid] = shard
+                if shard == me:
+                    kwargs = dict(kwargs, ** {n: recorder(sid, n) for n in names})
+                    mine.append((sid, inputs, kwargs))
+            start_many = getattr(start_local, 'start_many', None)
+            states = None
+            if len(mine) > 1 and start_many is not None:
+                try:
+                    states = start_many([m[1] for m in mine], [m[2] for m in mine])
+                except Exception:
+                    logger.exception('start_many failed; admitting one by one')
+            for i, (sid, inputs, kwargs) in enumerate(mine):
+                try:
+                    rows[sid] = states[i] if states is not None \
+                        else start_local(inputs, ** kwargs)
+                    stats['admitted'] += 1
+                    out[sid] = None
+                except Exception as e:
+                    out[sid] = e
+        elif op == 'step':
+            mine = [sid for sid in payload if owner[sid] == me]
+            if mine:
+                stats['chunks'] += 1
+                stats['rows_stepped'] += len(mine)
+                states, done = step_local([rows[sid] for sid in mine])
+                for sid, st, d in zip(mine, states, done):
+                    rows[sid] = st
+                    out[sid] = bool(d)
+        elif op == 'finish':
+            mine = [sid for sid in payload if owner[sid] == me]
+            finish_many = getattr(finish_local, 'finish_many', None)
+            if len(mine) > 1 and finish_many is not None:
+                results = finish_many([rows[sid] for sid in mine])
+            else:
+                results = [finish_local(rows[sid]) for sid in mine]
+            out.update(zip(mine, results))
+            for sid in payload:
+                rows.pop(sid, None)
+                owner.pop(sid, None)
+        elif op == 'discard':
+            for sid in payload:
+                rows.pop(sid, None)
+                owner.pop(sid, None)
+        else:
+            raise ValueError('unknown mesh stepper operation {!r}'.format(op))
+        return out, list(outbox)
+
+    def run(op, payload):
+        """One operation on this rank, and every rank's outcome."""
+        try:
+            mine = (True, handle(op, payload))
+        except Exception:
+            mine = (False, 'rank {}: {}'.format(mesh.rank, traceback.format_exc()))
+        outs = collectives.all_gather_objects(mine, group)
+        failed = [o[1] for o in outs if not o[0]]
+        if failed:
+            chan['error'] = '\n'.join(failed)
+            raise MeshStepperError('mesh stepper operation {!r} failed:\n{}'.format(
+                op, chan['error']))
+        results, calls = {}, []
+        for _, (out, outbox_r) in outs:
+            for sid, value in out.items():
+                results.setdefault(sid, value)
+            calls.extend(outbox_r)
+        return results, calls
+
+    def call(op, payload):
+        if not controller:
+            raise RuntimeError('rank {} follows the mesh: only rank {} calls the stepper'
+                               .format(mesh.rank, src))
+        with lock:
+            if chan['error'] is not None:
+                raise MeshStepperError('the mesh stepper failed earlier:\n' + chan['error'])
+            if chan['closed']:
+                raise RuntimeError('the mesh stepper is closed')
+            collectives.broadcast_object((op, payload), src, group)
+            results, calls = run(op, payload)
+        # a call may deliver other rows' parts too (a flush of a shared chunk)
+        for sid, name, args in calls:
+            fn = live[sid]['_callbacks'].get(name) if sid in live else None
+            if fn is not None:
+                try:
+                    fn(* args)
+                except Exception:
+                    logger.exception('%s callback failed', name)
+        return results
+
+    def start_many(inputs_list, kwargs_list):
+        proxies, payload = [], []
+        for inputs, kwargs in zip(inputs_list, kwargs_list):
+            free = [d for d in range(n_data) if capacity is None or load[d] < capacity]
+            if not free:
+                raise RuntimeError('every shard of the mesh holds {} rows'.format(capacity))
+            shard = min(free, key = lambda d: load[d])
+            load[shard] += 1
+            sid = next(seq)
+            callbacks = {n: kwargs[n] for n in _CALLBACKS if kwargs.get(n) is not None}
+            rest = {k: v for k, v in kwargs.items() if k not in callbacks}
+            proxies.append({'_seq': sid, '_owner': shard, '_callbacks': callbacks,
+                            'inputs': inputs})
+            live[sid] = proxies[-1]
+            payload.append((sid, shard, inputs, rest, tuple(callbacks)))
+        try:
+            results = call('start', payload)
+        except Exception:
+            for p in proxies:
+                release(p)
+            raise
+        out = []
+        for p in proxies:
+            if results.get(p['_seq']) is not None:
+                release(p)
+                out.append(results[p['_seq']])
+            else:
+                out.append(p)
+        return out
+
+    def start_fn(inputs, ** kwargs):
+        st = start_many([inputs], [kwargs])[0]
+        if isinstance(st, Exception):
+            raise st
+        return st
+
+    def batched_start(inputs_list, kwargs_list):
+        states = start_many(inputs_list, kwargs_list)
+        bad = [st for st in states if isinstance(st, Exception)]
+        if bad:
+            # the engine admits the burst one by one: each refusal fails alone
+            discard_many([st for st in states if not isinstance(st, Exception)])
+            raise bad[0]
+        return states
+
+    def release(p):
+        if live.pop(p['_seq'], None) is not None:
+            load[p['_owner']] -= 1
+
+    def step_fn(states):
+        done = call('step', [p['_seq'] for p in states])
+        return states, [done[p['_seq']] for p in states]
+
+    def finish_many(states):
+        try:
+            results = call('finish', [p['_seq'] for p in states])
+        finally:
+            for p in states:
+                release(p)
+        return [results[p['_seq']] for p in states]
+
+    def finish_fn(st):
+        return finish_many([st])[0]
+
+    def discard_many(states):
+        if states:
+            try:
+                call('discard', [p['_seq'] for p in states])
+            finally:
+                for p in states:
+                    release(p)
+
+    def follow():
+        """The follower's loop: run the controller's operations until it
+        closes the stepper; raises `MeshStepperError` when an operation
+        fails on any rank."""
+        if controller:
+            raise RuntimeError('rank {} is the controller'.format(mesh.rank))
+        while True:
+            op, payload = collectives.broadcast_object(None, src, group)
+            if op == 'stop':
+                return
+            run(op, payload)
+
+    def close():
+        """Release the followers (the controller; idempotent)."""
+        if not controller:
+            return
+        with lock:
+            if chan['closed'] or chan['error'] is not None:
+                return
+            chan['closed'] = True
+            collectives.broadcast_object(('stop', None), src, group)
+
+    start_fn.start_many = batched_start
+    start_fn.batchable_kwargs = getattr(start_local, 'batchable_kwargs', ('on_audio',))
+    if capacity is not None:
+        # sticky rows: a request admitted ahead of a free slot could land
+        # on a full shard
+        start_fn.admit_ahead = 0
+    finish_fn.finish_many = finish_many
+    finish_fn.discard = lambda st: discard_many([st])
+    finish_fn.async_ok = getattr(finish_local, 'async_ok', False)
+    step_fn.follow = follow
+    step_fn.close = close
+    step_fn.controller = controller
+    step_fn.local = local
+    step_fn.stats = stats
+    if hasattr(step_local, 'warm_thread'):
+        step_fn.warm_thread = step_local.warm_thread
+    if hasattr(step_local, 'fused'):
+        step_fn.fused = step_local.fused
+    return start_fn, step_fn, finish_fn
 
 
 def make_tacotron_stepper(model, *, chunk = 64, token_multiple = 64,
@@ -776,9 +1083,24 @@ def make_tacotron_stepper(model, *, chunk = 64, token_multiple = 64,
 
     A reduction factor r > 1 emits r frames per step: all frame
     bookkeeping (``steps``, emission windows) is in FRAMES, `max_steps` in
-    decode steps.  ``mesh`` raises `NotImplementedError`."""
+    decode steps.
+
+    ``mesh`` (a `parallel.Mesh`; every rank calls this with the same
+    arguments) serves across its data shards through `mesh_stepper`: the
+    model and the vocoder move to the rank's device and take the first
+    rank's weights, and each rank runs this stepper on its own rows (K3's
+    row groups of at most 8 and the emissions' vocoder calls are each
+    rank's)."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_UNSUPPORTED)
+        for m in (model, vocoder):
+            if hasattr(m, 'to'):
+                m.to(mesh.device)
+        sync_weights(mesh, model, vocoder)
+        return mesh_stepper(mesh, make_tacotron_stepper(
+            model, chunk = chunk, token_multiple = token_multiple, max_steps = max_steps,
+            vocoder = vocoder, stream_audio = stream_audio, stream_context = stream_context,
+            stream_lookahead = stream_lookahead, transfer_dtype = transfer_dtype,
+            use_fused_decoder = use_fused_decoder, ** infer_kwargs))
     arch = model.arch
     device = model.device
     n_mel = arch.hp.n_mel_channels
@@ -1135,9 +1457,17 @@ def make_vits_stepper(model, *, window = 64, context = 16,
     delivered parts are reconstructed float32, max abs error 1/32767, the
     quantization a WAV container applies anyway).
 
-    ``mesh`` raises `NotImplementedError`."""
+    ``mesh`` (a `parallel.Mesh`) serves across its data shards through
+    `mesh_stepper`, each rank decoding its own rows' windows (the model on
+    the rank's device, with the first rank's weights); a request's noise is
+    drawn on its owner's rank."""
     if mesh is not None:
-        raise NotImplementedError(_MESH_UNSUPPORTED)
+        model.to(mesh.device)
+        sync_weights(mesh, model)
+        return mesh_stepper(mesh, make_vits_stepper(
+            model, window = window, context = context, token_multiple = token_multiple,
+            max_frames = max_frames, dtype = dtype, pipeline = pipeline,
+            transfer_dtype = transfer_dtype, ** infer_kwargs))
     arch = model.arch
     device = model.device
     rate = arch.upsample_rate

@@ -24,7 +24,14 @@ generator side every epoch (`model.save`), the discriminators and both
 optimizer states in ``<model dir>/saving/gan_state.npz``, resumed from it
 (a file that does not fit is warned about and the discriminators start
 fresh), the data through the model's `prepare_data` / `filter_data` /
-`collate`, padded into shape buckets.  `mesh` is not ported and raises.
+`collate`, padded into shape buckets.
+
+On a `parallel.Mesh` both updates are data parallel over its data axes, as
+`train.trainer.fit`'s step is: each rank runs its rows of the batch, the
+generator's and the discriminators' gradients are averaged over the data
+group before their optimizers, VITS's masked KL, duration and SDP means
+take their sums and counts over the whole batch, and its random draws are
+each rank's rows of the whole batch's draws.
 """
 
 import contextlib
@@ -36,12 +43,13 @@ import numpy as np
 import torch
 
 from ..devices import default_device
+from ..parallel import collectives, data_axes, pad_batch_to_devices, shard_batch, shard_params
 from ..utils.sequence_utils import pad_to_multiple
 from ..weights import convert_tree, flatten_tree, tree_to, tree_to_jax, unflatten_tree
 from .datasets import prepare_dataset
 from .optimizers import _leaves, get_optimizer, global_norm
 from .precision import cast_floating, compute_dtype as policy_dtype, get_policy
-from .trainer import _to_device, _trainable
+from .trainer import _mean_metrics, _sharded, _to_device, _trainable, data_shard
 
 logger = logging.getLogger(__name__)
 
@@ -67,10 +75,13 @@ def _frozen(tree):
             t.requires_grad_(True)
 
 
-def _update(optimizer, loss):
-    """backward, the gradients' global norm (before any clipping), step."""
+def _update(optimizer, loss, shard = None):
+    """backward, the gradients averaged over the data shards, their
+    global norm (before any clipping), step."""
     optimizer.zero_grad()
     loss.backward()
+    if shard is not None:
+        collectives.average_gradients(optimizer.tensors, shard[0])
     norm = global_norm([t.grad for t in optimizer.tensors if t.grad is not None])
     optimizer.step()
     return norm.detach()
@@ -101,7 +112,7 @@ def init_vits_train_state(arch, gen_params, gen_optimizer, disc_optimizer, *, se
 
 
 def _adversarial_update(arch, state, fake, real, mel_fn, cd, lambda_fm, lambda_mel,
-                        extra_terms = (), clock = None):
+                        extra_terms = (), clock = None, shard = None):
     """The step's two updates on one generator forward → metrics.  The
     generator's params change only at the end of the step, so its audio
     `fake` serves both passes (the JAX step recomputes it): the
@@ -110,9 +121,11 @@ def _adversarial_update(arch, state, fake, real, mel_fn, cd, lambda_fm, lambda_m
     each ``weight * value`` of `extra_terms` ((name, weight, value), in
     order) against the updated discriminators, their leaves frozen, and its
     update.  `arch` holds the discriminators (`GANDiscriminators`);
-    `clock`, when given, is marked after each update."""
+    `clock`, when given, is marked after each update; `shard` (the data
+    shard of `train.trainer.data_shard`) averages both sides' gradients
+    and the metrics over the data group."""
     disc_loss = arch.discriminator_terms(state['disc'], fake.detach(), real, compute_dtype = cd)
-    disc_norm = _update(state['disc_opt'], disc_loss)
+    disc_norm = _update(state['disc_opt'], disc_loss, shard)
     if clock is not None: clock.mark()
     with _frozen(state['disc']):
         terms = arch.generator_terms(state['disc'], fake, real, mel_fn, compute_dtype = cd)
@@ -120,17 +133,18 @@ def _adversarial_update(arch, state, fake, real, mel_fn, cd, lambda_fm, lambda_m
         for name, weight, value in extra_terms:
             terms[name] = value
             gen_loss = gen_loss + weight * value
-        gen_norm = _update(state['gen_opt'], gen_loss)
+        gen_norm = _update(state['gen_opt'], gen_loss, shard)
     if clock is not None: clock.mark()
     out = {'disc_loss': disc_loss.detach(), 'gen_loss': gen_loss.detach()}
     out.update({k: v.detach() if torch.is_tensor(v) else torch.tensor(float(v))
                 for k, v in terms.items()})
+    out = _mean_metrics(out, shard)
     out['disc_grad_norm'], out['gen_grad_norm'] = disc_norm, gen_norm
     return out
 
 
 def make_hifigan_train_step(arch, gen_optimizer, disc_optimizer, mel_fn = None, *,
-                            lambda_mel = 45., lambda_fm = 2., precision = None):
+                            lambda_mel = 45., lambda_fm = 2., precision = None, mesh = None):
     """``step(state, mel, audio) → (state, metrics)`` for a HiFi-GAN or a
     Vocos `arch`; `state` from `init_hifigan_train_state`, updated in place.
     `mel_fn` (a differentiable waveform → mel) enables the L1 mel term; the
@@ -138,21 +152,24 @@ def make_hifigan_train_step(arch, gen_optimizer, disc_optimizer, mel_fn = None, 
     ``precision='mixed_bfloat16'`` the generator and the discriminators run
     in bfloat16 against float32 masters; the losses are float32.  Metrics
     (device tensors): ``disc_loss``, ``gen_loss``, ``adv``, ``fm``, ``mel``,
-    and each side's gradient norm."""
+    and each side's gradient norm.  On a `mesh`, `mel` and `audio` are this
+    rank's rows of the batch."""
     cd = policy_dtype(precision)
+    shard = data_shard(mesh)
 
     def step(state, mel, audio):
-        fake = arch.apply(state['gen'], mel, dtype = cd)
-        n = min(fake.shape[1], audio.shape[1])
-        return state, _adversarial_update(arch, state, fake[:, :n], audio[:, :n], mel_fn, cd,
-                                          lambda_fm, lambda_mel)
+        with _sharded(shard):
+            fake = arch.apply(state['gen'], mel, dtype = cd)
+            n = min(fake.shape[1], audio.shape[1])
+            return state, _adversarial_update(arch, state, fake[:, :n], audio[:, :n], mel_fn,
+                                              cd, lambda_fm, lambda_mel, shard = shard)
 
     return step
 
 
 def make_vits_train_step(arch, gen_optimizer, disc_optimizer, mel_fn = None, *,
                          lambda_mel = 45., lambda_fm = 2., lambda_kl = 1., lambda_dur = 1.,
-                         precision = None):
+                         precision = None, mesh = None):
     """``step(state, batch, generator = None, draws = None, clock = None) →
     (state, metrics)`` for a VITS `arch`: `batch` = (tokens, spec, spec_lengths,
     audio[, speaker]) tensors, the speaker a column of ids (1-D) or rows of
@@ -166,11 +183,20 @@ def make_vits_train_step(arch, gen_optimizer, disc_optimizer, mel_fn = None, *,
     the model and the discriminators run in bfloat16; the waveform target,
     the KL, the durations and the scores stay float32 and the SDP is a
     float32 island.  Metrics as `make_hifigan_train_step`'s, with ``kl``
-    and ``duration``."""
+    and ``duration``.  On a `mesh`, `batch` is this rank's rows and `draws`
+    (when given) the whole batch's, of which the step takes its rows."""
     cd = policy_dtype(precision)
+    shard = data_shard(mesh)
 
     def step(state, batch, generator = None, draws = None, clock = None):
+        with _sharded(shard):
+            return sharded_step(state, batch, generator, draws, clock)
+
+    def sharded_step(state, batch, generator, draws, clock):
         if clock is not None: clock.mark()
+        if draws and shard is not None:
+            draws = {k: v[shard[1] * (v.shape[0] // shard[2]):
+                          (shard[1] + 1) * (v.shape[0] // shard[2])] for k, v in draws.items()}
         tokens, spec, spec_lengths, audio = batch[:4]
         speaker = batch[4] if len(batch) > 4 else None
         params = state['gen']
@@ -191,7 +217,8 @@ def make_vits_train_step(arch, gen_optimizer, disc_optimizer, mel_fn = None, *,
                                     out['token_mask'])
         return state, _adversarial_update(
             arch.generator, state, out['audio_hat'], out['audio_seg'], mel_fn, cd, lambda_fm,
-            lambda_mel, (('kl', lambda_kl, kl), ('duration', lambda_dur, duration)), clock)
+            lambda_mel, (('kl', lambda_kl, kl), ('duration', lambda_dur, duration)), clock,
+            shard = shard)
 
     return step
 
@@ -246,7 +273,8 @@ def fit_gan(model, data, *, epochs = 1, batch_size = 8, optimizer = 'adam', lr =
             verbose = True, device = None, ** kwargs):
     """Train a HiFi-GAN, Vocos or VITS task model adversarially on `data`
     (rows its `prepare_data` reads) on `device` (``cuda`` unless
-    ``device='cpu'``).  Resumes from ``model.epochs``: the generator side
+    ``device='cpu'``, or the `mesh`'s device for this rank).  Resumes from
+    ``model.epochs``: the generator side
     from the model, the discriminators and the optimizer states from
     ``<model dir>/saving/gan_state.npz``.  Each epoch draws from a
     `torch.Generator` seeded ``seed + 1 + epoch`` (the JAX package's step
@@ -256,11 +284,12 @@ def fit_gan(model, data, *, epochs = 1, batch_size = 8, optimizer = 'adam', lr =
     (`terminate_on_nan`) and saves on `KeyboardInterrupt`.  Other keywords
     of the JAX `fit` are accepted and unused, as there.  Returns
     ``model.history``."""
-    if mesh is not None:
-        raise NotImplementedError('mesh training is not ported yet (ROADMAP.md, queue 1: '
-                                  'parallel/): the port trains on one device')
-    device = default_device(device)
+    device = default_device(device, mesh)
     model.to(device)
+    chief = mesh is None or mesh.rank == mesh.first_rank
+    if mesh is not None:
+        # every rank starts from the first rank's generator
+        model.set_weights(shard_params(model.params, mesh))
     arch = model.arch
     is_vits = hasattr(arch, 'train_forward')
     tx_g = get_optimizer(optimizer, lr = lr, b1 = betas[0], b2 = betas[1])
@@ -269,11 +298,13 @@ def fit_gan(model, data, *, epochs = 1, batch_size = 8, optimizer = 'adam', lr =
     if is_vits:
         step = make_vits_train_step(arch, tx_g, tx_d, mel_fn, lambda_mel = lambda_mel,
                                     lambda_fm = lambda_fm, lambda_kl = lambda_kl,
-                                    lambda_dur = lambda_dur, precision = precision)
+                                    lambda_dur = lambda_dur, precision = precision,
+                                    mesh = mesh)
         init_state = init_vits_train_state
     else:
         base = make_hifigan_train_step(arch, tx_g, tx_d, mel_fn, lambda_mel = lambda_mel,
-                                       lambda_fm = lambda_fm, precision = precision)
+                                       lambda_fm = lambda_fm, precision = precision,
+                                       mesh = mesh)
         step = lambda state, batch, generator: base(state, * batch)
         init_state = init_hifigan_train_state
 
@@ -301,6 +332,9 @@ def fit_gan(model, data, *, epochs = 1, batch_size = 8, optimizer = 'adam', lr =
                                      constant_values = model.pad_mel_value),
                      pad_to_multiple(np.asarray(audio), frame_multiple * arch.total_upsampling,
                                      axis = 1))
+        if mesh is not None:
+            batch = shard_batch(pad_batch_to_devices(batch, mesh, axis = data_axes(mesh)),
+                                mesh, axis = data_axes(mesh))
         return _to_device(batch, device)
 
     state = init_state(arch, model.params, tx_g, tx_d, seed = seed)
@@ -313,12 +347,18 @@ def fit_gan(model, data, *, epochs = 1, batch_size = 8, optimizer = 'adam', lr =
             logger.warning('%s does not match the current GAN state (%s); starting the '
                            'discriminators fresh', gan_path, err)
             state = init_state(arch, model.params, tx_g, tx_d, seed = seed)
+    if mesh is not None:
+        # the first rank's discriminators (seeded, or resumed) on every rank
+        with torch.no_grad():
+            for t, v in zip(_leaves(state['disc']), _leaves(shard_params(state['disc'], mesh))):
+                t.copy_(v)
 
     history = model.history
     history.set_config({
         'epochs': epochs, 'batch_size': batch_size, 'optimizer': 'gan-' + str(optimizer),
         'lr': lr, 'loss': 'vits_gan' if is_vits else 'hifigan_gan',
-        'precision': get_policy(precision).name, 'mesh': None, 'device': str(device)})
+        'precision': get_policy(precision).name,
+        'mesh': str(mesh.shape) if mesh is not None else None, 'device': str(device)})
 
     initial_epoch = model.epochs
     interrupted = False
@@ -346,15 +386,16 @@ def fit_gan(model, data, *, epochs = 1, batch_size = 8, optimizer = 'adam', lr =
             if verbose:
                 logger.info('epoch %d: %s (%.1fs)', epoch, epoch_metrics, time.time() - start)
             model.set_weights(state['gen'])
-            model.save(epoch = epoch + 1, metric = epoch_metrics.get('loss'))
-            save_gan_state(state, gan_path)
+            if chief:
+                model.save(epoch = epoch + 1, metric = epoch_metrics.get('loss'))
+                save_gan_state(state, gan_path)
     except KeyboardInterrupt:
         interrupted = True
         logger.warning('adversarial training interrupted; saving the current state')
     except FloatingPointError:
         interrupted = True
     model.set_weights(state['gen'])
-    if interrupted:
+    if interrupted and chief:
         model.save(epoch = model.epochs, metric = None)
         save_gan_state(state, gan_path)
     return history

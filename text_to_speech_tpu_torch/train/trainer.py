@@ -9,10 +9,25 @@ copy of them and of the Adam moments on the device.  `fit` resumes from
 ``model.epochs`` with the optimizer state checkpointed beside the weights
 (when its configuration is unchanged), checkpoints every epoch (on a
 background writer thread with `async_checkpointing`, the default), keeps
-the best one by `monitor`, stops early and on a non-finite loss.  The
-`mesh` and pipeline-parallel arguments are not ported and raise.
+the best one by `monitor`, stops early and on a non-finite loss.
+
+On a `parallel.Mesh` (one process per device; every rank calls `fit` with
+the same arguments) the training is data parallel over the mesh's data
+axes (``dcn``, ``dp``): each batch pads to a multiple of the data shards
+(× the microbatches with a pipeline), each rank takes its rows, and the
+gradients are averaged over the data group before the optimizer, so every
+rank steps the same replicated state.  Every statistic the JAX step takes
+over the global batch stays global: the forward runs inside
+`parallel.collectives.batch_shard`, where batch-norm statistics and the
+masked means of the losses all-reduce their sums and counts, the GE2E
+embeddings are gathered whole, and every random draw is the rank's rows of
+the whole batch's draw.  Other axes (``tp``, ``sp``, ``ep``) leave the
+step replicated over them.  A ``pp`` axis with a `WaveGlowLoss` trains
+through `parallel.pipeline.WaveGlowPipeline`.  History, checkpoints and
+their files are written by the mesh's first rank only.
 """
 
+import contextlib
 import logging
 import sys
 import time
@@ -21,6 +36,7 @@ import numpy as np
 import torch
 
 from ..devices import default_device
+from ..parallel import collectives, data_axes, pad_batch_to_devices, shard_batch, shard_params
 from ..utils.sequence_utils import pad_to_multiple
 from ..weights import flatten_tree
 from .checkpoint import AsyncCheckpointSaver
@@ -31,10 +47,32 @@ from .precision import cast_floating, compute_dtype as policy_dtype, get_policy
 
 logger = logging.getLogger(__name__)
 
-def _not_ported(mesh, pp_microbatches):
-    if mesh is not None or pp_microbatches:
-        raise NotImplementedError('mesh and pipeline-parallel training are not ported '
-                                  'yet: the port trains on one device')
+def data_shard(mesh):
+    """(group, index, n): this rank's shard of the batch over the mesh's
+    data axes, or None without a mesh or with one shard."""
+    if mesh is None:
+        return None
+    axes = data_axes(mesh)
+    n = mesh.axis_size(axes)
+    if n == 1:
+        return None
+    return mesh.group(axes), mesh.axis_index(axes), n
+
+
+def _sharded(shard):
+    return collectives.batch_shard(* shard) if shard is not None else contextlib.nullcontext()
+
+
+def _mean_metrics(metrics, shard):
+    """Every metric averaged over the data shards (equal rows each: the
+    batch is padded to a multiple of them), in one all-reduce."""
+    if shard is None or not metrics:
+        return metrics
+    keys = sorted(metrics)
+    device = metrics[keys[0]].device
+    flat = torch.stack([metrics[k].float().reshape(()).to(device) for k in keys])
+    collectives.all_reduce_(flat, shard[0]).div_(shard[2])
+    return dict(zip(keys, flat.unbind(0)))
 
 
 def model_forward(model, params, state, inputs, *, generator = None, train = True,
@@ -84,6 +122,8 @@ def model_forward(model, params, state, inputs, *, generator = None, train = Tru
         n_speakers, n_utt = model.ge2e_shape
         emb, new_state = arch.forward(params, state, mels, lengths = lengths, train = train,
                                       generator = generator)
+        # the loss compares every speaker with every other: the whole batch
+        emb = collectives.batch_gather(emb)
         return (emb.reshape(n_speakers, n_utt, -1), params['ge2e']['w'],
                 params['ge2e']['b']), new_state
     if isinstance(model, Tacotron2):
@@ -101,39 +141,75 @@ def make_train_step(model, loss_fn, optimizer, *, mesh = None, pp_microbatches =
     """``train_step(params, state, opt_state, generator, inputs, targets) →
     (params, state, opt_state, metrics)``; `opt_state` is
     ``optimizer.init(params)``, and it updates `params` in place.  Metrics:
-    the loss's components and the gradients' global norm (before clipping),
-    as device tensors."""
-    _not_ported(mesh, pp_microbatches)
+    the loss's components and the gradients' global norm (before clipping,
+    after the reduce over the data shards), as device tensors.
+
+    On a `mesh` the inputs are this rank's rows of the batch (`fit`
+    shards it), except on the pipeline's route (a ``pp`` axis, a WaveGlow
+    and a `WaveGlowLoss`: ``train_step.global_batch``), which takes the
+    whole batch; with any other loss the pipeline's route is left, as the
+    JAX package leaves it, for the data-parallel step."""
+    from ..models.tts.waveglow import WaveGlow
+    from .losses import WaveGlowLoss
     dtype = policy_dtype(precision)
+    use_pp = mesh is not None and 'pp' in mesh.shape and isinstance(model, WaveGlow)
+    if use_pp and not isinstance(loss_fn, WaveGlowLoss):
+        logger.warning('pp mesh requested with a non-WaveGlowLoss loss (%s); '
+                       'falling back to the unpipelined train step', type(loss_fn).__name__)
+        use_pp = False
+    if use_pp:
+        from ..parallel.pipeline import WaveGlowPipeline
+        pipe = WaveGlowPipeline(model.arch, mesh, dp_axis = 'dp' if 'dp' in mesh.shape else None,
+                                n_micro = pp_microbatches or 2 * mesh.shape['pp'])
+        sigma = getattr(loss_fn, 'sigma', None)
+
+        def pp_train_step(params, state, opt_state, generator, inputs, targets):
+            mel, audio = inputs
+            opt_state.zero_grad()
+            loss = pipe.value_and_grad(params, mel, audio, sigma, compute_dtype = dtype)
+            grad_norm = global_norm([t.grad for t in opt_state.tensors if t.grad is not None])
+            opt_state.step()
+            return params, state, opt_state, {'loss': loss.detach(), 'grad_norm': grad_norm}
+
+        pp_train_step.global_batch = True
+        pp_train_step.pipeline = pipe
+        return pp_train_step
+
+    shard = data_shard(mesh)
 
     def train_step(params, state, opt_state, generator, inputs, targets):
-        preds, new_state = model_forward(model, params, state, inputs, generator = generator,
-                                         train = True, targets = targets,
-                                         compute_dtype = dtype)
-        losses = loss_fn(targets, preds)
-        opt_state.zero_grad()
-        torch.mean(losses['loss']).backward()
+        with _sharded(shard):
+            preds, new_state = model_forward(model, params, state, inputs,
+                                             generator = generator, train = True,
+                                             targets = targets, compute_dtype = dtype)
+            losses = loss_fn(targets, preds)
+            opt_state.zero_grad()
+            torch.mean(losses['loss']).backward()
+        if shard is not None:
+            collectives.average_gradients(opt_state.tensors, shard[0])
         grad_norm = global_norm([t.grad for t in opt_state.tensors if t.grad is not None])
         opt_state.step()
         metrics = {k: torch.mean(v.detach().float()) for k, v in losses.items()}
         metrics['grad_norm'] = grad_norm.detach()
-        return params, new_state, opt_state, metrics
+        return params, new_state, opt_state, _mean_metrics(metrics, shard)
 
+    train_step.global_batch = False
     return train_step
 
 
 def make_eval_step(model, loss_fn, *, mesh = None, precision = None):
     """``eval_step(params, state, generator, inputs, targets) → metrics``,
-    without gradients."""
-    _not_ported(mesh, None)
+    without gradients; on a `mesh` the inputs are this rank's rows and the
+    metrics the whole batch's."""
     dtype = policy_dtype(precision)
+    shard = data_shard(mesh)
 
     def eval_step(params, state, generator, inputs, targets):
-        with torch.no_grad():
+        with torch.no_grad(), _sharded(shard):
             preds, _ = model_forward(model, params, state, inputs, generator = generator,
                                      train = False, targets = targets, compute_dtype = dtype)
             losses = loss_fn(targets, preds)
-        return {k: torch.mean(v.float()) for k, v in losses.items()}
+        return _mean_metrics({k: torch.mean(v.float()) for k, v in losses.items()}, shard)
 
     return eval_step
 
@@ -226,10 +302,10 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     ``num_parallel_calls`` threads map the rows.  ``clip_norm``,
     ``weight_decay``, ``lr_scheduler`` and optax's keywords for the
     optimizer go to `get_optimizer`.  Returns ``model.history``."""
-    _not_ported(mesh, kwargs.pop('pp_microbatches', None))
+    pp_microbatches = kwargs.pop('pp_microbatches', None)
     native_rate = getattr(model, 'rate', None) if kwargs.pop('native_audio', False) else None
     num_parallel_calls = kwargs.pop('num_parallel_calls', None)
-    device = default_device(device)
+    device = default_device(device, mesh)
     model.to(device)
     loss_fn = get_loss(loss or model._default_loss)
     tx = get_optimizer(optimizer, lr = lr, ** kwargs)
@@ -249,9 +325,32 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
                              batch_size = batch_size, shuffle = False,
                              native_audio_rate = native_rate) if valid_data else None
 
-    train_step = make_train_step(model, loss_fn, tx, precision = precision)
-    eval_step = make_eval_step(model, loss_fn, precision = precision)
+    batch_multiple, chief = None, True
+    if mesh is not None:
+        batch_multiple = mesh.axis_size(data_axes(mesh))
+        if 'pp' in mesh.shape:
+            pp_microbatches = pp_microbatches or 2 * mesh.shape['pp']
+            batch_multiple *= pp_microbatches
+        chief = mesh.rank == mesh.first_rank
+        # every rank starts from the first rank's weights
+        model.set_weights(shard_params(model.params, mesh), shard_params(model.state, mesh)
+                          if model.state else model.state)
+    train_step = make_train_step(model, loss_fn, tx, mesh = mesh,
+                                 pp_microbatches = pp_microbatches, precision = precision)
+    eval_step = make_eval_step(model, loss_fn, mesh = mesh, precision = precision)
     params, state = _trainable(model.params), model.state
+
+    def prepare(batch, step_global = False):
+        """A collated batch in its shape buckets, padded to the mesh's
+        multiple and cut to this rank's rows, on the device."""
+        inputs, targets = bucket_pad(batch, model, token_multiple = token_multiple,
+                                     frame_multiple = frame_multiple)
+        if mesh is not None:
+            inputs, targets = pad_batch_to_devices((inputs, targets), mesh,
+                                                   multiple = batch_multiple)
+            if not step_global:
+                inputs, targets = shard_batch((inputs, targets), mesh, axis = data_axes(mesh))
+        return _to_device(inputs, device), _to_device(targets, device)
     opt_state = tx.init(params)
     generator = torch.Generator(device = device).manual_seed(seed + model.epochs)
 
@@ -284,7 +383,8 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     history.set_config({
         'epochs': epochs, 'batch_size': batch_size, 'optimizer': str(optimizer),
         'lr': lr, 'loss': getattr(loss_fn, 'name', str(loss_fn)),
-        'precision': get_policy(precision).name, 'mesh': None,
+        'precision': get_policy(precision).name,
+        'mesh': str(mesh.shape) if mesh is not None else None,
         'dataset': {'batches': len(train_ds), 'batch_size': batch_size},
         'valid_dataset': {'batches': len(valid_ds), 'batch_size': batch_size}
         if valid_ds is not None else None,
@@ -294,18 +394,16 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
     initial_epoch = model.epochs
     best_value, patience_left = None, early_stopping_patience
     interrupted = False
-    saver = AsyncCheckpointSaver(model.ckpt_manager) if async_checkpointing else None
+    saver = AsyncCheckpointSaver(model.ckpt_manager) if async_checkpointing and chief else None
     try:
         for epoch in range(initial_epoch, initial_epoch + epochs):
             history.on_epoch_begin(epoch)
             sums, n_batches = {}, 0
             start = time.time()
             for batch in train_ds:
-                inputs, targets = bucket_pad(batch, model, token_multiple = token_multiple,
-                                             frame_multiple = frame_multiple)
                 params, state, opt_state, metrics = train_step(
-                    params, state, opt_state, generator, _to_device(inputs, device),
-                    _to_device(targets, device))
+                    params, state, opt_state, generator,
+                    * prepare(batch, train_step.global_batch))
                 # read every step: the update is made in place, so a NaN step
                 # must stop the loop before the next one builds on it
                 metrics = {k: float(v) for k, v in metrics.items()}
@@ -321,10 +419,7 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
             if valid_ds is not None:
                 val_sums, n_val = {}, 0
                 for batch in valid_ds:
-                    inputs, targets = bucket_pad(batch, model, token_multiple = token_multiple,
-                                                 frame_multiple = frame_multiple)
-                    m = eval_step(params, state, generator, _to_device(inputs, device),
-                                  _to_device(targets, device))
+                    m = eval_step(params, state, generator, * prepare(batch))
                     for k, v in m.items():
                         val_sums['val_' + k] = val_sums.get('val_' + k, 0.) + float(v)
                     n_val += 1
@@ -337,8 +432,9 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
             monitor_key = 'val_' + monitor if valid_ds is not None else monitor
             value = epoch_metrics.get(monitor_key, epoch_metrics.get(monitor))
             model.set_weights(params, state)
-            model.save(epoch = epoch + 1, metric = value, saver = saver,
-                       extra_trees = {'opt': opt_tree(host = saver is None)})
+            if chief:
+                model.save(epoch = epoch + 1, metric = value, saver = saver,
+                           extra_trees = {'opt': opt_tree(host = saver is None)})
 
             if early_stopping_patience:
                 if best_value is None or (value is not None and value < best_value):
@@ -365,6 +461,6 @@ def fit(model, data, *, valid_data = None, valid_size = 0.1, epochs = 1, batch_s
                 if not exc_in_flight:
                     raise
                 logger.exception('background checkpoint writer failed')
-        if interrupted:
+        if interrupted and chief:
             model.save(epoch = model.epochs, metric = None, extra_trees = {'opt': opt_tree()})
     return history
