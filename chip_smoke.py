@@ -25,8 +25,9 @@ Phases, one JSON line each:
   kernels  every ported kernel at the main path's shapes (one utterance,
            the batch of four, and for K1 and K2 the long text's window batch
            of 32 windows of 128 frames): error against its plain version, median time
-           of the kernel and of the plain version (CUDA events), and the
-           bound.  The WN block (K1) in float32 and bfloat16 and its int8
+           of the kernel (7 after 2 warm-ups) and of the plain version (3
+           after 1; K3's, host-bound, its one reference call; CUDA events),
+           and the bound.  The WN block (K1) in float32 and bfloat16 and its int8
            variant (K2, equal to its plain version to the bit) with bf16
            buffers, one float32 case and one with the static gate scale,
            both also at a length that is no multiple of any tile; for each
@@ -56,7 +57,7 @@ Phases, one JSON line each:
            Around one timed case of each kernel (K1 and K2 bfloat16 at one
            utterance, K3 float32 with dropout at B=1, K4 bfloat16 at B=8 and 1, K5
            both types), nvidia-smi's SM clock and power draw: just after the
-           timed runs, 1 s into 2 s of calls back to back, and after them;
+           timed runs, 0.6 s into 1.2 s of calls back to back, and after them;
   e2e      `tts()` on one sentence (the one-launch path: fused decoder →
            vocoder → int16, no retry) and on a batch of four on both decoder
            routes, then, after `quantize_for_serving` passes its SNR gate on
@@ -248,17 +249,34 @@ Phases, one JSON line each:
            that must miss the bound (the second rank's own rows' gradient
            without the reduce; the reduce summed, not averaged); (c) two
            GPipe steps over {'pp': 2} (2 × 64 frames, float32) against
-           `arch.loss` (loss 1e-5, gradients 1e-4 relative); (d) Mixtral
+           `arch.loss` (loss 1e-5, gradients 1e-4 relative); the tensor
+           and sequence axes: (e) NVIDIA WaveGlow over {'tp': 2}, a
+           deterministic 128-frame vocode (1e-4 of scale) and one SGD step
+           at 2 × 64 frames (loss 1e-5 relative, every gathered gradient
+           and leaf 1e-4 of its scale, the replicated leaves bit-equal on
+           both ranks, and a control that must miss: the exits through
+           `all_reduce_sum`), the kernels refused; (f) over {'sp': 2}, 256
+           frames with noise: 12 K1 launches a rank on its shard and halo,
+           the audio within 2.5e-3 of the one-device K1 route (bf16; twice
+           the route's own spread between a row alone and in a batch of
+           two) and 1e-2 of the chain, K1's rows on each shard and halo, the
+           float32 chain and K1's float32 instantiation over sp within 1e-5
+           of one device; (g) FastSpeech-2 and (h) VITS over {'tp': 2}, the
+           mel and the audio 1e-4 of scale, durations by the tie rule; (i)
+           NVIDIA Tacotron-2's teacher-forced loss (2 × 64 frames) over
+           {'tp': 2}, 1e-5 relative, its decode refused; (d) Mixtral
            8x7B's widths at 2 layers in bfloat16 over {'ep': 2}, its logits
            (2e-2 of scale) and 8 greedy tokens (the tie rule, at twice the
            logits' gap) against one rank holding every expert; then one NCCL
            rank in this process calling each collective on the card.  The
-           one-process references of (a) and (b) run in this process while
-           the ranks start.  Both ranks share one card: its times are not
+           one-process references of (a), (b) and (e) to (i) run in this
+           process while the ranks start.  Both ranks share one card: its times are not
            two cards'.  K3 at each rank's row groups and K1 at its emission
-           shapes are held against their plain versions after the `llm`
-           phase.  (``--probe-gloo-p2p`` runs instead of the script: whether
-           gloo's send / recv take a CUDA tensor as it is.)
+           shapes, and K1 at a rank's sp shard and halo, are held against
+           their plain versions after the `llm` phase.  (``--probe-gloo-p2p`` runs instead of the script: whether
+           gloo's send / recv take a CUDA tensor as it is; ``--probe-k1-rows``:
+           which op of the bf16 K1 route gives a row other bits in another
+           shape, `_k1_rows`.)
   llm      token-level LLM serving and the transformer zoo: GPT-2 small at
            its published widths (124,439,808 parameters), a seeded state dict
            in HF's layout through `convert_gpt2_state_dict`; the prefill of 4
@@ -284,6 +302,7 @@ Any failure raises: the script then exits non-zero without a result line.
 It needs a CUDA device and imports neither JAX nor the JAX package.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -362,14 +381,15 @@ def smi_sample():
 
 
 def clocks_under(fn):
-    """nvidia-smi's readings just after a kernel's timed runs, 1 s into 2 s
-    of its calls back to back (taken from a second thread: the host blocks
-    once the launch queue is full, so the card stays busy), and after."""
+    """nvidia-smi's readings just after a kernel's timed runs, 0.6 s into
+    1.2 s of its calls back to back (taken from a second thread: the host
+    blocks once the launch queue is full, so the card stays busy), and
+    after."""
     clocks = {'before': smi_sample()}
-    sampler = threading.Timer(1., lambda: clocks.update(during = smi_sample()))
+    sampler = threading.Timer(0.6, lambda: clocks.update(during = smi_sample()))
     sampler.start()
     start = time.perf_counter()
-    while time.perf_counter() - start < 2.:
+    while time.perf_counter() - start < 1.2:
         fn()
     sampler.join()
     torch.cuda.synchronize()
@@ -516,7 +536,8 @@ def wn_block_phase(shapes = None, label = 'fused_wn_block', clocks = True):
             peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
             case.update(
                 kernel_ms = time_ms(lambda: fused_wn_block(* args)),
-                plain_ms = time_ms(lambda: wn_block_plain(* args)),
+                # the plain version is 10-150 ms a call: 3 after a warm-up
+                plain_ms = time_ms(lambda: wn_block_plain(* args), reps = 3, warmup = 1),
                 flops = flops, bytes = nbytes,
                 bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                 bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
@@ -603,7 +624,8 @@ def wn_layer_phase():
                         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS
                         case.update(
                             kernel_ms = time_ms(lambda: fused_wn_layer(* args, ** kw)),
-                            plain_ms = time_ms(lambda: wn_layer_plain(* args, ** kw)),
+                            plain_ms = time_ms(lambda: wn_layer_plain(* args, ** kw),
+                                               reps = 3, warmup = 1),
                             flops = flops, bytes = nbytes,
                             bound_ms = 1e3 * max(flops / peak, nbytes / PEAK_BYTES),
                             bound_by = 'operations' if flops / peak > nbytes / PEAK_BYTES
@@ -888,7 +910,14 @@ def decoder_steps_phase(model, *, speaker = None, shapes = None, name = 'decoder
                 steps, attn, _ = decoder_steps(* args, st, seed, ** kw)
                 torch.cuda.synchronize()
                 ref_st = fresh()
+                # the reference call is the plain version's timing too: it
+                # is host-bound (0.4-0.9 s a launch's worth), one call
+                ref_start = torch.cuda.Event(enable_timing = True)
+                ref_end = torch.cuda.Event(enable_timing = True)
+                ref_start.record()
                 ref_steps, ref_attn, _ = decoder_steps_plain(* args, ref_st, seed, ** kw)
+                ref_end.record()
+                ref_end.synchronize()
                 check(steps.shape == (K, B, n_mel + 1) and attn.shape == (K, B, S),
                       'decoder_steps output shape')
                 check(bool(torch.isfinite(steps).all() and torch.isfinite(attn).all()),
@@ -962,9 +991,7 @@ def decoder_steps_phase(model, *, speaker = None, shapes = None, name = 'decoder
                         args[0], B, S, K, args[1].element_size(), peak)
                     st = fresh()
                     kernel_ms = time_ms(lambda: decoder_steps(* args, st, seed, ** kw))
-                    # the plain loop is host-bound (~0.4 s a launch's worth): one call
-                    plain_ms = time_ms(lambda: decoder_steps_plain(* args, st, seed, ** kw),
-                                       reps = 1, warmup = 1)
+                    plain_ms = ref_start.elapsed_time(ref_end)
                     # where a step's time goes: the kernel's own clock stamps
                     stamps = torch.zeros((stamps_size(K),), dtype = torch.int64, device = 'cuda')
                     decoder_steps(* args, st, seed, stamps = stamps, ** kw)
@@ -2601,7 +2628,12 @@ def _k3_serving_case(model, B = 8, S = 64):
     seed = torch.zeros((1,), dtype = torch.int64, device = 'cuda')
     kw = dict(n_steps = K, deterministic = True)
     steps = decoder_steps(* args, fresh(), seed, ** kw)[0]
+    torch.cuda.synchronize()
+    # the reference call, timed: the plain version's one call
+    start = time.perf_counter()
     ref = decoder_steps_plain(* args, fresh(), seed, ** kw)[0]
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - start)
     err = float((steps - ref).abs().max())
     scale = float(ref.abs().max())
     check(err <= 1e-4 * scale, 'K3 at the serving row group: {} > 1e-4 x {}'.format(err, scale))
@@ -2610,8 +2642,7 @@ def _k3_serving_case(model, B = 8, S = 64):
     return {'B': B, 'S': S, 'K': K, 'max_abs_err': err, 'max_rel_err': err / scale,
             'tolerance_rel': 1e-4,
             'kernel_ms': time_ms(lambda: decoder_steps(* args, st, seed, ** kw)),
-            'plain_ms': time_ms(lambda: decoder_steps_plain(* args, st, seed, ** kw),
-                                reps = 3, warmup = 1),
+            'plain_ms': plain_ms,
             'bound_ms': 1e3 * max(ops_s, nbytes / PEAK_BYTES),
             'bound_by': 'operations' if ops_s > nbytes / PEAK_BYTES else 'bytes'}
 
@@ -3089,6 +3120,9 @@ def synthesizer_training_phase(vocoder, root):
 
     before_fit = probe(teacher)
     check(bool(teacher._derived), 'teacher: no packed decoder cached by the K3 decode')
+    # the mixed_bfloat16 fit starts from the same seeded weights: kept here,
+    # not drawn again (an NVIDIA-width init is ~10 s on the host)
+    initial = teacher.jax_trees()
     fits = {'float32': _fit_record(teacher, rows, 2, 'float32', ** fit_kw)}
     section('tacotron2_fit_float32')
     after_fit, rebuilt = probe(teacher), probe(rebuild(teacher, 'cuda'))
@@ -3099,8 +3133,12 @@ def synthesizer_training_phase(vocoder, root):
     check(refit['max_abs_err_vs_rebuilt'] <= refit['tolerance']
           and refit['max_abs_change_by_fit'] > 1e-3 * scale,
           'teacher K3 decode after fit against a rebuilt model: {}'.format(refit))
-    teacher_bf16 = Tacotron2.create('en', name = 'teacher_bf16', root = root,
-                                    device = 'cuda', seed = 21)
+    teacher_bf16 = Tacotron2.from_jax(
+        initial['params'], initial['state'], tokenizer = teacher.tokenizer, lang = 'en',
+        root = root, device = 'cuda', mel_fn = teacher.mel_fn, name = 'teacher_bf16',
+        ** teacher.arch.get_config())
+    teacher_bf16.save()
+    del initial
     fits['mixed_bfloat16'] = _fit_record(teacher_bf16, rows, 2, 'mixed_bfloat16', ** fit_kw)
     del teacher_bf16
     section('tacotron2_fit_mixed_bfloat16')
@@ -3973,6 +4011,8 @@ MESH_TEXTS = SERVING_TEXTS[:8]
 #: request runs
 MESH_CASE = {'dp_batch': (8, 256), 'dp_precision': 'mixed_bfloat16', 'dp_lr': 1e-4,
              'pp_batch': (2, 64), 'mixtral': {'num_hidden_layers': 2}, 'max_steps': 256}
+#: the trees of (e) to (i) beside the Tacotron-2 and WaveGlow ones
+TENSOR_TREES = ('fastspeech2', 'fastspeech2_state', 'vits')
 #: (b)'s bound on the reduced gradients' distance from one process's on the
 #: whole batch, relative, in the L2 norm over every leaf
 DP_GRAD_TOLERANCE = 1e-2
@@ -4073,10 +4113,13 @@ def _grad_rel(grads, ref):
 
 
 def _mesh_references(case, weights):
-    """The one-process references of (a) and (b), in this process while the
-    ranks start: the one-rank stepper's 8 requests, and two SGD steps on the
-    whole batch with their gradients.  Written to ``case['refs']``."""
+    """The one-process references of (a), (b) and (e) to (i), in this
+    process while the ranks start: the one-rank stepper's 8 requests, two
+    SGD steps on the whole batch with their gradients, and
+    `_tensor_references`.  Written to ``case['refs']`` and, (e) to (i)'s,
+    to ``case['refs'] + '.tensor'``."""
     from text_to_speech_tpu_torch.runtimes.serving import make_tacotron_stepper
+    from text_to_speech_tpu_torch.weights import tree_to
     sections = {}
     clock = section_clock(sections)
     device = case.get('device', 'cuda')
@@ -4090,22 +4133,35 @@ def _mesh_references(case, weights):
     refs = {'serving': [{k: torch.from_numpy(np.asarray(r[k])) for k in ('mel', 'audio')}
                         for r in results],
             'dp_losses': losses, 'dp_grads': grads}
-    torch.save(refs, case['refs'] + '.part')
-    os.replace(case['refs'] + '.part', case['refs'])
+    del tree, grads
+    _save_refs(refs, case['refs'])
     clock('save')
+    # (e) to (i)'s, in a file of their own: the ranks read it after (c)
+    refs = _tensor_references(
+        case, {k: tree_to(weights[k], device) for k in TENSOR_TREES}, model, vocoder, device)
+    clock('tensor_one_process')
+    _save_refs(refs, case['refs'] + '.tensor')
+    clock('save_tensor')
     return sections
 
 
-def _await_refs(case, timeout = 300.):
-    """The references once this process's parent has written them."""
+def _save_refs(refs, path):
+    torch.save(refs, path + '.part')
+    os.replace(path + '.part', path)
+
+
+def _await_refs(case, suffix = '', timeout = 300.):
+    """The references (``case['refs'] + suffix``) once this process's parent
+    has written them."""
     start = time.perf_counter()
-    while not os.path.exists(case['refs']):
+    path = case['refs'] + suffix
+    while not os.path.exists(path):
         if os.path.exists(case['refs'] + '.failed'):
             raise RuntimeError('the mesh references failed in the parent')
         if time.perf_counter() - start > timeout:
             raise TimeoutError('no mesh references after {} s'.format(timeout))
         time.sleep(0.1)
-    return torch.load(case['refs'], map_location = case.get('device', 'cuda'))
+    return torch.load(path, map_location = case.get('device', 'cuda'))
 
 
 def _mesh_worker(case):
@@ -4143,7 +4199,9 @@ def _mesh_worker(case):
 
     # the first rank loads the weights, every rank receives them
     weights = torch.load(case['weights'], map_location = mesh.device) if rank == 0 else None
-    model, vocoder = _mesh_models(case, parallel.shard_params(weights, mesh), mesh.device)
+    weights = parallel.shard_params(weights, mesh)
+    model, vocoder = _mesh_models(case, weights, mesh.device)
+    tensor_trees = {k: weights[k] for k in TENSOR_TREES}
     del weights
     section('weights')
 
@@ -4288,10 +4346,17 @@ def _mesh_worker(case):
         sgd.step()
         dist.barrier()
     out['pipeline'] = pp
-    del tree, grads, sgd, model, vocoder
+    del tree, grads, sgd
+    section('pipeline')
+
+    # (e) to (i): the tensor and sequence axes
+    tensor_refs = _await_refs(case, '.tensor')
+    section('await_tensor_references')
+    out['tensor'] = _tensor_cases(case, tensor_trees, model, vocoder, tensor_refs, rank,
+                                  mesh.device, section)
+    del model, vocoder, tensor_trees, tensor_refs
     if on_card:
         torch.cuda.empty_cache()
-    section('pipeline')
 
     # (d) Mixtral-8x7B's widths at 2 layers in bfloat16 over {'ep': 2}
     widths = case['mixtral']
@@ -4349,6 +4414,345 @@ def _mesh_worker(case):
     return out
 
 
+#: the tensor and sequence axes, (e) to (i): WaveGlow's vocode (frames) and
+#: SGD step (rows, frames, rate) over tp, its vocode over sp on K1 (frames,
+#: the noise's sigma), FastSpeech-2's and VITS's token rows, and
+#: Tacotron-2's teacher-forced batch (rows, frames) over tp
+TENSOR_CASE = {'tp_vocode_frames': 128, 'tp_step': (2, 64), 'tp_lr': 1e-4, 'sp_frames': 256,
+               'sp_sigma': 0.6, 'fs2_tokens': (2, 32), 'fs2_min_duration': 8,
+               'fs2_max_frames': 384, 'vits_tokens': (2, 40), 'taco_batch': (2, 64),
+               'taco_tokens': 48}
+
+
+def _tensor_inputs(case, device):
+    """(e) to (i)'s inputs, seeded: every rank and the references make the
+    same."""
+    rng = np.random.default_rng(61)
+    mel = lambda frames: torch.from_numpy(
+        (rng.standard_normal((1, frames, 80)) - 5.).astype(np.float32)).to(device)
+    B, S = case['taco_batch'][0], case['taco_tokens']
+    tokens = rng.integers(1, 140, (B, S))
+    tokens[1:, S - 8:] = 0
+    T = case['taco_batch'][1]
+    gate = np.zeros((B, T), np.float32)
+    gate[0, -1] = 1.
+    gate[1:, T - 12:] = 1.
+    taco = (tokens, (rng.standard_normal((B, T, 80)) - 5.).astype(np.float32),
+            np.array([T] + [T - 11] * (B - 1), np.int64),
+            (rng.standard_normal((B, T, 80)) - 5.).astype(np.float32), gate)
+    return {'tp_mel': mel(case['tp_vocode_frames']), 'sp_mel': mel(case['sp_frames']),
+            'fs2_tokens': torch.from_numpy(rng.integers(1, 140, case['fs2_tokens'])).to(device),
+            'vits_tokens': torch.from_numpy(rng.integers(1, 140, case['vits_tokens'])).to(device),
+            'taco': [torch.from_numpy(t).to(device) for t in taco]}
+
+
+def _wg_sgd_step(arch, tree, mel, audio, lr, mesh = None):
+    """One SGD step of `arch.loss` from `tree` (on `mesh`'s tp axis when
+    given) → (loss, the new tree, the gradients)."""
+    from text_to_speech_tpu_torch.parallel import collectives
+    from text_to_speech_tpu_torch.weights import flatten_tree, unflatten_tree
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in flatten_tree(tree).items()}
+    with collectives.tensor_shard(mesh) if mesh is not None else contextlib.nullcontext():
+        loss = arch.loss(unflatten_tree(leaves), mel, audio, 1.)
+    loss.backward()
+    with torch.no_grad():
+        new = {k: v - lr * v.grad for k, v in leaves.items()}
+    return (float(loss.detach()), unflatten_tree(new),
+            unflatten_tree({k: v.grad for k, v in leaves.items()}))
+
+
+def _durations_ties(got, ref, pre, boundary):
+    """Durations against the reference's: equal, or one apart where the
+    reference's value before rounding lies within 1e-5 of a `boundary`
+    (0.5: round half to even; 0: ceil) → (rows where all agree, moved)."""
+    moved = got != ref
+    if bool(moved.any()):
+        off = pre[moved] - boundary
+        ties = float((off - torch.round(off)).abs().max())
+        check(ties <= 1e-5 and int((got - ref).abs().max()) <= 1,
+              'durations differ off a tie: {}'.format(ties))
+    return ~moved.any(dim = 1), int(moved.sum())
+
+
+def _fs2_pre_rounding(arch, params, state, tokens):
+    hidden, _, pad = arch.encode(params, tokens)
+    log_d = arch._variance_predictor(params['duration_predictor'], hidden, pad_mask = pad)
+    return torch.exp(log_d.float()) - 1.
+
+
+def _vits_pre_ceil(arch, params, tokens, d_control):
+    h, _, _, valid = arch.encode_text(params, tokens)
+    logw = arch.sdp_sample(params, h, valid, noise_scale_w = 0.) if arch.hp.use_sdp \
+        else arch.predict_log_durations(params, h, valid.float())
+    return torch.exp(logw.float()) * valid * d_control
+
+
+def _tensor_archs(case):
+    from text_to_speech_tpu_torch.models.fastspeech2_arch import FastSpeech2
+    from text_to_speech_tpu_torch.models.vits_arch import VITS
+    return FastSpeech2(** case['fastspeech2_config']), VITS(** case['vits_config'])
+
+
+def _tensor_references(case, weights, model, vocoder, device):
+    """The one-process references of (e) to (i), on the card."""
+    from text_to_speech_tpu_torch.train.losses import TacotronLoss
+    x = _tensor_inputs(case, device)
+    arch, params = vocoder.arch, vocoder.params
+    refs = {}
+    with torch.no_grad():
+        refs['tp_vocode'] = arch.infer(params, x['tp_mel'], deterministic = True)
+        f32 = arch.pack_kernel_params(params, dtype = torch.float32)
+        for key, p, kernel in (('sp_k1', params, True), ('sp_chain', params, False),
+                               ('sp_k1_f32', f32, True)):
+            refs[key] = arch.infer(p, x['sp_mel'], sigma = case['sp_sigma'],
+                                   generator = torch.Generator(device).manual_seed(62),
+                                   use_kernel = kernel)
+        # the K1 route's own spread: the same row alone and beside another
+        # (other shapes of the matmuls around the kernel)
+        z = torch.randn((1, x['sp_mel'].shape[1] * 32, 8), generator =
+                        torch.Generator(device).manual_seed(64), device = device)
+        one = arch.infer(params, x['sp_mel'], sigma = case['sp_sigma'], z = z, use_kernel = True)
+        two = arch.infer(params, torch.cat([x['sp_mel'], x['sp_mel'].flip(1)]),
+                         sigma = case['sp_sigma'], z = torch.cat([z, z.flip(1)]),
+                         use_kernel = True)[:1]
+        refs['sp_k1_batch_spread'] = _rel_scale(two, one)
+    B, F = case['tp_step']
+    mel, audio = _dp_batch(case, vocoder, device)
+    # the loss and the gradients: the ranks take the new tree from these
+    loss, _, grads = _wg_sgd_step(arch, params, mel[:B, :F],
+                                  audio[:B, :F * vocoder.upsample_rate], case['tp_lr'])
+    refs['tp_step'] = loss, grads
+    fs_arch, v_arch = _tensor_archs(case)
+    fs_kw = dict(max_frames = case['fs2_max_frames'], min_duration = case['fs2_min_duration'])
+    v_params = weights['vits']
+    with torch.no_grad():
+        out = fs_arch.infer(weights['fastspeech2'], weights['fastspeech2_state'],
+                            x['fs2_tokens'], ** fs_kw)
+        refs['fs2'] = {'mel': out.mel, 'durations': out.durations, 'pre': _fs2_pre_rounding(
+            fs_arch, weights['fastspeech2'], weights['fastspeech2_state'], x['fs2_tokens'])}
+        quiet = dict(noise_scale = 0., noise_scale_w = 0., max_frames = 384)
+        base = v_arch.infer(v_params, {}, x['vits_tokens'], ** quiet).lengths
+        d_control = 256. / max(int(base.min()), 1)
+        out = v_arch.infer(v_params, {}, x['vits_tokens'], d_control = d_control, ** quiet)
+        refs['vits'] = {'audio': out.audio, 'lengths': out.lengths, 'durations': out.durations,
+                        'd_control': d_control,
+                        'pre': _vits_pre_ceil(v_arch, v_params, x['vits_tokens'], d_control)}
+        tokens, mel_in, lengths, mel_out, gate = x['taco']
+        preds, _ = model.arch(model.params, model.state, tokens, mel_in, mel_lengths = lengths,
+                              train = True, generator = torch.Generator(device).manual_seed(63))
+        refs['taco_loss'] = float(torch.mean(TacotronLoss()((mel_out, gate), preds)['loss']))
+    return refs
+
+
+def _rel_scale(out, ref):
+    return float((out.float() - ref.float()).abs().max()) / max(float(ref.float().abs().max()),
+                                                                1e-30)
+
+
+def _tensor_cases(case, weights, model, vocoder, refs, rank, device, clock):
+    """(e) to (i) on this rank: WaveGlow over {'tp': 2} (vocode, SGD step),
+    over {'sp': 2} on K1, FastSpeech-2, VITS and Tacotron-2's teacher-forced
+    loss over {'tp': 2}, each against one process."""
+    import hashlib
+    from text_to_speech_tpu_torch import parallel
+    from text_to_speech_tpu_torch.nn import layers as nn_layers
+    from text_to_speech_tpu_torch.parallel import collectives
+    from text_to_speech_tpu_torch.train.losses import TacotronLoss
+    from text_to_speech_tpu_torch.weights import flatten_tree
+    out = {}
+    x = _tensor_inputs(case, device)
+    arch = vocoder.arch
+    tp = parallel.create_mesh({'tp': 2})
+
+    # (e) WaveGlow over tp: a deterministic vocode, then one SGD step
+    start = time.perf_counter()
+    wg_specs = parallel.waveglow_param_specs
+    local = parallel.shard_params(vocoder.params if rank == 0 else None, tp, wg_specs)
+    e = {'frames': case['tp_vocode_frames'], 'send_s': time.perf_counter() - start,
+         'in_conv_shape': list(local['flow_0']['block']['in_conv_0']['weight'].shape)}
+    with torch.no_grad(), collectives.tensor_shard(tp):
+        t0 = time.perf_counter()
+        audio = arch.infer(local, x['tp_mel'], deterministic = True)
+        _sync(device)
+        e['vocode_s'] = time.perf_counter() - t0
+        try:
+            arch.infer(local, x['tp_mel'][:, :8], deterministic = True, use_kernel = True)
+            e['use_kernel_refused'] = False
+        except ValueError:
+            e['use_kernel_refused'] = True
+    e['vocode_rel_err'] = _rel_scale(audio, refs['tp_vocode'])
+    check(e['use_kernel_refused'] and e['vocode_rel_err'] <= 1e-4,
+          'tp vocode against one process: {}'.format(e))
+    B, F = case['tp_step']
+    mel, audio = _dp_batch(case, vocoder, device)
+    step = lambda: _wg_sgd_step(arch, local, mel[:B, :F], audio[:B, :F * vocoder.upsample_rate],
+                                case['tp_lr'], mesh = tp)
+    # the replicated leaves bit-equal on both ranks: no cuDNN algorithm
+    # that sums in another order from call to call
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        loss, tree, grads = step()
+        _sync(device)
+        e['step_s'] = time.perf_counter() - t0
+        # the control: the exits through `all_reduce_sum`, whose backward
+        # all-reduces the gradient, must give the sharded leaves tp times it
+        exit_op = nn_layers.tp_exit
+        nn_layers.tp_exit = lambda t, axis: t if axis is None \
+            else collectives.all_reduce_sum(t, axis.group)
+        try:
+            control = step()[2]
+        finally:
+            nn_layers.tp_exit = exit_op
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    ref_loss, ref_grads = refs['tp_step']
+    ref_grads = flatten_tree(ref_grads)
+    whole = flatten_tree(parallel.gather_params(tree, tp, wg_specs))
+    # one process's step, from its gradients as `_wg_sgd_step` takes it
+    start_tree = flatten_tree(vocoder.params)
+    ref_tree = {k: start_tree[k] - case['tp_lr'] * g for k, g in ref_grads.items()}
+    specs = flatten_tree(wg_specs(tree))
+    replicated = hashlib.sha1(b''.join(
+        whole[k].cpu().numpy().tobytes() for k in sorted(whole)
+        if not any(a is not None for a in specs[k]))).hexdigest()
+    digests = collectives.all_gather_objects(replicated, tp.group('tp'))
+    # each rank's gradients against its slices of one process's, leaf by leaf
+    grad_err = lambda tree: max(_rel_scale(tree[k], ref_grads[k][parallel._slices(
+        specs[k], ref_grads[k].shape, tp, tp.coords)]) for k in ref_grads)
+    grads, control = flatten_tree(grads), flatten_tree(control)
+    e.update(step_batch = [B, F], lr = case['tp_lr'], loss = loss, ref_loss = ref_loss,
+             loss_rel_err = abs(loss - ref_loss) / abs(ref_loss),
+             grad_rel_err = grad_err(grads), control_grad_rel_err = grad_err(control),
+             leaf_rel_err = max(_rel_scale(whole[k], ref_tree[k]) for k in ref_tree),
+             sharded_leaves = sum(any(a is not None for a in s) for s in specs.values()),
+             replicated_equal_on_ranks = len(set(digests)) == 1, tolerance_grad = 1e-4)
+    check(e['loss_rel_err'] <= 1e-5 and e['grad_rel_err'] <= 1e-4 and e['leaf_rel_err'] <= 1e-4
+          and e['control_grad_rel_err'] > 1e-4 and e['replicated_equal_on_ranks'],
+          'tp SGD step against one process: {}'.format(e))
+    e['wall_s'] = time.perf_counter() - start
+    out['e_waveglow_tp'] = e
+    del local, tree, grads, control, whole, ref_tree, start_tree
+    clock('e_waveglow_tp')
+
+    # (f) WaveGlow over sp on K1: each rank its frames and the halos.  The
+    # counted run is the bf16 route.  K1 itself gives a row the same bits
+    # whatever the length or batch it is computed in (`k1_halo_rows`, each
+    # shard and halo against the whole utterance, held at 1e-5 of scale:
+    # 0.0 read).  The route around it does not: `_end_conv`'s float32
+    # product sums in an order that depends on its rows (a last-bit change
+    # between a shard and the whole), and where that moves a value across
+    # a bf16 rounding of the next flow's K1 input, the inverse flows carry
+    # a bf16 step on (`k1_batch_spread`: the same row alone and beside
+    # another, 1.28e-3 of scale; `--probe-k1-rows` reads each op).  So the
+    # bf16 audio is held at twice that spread (2.5e-3) against the
+    # one-device K1 route, and at K1's bound (1e-2) against the chain; the
+    # halos of the whole route at 1e-5: the float32 chain and K1's float32
+    # instantiation over sp against their one-device routes.
+    start = time.perf_counter()
+    sp = parallel.create_mesh({'sp': 2})
+    mel = parallel.shard_sequence(x['sp_mel'], sp)
+    groups = mel.shape[1] * vocoder.upsample_rate // arch.hp.n_group
+    sp_kw = dict(sigma = case['sp_sigma'])
+    _sync(device)
+    reset_launches()
+    with torch.no_grad(), collectives.tensor_shard(sp):
+        audio = arch.infer(vocoder.params, mel, use_kernel = True, ** sp_kw,
+                           generator = torch.Generator(device).manual_seed(62))
+    _sync(device)
+    f = {'frames': case['sp_frames'], 'launches': read_launches(), 'halo_groups':
+         arch.halo_groups, 'k1_shape': [1, groups + arch.halo_groups],
+         'wall_s': time.perf_counter() - start}
+    f.update(k1_rel_err = _rel_scale(audio, refs['sp_k1']),
+             chain_rel_err = _rel_scale(audio, refs['sp_chain']),
+             k1_batch_spread = refs['sp_k1_batch_spread'], tolerance_bf16_k1 = 2.5e-3,
+             tolerance_bf16_chain = 1e-2)
+    with torch.no_grad(), collectives.tensor_shard(sp):
+        f32 = arch.pack_kernel_params(vocoder.params, dtype = torch.float32)
+        for key, p, kernel in (('chain', vocoder.params, False), ('k1_f32', f32, True)):
+            out_sp = arch.infer(p, mel, use_kernel = kernel, ** sp_kw,
+                                generator = torch.Generator(device).manual_seed(62))
+            f['{}_sp_rel_err'.format(key)] = _rel_scale(out_sp, refs['sp_' + key])
+    with torch.no_grad():
+        rows = _k1_halo_rows(arch, vocoder.params, x['sp_mel'], torch.bfloat16,
+                             torch.Generator(device).manual_seed(65))[0]
+    f['k1_halo_rows'] = rows
+    f['tolerance_halo'] = 1e-5
+    on_card = torch.device(device).type == 'cuda'          # the CPU rehearsal: plain K1
+    check((f['launches']['wn_block'] == arch.hp.n_flows or not on_card)
+          and f['k1_rel_err'] <= 2.5e-3 and f['chain_rel_err'] <= 1e-2
+          and max(f['chain_sp_rel_err'], f['k1_f32_sp_rel_err'],
+                  max(rows['shard_0'], rows['shard_1'], rows['batch']) / rows['scale']) <= 1e-5,
+          'sp vocode on K1: {}'.format(f))
+    out['f_waveglow_sp'] = f
+    del f32
+    clock('f_waveglow_sp')
+
+    # (g) FastSpeech-2 and (h) VITS over tp, deterministic
+    fs_arch, v_arch = _tensor_archs(case)
+    start = time.perf_counter()
+    fs_local = parallel.shard_params(weights['fastspeech2'] if rank == 0 else None, tp,
+                                     parallel.fastspeech2_param_specs)
+    with torch.no_grad(), collectives.tensor_shard(tp):
+        res = fs_arch.infer(fs_local, weights['fastspeech2_state'], x['fs2_tokens'],
+                            max_frames = case['fs2_max_frames'],
+                            min_duration = case['fs2_min_duration'])
+    ref = refs['fs2']
+    rows, moved = _durations_ties(res.durations, ref['durations'], ref['pre'], 0.5)
+    g = {'frames': [int(v) for v in res.lengths], 'rows_equal': int(rows.sum()),
+         'durations_moved': moved,
+         'mel_rel_err': _rel_scale(res.mel[rows], ref['mel'][rows]) if bool(rows.any())
+         else None, 'tolerance': 1e-4}
+    check(g['mel_rel_err'] is not None and g['mel_rel_err'] <= 1e-4,
+          'FastSpeech-2 over tp: {}'.format(g))
+    g['wall_s'] = time.perf_counter() - start
+    out['g_fastspeech2_tp'] = g
+    del fs_local
+    clock('g_fastspeech2_tp')
+    start = time.perf_counter()
+    v_local = parallel.shard_params(weights['vits'] if rank == 0 else None, tp,
+                                    parallel.vits_param_specs)
+    ref = refs['vits']
+    with torch.no_grad(), collectives.tensor_shard(tp):
+        res = v_arch.infer(v_local, {}, x['vits_tokens'], noise_scale = 0., noise_scale_w = 0.,
+                           max_frames = 384, d_control = ref['d_control'])
+    rows, moved = _durations_ties(res.durations, ref['durations'], ref['pre'], 0.)
+    h = {'frames': [int(v) for v in res.lengths], 'rows_equal': int(rows.sum()),
+         'durations_moved': moved,
+         'audio_rel_err': _rel_scale(res.audio[rows], ref['audio'][rows]) if bool(rows.any())
+         else None, 'tolerance': 1e-4}
+    check(h['audio_rel_err'] is not None and h['audio_rel_err'] <= 1e-4
+          and torch.equal(res.lengths[rows], ref['lengths'][rows]), 'VITS over tp: {}'.format(h))
+    h['wall_s'] = time.perf_counter() - start
+    out['h_vits_tp'] = h
+    del v_local
+    clock('h_vits_tp')
+
+    # (i) Tacotron-2's teacher-forced loss over tp
+    start = time.perf_counter()
+    t_local = parallel.shard_params(model.params if rank == 0 else None, tp,
+                                    parallel.tacotron2_param_specs)
+    tokens, mel_in, lengths, mel_out, gate = x['taco']
+    with torch.no_grad(), collectives.tensor_shard(tp):
+        preds, _ = model.arch(t_local, model.state, tokens, mel_in, mel_lengths = lengths,
+                              train = True, generator = torch.Generator(device).manual_seed(63))
+        loss = float(torch.mean(TacotronLoss()((mel_out, gate), preds)['loss']))
+        try:
+            model.arch.infer(t_local, model.state, tokens[:1], max_length = 4)
+            refused = False
+        except ValueError:
+            refused = True
+    i = {'batch': list(case['taco_batch']), 'loss': loss, 'ref_loss': refs['taco_loss'],
+         'loss_rel_err': abs(loss - refs['taco_loss']) / abs(refs['taco_loss']),
+         'tolerance_rel': 1e-5, 'infer_refused': refused,
+         'wall_s': time.perf_counter() - start}
+    check(i['loss_rel_err'] <= 1e-5 and refused, 'Tacotron-2 over tp: {}'.format(i))
+    out['i_tacotron2_tp'] = i
+    clock('i_tacotron2_tp')
+    return out
+
+
 def _nccl_one_rank():
     """One NCCL rank in this process: the NCCL path initialised and its
     collectives called on the card."""
@@ -4388,23 +4792,43 @@ def mesh_phase(model, vocoder, root, ** overrides):
     over {'dp': 2} with streamed audio, K3 and K1 on each rank, against the
     one-rank stepper; (b) two data-parallel SGD WaveGlow steps (8 × 256
     frames, 4 rows a rank), their reduced gradients against one process's;
-    (c) two GPipe steps over {'pp': 2} against `arch.loss`; (d) a
+    (c) two GPipe steps over {'pp': 2} against `arch.loss`; (e) to (i),
+    the tensor and sequence axes (`_tensor_cases`): NVIDIA WaveGlow over
+    {'tp': 2} (a vocode, an SGD step), over {'sp': 2} on K1, FastSpeech-2,
+    VITS and Tacotron-2's teacher-forced loss over {'tp': 2}; (d) a
     Mixtral-8x7B-width transformer (2 layers, bfloat16) over {'ep': 2}
     against one rank; then one NCCL rank in this process.  The one-process
-    references of (a) and (b) run here while the ranks start.  Returns the
-    per-rank K3 row groups and K1 emission shapes and the launches."""
+    references of (a), (b) and (e) to (i) run here while the ranks start.
+    Returns the per-rank K3 row groups and K1 emission shapes, the K1 shape
+    of a rank's sp vocode and the launches."""
     from text_to_speech_tpu_torch import parallel
-    from text_to_speech_tpu_torch.weights import tree_to
+    from text_to_speech_tpu_torch.init import init_fastspeech2, vits_state_dict
+    from text_to_speech_tpu_torch.models.fastspeech2_arch import HParamsFastSpeech2
+    from text_to_speech_tpu_torch.models.tts import VITS
+    from text_to_speech_tpu_torch.text import default_english_tokenizer, en_symbols
+    from text_to_speech_tpu_torch.weights import convert_tree, tree_to
 
     phase_start = time.perf_counter()
     weights = os.path.join(root, 'mesh_weights.pt')
+    # (g) and (h): FastSpeech-2 at the fastspeech2 phase's widths and seed,
+    # VITS as the families phase imports it
+    fs_hp = HParamsFastSpeech2(vocab_size = len(en_symbols))
+    fs_params, fs_state = init_fastspeech2(fs_hp, seed = 13)
+    vits = VITS.from_torch_pretrained(vits_state_dict(23, vocab_size = len(en_symbols)),
+                                      name = 'vits', root = root, device = 'cpu',
+                                      tokenizer = default_english_tokenizer())
     trees = {'tacotron2_params': tree_to(model.params, 'cpu'),
              'tacotron2_state': tree_to(model.state, 'cpu'),
-             'waveglow': tree_to(vocoder.params, 'cpu')}
+             'waveglow': tree_to(vocoder.params, 'cpu'),
+             'fastspeech2': convert_tree(fs_params), 'fastspeech2_state': convert_tree(fs_state),
+             'vits': vits.params}
     torch.save(trees, weights)
-    case = dict(MESH_CASE, weights = weights, refs = os.path.join(root, 'mesh_refs.pt'),
+    case = dict(MESH_CASE, ** TENSOR_CASE, weights = weights,
+                refs = os.path.join(root, 'mesh_refs.pt'),
                 tacotron2 = model.arch.hp.get_config(), waveglow = vocoder.arch.hp.get_config(),
+                fastspeech2_config = fs_hp.get_config(), vits_config = vits.arch.hp.get_config(),
                 ** overrides)
+    del vits
     box = {}
 
     def run():
@@ -4428,11 +4852,13 @@ def mesh_phase(model, vocoder, root, ** overrides):
     if 'error' in box:
         raise box['error']
     ranks = box['ranks']
-    for path in (weights, case['refs']):
+    for path in (weights, case['refs'], case['refs'] + '.tensor'):
         os.remove(path)
     nccl = _nccl_one_rank() if case.get('device', 'cuda') == 'cuda' else None
     launches = {k: [r['serving']['launches'][k] for r in ranks]
                 for k in ('decoder_steps', 'wn_block')}
+    launches['wn_block_sp'] = [r['tensor']['f_waveglow_sp']['launches']['wn_block']
+                               for r in ranks]
     emit({'phase': 'mesh', 'ranks': ranks, 'references_s': ref_sections,
           'nccl_one_rank': nccl, 'spawn_s': box['spawn_s'], 'launches_per_rank': launches,
           'backend': 'gloo', 'note': "both ranks share one card: its times are not two cards'",
@@ -4440,6 +4866,7 @@ def mesh_phase(model, vocoder, root, ** overrides):
     k3_shapes = sorted({tuple(s) for r in ranks for s in r['serving']['k3_shapes']})
     k1_shapes = sorted({tuple(s) for r in ranks for s in r['serving']['emission_shapes']})
     return {'k3_shapes': k3_shapes, 'k1_shapes': k1_shapes,
+            'sp_k1_shape': tuple(ranks[0]['tensor']['f_waveglow_sp']['k1_shape']),
             'launches': {k: sum(v) for k, v in launches.items()}}
 
 
@@ -4474,6 +4901,113 @@ def _gloo_p2p_staged():
         return {'rank': rank}
     got = collectives.recv(sent.shape, sent.dtype, 'cuda', 0)
     return {'rank': rank, 'staged_equal': bool(torch.equal(got, sent))}
+
+
+def _k1_halo_rows(arch, params, mel, dtype, generator):
+    """K1 in `dtype` on each rank's shard and halo of a {'sp': 2} vocode of
+    `mel` (1, F, n_mel), the last flow's block on a seeded stream, against
+    the same rows of the whole utterance, and the whole utterance beside a
+    second row: max abs differences (0.0: bit-equal), and the output's
+    scale → (dict, the block's packed weights, x, spect, K1's output)."""
+    from text_to_speech_tpu_torch.nn import layers as nn
+    from text_to_speech_tpu_torch.ops.wn_block import fused_wn_block
+    diff = lambda a, b: float((a.float() - b.float()).abs().max())
+    pair = lambda t: torch.cat([t, t.flip(1)])
+    spect = arch.upsample_mel(params, mel)
+    lg, halo = spect.shape[1], arch.halo_groups
+    half = lg // 2
+    name = 'flow_{}'.format(arch.hp.n_flows - 1)
+    block = arch.pack_kernel_params({name: params[name]}, dtype = dtype)[name]['block']
+    w = block['packed']
+    k1 = lambda xs, ss: fused_wn_block(
+        xs.contiguous(), ss.contiguous(), w['w_in_cond'], w['b_in_cond'], w['w_rs'],
+        w['b_rs'], w['w_rs_last'], w['b_rs_last'])
+    audio_half = torch.randn((1, lg, block['start']['weight'].shape[1]), generator = generator,
+                             device = mel.device)
+    x = nn.conv1d(block['start'], audio_half)
+    xb, sb = x.to(dtype), spect.to(dtype)
+    whole = k1(xb, sb)
+    rows = {'shard_0': diff(k1(xb[:, :half + halo], sb[:, :half + halo])[:, :half],
+                            whole[:, :half]),
+            'shard_1': diff(k1(xb[:, half - halo:], sb[:, half - halo:])[:, halo:],
+                            whole[:, half:]),
+            'batch': diff(k1(pair(xb), pair(sb))[:1], whole),
+            'scale': float(whole.float().abs().max())}
+    return rows, block, x, spect, whole
+
+
+def _k1_rows(vocoder, mel):
+    """Where the bf16 K1 route's audio for a row depends on the shape the
+    row is computed in: K1 on each rank's shard and halo (`_k1_halo_rows`),
+    in bf16 and float32; each float32 op around it (the upsample, the
+    start and end convs, the 1x1 inverse) at the same pairs of shapes, as
+    max abs differences (0.0: bit-equal); then the route's audio, the same
+    row alone and beside another (relative to scale), in bf16 K1, K1's
+    float32 instantiation and the chain."""
+    from text_to_speech_tpu_torch.nn import layers as nn
+    arch, params = vocoder.arch, vocoder.params
+    hp, device = arch.hp, mel.device
+    diff = lambda a, b: float((a.float() - b.float()).abs().max())
+    pair = lambda t: torch.cat([t, t.flip(1)])
+    gen = torch.Generator(device).manual_seed(65)
+    out = {}
+    with torch.no_grad():
+        for dtype in (torch.bfloat16, torch.float32):
+            rows, block, x, spect, whole = _k1_halo_rows(arch, params, mel, dtype, gen)
+            out['k1_' + str(dtype).split('.')[-1]] = rows
+            if dtype == torch.bfloat16:
+                lg, halo = spect.shape[1], arch.halo_groups
+                half, frames = lg // 2, mel.shape[1] // 2
+                end = arch._end_conv(block, whole)
+                out['end_conv'] = {
+                    'shard': diff(arch._end_conv(block, whole[:, half - halo:])[:, halo:],
+                                  end[:, half:]),
+                    'batch': diff(arch._end_conv(block, pair(whole))[:1], end)}
+        overlap = (hp.upsample_width - 1) // hp.upsample_stride
+        shard = arch.upsample_mel(params, mel[:, frames - overlap:])
+        out['upsample'] = {
+            'shard': diff(shard[:, overlap * (hp.upsample_stride // hp.n_group):], spect[:, half:]),
+            'batch': diff(arch.upsample_mel(params, pair(mel))[:1], spect)}
+        audio_half = torch.randn((1, lg, block['start']['weight'].shape[1]), generator = gen,
+                                 device = device)
+        x = nn.conv1d(block['start'], audio_half)
+        out['start_conv'] = {
+            'shard': diff(nn.conv1d(block['start'], audio_half[:, half - halo:])[:, halo:],
+                          x[:, half:]),
+            'batch': diff(nn.conv1d(block['start'], pair(audio_half))[:1], x)}
+        w_inv = torch.linalg.inv(params['flow_{}'.format(hp.n_flows - 1)]['convinv']['weight']
+                                 .float().T)
+        audio = torch.randn((1, lg, w_inv.shape[0]), generator = gen, device = device)
+        out['convinv'] = {'shard': diff(audio[:, half:] @ w_inv, (audio @ w_inv)[:, half:]),
+                          'batch': diff((pair(audio) @ w_inv)[:1], audio @ w_inv)}
+        z = torch.randn((1, lg, hp.n_group), generator = gen, device = device)
+        f32 = arch.pack_kernel_params(params, dtype = torch.float32)
+        for name, p, kernel in (('bf16', params, True), ('k1_float32', f32, True),
+                                ('chain', params, False)):
+            one = arch.infer(p, mel, sigma = 0.6, z = z, use_kernel = kernel)
+            two = arch.infer(p, pair(mel), sigma = 0.6, z = pair(z), use_kernel = kernel)
+            out['route_batch_' + name] = _rel_scale(two[:1], one)
+    return out
+
+
+def probe_k1_rows():
+    """``--probe-k1-rows``: `_k1_rows` on NVIDIA's WaveGlow (seeded) and
+    the 256-frame mel of the mesh phase's (f), float32 products in true
+    float32 as there."""
+    import tempfile
+    from text_to_speech_tpu_torch.init import nvidia_waveglow_state_dict
+    from text_to_speech_tpu_torch.models.tts import WaveGlow
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with tempfile.TemporaryDirectory() as root:
+        vocoder = WaveGlow.from_nvidia_pretrained(nvidia_waveglow_state_dict(12), root = root,
+                                                  device = 'cuda')
+    mel = _tensor_inputs(TENSOR_CASE, 'cuda')['sp_mel']
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output = True, text = True, check = True).stdout.strip()
+    print(json.dumps({'probe': 'k1_rows', 'torch': torch.__version__, 'card': smi,
+                      ** _k1_rows(vocoder, mel)}))
+    return 0
 
 
 def probe_gloo_p2p():
@@ -4756,6 +5290,9 @@ def main():
         [(torch.bfloat16, B, T) for B, T in mesh_k1 if (B, T) not in serving_k1],
         label = 'fused_wn_block_mesh', clocks = False)) \
         if set(mesh_k1) - set(serving_k1) else serving_wn
+    # K1 at a rank's shard and halo of the sp vocode (e.g. B=1 × 4096 + 255)
+    sp_wn = wn_block_phase([(torch.bfloat16, * mesh['sp_k1_shape'])],
+                           label = 'fused_wn_block_sp', clocks = False)
     steps, eval_full = train_phase()
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
@@ -4919,6 +5456,13 @@ def main():
                 source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
                 replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
                 launches = mesh['launches']['wn_block']),
+        # the vocode with the time axis over {'sp': 2} (two ranks on the
+        # card): K1 at a rank's shard and halo; launches summed over the ranks
+        summary(sp_wn['bfloat16_B{}_T{}'.format(* mesh['sp_k1_shape'])],
+                name = 'fused_wn_block (sp vocode, each rank)', route = 'cuda',
+                source = 'text_to_speech_tpu_torch/csrc/wn_block.cu',
+                replaces = 'text_to_speech_tpu/ops/pallas_kernels.py:277',
+                launches = mesh['launches']['wn_block_sp']),
         # the rate probe: launches in its int8 and its bf16 line
         dict(summary(rate_cases['int8_M512_reps64'], name = 'matmul_rate', route = 'cuda',
                      source = 'text_to_speech_tpu_torch/csrc/matmul_rate.cu',
@@ -4941,4 +5485,6 @@ def main():
 if __name__ == '__main__':
     if sys.argv[1:] == ['--probe-gloo-p2p']:
         sys.exit(probe_gloo_p2p() if torch.cuda.is_available() else 1)
+    if sys.argv[1:] == ['--probe-k1-rows']:
+        sys.exit(probe_k1_rows() if torch.cuda.is_available() else 1)
     sys.exit(main())

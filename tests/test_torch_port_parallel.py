@@ -271,13 +271,6 @@ def test_moe_param_specs_and_layout_only_slices():
     torch.testing.assert_close(local['embedding']['weight'], params['embedding']['weight'])
 
 
-@pytest.mark.parametrize('name', ['waveglow_param_specs', 'fastspeech2_param_specs',
-                                  'vits_param_specs', 'tacotron2_param_specs'])
-def test_tensor_parallel_specs_raise(name):
-    with pytest.raises(NotImplementedError, match = 'queue 1'):
-        getattr(parallel, name)({})
-
-
 def test_backends_refuse_what_they_cannot_run():
     if torch.cuda.device_count() < 2:
         with pytest.raises(ValueError, match = 'one rank a card'):

@@ -373,3 +373,194 @@ def spawned_child_modules():
     """For the import test: what a spawned child has loaded."""
     return {'modules': loaded_modules(), 'rank': dist.get_rank(),
             'world': dist.get_world_size(), 'threads': torch.get_num_threads()}
+
+
+# -- tests/test_torch_port_tensor_parallel.py: the tp and sp axes ---------------------------
+
+def _detached(tree):
+    if isinstance(tree, dict):
+        return {k: _detached(v) for k, v in tree.items()}
+    return tree.detach()
+
+
+def _wg_loss_step(arch, params, mel, audio, mesh, lr):
+    """One SGD step of `arch.loss` on this rank's slices and rows inside
+    `tensor_shard(mesh)`, the gradients averaged over the data axes →
+    (loss, the whole tree gathered)."""
+    from text_to_speech_tpu_torch.train.optimizers import get_optimizer
+    from text_to_speech_tpu_torch.weights import flatten_tree
+    params = trainable(params)
+    opt = get_optimizer('sgd', lr = lr).init(params)
+    with collectives.tensor_shard(mesh):
+        loss = arch.loss(params, mel, audio)
+    loss.backward()
+    collectives.average_gradients(list(flatten_tree(params).values()),
+                                  mesh.group(parallel.data_axes(mesh)))
+    opt.step()
+    return float(loss.detach()), to_numpy(parallel.gather_params(
+        _detached(params), mesh, parallel.waveglow_param_specs))
+
+
+def tensor_parallel_cases(case):
+    """Four ranks: WaveGlow over {'dp': 2, 'tp': 2} (infer, loss),
+    {'sp': 4} (infer on the chain, on K1's and K2's plain versions, with
+    noise) and {'dp': 2, 'sp': 2}, one SGD step on {'dcn': 2, 'tp': 2}; FastSpeech-2 and VITS over
+    {'dp': 2, 'tp': 2}; Tacotron-2's teacher-forced loss over {'dp': 2,
+    'tp': 2}; the exit's gradient against `all_reduce_sum`'s; the MoE
+    transformer's gradients over {'dp': 2, 'ep': 2}."""
+    from text_to_speech_tpu_torch.models.fastspeech2_arch import FastSpeech2
+    from text_to_speech_tpu_torch.models.tacotron2_arch import Tacotron2
+    from text_to_speech_tpu_torch.models.transformers import Transformer
+    from text_to_speech_tpu_torch.models.vits_arch import VITS
+    from text_to_speech_tpu_torch.models.waveglow_arch import WaveGlow
+    from text_to_speech_tpu_torch.train.losses import FastSpeech2Loss, TacotronLoss
+
+    rank = dist.get_rank()
+    out = {'rank': rank, 'modules': None}
+    dp_tp = parallel.create_mesh({'dp': 2, 'tp': 2})
+    tp = collectives.Axis.of(dp_tp, 'tp')
+    rows = lambda x: torch.from_numpy(parallel.shard_batch(x, dp_tp))
+    out['coords'] = dp_tp.coords
+
+    # WaveGlow over dp × tp: infer and loss; the kernels refused
+    wg = case['waveglow']
+    arch = WaveGlow(** wg['config'])
+    specs = parallel.waveglow_param_specs
+    params = parallel.shard_params(wg['params'] if rank == 0 else None, dp_tp, specs)
+    out['wg_in_conv_shape'] = tuple(params['flow_0']['block']['in_conv_0']['weight'].shape)
+    with torch.no_grad(), collectives.tensor_shard(dp_tp):
+        out['wg_audio'] = arch.infer(params, rows(wg['mel']), deterministic = True).numpy()
+        out['wg_loss'] = float(arch.loss(params, rows(wg['mel']), rows(wg['audio'])))
+        refused = []
+        for kw in ({'use_kernel': True},):
+            try:
+                arch.infer(params, rows(wg['mel']), deterministic = True, ** kw)
+            except ValueError as e:
+                refused.append(str(e))
+        out['wg_kernel_refused'] = refused
+
+    # WaveGlow over sp: the time axis split four ways
+    sp = parallel.create_mesh({'sp': 4})
+    sp_case = case['waveglow_sp']
+    sp_arch = WaveGlow(** sp_case['config'])
+    sp_params = parallel.shard_params(sp_case['params'] if rank == 0 else None, sp)
+    mel = torch.from_numpy(parallel.shard_sequence(sp_case['mel'], sp))
+    z = torch.from_numpy(parallel.shard_sequence(sp_case['z'], sp))
+    with torch.no_grad(), collectives.tensor_shard(sp):
+        out['sp_halo'] = sp_arch.halo_groups
+        out['sp_chain'] = sp_arch.infer(sp_params, mel, deterministic = True).numpy()
+        out['sp_noise'] = sp_arch.infer(sp_params, mel, sigma = 0.7, generator =
+                                        torch.Generator().manual_seed(3)).numpy()
+        out['sp_z'] = sp_arch.infer(sp_params, mel, z = z).numpy()
+        out['sp_k1'] = sp_arch.infer(sp_params, mel, deterministic = True,
+                                     use_kernel = True).numpy()
+        out['sp_k2'] = sp_arch.infer(sp_arch.quantize_kernel_params(sp_params), mel,
+                                     deterministic = True, use_kernel = True).numpy()
+
+    # the halo exchange: rows 4r..4r+3 of 0..15 on rank r, a halo of 2; the
+    # backward sends each halo row's gradient to its owner
+    x = torch.arange(4. * rank, 4. * rank + 4., requires_grad = True)
+    ext = collectives.halo_exchange(x[None, :, None], 2, 1, collectives.Axis.of(sp, 'sp'))
+    (ext[0, :, 0] * torch.arange(1., 9.)).sum().backward()
+    out['halo'], out['halo_grad'] = ext[0, :, 0].tolist(), x.grad.tolist()
+
+    # dp × sp: each rank its row's frames, the noise its part of the whole draw
+    dp_sp = parallel.create_mesh({'dp': 2, 'sp': 2})
+    mel = parallel.shard_sequence(parallel.shard_batch(sp_case['mel'], dp_sp), dp_sp)
+    with torch.no_grad(), collectives.tensor_shard(dp_sp), \
+            collectives.batch_shard(dp_sp.group('dp'), dp_sp.coords['dp'], 2):
+        out['dp_sp_noise'] = sp_arch.infer(sp_params, torch.from_numpy(mel), sigma = 0.7,
+                                           generator = torch.Generator().manual_seed(3)).numpy()
+
+    # one SGD step on a hybrid mesh: the batch over dcn, the channels over tp
+    hybrid = parallel.create_hybrid_mesh({'tp': 2}, {'dcn': 2})
+    hybrid_rows = lambda x: torch.from_numpy(parallel.shard_batch(x, hybrid, ('dcn',)))
+    local = parallel.shard_params(wg['params'] if rank == 0 else None, hybrid, specs)
+    out['hybrid_loss'], out['hybrid_params'] = _wg_loss_step(
+        arch, local, hybrid_rows(wg['mel']), hybrid_rows(wg['audio']), hybrid, 1e-3)
+
+    # FastSpeech-2 over dp × tp: infer and the teacher-forced loss
+    fs = case['fastspeech2']
+    fs_arch = FastSpeech2(** fs['config'])
+    fs_params = parallel.shard_params(fs['params'] if rank == 0 else None, dp_tp,
+                                      parallel.fastspeech2_param_specs)
+    fs_state = parallel.shard_params(fs['state'] if rank == 0 else None, dp_tp)
+    out['fs_query_shape'] = tuple(fs_params['encoder']['layer_0']['attention']['query']
+                                  ['weight'].shape)
+    batch = [rows(x) for x in fs['batch']]
+    with torch.no_grad(), collectives.tensor_shard(dp_tp):
+        out['fs_mel'] = fs_arch.infer(fs_params, fs_state, rows(fs['tokens']).long(),
+                                      max_frames = 32).mel.numpy()
+        tokens, durations, pitch, energy, mel = batch
+        preds, _ = fs_arch(fs_params, fs_state, tokens.long(), durations = durations,
+                           pitch = pitch, energy = energy, max_frames = 32)
+        out['fs_loss'] = float(torch.mean(
+            FastSpeech2Loss()((mel, durations, pitch, energy), preds)['loss']))
+
+    # VITS over dp × tp: infer at noise 0 (against JAX) and with noise
+    vits = case['vits']
+    v_arch = VITS(** vits['config'])
+    v_params = parallel.shard_params(vits['params'] if rank == 0 else None, dp_tp,
+                                     parallel.vits_param_specs)
+    with torch.no_grad(), collectives.tensor_shard(dp_tp):
+        v_tokens = rows(vits['tokens']).long()
+        quiet = v_arch.infer(v_params, {}, v_tokens, noise_scale = 0., noise_scale_w = 0.,
+                             ** vits['kw'])
+        with collectives.batch_shard(dp_tp.group('dp'), dp_tp.coords['dp'], 2):
+            noisy = v_arch.infer(v_params, {}, v_tokens,
+                                 generator = torch.Generator().manual_seed(7), ** vits['kw'])
+        # the text encoder in train mode: its dropouts' masks those of the
+        # whole batch (the FFN's, on this rank's channels, its slice)
+        with collectives.batch_shard(dp_tp.group('dp'), dp_tp.coords['dp'], 2):
+            out['vits_encoded_train'] = v_arch.encode_text(
+                v_params, v_tokens, train = True,
+                generator = torch.Generator().manual_seed(8))[0].numpy()
+    out['vits_quiet'] = (quiet.audio.numpy(), quiet.lengths.numpy())
+    out['vits_noisy'] = (noisy.audio.numpy(), noisy.lengths.numpy())
+
+    # Tacotron-2's teacher-forced loss over dp × tp (batch norms on the
+    # whole batch), and its decode refused
+    taco = case['tacotron2']
+    t_arch = Tacotron2(** taco['config'])
+    t_params = parallel.shard_params(taco['params'] if rank == 0 else None, dp_tp,
+                                     parallel.tacotron2_param_specs)
+    t_state = parallel.shard_params(taco['state'] if rank == 0 else None, dp_tp)
+    out['taco_rnn_shape'] = tuple(t_params['decoder']['attention_rnn']['weight_ih'].shape)
+    tokens, mel_in, lengths, mel_out, gate = [rows(x) for x in taco['batch']]
+    with torch.no_grad(), collectives.tensor_shard(dp_tp), \
+            collectives.batch_shard(dp_tp.group('dp'), dp_tp.coords['dp'], 2):
+        preds, _ = t_arch(t_params, t_state, tokens.long(), mel_in, mel_lengths = lengths,
+                          train = True, generator = torch.Generator().manual_seed(0))
+        out['taco_loss'] = float(torch.mean(TacotronLoss()((mel_out, gate), preds)['loss']))
+        refused = []
+        for call in (lambda: t_arch.infer(t_params, t_state, tokens.long(), max_length = 4),
+                     lambda: t_arch.infer_fused(t_params, t_state, tokens.long(),
+                                                max_length = 4)):
+            try:
+                call()
+            except ValueError as e:
+                refused.append(str(e))
+        out['taco_decode_refused'] = refused
+
+    # the exit's backward against all_reduce_sum's, on tp: y = Σ_r x_r w_r
+    w = torch.full((3,), float(tp.index + 1), requires_grad = True)
+    x = torch.arange(1., 4.)
+    (collectives.tp_exit(x * w, tp) * 2.).sum().backward()
+    out['exit_grad'] = w.grad.tolist()
+    w.grad = None
+    (collectives.all_reduce_sum(x * w, tp.group) * 2.).sum().backward()
+    out['all_reduce_sum_grad'] = w.grad.tolist()
+
+    # the MoE combine: the gradients of a tiny ep forward
+    moe = case['moe']
+    ep = parallel.create_mesh({'dp': 2, 'ep': 2})
+    model = Transformer(mesh = ep, ** moe['config'])
+    local = trainable(parallel.shard_params(moe['params'] if rank == 0 else None, ep,
+                                            parallel.moe_param_specs))
+    logits, _ = model.decode(local, torch.from_numpy(parallel.shard_batch(moe['tokens'], ep,
+                                                                          'dp')))
+    (logits * torch.from_numpy(parallel.shard_batch(moe['weights'], ep, 'dp'))).sum().backward()
+    out['moe_grads'] = grads(local)
+    out['moe_ep'] = ep.coords['ep']
+    out['modules'] = loaded_modules()
+    return out

@@ -22,6 +22,12 @@ model passes them) promotes the prediction it scales as a JAX array does,
 where a Python float keeps its dtype.  `__call__` is the teacher-forced
 training pass (ground-truth durations, pitch and energy; dropout and the
 postnet's batch norms in train mode), as the JAX package's.
+
+Inside `parallel.collectives.tensor_shard` over ``tp`` the FFT blocks are
+split as Megatron splits them (`parallel.fastspeech2_param_specs`): each
+rank holds ``n_heads / tp`` heads and ``ffn_dim / tp`` FFN channels, and
+each sub-layer ends in one all-reduce before its bias; the variance
+adaptor, the embeddings, the norms and the postnet run whole on every rank.
 """
 
 import collections
@@ -31,6 +37,7 @@ import torch.nn.functional as F
 
 from ..hparams import HParams
 from ..nn import layers as nn
+from ..parallel.collectives import tensor_axis, tp_enter
 from ..weights import cast_tree
 from .transformers.attention import mha
 from .transformers.transformer_arch import sinusoidal_embedding
@@ -139,14 +146,15 @@ class FastSpeech2:
         conv FFN, each added (after dropout in train mode) and normalized;
         padded rows re-zeroed after each."""
         hp = self.hp
-        h, _ = mha(params['attention'], x, n_heads = hp.n_heads, mask = mask)
+        tp = tensor_axis('tp')
+        h, _ = mha(params['attention'], x, n_heads = hp.n_heads, mask = mask, tp = tp)
         if train:
             h = nn.dropout(h, hp.drop_rate, generator = generator)
         x = nn.layer_norm(params['attention_norm'], x + h, hp.epsilon)
         if pad_mask is not None:
             x = x * pad_mask.to(x.dtype)
-        h = torch.relu(nn.conv1d(params['conv1'], x))
-        h = nn.conv1d(params['conv2'], h)
+        h = torch.relu(nn.conv1d(params['conv1'], tp_enter(x, tp)))
+        h = nn.row_parallel(nn.conv1d, params['conv2'], h, tp)
         if train:
             h = nn.dropout(h, hp.drop_rate, generator = generator)
         x = nn.layer_norm(params['ffn_norm'], x + h, hp.epsilon)

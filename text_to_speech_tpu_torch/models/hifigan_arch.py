@@ -49,6 +49,7 @@ import torch.nn.functional as F
 
 from ..hparams import HParams
 from ..nn import layers as nn
+from ..parallel.collectives import tp_split
 from ..weights import cast_tree, convert_tree
 
 HParamsHiFiGAN = HParams(
@@ -263,21 +264,26 @@ class HiFiGAN(GANDiscriminators):
             x = x + h
         return x
 
-    def apply(self, params, mel, *, cond = None, dtype = None):
+    def apply(self, params, mel, *, cond = None, dtype = None, tp = None):
         """mel (B, T, n_mel) → float32 waveform (B, T * total_upsampling);
-        under `dtype` the params and the mel are cast."""
+        under `dtype` the params and the mel are cast.  `tp` (a
+        `parallel.collectives.Axis`): ``conv_pre`` holds this rank's out
+        channels and the first upsample its in channels
+        (`parallel.vits_param_specs`); their partial sums are all-reduced
+        before the upsample's bias, and the rest runs whole."""
         hp = self.hp
         x = mel
         if dtype is not None:
             x = x.to(dtype)
             params = cast_tree(params, dtype)
-        x = nn.conv1d(params['conv_pre'], x)
+        x = nn.col_parallel(nn.conv1d, params['conv_pre'], x, tp)
         if cond is not None:
-            x = x + cond[:, None, :].to(x.dtype)
+            x = x + tp_split(cond, -1, tp)[:, None, :].to(x.dtype)
         n_kernels = len(hp.resblock_kernel_sizes)
         for i, rate in enumerate(hp.upsample_rates):
             stage = params['up{}'.format(i)]
-            x = nn.conv1d_transpose(stage['up'], F.leaky_relu(x, hp.leaky_slope), stride = rate)
+            x = nn.row_parallel(nn.conv1d_transpose, stage['up'], F.leaky_relu(x, hp.leaky_slope),
+                                tp if i == 0 else None, stride = rate)
             extra = x.shape[1] - mel.shape[1] * _prod(hp.upsample_rates[:i + 1])
             x = x[:, extra // 2: x.shape[1] - (extra - extra // 2)]
             acc = None

@@ -28,6 +28,12 @@ stepper (`runtimes.serving.make_tacotron_stepper`), on the plain loop or on
 the kernel, one launch for each group of at most 8 rows.  The
 teacher-forced loop runs no kernel of the port: the JAX package's is a
 `lax.scan`, outside Pallas.
+
+Inside `parallel.collectives.tensor_shard` over ``tp`` the teacher-forced
+`__call__` runs on `parallel.tacotron2_param_specs` slices: each LSTM's
+4U pre-activations and the frame projection's outputs are gathered every
+step.  That is a training split, not a serving plan: `infer`,
+`infer_fused` and `decode_chunk` under ``tp`` raise.
 """
 
 import collections
@@ -36,6 +42,7 @@ import torch
 
 from ..hparams import HParams
 from ..nn import layers as nn
+from ..parallel.collectives import tensor_axis, tp_all_gather, tp_enter
 from ..ops.decoder_kernel import (
     MAX_ROWS, decoder_steps, init_decoder_state, pack_decoder_weights, quantize_lstm_weights)
 from ..weights import cast_tree
@@ -92,6 +99,13 @@ HParamsTacotron2 = HParams(
     postnet_epsilon = 1e-5,
     postnet_momentum = 0.1,
 )
+
+
+def _refuse_tp(name):
+    if tensor_axis('tp') is not None:
+        raise ValueError('{} under tp: tacotron2_param_specs splits the teacher-forced '
+                         'training pass, not an autoregressive decode, which would gather '
+                         'every step'.format(name))
 
 
 class Tacotron2:
@@ -222,7 +236,9 @@ class Tacotron2:
         attn_rnn_state, dec_rnn_states, context, (prev_attn, cum_attn) = cell_state
 
         x = torch.cat([prenet_out, context], dim = -1)
-        attn_out, attn_rnn_state = nn.lstm_cell(params['attention_rnn'], x, attn_rnn_state)
+        tp = tensor_axis('tp')
+        attn_out, attn_rnn_state = nn.lstm_cell(params['attention_rnn'], x, attn_rnn_state,
+                                                tp = tp)
 
         context, attn_weights = self.attention_step(
             params, attn_out, memory, processed_memory, prev_attn, cum_attn, attn_mask)
@@ -232,7 +248,7 @@ class Tacotron2:
         new_rnn_states = []
         for i in range(hp.decoder_n_lstm):
             y, s = nn.lstm_cell(params['decoder_rnn']['cell_{}'.format(i)], y,
-                                dec_rnn_states[i])
+                                dec_rnn_states[i], tp = tp)
             new_rnn_states.append(s)
 
         cell_out = torch.cat([y, context], dim = -1)
@@ -255,7 +271,12 @@ class Tacotron2:
 
     def _project(self, params, cell_out):
         hp = self.hp
-        frame = nn.dense(params['linear_projection'], cell_out)
+        tp = tensor_axis('tp')
+        # under tp: this rank's rows of the projection, the frame gathered
+        # before its bias
+        proj = params['linear_projection']
+        frame = tp_all_gather(tp_enter(cell_out, tp) @ proj['weight'].T, -1, tp)
+        if 'bias' in proj: frame = frame + proj['bias']
         gate_in = torch.cat([cell_out, frame], dim = -1) if hp.pred_stop_on_mel else cell_out
         gate = nn.dense(params['gate_layer'], gate_in)
         if hp.with_logits: gate = torch.sigmoid(gate)
@@ -318,6 +339,7 @@ class Tacotron2:
         Returns (frames (B, K, n_mel * r), gates (B, K) after the sigmoid,
         the group's last subframe, (frame, cell_state))."""
         hp = self.hp
+        _refuse_tp('decode_chunk')
         if deterministic is None: deterministic = hp.prenet_deterministic
         if weights is not None:
             return self._decode_chunk_fused(
@@ -450,6 +472,7 @@ class Tacotron2:
         (B, spk): the speaker of each row, for a speaker-conditioned model.
         Returns `Tacotron2InferenceOutput`."""
         hp = self.hp
+        _refuse_tp('infer')
         r = hp.n_frames_per_step
         if max_length is None:
             max_length = hp.max_decoder_steps * r
@@ -584,6 +607,7 @@ class Tacotron2:
         ``layer_0([mel | spk]) = layer_0_mel(mel) + spk @ in0[n_mel:]``, in
         float32 (from the compute-dtype values, as the JAX package folds it)."""
         hp = self.hp
+        _refuse_tp('infer_fused')
         if deterministic is None: deterministic = hp.prenet_deterministic
         if max_length is None: max_length = hp.max_decoder_steps
         max_length = int(max_length)

@@ -25,6 +25,7 @@ import torch
 
 from ...devices import default_device
 from ...nn import layers as nn
+from ...parallel.collectives import tp_enter
 
 
 def init_mha(generator, dim, n_heads, *, kv_dim = None, n_kv_heads = None,
@@ -108,7 +109,8 @@ def mha(params,
         use_rope = False,
         rope_base = 10000.0,
         rel_bias = None,
-        scale = None):
+        scale = None,
+        tp = None):
     """Attention of `query` (B, Tq, D) over `key_value` (self-attention when
     None).
 
@@ -121,7 +123,18 @@ def mha(params,
     - fewer key/value heads than query heads: each group of
       ``heads / kv_heads`` query heads shares a key/value head, as
       ``jnp.repeat`` over the head axis does.
+    - `tp`: a `collectives.Axis` over which the projections are split as
+      Megatron splits them (`parallel.fastspeech2_param_specs`): q / k / v
+      hold this rank's ``n_heads / tp`` heads, ``output`` their part of its
+      inputs; the partial outputs are all-reduced before its bias.
     Returns (output (B, Tq, D_out), the cache with its new index or None)."""
+    if tp is not None:
+        if n_heads % tp.size:
+            raise ValueError('{} heads do not split over {} ranks'.format(n_heads, tp.size))
+        n_heads //= tp.size
+        query = tp_enter(query, tp)
+        if key_value is not None:
+            key_value = tp_enter(key_value, tp)
     kv = key_value if key_value is not None else query
     B, Tq, _ = query.shape
     Tk = kv.shape[1]
@@ -168,7 +181,7 @@ def mha(params,
     weights = torch.softmax(logits, dim = -1)
     out = (weights.reshape(B, n_kv, rep * Tq, L) @ v).reshape(B, n_heads, Tq, head_dim)
     out = out.transpose(1, 2).reshape(B, Tq, n_heads * head_dim)
-    return nn.dense(params['output'], out), new_cache
+    return nn.row_parallel(nn.dense, params['output'], out, tp), new_cache
 
 
 def build_padding_mask(lengths = None, tokens = None, pad_token = 0, max_length = None):

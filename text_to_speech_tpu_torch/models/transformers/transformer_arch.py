@@ -36,7 +36,7 @@ from ...devices import default_device
 from ...hparams import HParams
 from ...nn import layers as nn
 from ...nn.activations import get_activation
-from ...parallel.collectives import all_reduce_sum
+from ...parallel.collectives import Axis, tp_enter, tp_exit, tp_split
 from .attention import (
     init_mha, mha, init_kv_cache, build_padding_mask, build_look_ahead_mask,
     combine_masks, cache_positions,
@@ -246,21 +246,24 @@ class Transformer:
         w_full = torch.zeros_like(probs).scatter(-1, top_i, top_w).to(x.dtype)
         we = params['experts']
         n_local = we['gate']['weight'].shape[0]
-        sharded = n_local != hp.n_experts
-        if sharded:
+        ep = None
+        if n_local != hp.n_experts:
             mesh = self.mesh
             if mesh is None or 'ep' not in mesh.shape:
                 raise ValueError('{} of {} experts a layer, and no mesh with an ep axis'
                                  .format(n_local, hp.n_experts))
-            lo = mesh.coords['ep'] * n_local
-            w_full = w_full[..., lo: lo + n_local]
+            # the rows are replicated over ep: they enter the local experts
+            # (their gradient summed over the ranks), the weights of the
+            # local experts are this rank's slice, and the combine's partial
+            # sums leave by `tp_exit`, whose backward passes the gradient on
+            # as it is (an all-reduce there would give ep times it)
+            ep = Axis.of(mesh, 'ep')
+            x = tp_enter(x, ep)
+            w_full = tp_split(w_full, -1, ep)
         g = torch.einsum('btd,efd->ebtf', x, we['gate']['weight'])
         u = torch.einsum('btd,efd->ebtf', x, we['up']['weight'])
         y = torch.einsum('ebtf,edf->ebtd', act(g) * u, we['down']['weight'])
-        out = torch.einsum('ebtd,bte->btd', y, w_full)
-        if sharded:
-            out = all_reduce_sum(out, self.mesh.group('ep'))
-        return out
+        return tp_exit(torch.einsum('ebtd,bte->btd', y, w_full), ep)
 
     def _relative_bias(self, params, q_len, k_len, *, bidirectional, offset = 0):
         """The additive attention bias of T5: (1, H, Tq, Tk), or (B, H, Tq,

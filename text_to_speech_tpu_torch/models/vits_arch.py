@@ -49,6 +49,14 @@ draws.  Under `dtype` every float32 leaf is cast; the spline flows compute
 in float32 inside.  The JAX package runs all of it in XLA, outside any
 Pallas kernel; the port runs it as plain tensor code and launches no kernel
 of its own.
+
+Inside `parallel.collectives.tensor_shard` over ``tp`` the three regions
+of `parallel.vits_param_specs` split: the text encoder's blocks as
+Megatron splits them (``n_heads / tp`` heads, the relative tables shared
+and whole), the posterior's and the flows' WaveNet stacks on their hidden
+channels (`_wn`), and the generator's ``conv_pre`` and first upsample
+(`HiFiGAN.apply`); every tp rank draws the same noise, every dp rank its
+rows of the whole batch's draw (`batch_draw`).
 """
 
 import collections
@@ -60,7 +68,8 @@ import torch.nn.functional as F
 from ..hparams import HParams
 from ..nn import layers as nn
 from ..nn.flows import rational_quadratic_spline
-from ..parallel.collectives import batch_draw, batch_sum
+from ..parallel.collectives import (
+    batch_draw, batch_sum, tensor_axis, tp_all_gather, tp_enter, tp_split)
 from ..weights import cast_tree
 from .fastspeech2_arch import length_regulator
 from .hifigan_arch import HParamsHiFiGAN, HiFiGAN
@@ -218,23 +227,29 @@ class VITS:
 
     def _wn(self, wn, x, mask, g, n_layers):
         """The gated residual WaveNet stack (non-causal, dilation 1): in-conv
-        → tanh · sigmoid with the global cond added → res / skip."""
+        → tanh · sigmoid with the global cond added → res / skip.  Under
+        ``tp`` the stream and the skip sum hold this rank's hidden channels
+        (`in_conv` and `res_skip_conv` split on their in channels): each
+        in-conv's partial sums are all-reduced before its bias, each
+        res / skip conv's reduce-scattered onto the rank's channels, and the
+        skip sum gathered at the end."""
+        tp = tensor_axis('tp')
         C = x.shape[-1]
         cond = nn.dense(wn['cond'], g) if g is not None and 'cond' in wn else None
+        x = tp_split(x, -1, tp)
         skip = torch.zeros_like(x)
         for i in range(n_layers):
-            h = nn.conv1d(wn['in_conv_{}'.format(i)], x)
+            h = nn.row_parallel(nn.conv1d, wn['in_conv_{}'.format(i)], x, tp)
             if cond is not None:
                 h = h + cond[:, None, i * 2 * C: (i + 1) * 2 * C].to(h.dtype)
             a, b = h.chunk(2, dim = -1)
-            out = nn.conv1d(wn['res_skip_conv_{}'.format(i)], torch.tanh(a) * torch.sigmoid(b))
-            if i < n_layers - 1:
-                res, s = out.chunk(2, dim = -1)
+            last = i == n_layers - 1
+            res, s = nn.res_skip_split(wn['res_skip_conv_{}'.format(i)],
+                                       torch.tanh(a) * torch.sigmoid(b), C, tp, last = last)
+            if not last:
                 x = (x + res) * mask
-                skip = skip + s
-            else:
-                skip = skip + out
-        return skip * mask
+            skip = skip + s
+        return tp_all_gather(skip * mask, -1, tp)
 
     def global_cond(self, params, *, speaker_ids = None, speaker_embedding = None):
         """→ g (B, gin_channels) or None."""
@@ -332,7 +347,8 @@ class VITS:
         x = self._dds(p['dds'], x, mask)
         x = nn.conv1d(p['proj'], x) * mask
         if noise is None:
-            noise = torch.randn(mask.shape[:2] + (2,), generator = generator, device = h.device)
+            noise = batch_draw(torch.randn, mask.shape[:2] + (2,), generator = generator,
+                               device = h.device)
         z = noise.to(h.dtype) * torch.as_tensor(noise_scale_w, dtype = h.dtype,
                                                 device = h.device) * mask
         z, _ = self._flow_stack(p['flows'], z, mask, x, reverse = True, skip_conv_flow_0 = True)
@@ -397,11 +413,16 @@ class VITS:
         """Self-attention with windowed relative position terms: positions
         beyond ±window contribute zero relative embeddings."""
         hp = self.hp
+        tp = tensor_axis('tp')
         if 'rel_k' not in blk:
-            return mha(blk['attention'], x, n_heads = hp.n_heads, mask = attn_mask)[0]
+            return mha(blk['attention'], x, n_heads = hp.n_heads, mask = attn_mask, tp = tp)[0]
         B, L, _ = x.shape
-        H = hp.n_heads
+        H = hp.n_heads // (tp.size if tp is not None else 1)
         p = blk['attention']
+        # under tp: this rank's heads; the tables, shared by every head,
+        # enter whole (their gradient summed over the ranks)
+        x = tp_enter(x, tp)
+        rel_k, rel_v = tp_enter(blk['rel_k'], tp), tp_enter(blk['rel_v'], tp)
         D = p['query']['weight'].shape[0] // H
         to_heads = lambda name: nn.dense(p[name], x).reshape(B, L, H, D).transpose(1, 2)
         q, k, v = to_heads('query'), to_heads('key'), to_heads('value')
@@ -419,13 +440,13 @@ class VITS:
         ar = torch.arange(L, device = x.device)
         idx = torch.clamp(ar[None, :] - ar[:, None] + L - 1, 0, 2 * L - 2)       # (L, L)
 
-        rel_local = (q @ table_for(blk['rel_k']).T) * scale                     # (B, H, L, 2L-1)
+        rel_local = (q @ table_for(rel_k).T) * scale                     # (B, H, L, 2L-1)
         logits = logits + torch.gather(rel_local, -1, idx.expand(B, H, L, L))
         logits = logits.masked_fill(~attn_mask, -1e9)
         attn = torch.softmax(logits.float(), dim = -1).to(x.dtype)
-        out = attn @ v + torch.einsum('bhlm,lmd->bhld', attn, table_for(blk['rel_v'])[idx])
+        out = attn @ v + torch.einsum('bhlm,lmd->bhld', attn, table_for(rel_v)[idx])
         out = out.transpose(1, 2).reshape(B, L, H * D)
-        return nn.dense(p['output'], out)
+        return nn.row_parallel(nn.dense, p['output'], out, tp)
 
     def encode_text(self, params, tokens, *, train = False, generator = None):
         """tokens (B, L) → (h (B, L, H), m_p, logs_p (B, L, C), token mask
@@ -443,15 +464,18 @@ class VITS:
             x = x + self._position_table(x.device)[None, :L].to(x.dtype)
         x = self._dropout(x, hp.drop_rate, train, generator)
         x = x * fmask.to(x.dtype)
+        tp = tensor_axis('tp')
         for i in range(hp.n_text_layers):
             blk = params['text_encoder']['layer_{}'.format(i)]
             h = self._dropout(self._text_attention(blk, x, attn_mask), hp.drop_rate, train,
                               generator)
             x = nn.layer_norm(blk['attention_norm'], x + h, hp.epsilon) * fmask.to(x.dtype)
-            h = torch.relu(nn.conv1d(blk['conv1'], x))
-            h = self._dropout(h, hp.drop_rate, train, generator)
+            # under tp: conv1 makes this rank's FFN channels, conv2 sums them
+            h = torch.relu(nn.conv1d(blk['conv1'], tp_enter(x, tp)))
+            if train:
+                h = nn.dropout(h, hp.drop_rate, generator = generator, tp = tp)
             # masked between the convs: conv1's bias and relu make pad rows non-zero
-            h = nn.conv1d(blk['conv2'], h * fmask.to(h.dtype))
+            h = nn.row_parallel(nn.conv1d, blk['conv2'], h * fmask.to(h.dtype), tp)
             x = nn.layer_norm(blk['ffn_norm'], x + h, hp.epsilon) * fmask.to(x.dtype)
         stats = nn.conv1d(params['text_proj'], x) * fmask.to(x.dtype)
         m_p, logs_p = stats.chunk(2, dim = -1)
@@ -563,7 +587,8 @@ class VITS:
         audio_seg = _gather_window(audio, starts * hop, seg * hop)
         cond = nn.dense(params['generator_cond'], g) \
             if g is not None and 'generator_cond' in params else None
-        audio_hat = self.generator.apply(params['generator'], z_seg, cond = cond)
+        audio_hat = self.generator.apply(params['generator'], z_seg, cond = cond,
+                                         tp = tensor_axis('tp'))
         return {'z_p': z_p, 'm_p': m_p, 'logs_p': logs_p, 'logs_q': logs_q,
                 'frame_mask': frame_mask, 'token_mask': tok_mask, 'durations': w,
                 'log_durations_hat': logw_hat, 'duration_nll': duration_nll,
@@ -619,8 +644,8 @@ class VITS:
         stats, frame_mask, lengths, idx = length_regulator(
             torch.cat([m_p, logs_p], dim = -1), durations, max_frames)
         m_p_f, logs_p_f = stats.chunk(2, dim = -1)
-        eps = torch.randn(m_p_f.shape, generator = generator, device = m_p_f.device) \
-            .to(m_p_f.dtype)
+        eps = batch_draw(torch.randn, m_p_f.shape, generator = generator,
+                         device = m_p_f.device).to(m_p_f.dtype)
         z_p = m_p_f + eps * torch.exp(logs_p_f) * torch.as_tensor(
             noise_scale, dtype = m_p_f.dtype, device = m_p_f.device)
         z_p = z_p * frame_mask[..., None].to(z_p.dtype)
@@ -640,7 +665,7 @@ class VITS:
             z = z.to(dtype)
             if cond is not None:
                 cond = cond.to(dtype)
-        return self.generator.apply(gen, z, cond = cond)
+        return self.generator.apply(gen, z, cond = cond, tp = tensor_axis('tp'))
 
     def infer(self, params, state, tokens, *, speaker_embedding = None, speaker_ids = None,
               max_frames = None, noise_scale = 0.667, noise_scale_w = 0.8, d_control = 1.,

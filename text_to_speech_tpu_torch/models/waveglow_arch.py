@@ -13,6 +13,17 @@ that ``wn_train_fused`` selects; and the XLA-level int8 path
 products accumulate in int32 (`int8_conv1d` on `torch._int_mm`).
 Parameters are the port's layouts (`weights.waveglow_from_jax`).  Each
 flow's 1×1 invertible conv is a (c, c) ``weight`` with ``y = audio @ weight.T``.
+
+Across ranks (inside `parallel.collectives.tensor_shard`): over ``tp`` the
+WN blocks split their hidden channels (`parallel.waveglow_param_specs`)
+and run the per-layer chain with its collectives written out
+(`wn_block`), in `forward`, `loss` and `infer`; the WN kernels fuse
+across the reduce, so ``use_kernel`` and ``use_pallas`` raise there.  Over
+``sp`` `infer` splits the time axis: each rank takes its mel frames, the
+upsample's overlap and each block's receptive field from its neighbours
+(`collectives.halo_exchange`), runs every block on its shard and halos
+through the same route as one device (K1 or K2 under ``use_kernel``),
+and the shards are gathered in order.
 """
 
 import functools
@@ -25,6 +36,7 @@ from ..nn import layers as nn
 from ..ops.wn_block import fused_wn_block, pack_wn_weights
 from ..ops.wn_block_int8 import fused_wn_block_int8, pack_wn_int8, quantize_wn_weights
 from ..ops.wn_layer import fused_wn_layer
+from ..parallel.collectives import batch_draw, halo_exchange, tensor_axis, tp_all_gather
 from ..weights import cast_tree, flatten_tree, unflatten_tree
 
 HParamsWaveGlow = HParams(
@@ -189,9 +201,28 @@ class WaveGlow:
         otherwise as the per-layer chain, whose layers run in the
         `ops.wn_layer` kernel under ``fused`` or ``hp.use_pallas`` wherever
         C % 128 == 0 and the convs have 3 taps (the JAX package's condition
-        without its T % 512: the CUDA kernel takes any length)."""
+        without its T % 512: the CUDA kernel takes any length).
+
+        Under ``tp`` (`collectives.tensor_shard`, the params a rank's
+        `parallel.waveglow_param_specs` slices) the chain splits the hidden
+        channels: ``start`` makes this rank's channels of the stream; each
+        ``in_conv`` sums its channels' part of all 2C outputs, all-reduced
+        before its bias, the conditioning and the gate; ``res_skip_conv``
+        takes the gate's channels of this rank and its partial sums are
+        reduce-scattered onto this rank's channels of x and of the skip
+        sum; ``end`` sums its part, all-reduced before its bias.  The
+        kernels fuse across those reduces and the int8 convs have no split,
+        so they raise there."""
         hp = self.hp
         n_ch = hp.wn_channels
+        tp = tensor_axis('tp')
+        # the XLA-level int8 path (`quantize_params`): every conv but the
+        # start and end ones in int8 with int32 accumulation
+        int8 = 'weight_q' in block.get('in_conv_0', {})
+        if tp is not None and (fused or hp.use_pallas or int8):
+            raise ValueError('the WN kernels fuse across the tensor-parallel reduce and the int8 '
+                             'convs have no split: under tp the blocks run the float per-layer '
+                             'chain (no use_kernel, no use_pallas)')
         if fused and 'packed_q' in block:
             # int8 mixed precision: bf16 buffers unless the caller's dtype
             # is narrower, and f32 b / s back for the f32 audio stream
@@ -204,13 +235,10 @@ class WaveGlow:
         if fused and 'packed' in block:
             return self._fused_block(block, block['packed'], audio_half, spect)
 
-        # the XLA-level int8 path (`quantize_params`): every conv but the
-        # start and end ones in int8 with int32 accumulation
-        int8 = 'weight_q' in block.get('in_conv_0', {})
         layer_kernel = (fused or hp.use_pallas) and n_ch % 128 == 0 \
             and hp.wn_kernel_size == 3 and not int8
         conv = self._conv_int8 if int8 else nn.conv1d
-        x = nn.conv1d(block['start'], audio_half)
+        x = nn.col_parallel(nn.conv1d, block['start'], audio_half, tp)
         cond_all = None
         if 'cond_layer' in block:
             cond_all = conv(block['cond_layer'], spect)
@@ -245,16 +273,48 @@ class WaveGlow:
                     torch.zeros(2 * n_ch, dtype = x.dtype, device = x.device),
                     w_rs, b_rs.contiguous(), dilation = 2 ** i, residual = not last)
             else:
-                acts = nn.conv1d(in_conv, x, dilation = 2 ** i) + cond
+                acts = nn.row_parallel(nn.conv1d, in_conv, x, tp, dilation = 2 ** i) + cond
                 gated = torch.tanh(acts[..., :n_ch]) * torch.sigmoid(acts[..., n_ch:])
-                res_skip = nn.conv1d(rs_conv, gated)
-                if not last:
-                    x = x + res_skip[..., :n_ch]
-                    skip = res_skip[..., n_ch:]
-                else:
-                    skip = res_skip
+                res, skip = nn.res_skip_split(rs_conv, gated, n_ch, tp, last = last)
+                if res is not None:
+                    x = x + res
             output = skip if output is None else output + skip
-        return nn.conv1d(block['end'], output.to(block['end']['weight'].dtype))
+        return nn.row_parallel(nn.conv1d, block['end'],
+                               output.to(block['end']['weight'].dtype), tp)
+
+    @property
+    def halo_groups(self):
+        """The receptive field of a WN block on each side, in groups: the
+        dilated convs' SAME reach summed over the layers (Σ 2^i = 255 at 8
+        layers of 3 taps); the 1-tap convs reach nothing."""
+        return sum(max(nn._same_pads(self.hp.wn_kernel_size, 2 ** i))
+                   for i in range(self.hp.wn_layers))
+
+    @staticmethod
+    def _with_halo(x, width, sp):
+        """`x` (B, T, ·), this rank's groups, with `width` groups of each
+        neighbour along `sp`, none past the two ends (the blocks' SAME
+        padding is one device's there) → (extended, offset of the shard)."""
+        ext = halo_exchange(x, width, 1, sp)
+        first = width if sp.index == 0 else 0
+        last = ext.shape[1] - (width if sp.index == sp.size - 1 else 0)
+        return ext[:, first: last], width - first
+
+    def _upsample_shard(self, params, mel, sp):
+        """This rank's groups of the conditioning from its mel frames: the
+        upsample reaches ``(w - 1) // s`` frames back (3 at 1024 / 256), which
+        come from the previous rank (zeros on the first, as one device's
+        padding)."""
+        hp = self.hp
+        w, s, g = hp.upsample_width, hp.upsample_stride, hp.n_group
+        if s % g:
+            raise ValueError('the time-split upsample needs upsample_stride % n_group == 0, '
+                             'got {} and {}'.format(s, g))
+        overlap = (w - 1) // s
+        if overlap == 0:
+            return self.upsample_mel(params, mel)
+        ext = halo_exchange(mel, overlap, 1, sp)[:, :overlap + mel.shape[1]]
+        return self.upsample_mel(params, ext)[:, overlap * (s // g):]
 
     def _fused_block(self, block, packed, audio_half, spect):
         """A block on the `ops.wn_block` kernel: buffers in the packed
@@ -376,9 +436,19 @@ class WaveGlow:
         audio stream, the noise and the inverses stay f32, as a bf16 stream
         through the inverse flows loses the waveform.  Noise comes from
         `generator` unless `z` (B, Lg, n_group) or `deterministic` (zeros)
-        is given."""
+        is given.
+
+        Inside `collectives.tensor_shard`: over ``tp`` the params are a
+        rank's `waveglow_param_specs` slices and ``use_kernel`` raises; over
+        ``sp`` `mel` (and `z`) are this rank's frames (`parallel.
+        shard_sequence`), the noise this rank's part of one device's draw,
+        and every rank returns the whole waveform."""
         hp = self.hp
         if sigma is None: sigma = hp.sigma
+        sp = tensor_axis('sp')
+        if use_kernel and tensor_axis('tp') is not None:
+            raise ValueError('the WN kernels fuse across the tensor-parallel reduce: '
+                             'infer under tp runs the per-layer chain (use_kernel=False)')
         block0 = params['flow_0']['block']
         int8 = use_kernel and 'packed_q' in block0
         if dtype is not None:
@@ -394,16 +464,19 @@ class WaveGlow:
                 # wn_layers > 1
                 self._check_layer_kernel_envelope()
 
-        spect = self.upsample_mel(params, mel)
+        spect = self.upsample_mel(params, mel) if sp is None \
+            else self._upsample_shard(params, mel, sp)
         batch, lg = spect.shape[0], spect.shape[1]
         audio_dtype = torch.float32 if int8 else spect.dtype
 
         def noise(channels):
-            shape = (batch, lg, channels)
+            shape = (batch, lg * (sp.size if sp is not None else 1), channels)
             if deterministic:
-                return torch.zeros(shape, dtype = audio_dtype, device = spect.device)
-            return torch.randn(shape, generator = generator, dtype = audio_dtype,
-                               device = spect.device)
+                drawn = torch.zeros(shape, dtype = audio_dtype, device = spect.device)
+            else:
+                drawn = batch_draw(torch.randn, shape, generator = generator,
+                                   dtype = audio_dtype, device = spect.device)
+            return drawn if sp is None else drawn[:, sp.index * lg: (sp.index + 1) * lg]
 
         if z is not None:
             audio = sigma * z[:, :, :self.n_remaining_channels]
@@ -412,11 +485,18 @@ class WaveGlow:
             audio = sigma * noise(self.n_remaining_channels)
             z_rest = None
 
+        if sp is not None:
+            halo = self.halo_groups
+            spect, core = self._with_halo(spect, halo, sp)
         for k in reversed(range(hp.n_flows)):
             flow = params['flow_{}'.format(k)]
             n_half = audio.shape[-1] // 2
             audio_0, audio_1 = audio[..., :n_half], audio[..., n_half:]
-            wn_out = self.wn_block(flow['block'], audio_0, spect, fused = use_kernel)
+            if sp is None:
+                wn_out = self.wn_block(flow['block'], audio_0, spect, fused = use_kernel)
+            else:
+                wn_out = self.wn_block(flow['block'], self._with_halo(audio_0, halo, sp)[0],
+                                       spect, fused = use_kernel)[:, core: core + lg]
             b, s = wn_out[..., :n_half], wn_out[..., n_half:]
             audio_1 = (audio_1 - b) * torch.exp(-s)
             audio = torch.cat([audio_0, audio_1], dim = -1)
@@ -430,7 +510,7 @@ class WaveGlow:
                 else:
                     z_i = sigma * noise(hp.n_early_size)
                 audio = torch.cat([z_i, audio], dim = -1)
-        return audio.reshape(batch, -1)
+        return tp_all_gather(audio.reshape(batch, -1), 1, sp)
 
     # -- forward (training direction) ------------------------------------------
 
@@ -449,8 +529,14 @@ class WaveGlow:
         mel are cast, the WN blocks and the upsample
         run in that dtype, and the audio stream, the log-determinants and
         every log-likelihood sum stay float32.  Under ``hp.wn_train_fused``
-        (with C % 128 == 0 and 3 taps) the blocks run `wn_block_train`."""
+        (with C % 128 == 0 and 3 taps) the blocks run `wn_block_train`.
+        Under ``tp`` (`collectives.tensor_shard`) the blocks run the split
+        chain of `wn_block`: every rank computes the whole z and
+        log-determinants, and each sharded leaf gets its slice's gradient."""
         hp = self.hp
+        if tensor_axis('sp') is not None:
+            raise ValueError('the time axis splits in infer only: the training direction '
+                             'runs whole on each rank (no sp)')
         if compute_dtype is not None and compute_dtype != torch.float32:
             from ..train.precision import cast_floating
             params = cast_floating(params, compute_dtype, exempt = ('convinv',))
@@ -461,6 +547,9 @@ class WaveGlow:
 
         fused_train = hp.wn_train_fused and hp.wn_channels % 128 == 0 \
             and hp.wn_kernel_size == 3
+        if tensor_axis('tp') is not None and (fused_train or remat == 'acts'):
+            raise ValueError('under tp the blocks run the per-layer chain: neither '
+                             'wn_train_fused nor remat="acts" has a tensor-parallel route')
         if fused_train:
             wn_block = self.wn_block_train
         elif remat == 'acts':

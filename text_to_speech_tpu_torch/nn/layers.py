@@ -23,7 +23,9 @@ import math
 import torch
 import torch.nn.functional as F
 
-from ..parallel.collectives import batch_draw, batch_sum, current_shard
+from ..parallel.collectives import (
+    batch_draw, batch_sum, current_shard, tp_all_gather, tp_enter, tp_exit, tp_reduce_scatter,
+    tp_split)
 
 
 def generator(seed, device):
@@ -104,6 +106,51 @@ def conv1d(params, x, *, stride = 1, padding = 'SAME', dilation = 1, groups = 1)
     return y.transpose(1, 2)
 
 
+def row_parallel(layer, params, x, tp, ** kwargs):
+    """`layer` (`dense`, `conv1d` or `conv1d_transpose`, with its keyword
+    arguments) of a weight split on its in channels over `tp` (a
+    `parallel.collectives.Axis`; x this rank's channels): the partial sums
+    all-reduced, then the bias; without an axis, `layer` as it is."""
+    if tp is None:
+        return layer(params, x, ** kwargs)
+    out = tp_exit(layer({'weight': params['weight']}, x, ** kwargs), tp)
+    return out + params['bias'] if 'bias' in params else out
+
+
+def col_parallel(layer, params, x, tp, ** kwargs):
+    """`layer` of a weight split on its out channels over `tp`, its bias
+    replicated: the whole `x` enters (`tp_enter`) and the bias is sliced to
+    this rank's channels (`tp_split`, so that every rank holds its whole
+    gradient); without an axis, `layer` as it is."""
+    if tp is None:
+        return layer(params, x, ** kwargs)
+    local = {'weight': params['weight']}
+    if 'bias' in params:
+        local['bias'] = tp_split(params['bias'], 0, tp)
+    return layer(local, tp_enter(x, tp), ** kwargs)
+
+
+def res_skip_split(params, gated, channels, tp, *, last):
+    """A WaveNet layer's res / skip conv on `gated` (the whole gate) →
+    (res, skip), res None for the `last` layer, whose conv makes the skip
+    alone.  Over `tp` the conv is split on its in channels: this rank's
+    channels of the gate go in, the partial sums are reduce-scattered onto
+    this rank's channels of the residual and of the skip (each of
+    `channels` whole), then their slices of the bias are added."""
+    if tp is None:
+        out = conv1d(params, gated)
+        return (None, out) if last else (out[..., :channels], out[..., channels:])
+    part = conv1d({'weight': params['weight']}, tp_split(gated, -1, tp))
+    bias = params.get('bias')
+    if last:
+        skip = tp_reduce_scatter(part, -1, tp)
+        return None, skip if bias is None else skip + tp_split(bias, 0, tp)
+    out = tp_reduce_scatter(part.unflatten(-1, (2, channels)), -1, tp)
+    if bias is not None:
+        out = out + tp_split(bias.reshape(2, channels), -1, tp)
+    return out[..., 0, :], out[..., 1, :]
+
+
 def conv1d_transpose(params, x, *, stride):
     """VALID transposed conv: (B, T, C_in) → (B, (T-1)*stride + width, C_out)."""
     y = F.conv_transpose1d(x.transpose(1, 2), params['weight'], params.get('bias'),
@@ -154,11 +201,16 @@ def batch_norm_train(params, state, x, *, momentum = 0.1, epsilon = 1e-5, mask =
     return y.to(x.dtype), new_state
 
 
-def lstm_cell(params, x, carry):
-    """One LSTM step.  carry = (h, c); gates ordered i, f, g, o."""
+def lstm_cell(params, x, carry, tp = None):
+    """One LSTM step.  carry = (h, c); gates ordered i, f, g, o.  `tp` (a
+    `parallel.collectives.Axis`): the weights hold this rank's rows of the
+    4U pre-activations (`parallel.tacotron2_param_specs`), which are
+    gathered before the bias and the gates (a contiguous slice cuts across
+    the i / f / g / o blocks)."""
     h, c = carry
     units = h.shape[-1]
-    z = x @ params['weight_ih'].T + h @ params['weight_hh'].T + params['bias']
+    z = tp_all_gather(tp_enter(x, tp) @ params['weight_ih'].T
+                      + tp_enter(h, tp) @ params['weight_hh'].T, -1, tp) + params['bias']
     i = torch.sigmoid(z[..., :units])
     f = torch.sigmoid(z[..., units: 2 * units])
     g = torch.tanh(z[..., 2 * units: 3 * units])
@@ -230,10 +282,18 @@ def gelu(x):
     return F.gelu(x, approximate = 'tanh')
 
 
-def dropout(x, rate, *, generator = None):
+def dropout(x, rate, *, generator = None, tp = None):
     """Inverted dropout drawing its mask from `generator` (on x's device);
     `x` is batch-leading: inside a `parallel.collectives.batch_shard` its
-    mask is its rows of the whole batch's."""
+    mask is its rows of the whole batch's.  `tp` (a `collectives.Axis`):
+    `x` holds this rank's slice of the last dimension, and the mask is its
+    slice of the whole tensor's."""
     if rate <= 0.: return x
-    keep = batch_draw(torch.rand, x.shape, generator = generator, device = x.device) < 1. - rate
+    if tp is None:
+        keep = batch_draw(torch.rand, x.shape, generator = generator, device = x.device)
+    else:
+        n = x.shape[-1]
+        keep = batch_draw(torch.rand, x.shape[:-1] + (n * tp.size,), generator = generator,
+                          device = x.device)[..., tp.index * n: (tp.index + 1) * n]
+    keep = keep < 1. - rate
     return torch.where(keep, x / (1. - rate), torch.zeros_like(x))

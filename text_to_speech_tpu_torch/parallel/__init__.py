@@ -14,9 +14,14 @@ Axes, as in the JAX package:
     outermost axis: the data axes are ``('dcn', 'dp')``;
   - ``pp``: the WaveGlow flow pipeline (`parallel.pipeline`);
   - ``ep``: the experts of a mixture-of-experts FFN (`moe_param_specs`);
-  - any other axis (``tp``, ``sp``) leaves the training and serving paths
-    replicated over it; the tensor-parallel spec trees are not ported yet
-    and raise.
+  - ``tp``: tensor parallelism, the layers' channels or heads split by the
+    spec trees (`waveglow_param_specs`, `fastspeech2_param_specs`,
+    `vits_param_specs`, `tacotron2_param_specs`) and the collectives of
+    `collectives.tp_enter` / `tp_exit` / ... inside
+    `collectives.tensor_shard(mesh)`;
+  - ``sp``: WaveGlow's `infer` with the time axis split, each rank's shard
+    extended by halos (`collectives.halo_exchange`), in the same context;
+    any other axis leaves the paths replicated over it.
 
 A mesh device is a rank (`RankDevice`: its global rank ``id`` and its
 `torch.device`).  On a card the backend is NCCL and a rank's device is
@@ -42,9 +47,6 @@ import torch
 import torch.distributed as dist
 
 from . import collectives
-
-_TP_NOT_PORTED = ('the tensor-parallel spec trees are not ported yet (ROADMAP.md, queue 1): '
-                  'the port shards the batch over the data axes and replicates the rest')
 
 #: this process's device, set by `spawn`'s children (`init_process`)
 _PROCESS = {'device': None}
@@ -473,20 +475,139 @@ def moe_param_specs(params, axis = 'ep'):
     return spec(params)
 
 
+def _path_specs(params, spec_for):
+    """A `PartitionSpec` tree of `params`: ``spec_for('/'-joined path,
+    leaf)`` for each tensor leaf."""
+    def walk(tree, prefix):
+        if isinstance(tree, dict):
+            return {k: walk(v, prefix + (k,)) for k, v in tree.items()}
+        return spec_for('/'.join(prefix), tree)
+    return walk(params, ())
+
+
 def waveglow_param_specs(params, axis = 'tp'):
-    raise NotImplementedError(_TP_NOT_PORTED)
+    """`PartitionSpec` tree of WaveGlow (the port's layouts, conv weights
+    (out, in, W)): each WN block's hidden channels over `axis`, as the JAX
+    package's spec: ``start`` on its out channels, ``in_conv``,
+    ``res_skip_conv`` and ``end`` on their in channels; the conditioning
+    convs, the biases, the 1×1 inverses and the upsample replicated.  The
+    block's collectives (`models.waveglow_arch`) run inside
+    `collectives.tensor_shard`."""
+    def spec_for(name, leaf):
+        if 'block' in name and leaf.dim() == 3:
+            if 'start' in name:
+                return P(axis, None, None)            # out = hidden
+            if 'in_conv' in name:
+                return P(None, axis, None)            # in = hidden (out = 2 hidden whole)
+            if 'cond_conv' in name:
+                return P()
+            if 'res_skip_conv' in name or 'end' in name:
+                return P(None, axis, None)
+        return P()
+    return _path_specs(params, spec_for)
+
+
+def _fft_block_spec(name, leaf, axis):
+    """Megatron's split of a post-LN FFT block (dense weights (out, in),
+    conv weights (out, in, W)): q / k / v and ``conv1`` on their out
+    dimension with their biases, ``output`` and ``conv2`` on their in
+    dimension; None for any other leaf."""
+    if leaf.dim() == 2:
+        if any(k in name for k in ('query/', 'key/', 'value/')):
+            return P(axis, None)
+        if 'output/' in name:
+            return P(None, axis)
+    if leaf.dim() == 3:
+        if 'conv1' in name:
+            return P(axis, None, None)
+        if 'conv2' in name:
+            return P(None, axis, None)
+    if leaf.dim() == 1 and any(k in name for k in ('query/', 'key/', 'value/', 'conv1')):
+        return P(axis)
+    return None
 
 
 def fastspeech2_param_specs(params, axis = 'tp'):
-    raise NotImplementedError(_TP_NOT_PORTED)
+    """`PartitionSpec` tree of FastSpeech-2: Megatron tensor parallelism of
+    the encoder's and decoder's FFT blocks (each rank ``n_heads / tp``
+    heads and ``ffn_dim / tp`` FFN channels, one all-reduce a sub-layer),
+    the variance predictors, embeddings, norms and postnet replicated."""
+    def spec_for(name, leaf):
+        return (_fft_block_spec(name, leaf, axis) if 'layer_' in name else None) or P()
+    return _path_specs(params, spec_for)
 
 
 def vits_param_specs(params, axis = 'tp'):
-    raise NotImplementedError(_TP_NOT_PORTED)
+    """`PartitionSpec` tree of VITS: Megatron's split of the text encoder's
+    blocks (the relative tables, shared by the heads, replicated),
+    channel-TP of the posterior's and the flows' WaveNet stacks
+    (``in_conv`` and ``res_skip_conv`` on their in channels), and the
+    HiFi-GAN generator's ``conv_pre`` on its out channels and first
+    upsample (a transposed conv, weight (in, out, W)) on its in channels;
+    the rest replicated."""
+    def spec_for(name, leaf):
+        if 'text_encoder/' in name:
+            spec = _fft_block_spec(name, leaf, axis)
+            if spec is not None:
+                return spec
+        if '/wn/' in name and leaf.dim() == 3 and ('in_conv' in name
+                                                  or 'res_skip_conv' in name):
+            return P(None, axis, None)
+        if 'generator/' in name and leaf.dim() == 3:
+            if 'conv_pre' in name or 'up0/up' in name:
+                return P(axis, None, None)
+        return P()
+    return _path_specs(params, spec_for)
 
 
 def tacotron2_param_specs(params, axis = 'tp'):
-    raise NotImplementedError(_TP_NOT_PORTED)
+    """`PartitionSpec` tree of Tacotron-2: the attention and decoder LSTMs'
+    gate rows (``weight_ih`` / ``weight_hh`` (4H, ·)) and the frame
+    projection's out rows over `axis`, the rest replicated.
+
+    As in the JAX package, this is the teacher-forced training pass's
+    split (the 4H pre-activations and the frame gathered every step), not
+    a serving plan: an autoregressive decode would gather every step, so
+    `infer` and `infer_fused` under `tp` raise.  The multi-card serving
+    story is the batch over ``dp`` and channel-TP of the vocoder
+    (`waveglow_param_specs`)."""
+    def spec_for(name, leaf):
+        if leaf.dim() == 2 and any(k in name for k in (
+                'attention_rnn/weight_ih', 'attention_rnn/weight_hh', 'decoder_rnn',
+                'linear_projection/weight')):
+            return P(axis, None)
+        return P()
+    return _path_specs(params, spec_for)
+
+
+def gather_params(tree, mesh, specs):
+    """The whole tree on every rank from each rank's `shard_params` slices:
+    every sharded leaf gathered along its sharded dimensions (`specs` a
+    tree or a function of the tree, as `shard_params` takes)."""
+    spec_tree = specs(tree) if callable(specs) else specs
+    spec_of = dict(_flatten(spec_tree))
+    out = []
+    for path, leaf in _flatten(tree):
+        for dim, axis in enumerate(tuple(spec_of.get(path, ()))):
+            if axis is not None and mesh.shape.get(axis, 1) > 1:
+                leaf = torch.cat(collectives.all_gather(leaf.contiguous(), mesh.group(axis)),
+                                 dim = dim)
+        out.append((path, leaf))
+    return _unflatten(out)
+
+
+def shard_sequence(x, mesh, axis = 'sp', dim = 1):
+    """This rank's part of `x` (numpy or a tensor) along `dim` (time),
+    equal parts over `axis` in axis order; `x` whole without the axis."""
+    n = mesh.axis_size(axis)
+    if n == 1:
+        return x
+    if x.shape[dim] % n:
+        raise ValueError('{} steps do not divide over {} = {}'.format(x.shape[dim], axis, n))
+    size = x.shape[dim] // n
+    index = [slice(None)] * x.ndim
+    index[dim] = slice(mesh.coords[axis] * size, (mesh.coords[axis] + 1) * size)
+    return x[tuple(index)]
 
 
 # -- local processes -------------------------------------------------------------------
@@ -574,5 +695,7 @@ def spawn(fn, world_size, *, backend, device, args = (), timeout = 600.):
 
 __all__ = ['Mesh', 'P', 'PartitionSpec', 'Placement', 'RankDevice', 'batch_sharding',
            'check_backend', 'create_hybrid_mesh', 'create_mesh', 'data_axes', 'data_size',
-           'get_devices', 'init_process', 'moe_param_specs', 'pad_batch_to_devices', 'place',
-           'replicated', 'shard_batch', 'shard_params', 'spawn']
+           'fastspeech2_param_specs', 'gather_params', 'get_devices', 'init_process',
+           'moe_param_specs', 'pad_batch_to_devices', 'place', 'replicated', 'shard_batch',
+           'shard_params', 'shard_sequence', 'spawn', 'tacotron2_param_specs',
+           'vits_param_specs', 'waveglow_param_specs']
