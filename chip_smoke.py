@@ -57,7 +57,7 @@ Phases, one JSON line each:
            Around one timed case of each kernel (K1 and K2 bfloat16 at one
            utterance, K3 float32 with dropout at B=1, K4 bfloat16 at B=8 and 1, K5
            both types), nvidia-smi's SM clock and power draw: just after the
-           timed runs, 0.6 s into 1.2 s of calls back to back, and after them;
+           timed runs, 0.15 s into 0.3 s of calls back to back, and after them;
   e2e      `tts()` on one sentence (the one-launch path: fused decoder →
            vocoder → int16, no retry) and on a batch of four on both decoder
            routes, then, after `quantize_for_serving` passes its SNR gate on
@@ -251,8 +251,8 @@ Phases, one JSON line each:
            GPipe steps over {'pp': 2} (2 × 64 frames, float32) against
            `arch.loss` (loss 1e-5, gradients 1e-4 relative); the tensor
            and sequence axes: (e) NVIDIA WaveGlow over {'tp': 2}, a
-           deterministic 128-frame vocode (1e-4 of scale) and one SGD step
-           at 2 × 64 frames (loss 1e-5 relative, every gathered gradient
+           deterministic 32-frame vocode (1e-4 of scale) and one SGD step
+           at 2 × 16 frames (loss 1e-5 relative, every gathered gradient
            and leaf 1e-4 of its scale, the replicated leaves bit-equal on
            both ranks, and a control that must miss: the exits through
            `all_reduce_sum`), the kernels refused; (f) over {'sp': 2}, 256
@@ -294,6 +294,19 @@ Phases, one JSON line each:
            (Mistral 4/2 heads, Mixtral 4 experts top 2 with its
            load-balancing loss, BERT with the MLM head, T5, BART, Whisper:
            1e-4 of scale, 8 greedy tokens by the tie rule); no K1-K5 launch.
+  export   the serving forwards through `torch.export` and the `Runtime`
+           registry (K1, K2 and K3 as `torch.library` ops in the programs),
+           on the e2e phase's models: (a) WaveGlow's bf16 vocode of 1 × 256
+           frames exported, saved and loaded by ``build_runtime('export',
+           path)``: 12 K1 a call, audio equal to eager to the bit; (b) the
+           int8 route: 12 K2; (c) the stepper's 64-step `decode_chunk` at B
+           = 1 and 8 rows, one K3 launch a call, deterministic and with
+           dropout at two seeds and step offsets 0 and 64 from one program,
+           frames and state equal to eager; (d) `AOTRuntime` of (a): flops
+           within 1 % of 12 x K1's count plus the convs', memory, another
+           shape refused; (e) (a) exported on the CPU and moved onto the card
+           at load: 12 K1, (a)'s audio; (f) export and load seconds, the
+           host ms of a call eager and exported.
 The files of the families, serving, sv2tts, nvidia_import, fastspeech2,
 training, transfer, gan and mesh phases go in one temporary directory, removed when they end (the transfer
 phase's own root when it ends).  Then the kernel summary, the
@@ -381,30 +394,20 @@ def smi_sample():
 
 
 def clocks_under(fn):
-    """nvidia-smi's readings just after a kernel's timed runs, 0.6 s into
-    1.2 s of its calls back to back (taken from a second thread: the host
+    """nvidia-smi's readings just after a kernel's timed runs, 0.15 s into
+    0.3 s of its calls back to back (taken from a second thread: the host
     blocks once the launch queue is full, so the card stays busy), and
     after."""
     clocks = {'before': smi_sample()}
-    sampler = threading.Timer(0.6, lambda: clocks.update(during = smi_sample()))
+    sampler = threading.Timer(0.15, lambda: clocks.update(during = smi_sample()))
     sampler.start()
     start = time.perf_counter()
-    while time.perf_counter() - start < 1.2:
+    while time.perf_counter() - start < 0.3:
         fn()
     sampler.join()
     torch.cuda.synchronize()
     clocks['after'] = smi_sample()
     return clocks
-
-
-def wn_block_work(B, T, C, S, L, itemsize):
-    """(operations, bytes) of one WN block call: every product, each input
-    read once and the output written once."""
-    flops = 2 * B * T * ((3 * C + S) * 2 * C * L + C * 2 * C * (L - 1) + C * C)
-    weights = (L * (3 * C + S) * 2 * C + (L - 1) * C * 2 * C + C * C) * itemsize
-    biases = (L * 2 * C + (L - 1) * 2 * C + C) * 4
-    activations = B * T * (C + S + C) * itemsize
-    return flops, weights + biases + activations
 
 
 def waves(tiles):
@@ -485,7 +488,7 @@ def wn_block_phase(shapes = None, label = 'fused_wn_block', clocks = True):
     (with `clocks`, nvidia-smi's readings under the bf16 cases too).
     Emits the cases under `label` and returns them."""
     from text_to_speech_tpu_torch.ops.wn_block import (
-        fused_wn_block, grid_tiles, l2_bytes, pack_wn_weights, wn_block_plain)
+        fused_wn_block, grid_tiles, l2_bytes, pack_wn_weights, wn_block_plain, wn_block_work)
 
     C, L, S = 512, 8, 640
     rng = np.random.default_rng(0)
@@ -659,7 +662,7 @@ def wn_block_int8_phase(shapes = None, label = 'fused_wn_block_int8'):
     from text_to_speech_tpu_torch.ops import wn_block_int8 as module
     from text_to_speech_tpu_torch.ops.wn_block_int8 import (
         fused_wn_block_int8, grid_tiles, l2_bytes, pack_wn_int8, quantize_wn_weights,
-        wn_block_int8_plain)
+        wn_block_int8_plain, wn_block_int8_work)
 
     C, L, S = 512, 8, 640
     rng = np.random.default_rng(4)
@@ -750,31 +753,21 @@ def wn_block_int8_phase(shapes = None, label = 'fused_wn_block_int8'):
     return cases
 
 
-def wn_block_int8_work(B, T, C, S, L, itemsize):
-    """(operations, bytes) of one int8 WN block call: the products of
-    `wn_block_work`; int8 weights with f32 scales and biases, x and spect
-    read and the output written once in the buffer dtype."""
-    ops = wn_block_work(B, T, C, S, L, 1)[0]
-    weights = L * (3 * C + S) * 2 * C + (L - 1) * C * 2 * C + C * C
-    vectors = (4 * L * 2 * C + 2 * (L - 1) * 2 * C + 2 * C) * 4
-    return ops, weights + vectors + B * T * (C + S + C) * itemsize
-
-
 def decoder_steps_work(weights, B, S, K, itemsize, peak):
     """(least seconds for the operations, bytes, weight bytes) of one launch
-    of K decoder steps: every product of every step, the LSTM products at
+    of K decoder steps: every product of every step (`decoder_steps_ops`,
+    the op's flop formula), the LSTM products at
     the int8 rate when their weights are int8 and the rest at `peak`; each
     input read once and each output written once (state in and out, frames
     and alignments out)."""
+    from text_to_speech_tpu_torch.ops.decoder_kernel import decoder_steps_ops
     n_mel, P0 = weights['w0'].shape
     P1 = weights['w1'].shape[1]
     U, A = weights['q_w'].shape
     D = weights['proj_w'].shape[0] - U
-    lstm = (P1 + D + U) * 4 * U + (2 * U + D) * 4 * U
-    macs = (n_mel * P0 + P0 * P1 + lstm + U * A + 62 * A * S + A * S + S * D
-            + (U + D) * (n_mel + 1))
+    other, lstm = decoder_steps_ops(B, S, K, n_mel, P0, P1, U, A, D)
     lstm_peak = PEAK_INT8_OPS if weights['att_w'].dtype == torch.int8 else peak
-    ops_s = 2 * B * K * ((macs - lstm) / peak + lstm / lstm_peak)
+    ops_s = other / peak + lstm / lstm_peak
     matrices = sum(weights[k].numel() * weights[k].element_size() for k in
                    ('w0', 'w1', 'att_w', 'q_w', 'loc_w', 'dec_w', 'proj_w'))
     biases = sum(weights[k].numel() for k in ('b0', 'b1', 'att_b', 'v_w', 'dec_b', 'proj_b',
@@ -4418,7 +4411,7 @@ def _mesh_worker(case):
 #: SGD step (rows, frames, rate) over tp, its vocode over sp on K1 (frames,
 #: the noise's sigma), FastSpeech-2's and VITS's token rows, and
 #: Tacotron-2's teacher-forced batch (rows, frames) over tp
-TENSOR_CASE = {'tp_vocode_frames': 128, 'tp_step': (2, 64), 'tp_lr': 1e-4, 'sp_frames': 256,
+TENSOR_CASE = {'tp_vocode_frames': 32, 'tp_step': (2, 16), 'tp_lr': 1e-4, 'sp_frames': 256,
                'sp_sigma': 0.6, 'fs2_tokens': (2, 32), 'fs2_min_duration': 8,
                'fs2_max_frames': 384, 'vits_tokens': (2, 40), 'taco_batch': (2, 64),
                'taco_tokens': 48}
@@ -5200,6 +5193,206 @@ def llm_phase():
           'phase_s': time.perf_counter() - phase_start})
 
 
+EXPORT_CASE = {'vocode_frames': 256, 'decode_rows': (1, 8), 'decode_tokens': 64,
+               'chunk': 64, 'seeds': (1, 2), 'offsets': (0, 64)}
+
+
+def _sync(device):
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _host_ms(fn, device, reps = 5):
+    """(median host ms of a call, from the call to its return, and median
+    wall ms to a synchronisation after it) over `reps` calls after one."""
+    host, wall = [], []
+    for i in range(reps + 1):
+        _sync(device)
+        start = time.perf_counter()
+        fn()
+        returned = time.perf_counter()
+        _sync(device)
+        if i:
+            host.append(1e3 * (returned - start))
+            wall.append(1e3 * (time.perf_counter() - start))
+    return statistics.median(host), statistics.median(wall)
+
+
+def _leaves_equal(a, b):
+    a, b = torch.utils._pytree.tree_leaves(a), torch.utils._pytree.tree_leaves(b)
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def vocode_conv_flops(arch, params, B, F):
+    """Operations of WaveGlow's `infer` outside the WN blocks, as
+    `FlopCounterMode` counts them: the upsample as one product, each flow's
+    start and end convs (1 tap) and its 1x1 inverse."""
+    hp = arch.hp
+    s, g = hp.upsample_stride, hp.n_group
+    T = F * s // g
+    total = 2 * B * F * (hp.upsample_width // s) * hp.n_mel_channels * s * hp.n_mel_channels
+    for k in range(hp.n_flows):
+        flow = params['flow_{}'.format(k)]
+        C, n_half = flow['block']['start']['weight'].shape[:2]
+        c = flow['convinv']['weight'].shape[0]
+        total += 2 * B * T * (n_half * C + C * 2 * n_half) + 2 * B * T * c * c
+    return total
+
+
+def export_phase(model, vocoder, root, device = 'cuda', ** overrides):
+    """The serving forwards through `torch.export` and the `Runtime`
+    registry, K1, K2 and K3 in the programs as `torch.library` ops: (a)
+    WaveGlow's bf16 vocode, exported, saved and loaded by
+    ``build_runtime('export', path)``: 12 K1 a call, equal to the eager call
+    to the bit; (b) the int8 route: 12 K2; (c) the stepper's 64-step
+    `decode_chunk` on K3 at B = 1 and 8 rows: one launch a call, frames and
+    state equal to eager, deterministic, and with dropout at two seeds and
+    step offsets 0 and 64 from one program; (d) `AOTRuntime` of (a): its
+    `flops` within 1 % of 12 x K1's count plus the convs', its memory, and
+    another shape refused; (e) (a) exported on the CPU and moved onto the
+    card at load: 12 K1, (a)'s audio; (f) export and load seconds and the
+    host ms of a call, eager against exported.  On the CPU (a rehearsal at
+    a tiny size, `device='cpu'`) the ops run their plain versions and no
+    launch is counted."""
+    from text_to_speech_tpu_torch.ops.wn_block import wn_block_work
+    from text_to_speech_tpu_torch.runtimes import AOTRuntime, ExportRuntime, build_runtime
+    from text_to_speech_tpu_torch.weights import tree_to
+
+    case = dict(EXPORT_CASE, ** overrides)
+    on_card = torch.device(device).type == 'cuda'
+    phase_start = time.perf_counter()
+    arch, hp = vocoder.arch, vocoder.arch.hp
+    rng = np.random.default_rng(50)
+    F = case['vocode_frames']
+    T = F * hp.upsample_stride // hp.n_group
+    mel = torch.from_numpy(rng.standard_normal((1, F, hp.n_mel_channels))
+                           .astype(np.float32)).to(device)
+    z = torch.from_numpy(rng.standard_normal((1, T, hp.n_group)).astype(np.float32)).to(device)
+
+    def vocode(params, mel, z):
+        return arch.infer(params, mel, z = z, use_kernel = True)
+
+    def counted(fn):
+        reset_launches()
+        with torch.no_grad():
+            out = fn()
+        _sync(device)
+        return out, read_launches()
+
+    def exported(fn, args, name, load_device = device):
+        path = os.path.join(root, name + '.pt2')
+        start = time.perf_counter()
+        ExportRuntime.export_function(fn, args, path)
+        export_s = time.perf_counter() - start
+        start = time.perf_counter()
+        runtime = build_runtime('export', path, device = load_device)
+        return runtime, {'export_s': export_s, 'load_s': time.perf_counter() - start,
+                         'file_bytes': os.path.getsize(path)}
+
+    record = {'phase': 'export', 'device': str(device), 'case': case}
+    n_flows = hp.n_flows if on_card else 0
+    for name, int8, kernel in (('vocode_bf16', False, 'wn_block'),
+                               ('vocode_int8', True, 'wn_block_int8')):
+        params = vocoder._serving_params(True, int8)
+        eager, _ = counted(lambda: vocode(params, mel, z))
+        runtime, readings = exported(vocode, (params, mel, z), name)
+        out, launches = counted(lambda: runtime(params, mel, z))
+        check(launches[kernel] == n_flows and sum(launches.values()) == n_flows,
+              '{}: launches {}'.format(name, launches))
+        check(torch.equal(out, eager), '{}: exported audio differs from eager'.format(name))
+        readings.update(launches = launches, equal_to_eager = True,
+                        host_ms_eager = _host_ms(lambda: vocode(params, mel, z), device),
+                        host_ms_exported = _host_ms(lambda: runtime(params, mel, z), device))
+        record[name] = readings
+        if not int8:
+            bf16_params, bf16_audio = params, eager
+
+    # (c) the stepper's decode chunk on K3
+    taco, K = model.arch, case['chunk']
+    weights = model._decoder_weights(None)
+    S = case['decode_tokens']
+    tensor = lambda v, on = device: torch.tensor([v], dtype = torch.int64, device = on)
+    decode = {}
+    for B in case['decode_rows']:
+        tokens = torch.from_numpy(rng.integers(1, taco.hp.vocab_size, (B, S))).to(device)
+        with torch.no_grad():
+            enc, mask = taco.encode(model.params, model.state, tokens)
+            memory, pm = taco.process_memory(model.params['decoder'], enc, mask)
+        zero = (torch.zeros((B, taco.hp.n_mel_channels), device = device),
+                taco.init_cell_state(B, S, device = device))
+        for deterministic in (True, False):
+            def chunk(params, weights, frame, cell, memory, pm, mask, seed, step0,
+                      deterministic = deterministic):
+                return taco.decode_chunk(params, frame, cell, memory, pm, mask, n_steps = K,
+                                         deterministic = deterministic, weights = weights,
+                                         seed = seed, step_offset = step0)
+            args = lambda seed, offset: (model.params, weights, * zero, memory, pm, mask,
+                                         tensor(seed), tensor(offset, 'cpu'))
+            key = 'B{}_{}'.format(B, 'deterministic' if deterministic else 'dropout')
+            runtime, readings = exported(chunk, args(case['seeds'][0], 0), 'chunk_' + key)
+            runs = [(case['seeds'][0], 0)] if deterministic else \
+                [(seed, offset) for seed in case['seeds'] for offset in case['offsets']]
+            outs = []
+            for seed, offset in runs:
+                out, launches = counted(lambda: runtime(* args(seed, offset)))
+                eager, _ = counted(lambda: chunk(* args(seed, offset)))
+                want = -(-B // 8) if on_card else 0
+                check(launches['decoder_steps'] == want and sum(launches.values()) == want,
+                      '{} seed {} offset {}: launches {}'.format(key, seed, offset, launches))
+                check(_leaves_equal(out, eager), '{} seed {} offset {}: differs from eager'
+                      .format(key, seed, offset))
+                outs.append(out[0])
+            if not deterministic:
+                # the seeds and offsets reach the kernel: each run draws its own masks
+                check(all(not torch.equal(a, b) for i, a in enumerate(outs) for b in outs[i + 1:]),
+                      '{}: two runs drew the same dropout'.format(key))
+            readings.update(runs = len(runs), launches_per_call = -(-B // 8) if on_card else 0,
+                            equal_to_eager = True,
+                            host_ms_eager = _host_ms(lambda: chunk(* args(1, 0)), device),
+                            host_ms_exported = _host_ms(lambda: runtime(* args(1, 0)), device))
+            decode[key] = readings
+    record['decode_chunk'] = decode
+
+    # (d) ahead of time: the bf16 vocode at the example shapes
+    start = time.perf_counter()
+    aot = AOTRuntime(vocode, (bf16_params, mel, z))
+    aot_s = time.perf_counter() - start
+    out, launches = counted(lambda: aot(bf16_params, mel, z))
+    check(torch.equal(out, bf16_audio) and launches['wn_block'] == n_flows,
+          'aot: launches {}, equal {}'.format(launches, torch.equal(out, bf16_audio)))
+    block = bf16_params['flow_0']['block']['packed']
+    L, C, S_ = block['w_in_cond'].shape[0], block['w_rs_last'].shape[0], \
+        block['w_in_cond'].shape[1] - 3 * block['w_rs_last'].shape[0]
+    k1_flops = hp.n_flows * wn_block_work(1, T, C, S_, L, 1)[0]
+    expected = k1_flops + vocode_conv_flops(arch, bf16_params, 1, F)
+    flops = aot.flops
+    check(abs(flops - expected) <= 0.01 * expected,
+          'aot flops {} against {} counted'.format(flops, expected))
+    try:
+        aot(bf16_params, mel[:, :F // 2], z[:, :T // 2])
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, 'aot: another shape was not refused')
+    memory = aot.memory_analysis
+    record['aot'] = {'build_s': aot_s, 'flops': flops, 'expected_flops': expected,
+                     'k1_flops': k1_flops, 'flops_rel_err': abs(flops - expected) / expected,
+                     'launches': launches, 'other_shape_refused': refused,
+                     'memory': vars(memory)}
+
+    # (e) exported on the CPU, moved onto the card at load
+    cpu_params = tree_to(bf16_params, 'cpu')
+    runtime, readings = exported(vocode, (cpu_params, mel.cpu(), z.cpu()), 'vocode_bf16_cpu')
+    out, launches = counted(lambda: runtime(bf16_params, mel, z))
+    check(launches['wn_block'] == n_flows and torch.equal(out, bf16_audio),
+          'CPU artifact on {}: launches {}'.format(device, launches))
+    del cpu_params
+    record['cpu_artifact'] = dict(readings, launches = launches, equal_to_bf16_eager = True)
+    record['phase_s'] = time.perf_counter() - phase_start
+    emit(record)
+    return record
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke.py needs a CUDA device', file = sys.stderr)
@@ -5294,6 +5487,8 @@ def main():
     sp_wn = wn_block_phase([(torch.bfloat16, * mesh['sp_k1_shape'])],
                            label = 'fused_wn_block_sp', clocks = False)
     steps, eval_full = train_phase()
+    with tempfile.TemporaryDirectory(prefix = 'chip_smoke_export_') as export_root:
+        export_phase(model, vocoder, export_root)
 
     # K1's, K2's and K4's rates against K5's of the same type, from this run
     shares = {}

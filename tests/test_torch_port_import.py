@@ -56,7 +56,8 @@ def test_port_imports_without_jax():
                  'runtimes.serving', 'runtimes.http_server', 'train.gan', 'nn.activations',
                  'models.transformers.generation_utils', 'models.transformers.families',
                  'models.transformers.heads', 'runtimes.llm_serving', 'text.tokens',
-                 'parallel', 'parallel.collectives', 'parallel.pipeline'):
+                 'parallel', 'parallel.collectives', 'parallel.pipeline', 'xp', 'compile',
+                 'models.tts_export', 'models.describe'):
         assert 'text_to_speech_tpu_torch.' + name in names.split(), name
 
 
@@ -174,4 +175,38 @@ def test_entry_points_raise_without_device():
         assert generate(lm, params, np.ones((1, 2), np.int64), max_new_tokens = 2,
                         device = 'cpu').tokens.shape == (1, 4)
         assert default_device('cpu') == torch.device('cpu')
+    ''')
+
+
+def test_export_and_compile_modules_load_no_jax():
+    """The export and compile slice (`xp`, `compile`, the `runtimes`
+    registry, the published-layout exporters, `describe`) loads no JAX
+    module, and its entry points run on the card unless given the CPU."""
+    _run('''
+        import sys, tempfile
+        import numpy as np
+        import torch
+        from text_to_speech_tpu_torch import compile, runtimes, xp
+        from text_to_speech_tpu_torch.models import describe, tts_export
+        assert {'torch', 'export', 'aot', 'hf'} <= set(runtimes.list_runtimes())
+        assert hasattr(torch.ops.tts_torch, 'wn_block')
+        path = tempfile.mkdtemp() + '/f.pt2'
+        runtimes.ExportRuntime.export_function(lambda x: x * 2., (torch.ones(2),), path)
+        assert torch.equal(runtimes.build_runtime('export', path, device = 'cpu')(
+            torch.ones(2)), torch.full((2,), 2.))
+        for fn in (lambda: xp.convert_to_tensor(np.ones(2)),
+                   lambda: runtimes.build_runtime('export', path),
+                   lambda: compile.TensorSpec().cast(np.ones(2))):
+            try:
+                fn()
+            except RuntimeError as e:
+                assert 'device' in str(e), e
+            else:
+                raise AssertionError('no error')
+        assert describe.count_params({'a': torch.ones(2, 3)}) == 6
+        assert tts_export.export_vocos.__module__.endswith('tts_export')
+        assert 'jax' not in sys.modules, 'jax imported'
+        assert not [m for m in sys.modules if m == 'text_to_speech_tpu'
+                    or m.startswith('text_to_speech_tpu.')]
+        print('ok')
     ''')

@@ -332,7 +332,9 @@ class Tacotron2:
         keyed by `seed` ((1,) int64, zero when None; each row group adds its
         index) at the absolute step ``step_offset + t``, so a caller passes a
         monotonically advancing `step_offset` and no row re-draws a mask of
-        an earlier chunk.  The 'prenet' speaker concat enters as the kernel's
+        an earlier chunk.  `step_offset` is an int or a (1,) int64 tensor on
+        the CPU: a chunk exported with `torch.export` takes it as an input,
+        so that one program serves every chunk of a decode.  The 'prenet' speaker concat enters as the kernel's
         addend (`prenet_addend`).  Outside `supports_fused_decoder` that
         route raises; on CUDA tensors a failed build or launch raises too.
 
@@ -382,13 +384,16 @@ class Tacotron2:
         extra = self.prenet_addend(params, speaker_embedding, B, device)
         if seed is None:
             seed = torch.zeros((1,), dtype = torch.int64, device = device)
+        # a host tensor: an exported chunk takes the offset as an input
+        step0 = step_offset if torch.is_tensor(step_offset) \
+            else torch.tensor([int(step_offset)], dtype = torch.int64)
         steps = []
         for g, lo in enumerate(range(0, B, MAX_ROWS)):
             rows = slice(lo, min(B, lo + MAX_ROWS))
             out, _, _ = decoder_steps(
                 weights, memory[rows], pm[rows], mask[rows], enc_len[rows], extra[rows],
                 {k: v[rows] for k, v in state.items()}, seed + g if g else seed,
-                n_steps = n_steps, step0 = int(step_offset),
+                n_steps = n_steps, step0 = step0,
                 deterministic = bool(deterministic), drop_rate = float(hp.prenet_drop_rate))
             steps.append(out)
         steps = torch.cat(steps, dim = 1).transpose(0, 1)              # (B, K, n_mel + 1)

@@ -616,11 +616,15 @@ class VITS:
 
     def infer_latent(self, params, tokens, *, speaker_embedding = None, speaker_ids = None,
                      max_frames = None, noise_scale = 0.667, noise_scale_w = 0.8,
-                     d_control = 1., min_duration = 0, dtype = None, generator = None):
+                     d_control = 1., min_duration = 0, dtype = None, generator = None,
+                     noise = None):
         """Text → durations → expanded prior → latent `z` (B, max_frames, C)
         through the reverse flow.  Returns ``(z, cond, lengths, durations,
         align)``; the noise of the SDP, then of the prior, is drawn from
-        `generator`."""
+        `generator` unless `noise` gives both standard normal draws:
+        ``{'sdp': (B, L, 2), 'prior': (B, max_frames, C)}`` (an exported
+        forward takes them as inputs; the JAX package's draws from its key
+        are these)."""
         hp = self.hp
         if max_frames is None:
             max_frames = hp.max_frames
@@ -634,7 +638,8 @@ class VITS:
         tok_mask = tok_valid.to(h.dtype)
         if hp.use_sdp:
             logw = self.sdp_sample(params, h, tok_valid, g = g, noise_scale_w = noise_scale_w,
-                                   generator = generator)
+                                   generator = generator,
+                                   noise = None if noise is None else noise['sdp'])
         else:
             logw = self.predict_log_durations(params, h, tok_mask, g = g)
         w = torch.exp(logw.float()) * tok_mask.float() * d_control
@@ -644,8 +649,9 @@ class VITS:
         stats, frame_mask, lengths, idx = length_regulator(
             torch.cat([m_p, logs_p], dim = -1), durations, max_frames)
         m_p_f, logs_p_f = stats.chunk(2, dim = -1)
-        eps = batch_draw(torch.randn, m_p_f.shape, generator = generator,
-                         device = m_p_f.device).to(m_p_f.dtype)
+        eps = noise['prior'] if noise is not None else batch_draw(
+            torch.randn, m_p_f.shape, generator = generator, device = m_p_f.device)
+        eps = eps.to(m_p_f.dtype)
         z_p = m_p_f + eps * torch.exp(logs_p_f) * torch.as_tensor(
             noise_scale, dtype = m_p_f.dtype, device = m_p_f.device)
         z_p = z_p * frame_mask[..., None].to(z_p.dtype)
@@ -669,15 +675,16 @@ class VITS:
 
     def infer(self, params, state, tokens, *, speaker_embedding = None, speaker_ids = None,
               max_frames = None, noise_scale = 0.667, noise_scale_w = 0.8, d_control = 1.,
-              min_duration = 0, dtype = None, generator = None, ** _):
+              min_duration = 0, dtype = None, generator = None, noise = None, ** _):
         """One parallel pass → `VITSInferenceOutput`, field-compatible with
         the Tacotron-2 output: `audio` in the place of the mel, the hard
-        duration alignment as `attention_weights`."""
+        duration alignment as `attention_weights`.  `noise`: as
+        `infer_latent`'s."""
         z, cond, lengths, durations, align = self.infer_latent(
             params, tokens, speaker_embedding = speaker_embedding, speaker_ids = speaker_ids,
             max_frames = max_frames, noise_scale = noise_scale, noise_scale_w = noise_scale_w,
             d_control = d_control, min_duration = min_duration, dtype = dtype,
-            generator = generator)
+            generator = generator, noise = noise)
         audio = self.decode_frames(params, z, cond, dtype = dtype)
         return VITSInferenceOutput(audio = audio.float(), lengths = lengths, stop_tokens = None,
                                    attention_weights = align, decoder_output = None,

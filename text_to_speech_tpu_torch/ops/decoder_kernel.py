@@ -4,11 +4,13 @@ Replaces the TPU kernel `decoder_steps`
 (``text_to_speech_tpu/ops/decoder_kernel.py``).  The kernel is
 ``csrc/decoder_steps.cu`` (see its header for the design and its bound).
 
-`decoder_steps` launches the kernel for CUDA tensors and counts its calls in
-``decoder_steps.launches``.  For CPU tensors it computes
-`decoder_steps_plain`, the same steps in plain PyTorch; any other device
-raises.  On CUDA tensors it never falls back: outside the kernel's envelope
-it raises.
+`decoder_steps` calls the op ``torch.ops.tts_torch.decoder_steps``, which
+launches the kernel for CUDA tensors and counts its launches in
+``decoder_steps.launches`` (also inside an exported program), and computes
+`decoder_steps_plain`, the same steps in plain PyTorch, for CPU tensors; any
+other device raises.  On CUDA tensors it never falls back: outside the
+kernel's envelope it raises.  The op has a fake implementation for
+`torch.export` and `decoder_steps_ops`' count as its flop formula.
 
 Weights come from `pack_decoder_weights` under the JAX package's names, in
 their logical shapes.  What the TPU layout needed is not carried over: there
@@ -42,6 +44,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import load_library
 
@@ -463,46 +466,11 @@ def kernel_plan(ints):
     return dict(zip(_PLAN_KEYS, out))
 
 
-def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
-                  n_steps, step0 = 0, deterministic = False, use_window = False,
-                  win_len = 0, win_offset = 0, drop_rate = 0.5, stamps = None,
-                  prenet_out = None):
-    """Run `n_steps` fused decoder steps in one kernel launch.
-
-    - weights: dict from `pack_decoder_weights`, in the compute dtype, or
-      from `quantize_lstm_weights` (the int8 LSTM mode);
-    - mem (B, S, D): encoder memory, zero where masked; pm (B, S, A):
-      processed memory; both in the compute dtype;
-    - mask (B, S) float32 1/0; enc_len (B,) int32 (for the window);
-    - extra (B, P0) float32: addend of the first prenet layer's
-      pre-activation (the folded speaker embedding; zeros otherwise);
-    - state: dict from `init_decoder_state`, **updated in place** and
-      returned: the next call continues where this one stopped;
-    - seed (1,) int64 tensor: key of the prenet dropout; `step0` is the
-      absolute index of this launch's first step, so that the mask does
-      not depend on how the steps are split into launches;
-    - stamps: optional int64 CUDA tensor of `stamps_size(n_steps)` elements
-      that receives the kernel's clock stamps (see `phase_times_us`);
-    - prenet_out: optional float32 CUDA tensor (B, P1) that receives the
-      prenet output of the launch's last step, the first segment of the
-      attention LSTM's input row (see `int8_lstm_lockstep`).
-
-    Returns (steps (n_steps, B, n_mel + 1) float32 — ``[..., :n_mel]`` the
-    frame, ``[..., n_mel]`` the gate after its sigmoid —, attn
-    (n_steps, B, S) float32, state).  On a card, `decoder_steps.last_plan`
-    holds the launch's shared-memory plan (`kernel_plan`).
-    """
-    options = dict(n_steps = n_steps, step0 = step0, deterministic = deterministic,
-                   use_window = use_window, win_len = win_len, win_offset = win_offset,
-                   drop_rate = drop_rate)
-    if mem.device.type == 'cpu':
-        if stamps is not None or prenet_out is not None:
-            raise ValueError('stamps and prenet_out are taken by the CUDA kernel only')
-        return decoder_steps_plain(weights, mem, pm, mask, enc_len, extra, state, seed,
-                                   ** options)
-    if mem.device.type != 'cuda':
-        raise ValueError('decoder_steps runs on cuda (or cpu via its plain version), '
-                         'got {}'.format(mem.device))
+def _launch(weights, mem, pm, mask, enc_len, extra, state, seed, *, n_steps, step0,
+            deterministic, use_window, win_len, win_offset, drop_rate, stamps = None,
+            prenet_out = None):
+    """The kernel on CUDA tensors: checked, launched and counted; `state`
+    updated in place."""
     B, S, D, n_mel, P0, P1, U, A = _check(
         weights, mem, pm, mask, enc_len, extra, state, seed, n_steps)
     kw = _kernel_weights(weights)
@@ -542,6 +510,154 @@ def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
         raise RuntimeError('decoder_steps kernel launch failed: CUDA error {}'.format(err))
     decoder_steps.launches += 1
     decoder_steps.last_plan = plan
+    return steps, attn
+
+
+# The steps as a `torch.library` op, so that `torch.export` holds a launch
+# as one node.  The packed weights enter as two lists: `_MATRIX_KEYS`, and
+# the two LSTM weights (in the plain layout on the CPU, in the kernel's
+# slabs on a card) with their int8 scales.  The state tensors, and the
+# kernel's optional diagnostics `stamps` and `prenet_out`, are written in
+# place, marked mutated in the schema (``Tensor(a!)``), so that an exported
+# program keeps the update, also to the row-group views of `decode_chunk`.
+# The first step's index `step0` is a (1,) int64 tensor, read on the host:
+# one exported chunk serves every step offset and seed.  Registered at the
+# dispatcher's level (`Library.impl`), as `ops.wn_block`'s.
+_MATRIX_KEYS = ('w0', 'b0', 'w1', 'b1', 'att_b', 'q_w', 'loc_w', 'v_w', 'dec_b', 'proj_w',
+                'proj_b')
+
+
+def _op_weights(matrices, lstm):
+    w = dict(zip(_MATRIX_KEYS, matrices))
+    w['att_w'], w['dec_w'] = lstm[:2]
+    if len(lstm) == 4:
+        w['s_att_w'], w['s_dec_w'] = lstm[2:]
+    return w
+
+
+_LIB = torch.library.Library('tts_torch', 'FRAGMENT')
+_LIB.define('decoder_steps(Tensor[] matrices, Tensor[] lstm, Tensor mem, Tensor pm, '
+            'Tensor mask, Tensor enc_len, Tensor extra, Tensor seed, Tensor step0, '
+            'Tensor(a!) frame, Tensor(b!) h_att, Tensor(c!) c_att, Tensor(d!) h_dec, '
+            'Tensor(e!) c_dec, Tensor(f!) ctx, Tensor(g!) prev, Tensor(h!) cum, '
+            'Tensor(i!) main, Tensor(j!)? stamps, Tensor(k!)? prenet_out, int n_steps, '
+            'bool deterministic, bool use_window, int win_len, int win_offset, '
+            'float drop_rate) -> (Tensor, Tensor)')
+
+
+def _op_plain(matrices, lstm, mem, pm, mask, enc_len, extra, seed, step0, frame, h_att, c_att,
+              h_dec, c_dec, ctx, prev, cum, main, stamps, prenet_out, n_steps, deterministic,
+              use_window, win_len, win_offset, drop_rate):
+    if stamps is not None or prenet_out is not None:
+        raise ValueError('stamps and prenet_out are taken by the CUDA kernel only')
+    if lstm[0].dim() != 2:
+        raise ValueError('decoder_steps_plain takes the LSTM weights in their plain layout, '
+                         'not the kernel\'s slabs (`kernel_weights_only`)')
+    state = dict(zip(_STATE_KEYS, (frame, h_att, c_att, h_dec, c_dec, ctx, prev, cum, main)))
+    steps, attn, _ = decoder_steps_plain(
+        _op_weights(matrices, lstm), mem, pm, mask, enc_len, extra, state, seed,
+        n_steps = n_steps, step0 = int(step0), deterministic = deterministic,
+        use_window = use_window, win_len = win_len, win_offset = win_offset,
+        drop_rate = drop_rate)
+    return steps, attn
+
+
+def _op_kernel(matrices, lstm, mem, pm, mask, enc_len, extra, seed, step0, frame, h_att, c_att,
+               h_dec, c_dec, ctx, prev, cum, main, stamps, prenet_out, n_steps, deterministic,
+               use_window, win_len, win_offset, drop_rate):
+    if lstm[0].dim() == 2:
+        raise ValueError('the decoder_steps kernel takes the LSTM weights in its slabs, not '
+                         'their plain layout (a program exported on the CPU)')
+    state = dict(zip(_STATE_KEYS, (frame, h_att, c_att, h_dec, c_dec, ctx, prev, cum, main)))
+    weights = _op_weights(matrices, lstm)
+    weights['_kernel'] = {'att_k': lstm[0], 'dec_k': lstm[1]}
+    return _launch(weights, mem, pm, mask, enc_len, extra, state, seed, n_steps = n_steps,
+                   step0 = int(step0), deterministic = deterministic, use_window = use_window,
+                   win_len = win_len, win_offset = win_offset, drop_rate = drop_rate,
+                   stamps = stamps, prenet_out = prenet_out)
+
+
+_LIB.impl('decoder_steps', _op_plain, 'CPU')
+_LIB.impl('decoder_steps', _op_kernel, 'CUDA')
+
+
+@torch.library.register_fake('tts_torch::decoder_steps', lib = _LIB)
+def _(matrices, lstm, mem, pm, mask, enc_len, extra, seed, step0, frame, h_att, c_att, h_dec,
+      c_dec, ctx, prev, cum, main, stamps, prenet_out, n_steps, deterministic, use_window,
+      win_len, win_offset, drop_rate):
+    B, S = mask.shape
+    n_mel = matrices[0].shape[0]
+    return (mem.new_empty((n_steps, B, n_mel + 1), dtype = torch.float32),
+            mem.new_empty((n_steps, B, S), dtype = torch.float32))
+
+
+def decoder_steps_ops(B, S, K, n_mel, P0, P1, U, A, D):
+    """(operations outside the two LSTMs, operations of the LSTM products)
+    of one launch of K steps: every product of every step."""
+    lstm = (P1 + D + U) * 4 * U + (2 * U + D) * 4 * U
+    macs = (n_mel * P0 + P0 * P1 + U * A + 62 * A * S + A * S + S * D
+            + (U + D) * (n_mel + 1))
+    return 2 * B * K * macs, 2 * B * K * lstm
+
+
+@register_flop_formula(torch.ops.tts_torch.decoder_steps)
+def _decoder_steps_flops(matrices, lstm, mem, * _, out_shape = None, ** __):
+    (n_mel, P0), P1, (U, A), (B, S, D) = matrices[0], matrices[2][1], matrices[5], mem
+    return sum(decoder_steps_ops(B, S, out_shape[0][0], n_mel, P0, P1, U, A, D))
+
+
+def decoder_steps(weights, mem, pm, mask, enc_len, extra, state, seed, *,
+                  n_steps, step0 = 0, deterministic = False, use_window = False,
+                  win_len = 0, win_offset = 0, drop_rate = 0.5, stamps = None,
+                  prenet_out = None):
+    """Run `n_steps` fused decoder steps in one kernel launch.
+
+    - weights: dict from `pack_decoder_weights`, in the compute dtype, or
+      from `quantize_lstm_weights` (the int8 LSTM mode);
+    - mem (B, S, D): encoder memory, zero where masked; pm (B, S, A):
+      processed memory; both in the compute dtype;
+    - mask (B, S) float32 1/0; enc_len (B,) int32 (for the window);
+    - extra (B, P0) float32: addend of the first prenet layer's
+      pre-activation (the folded speaker embedding; zeros otherwise);
+    - state: dict from `init_decoder_state`, **updated in place** and
+      returned: the next call continues where this one stopped;
+    - seed (1,) int64 tensor: key of the prenet dropout; `step0` (an int,
+      or a (1,) int64 tensor on the CPU, read on the host) is the absolute
+      index of this launch's first step, so that the mask does not depend
+      on how the steps are split into launches;
+    - stamps: optional int64 CUDA tensor of `stamps_size(n_steps)` elements
+      that receives the kernel's clock stamps (see `phase_times_us`);
+    - prenet_out: optional float32 CUDA tensor (B, P1) that receives the
+      prenet output of the launch's last step, the first segment of the
+      attention LSTM's input row (see `int8_lstm_lockstep`).
+
+    Calls the op ``torch.ops.tts_torch.decoder_steps``: on CPU tensors
+    its plain version (which takes no `stamps` or `prenet_out`), on CUDA
+    tensors the kernel.  Returns (steps (n_steps, B, n_mel + 1) float32 —
+    ``[..., :n_mel]`` the frame, ``[..., n_mel]`` the gate after its
+    sigmoid —, attn
+    (n_steps, B, S) float32, state).  On a card, `decoder_steps.last_plan`
+    holds the launch's shared-memory plan (`kernel_plan`).
+    """
+    if mem.device.type not in ('cpu', 'cuda'):
+        raise ValueError('decoder_steps runs on cuda (or cpu via its plain version), '
+                         'got {}'.format(mem.device))
+    if not torch.is_tensor(step0):
+        step0 = torch.tensor([step0], dtype = torch.int64)
+    if mem.device.type == 'cuda':
+        kw = _kernel_weights(weights)
+        lstm = [kw['att_k'], kw['dec_k']]
+    else:
+        lstm = [weights['att_w'], weights['dec_w']]
+    if lstm[0].dtype == torch.int8:
+        for key in ('s_att_w', 's_dec_w'):
+            if weights.get(key) is None:
+                raise ValueError('{} is missing'.format(key))
+            lstm.append(weights[key])
+    steps, attn = torch.ops.tts_torch.decoder_steps(
+        [weights[k] for k in _MATRIX_KEYS], lstm, mem, pm, mask, enc_len, extra, seed,
+        step0.reshape(1), * (state[k] for k in _STATE_KEYS), stamps, prenet_out, n_steps,
+        bool(deterministic), bool(use_window), int(win_len), int(win_offset), float(drop_rate))
     return steps, attn, state
 
 

@@ -6,9 +6,12 @@ Replaces the TPU kernel `fused_wn_block`
 bfloat16 warp-specialised wgmma kernels fed by TMA, in float32 FMA tiles.
 `l2_bytes` counts what the bf16 kernels move through L2.
 
-`fused_wn_block` launches the kernel for CUDA tensors and counts its calls in
-``fused_wn_block.launches``.  For CPU tensors it computes `wn_block_plain`,
-the same function in plain PyTorch; any other device raises.
+`fused_wn_block` calls the op ``torch.ops.tts_torch.wn_block``, which
+launches the kernel for CUDA tensors and counts its launches in
+``fused_wn_block.launches`` (also inside an exported program), and computes
+`wn_block_plain`, the same function in plain PyTorch, for CPU tensors; any
+other device raises.  Its fake implementation gives `torch.export` the
+output's shape; its flop formula is `wn_block_work`'s count.
 
 Weights come in the kernel's layout, made by `pack_wn_weights` from the JAX
 package's stacked layout (``WaveGlow._pack_block``):
@@ -32,6 +35,7 @@ import ctypes
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import load_library
 
@@ -154,18 +158,9 @@ def _check(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last, b_rs_last):
             raise ValueError('{} must be contiguous and 16-byte aligned'.format(name))
 
 
-def fused_wn_block(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last,
-                   b_rs_last):
-    """Whole WN coupling block: x (B, T, C) start-conv output and spect
-    (B, T, S) upsampled mel, both in the buffer dtype → skip sum (B, T, C)
-    in the buffer dtype.  The `end` conv runs outside."""
-    args = (w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last, b_rs_last)
-    if x.device.type == 'cpu':
-        return wn_block_plain(x, spect, * args)
-    if x.device.type != 'cuda':
-        raise ValueError('fused_wn_block runs on cuda (or cpu via its plain '
-                         'version), got {}'.format(x.device))
-    _check(x, spect, * args)
+def _launch(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last, b_rs_last):
+    """The kernel on CUDA tensors: checked, launched and counted."""
+    _check(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last, b_rs_last)
     B, T, C = x.shape
     work = x.clone()
     gated = torch.empty_like(x)
@@ -188,6 +183,51 @@ def fused_wn_block(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last,
         raise RuntimeError('wn_block kernel launch failed: CUDA error {}'.format(err))
     fused_wn_block.launches += 1
     return out
+
+
+# The block as a `torch.library` op, so that `torch.export` holds it as one
+# node: the CPU implementation is the plain version, the CUDA one the kernel
+# (it raises outside the envelope), the fake one gives the output's shape.
+# Registered at the dispatcher's level (`Library.impl`): `custom_op`'s
+# Python layers cost more host time a call than the kernel's own wrapper.
+_LIB = torch.library.Library('tts_torch', 'FRAGMENT')
+_LIB.define('wn_block(Tensor x, Tensor spect, Tensor w_in_cond, Tensor b_in_cond, '
+            'Tensor w_rs, Tensor b_rs, Tensor w_rs_last, Tensor b_rs_last) -> Tensor')
+_LIB.impl('wn_block', wn_block_plain, 'CPU')
+_LIB.impl('wn_block', _launch, 'CUDA')
+
+
+@torch.library.register_fake('tts_torch::wn_block', lib = _LIB)
+def _(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last, b_rs_last):
+    return torch.empty_like(x)
+
+
+def wn_block_work(B, T, C, S, L, itemsize):
+    """(operations, bytes) of one WN block call: every product, each input
+    read once and the output written once."""
+    flops = 2 * B * T * ((3 * C + S) * 2 * C * L + C * 2 * C * (L - 1) + C * C)
+    weights = (L * (3 * C + S) * 2 * C + (L - 1) * C * 2 * C + C * C) * itemsize
+    biases = (L * 2 * C + (L - 1) * 2 * C + C) * 4
+    activations = B * T * (C + S + C) * itemsize
+    return flops, weights + biases + activations
+
+
+@register_flop_formula(torch.ops.tts_torch.wn_block)
+def _wn_block_flops(x_shape, spect_shape, w_in_cond_shape, * _, ** __):
+    (B, T, C), S, L = x_shape, spect_shape[-1], w_in_cond_shape[0]
+    return wn_block_work(B, T, C, S, L, 1)[0]
+
+
+def fused_wn_block(x, spect, w_in_cond, b_in_cond, w_rs, b_rs, w_rs_last,
+                   b_rs_last):
+    """Whole WN coupling block: x (B, T, C) start-conv output and spect
+    (B, T, S) upsampled mel, both in the buffer dtype → skip sum (B, T, C)
+    in the buffer dtype.  The `end` conv runs outside."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('fused_wn_block runs on cuda (or cpu via its plain '
+                         'version), got {}'.format(x.device))
+    return torch.ops.tts_torch.wn_block(x, spect, w_in_cond, b_in_cond, w_rs, b_rs,
+                                        w_rs_last, b_rs_last)
 
 
 fused_wn_block.launches = 0

@@ -8,11 +8,13 @@ warp-specialised wgmma s8 kernels fed by TMA, 2L + 2 launches a block, the
 row quantization of the gate and of x inside the GEMMs.  `l2_bytes` counts
 what they move through L2.
 
-`fused_wn_block_int8` launches the kernel for CUDA tensors and counts its
-calls in ``fused_wn_block_int8.launches``.  For CPU tensors it computes
-`wn_block_int8_plain`, the same function in plain PyTorch; any other
-device raises.  On CUDA tensors it never falls back: outside the kernel's
-envelope it raises.
+`fused_wn_block_int8` calls the op ``torch.ops.tts_torch.wn_block_int8``,
+which launches the kernel for CUDA tensors and counts its launches in
+``fused_wn_block_int8.launches`` (also inside an exported program), and
+computes `wn_block_int8_plain`, the same function in plain PyTorch, for CPU
+tensors; any other device raises.  On CUDA tensors it never falls back:
+outside the kernel's envelope it raises.  The op has a fake implementation
+for `torch.export` and `wn_block_int8_work`'s count as its flop formula.
 
 Weights: `quantize_wn_weights` turns one block's float32 weights in the
 JAX package's stacked layout (``WaveGlow._stack_block``, the JAX
@@ -44,9 +46,10 @@ The TPU kernel divides by 127 as ``* (1 / 127.)`` and its reference as
 import ctypes
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from ._build import load_library
-from .wn_block import _shift
+from .wn_block import _shift, wn_block_work
 
 EPS = 1e-8
 
@@ -229,16 +232,10 @@ def _check(x, spect, q):
             raise ValueError('{} must be contiguous and 16-byte aligned'.format(name))
 
 
-def fused_wn_block_int8(x, spect, q, static_gate_scale = False):
-    """Whole WN coupling block in int8: x (B, T, C) start-conv output and
-    spect (B, T, S) upsampled mel, both in the buffer dtype, `q` from
-    `pack_wn_int8` → skip sum (B, T, C) in the buffer dtype.  The `end`
-    conv runs outside."""
-    if x.device.type == 'cpu':
-        return wn_block_int8_plain(x, spect, q, static_gate_scale)
-    if x.device.type != 'cuda':
-        raise ValueError('fused_wn_block_int8 runs on cuda (or cpu via its plain '
-                         'version), got {}'.format(x.device))
+def _launch(x, spect, weights, static_gate_scale):
+    """The kernel on CUDA tensors (`weights` in `_WEIGHTS` order): checked,
+    launched and counted."""
+    q = dict(zip(_WEIGHTS, weights))
     _check(x, spect, q)
     B, T, C = x.shape
     M, S = B * T, spect.shape[-1]
@@ -255,7 +252,7 @@ def fused_wn_block_int8(x, spect, q, static_gate_scale = False):
                gate_q, torch.empty((M, C), ** f32)]                       # gate, skip sum
     out = torch.empty_like(x)
     ptr = lambda t: t.data_ptr() if t is not None else None
-    tensors = [work, spect] + [q[k] for k in _WEIGHTS] + [gated] + scratch + [out]
+    tensors = [work, spect] + list(weights) + [gated] + scratch + [out]
     ptrs = (ctypes.c_void_p * len(tensors))(* (ptr(t) for t in tensors))
     ints = (ctypes.c_longlong * 7)(int(x.dtype == torch.bfloat16), B, T, C, S,
                                    q['w_in_cond'].shape[0], int(bool(static_gate_scale)))
@@ -271,6 +268,50 @@ def fused_wn_block_int8(x, spect, q, static_gate_scale = False):
         raise RuntimeError('wn_block_int8 kernel launch failed: CUDA error {}'.format(err))
     fused_wn_block_int8.launches += 1
     return out
+
+
+# The block as a `torch.library` op (as `ops.wn_block`'s, registered at the
+# dispatcher's level): the CPU implementation is the plain version, the
+# CUDA one the kernel.
+_LIB = torch.library.Library('tts_torch', 'FRAGMENT')
+_LIB.define('wn_block_int8(Tensor x, Tensor spect, Tensor[] weights, bool static_gate_scale) '
+            '-> Tensor')
+_LIB.impl('wn_block_int8', lambda x, spect, weights, static_gate_scale: wn_block_int8_plain(
+    x, spect, dict(zip(_WEIGHTS, weights)), static_gate_scale), 'CPU')
+_LIB.impl('wn_block_int8', _launch, 'CUDA')
+
+
+@torch.library.register_fake('tts_torch::wn_block_int8', lib = _LIB)
+def _(x, spect, weights, static_gate_scale):
+    return torch.empty_like(x)
+
+
+def wn_block_int8_work(B, T, C, S, L, itemsize):
+    """(operations, bytes) of one int8 WN block call: the products of
+    `wn_block_work`; int8 weights with f32 scales and biases, x and spect
+    read and the output written once in the buffer dtype."""
+    ops = wn_block_work(B, T, C, S, L, 1)[0]
+    weights = L * (3 * C + S) * 2 * C + (L - 1) * C * 2 * C + C * C
+    vectors = (4 * L * 2 * C + 2 * (L - 1) * 2 * C + 2 * C) * 4
+    return ops, weights + vectors + B * T * (C + S + C) * itemsize
+
+
+@register_flop_formula(torch.ops.tts_torch.wn_block_int8)
+def _wn_block_int8_ops(x_shape, spect_shape, weight_shapes, * _, ** __):
+    (B, T, C), S, L = x_shape, spect_shape[-1], weight_shapes[0][0]
+    return wn_block_int8_work(B, T, C, S, L, 1)[0]
+
+
+def fused_wn_block_int8(x, spect, q, static_gate_scale = False):
+    """Whole WN coupling block in int8: x (B, T, C) start-conv output and
+    spect (B, T, S) upsampled mel, both in the buffer dtype, `q` from
+    `pack_wn_int8` → skip sum (B, T, C) in the buffer dtype.  The `end`
+    conv runs outside."""
+    if x.device.type not in ('cpu', 'cuda'):
+        raise ValueError('fused_wn_block_int8 runs on cuda (or cpu via its plain '
+                         'version), got {}'.format(x.device))
+    return torch.ops.tts_torch.wn_block_int8(x, spect, [q[k] for k in _WEIGHTS],
+                                             bool(static_gate_scale))
 
 
 fused_wn_block_int8.launches = 0

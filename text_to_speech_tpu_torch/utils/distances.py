@@ -1,12 +1,17 @@
-"""Distance and similarity metrics on numpy arrays.
+"""Distance and similarity metrics on numpy arrays or torch tensors.
 
 Counterpart of ``text_to_speech_tpu/utils/distances.py``: the metric
 registry (euclidean, manhattan, dot, cosine, cosine_distance, dice) with the
 pairwise ``as_matrix`` mode, `distance` and the `knn` vote; used by
-embedding selection, centroids and `SpeakerEncoder.identify`.
+embedding selection, centroids and `SpeakerEncoder.identify`.  The metrics
+go through `xp`: torch tensors (on any device) give tensors, numpy arrays
+arrays, as the JAX package's take JAX arrays.
 """
 
 import numpy as np
+import torch
+
+from .. import xp
 
 _METRICS = {}
 
@@ -19,7 +24,10 @@ def register_metric(name):
 
 
 def _prepare(x, y, as_matrix):
-    x, y = np.asarray(x), np.asarray(y)
+    ref = x if xp.is_tensor(x) else y if xp.is_tensor(y) else None
+    if ref is not None:     # a tensor and an array: both tensors where the tensor lies
+        x, y = (torch.as_tensor(v, device = ref.device) for v in (x, y))
+    x, y = xp.asarray(x), xp.asarray(y)
     if x.ndim == 1: x = x[None, :]
     if y.ndim == 1: y = y[None, :]
     if as_matrix:
@@ -31,26 +39,26 @@ def _prepare(x, y, as_matrix):
 @register_metric('euclidean')
 def euclidean_distance(x, y, as_matrix = False, ** kwargs):
     x, y = _prepare(x, y, as_matrix)
-    return np.sqrt(np.sum(np.square(x - y), axis = -1))
+    return xp.sqrt(xp.sum(xp.square(x - y), axis = -1))
 
 
 @register_metric('manhattan')
 def manhattan_distance(x, y, as_matrix = False, ** kwargs):
     x, y = _prepare(x, y, as_matrix)
-    return np.sum(np.abs(x - y), axis = -1)
+    return xp.sum(xp.abs(x - y), axis = -1)
 
 
 @register_metric('dot')
 def dot_product(x, y, as_matrix = False, ** kwargs):
     x, y = _prepare(x, y, as_matrix)
-    return np.sum(x * y, axis = -1)
+    return xp.sum(x * y, axis = -1)
 
 
 @register_metric('cosine')
 def cosine_similarity(x, y, as_matrix = False, epsilon = 1e-9, ** kwargs):
     x, y = _prepare(x, y, as_matrix)
-    num = np.sum(x * y, axis = -1)
-    den = np.sqrt(np.sum(x * x, axis = -1)) * np.sqrt(np.sum(y * y, axis = -1))
+    num = xp.sum(x * y, axis = -1)
+    den = xp.sqrt(xp.sum(x * x, axis = -1)) * xp.sqrt(xp.sum(y * y, axis = -1))
     return num / (den + epsilon)
 
 
@@ -63,9 +71,9 @@ def cosine_distance(x, y, ** kwargs):
 def dice_coeff(x, y, as_matrix = False, ** kwargs):
     """Dice coefficient 2|x∩y| / (|x|+|y|) for mask-like vectors."""
     x, y = _prepare(x, y, as_matrix)
-    inter = np.sum(x * y, axis = -1)
-    union = np.sum(x, axis = -1) + np.sum(y, axis = -1)
-    return np.where(union > 0, 2. * inter / np.maximum(union, 1e-9), 0.)
+    inter = xp.sum(x * y, axis = -1)
+    union = xp.sum(x, axis = -1) + xp.sum(y, axis = -1)
+    return xp.where(union > 0, 2. * inter / xp.maximum(union, 1e-9), 0.)
 
 
 def knn(query, embeddings, ids, *, k = 5, method = 'euclidean',

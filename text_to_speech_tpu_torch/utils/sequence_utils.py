@@ -7,6 +7,8 @@ shape bucket.
 
 import numpy as np
 
+from .. import xp
+
 
 def pad_batch(batch, pad_value = 0, max_length = None):
     """Stack arrays that differ along any axis into one array of the largest
@@ -22,8 +24,10 @@ def pad_batch(batch, pad_value = 0, max_length = None):
 
 
 def pad_to_multiple(data, multiple, axis = 0, constant_values = 0):
+    """Pad `data` (a numpy array or a torch tensor, which stays one, on its
+    device) along `axis` to a multiple of `multiple`."""
     rem = data.shape[axis] % multiple
     if rem == 0: return data
     pads = [(0, 0)] * data.ndim
     pads[axis] = (0, multiple - rem)
-    return np.pad(data, pads, mode = 'constant', constant_values = constant_values)
+    return xp.pad(data, pads, mode = 'constant', constant_values = constant_values)

@@ -238,6 +238,14 @@ def tree_to_jax(tree, name = ''):
     return {k: tree_to_jax(v, k) for k, v in tree.items()}
 
 
+def tacotron2_to_jax(params, state):
+    """The port's Tacotron-2 (params, state) → the JAX package's trees
+    (numpy float32), the inverse of `tacotron2_from_jax`:
+    ``tacotron2_from_jax(* tacotron2_to_jax(p, s))`` equals ``(p, s)``.
+    Kernel layouts a model may carry are not parameters and are left out."""
+    return tree_to_jax(params), tree_to_jax(state)
+
+
 def waveglow_to_jax(params):
     """The port's WaveGlow params → the JAX package's tree (numpy float32),
     the inverse of `waveglow_from_jax`: ``waveglow_from_jax(waveglow_to_jax(p))``
